@@ -1,0 +1,74 @@
+"""Weight carry-over from the JAX package's flax parameter trees.
+
+The port's modules use the flax module names as attribute names, so a
+flax path ``a/b/kernel`` becomes the state-dict key ``a.b.weight`` and
+only the leaf needs translating:
+
+- Dense ``kernel [in, out]``        -> ``Linear.weight [out, in]`` (transposed)
+- Conv ``kernel [kh, kw, in, out]`` -> ``Conv2d.weight [out, in, kh, kw]``
+- norm ``scale``                    -> ``weight``
+- ``Embed.embedding``               -> ``Embedding.weight``
+- ``bias``, CLIP's ``position_embedding`` -> as they are.
+
+A module may name whole subtrees it does not port in
+``jax_skip_subtrees`` (the VAE's encoder). Any other missing, extra or
+mis-shaped key raises.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["load_jax_params"]
+
+
+def _flatten(tree, prefix=()):
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _flatten(value, prefix + (key,))
+        else:
+            yield prefix + (key,), np.asarray(value)
+
+
+def _jax_state_dict(params, skip=()) -> dict[str, np.ndarray]:
+    """A flax param tree (nested mappings of arrays) -> torch-named arrays."""
+    out = {}
+    for path, arr in _flatten(params):
+        if path[0] in skip:
+            continue
+        *mods, leaf = path
+        if leaf == "kernel":
+            if arr.ndim == 2:
+                arr = arr.T
+            elif arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)
+            else:
+                raise ValueError(f"{'/'.join(path)}: unexpected kernel rank {arr.ndim}")
+            leaf = "weight"
+        elif leaf in ("scale", "embedding"):
+            leaf = "weight"
+        out[".".join([*mods, leaf])] = arr
+    return out
+
+
+def load_jax_params(module: torch.nn.Module, params) -> torch.nn.Module:
+    """Copy a flax param tree into ``module`` in place (dtype and device
+    follow the module). Returns the module."""
+    src = _jax_state_dict(params, getattr(module, "jax_skip_subtrees", ()))
+    dst = module.state_dict()
+    missing, extra = sorted(set(dst) - set(src)), sorted(set(src) - set(dst))
+    if missing or extra:
+        raise KeyError(f"param mismatch: missing {missing[:8]}, unexpected {extra[:8]}")
+    bad = [
+        f"{k}: jax {src[k].shape} vs torch {tuple(t.shape)}"
+        for k, t in dst.items() if src[k].shape != tuple(t.shape)
+    ]
+    if bad:
+        raise ValueError("shape mismatch: " + "; ".join(bad[:8]))
+    with torch.no_grad():
+        for key, tensor in dst.items():
+            tensor.copy_(torch.from_numpy(np.array(src[key], copy=True)))
+    return module

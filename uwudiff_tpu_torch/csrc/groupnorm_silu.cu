@@ -1,0 +1,248 @@
+// GroupNorm (+ SiLU) forward for Hopper (sm_90a) over a [N, HW, C] view.
+//
+// Replaces the TPU kernels uwudiff_tpu/ops/groupnorm_silu.py::_gn_silu_kernel
+// (single pass over a VMEM-resident tile) and ::_gn_stats_kernel (per-channel
+// sums over HW chunks for tiles that do not fit VMEM). On the TPU the split
+// between them was a VMEM limit; here both map onto one pair:
+//   gn_stats : per-(n, HW chunk, channel) sums -> per-(n, group) mean/var ->
+//              per-(n, channel) scale = inv*gamma and shift = beta - mean*scale
+//   gn_apply : y = silu(x*scale + shift) (or the affine alone), elementwise
+//
+// What bounds it on an H100: bytes. Each element is read twice (stats, apply)
+// and written once, at a handful of flops per element, so the floor is
+// 3 * N*HW*C*itemsize / 3.35 TB/s. The design therefore:
+//   - reads 16 bytes per thread per load, neighbouring threads on neighbouring
+//     addresses (channels are the contiguous axis);
+//   - splits HW across many blocks so the stats pass fills all 132 SMs even at
+//     N = 1 (the VAE's [1, 1048576, 128]); each block accumulates fp32 sums in
+//     registers, adds its row-threads' sums in shared memory in a fixed
+//     order, and writes one partial row per (n, chunk) — no atomics, so a
+//     result is bitwise the same from run to run;
+//   - merges the partials in a second small kernel in fp64 and computes
+//     var = E[x^2] - mean^2 there (the TPU kernels do the same in fp32);
+//   - keeps every intermediate out of device memory except the tiny partials
+//     and the [N, C] scale/shift vectors.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int MAX_COLS_PER_THREAD = 3;  // C <= 6144 in bf16, 3072 in fp32
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
+
+// thread layout of gn_partial_kernel: tx_n threads across a row's 16-byte
+// vector columns (cpt columns each), ty_n rows at a time
+__host__ __device__ inline void partial_layout(int vecs, int* cpt, int* tx_n, int* ty_n) {
+  *cpt = (vecs + THREADS - 1) / THREADS;
+  *tx_n = (vecs + *cpt - 1) / *cpt;
+  *ty_n = THREADS / *tx_n;
+}
+
+// grid (n_chunks, N); dynamic smem 2*ty_n*C floats.
+// partial: [N, n_chunks, 2, C] fp32 (sum, sum of squares over the chunk's rows)
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    gn_partial_kernel(const T* __restrict__ x, float* __restrict__ partial, int HW, int C, int rows_per_chunk) {
+  constexpr int VEC = 16 / sizeof(T);
+  extern __shared__ float red[];  // [ty_n, 2, C]: one row of sums per row-thread, summed in a fixed order
+  const int vecs = C / VEC;
+  int cpt, tx_n, ty_n;
+  partial_layout(vecs, &cpt, &tx_n, &ty_n);
+  const int tx = threadIdx.x % tx_n, ty = threadIdx.x / tx_n;
+  const int n = blockIdx.y, chunk = blockIdx.x;
+  const int r0 = chunk * rows_per_chunk;
+  const int r1 = min(HW, r0 + rows_per_chunk);
+
+  float s1[MAX_COLS_PER_THREAD][VEC], s2[MAX_COLS_PER_THREAD][VEC];
+#pragma unroll
+  for (int c = 0; c < MAX_COLS_PER_THREAD; ++c)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) s1[c][e] = s2[c][e] = 0.f;
+
+  if (ty < ty_n) {
+    const T* xn = x + (long long)n * HW * C;
+    for (int r = r0 + ty; r < r1; r += ty_n) {
+      const uint4* row = reinterpret_cast<const uint4*>(xn + (long long)r * C);
+#pragma unroll
+      for (int c = 0; c < MAX_COLS_PER_THREAD; ++c) {
+        const int col = tx + c * tx_n;
+        if (c < cpt && col < vecs) {
+          const uint4 raw = row[col];
+          const T* vals = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            const float f = to_f(vals[e]);
+            s1[c][e] += f;
+            s2[c][e] = fmaf(f, f, s2[c][e]);
+          }
+        }
+      }
+    }
+    float* mine = red + ty * 2 * C;
+#pragma unroll
+    for (int c = 0; c < MAX_COLS_PER_THREAD; ++c) {
+      const int col = tx + c * tx_n;
+      if (c < cpt && col < vecs) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          mine[col * VEC + e] = s1[c][e];
+          mine[C + col * VEC + e] = s2[c][e];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  float* out = partial + ((long long)n * gridDim.x + chunk) * 2 * C;
+  for (int i = threadIdx.x; i < 2 * C; i += THREADS) {
+    float acc = 0.f;
+    for (int t = 0; t < ty_n; ++t) acc += red[t * 2 * C + i];
+    out[i] = acc;
+  }
+}
+
+// grid (G, N): merge the partials of one (n, group) in fp64, then write the
+// per-channel affine of that group.
+__global__ void __launch_bounds__(THREADS)
+    gn_finalize_kernel(const float* __restrict__ partial, const float* __restrict__ gamma,
+                       const float* __restrict__ beta, float* __restrict__ scale, float* __restrict__ shift,
+                       int HW, int C, int G, int n_chunks, float eps) {
+  __shared__ double red1[THREADS / 32], red2[THREADS / 32];
+  __shared__ float stats[2];
+  const int g = blockIdx.x, n = blockIdx.y;
+  const int cg = C / G;
+  const float* pn = partial + (long long)n * n_chunks * 2 * C;
+  double a1 = 0.0, a2 = 0.0;
+  for (int i = threadIdx.x; i < n_chunks * cg; i += THREADS) {
+    const int k = i / cg, c = g * cg + i % cg;
+    a1 += pn[(long long)k * 2 * C + c];
+    a2 += pn[(long long)k * 2 * C + C + c];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a1 += __shfl_xor_sync(0xffffffffu, a1, off);
+    a2 += __shfl_xor_sync(0xffffffffu, a2, off);
+  }
+  if (threadIdx.x % 32 == 0) {
+    red1[threadIdx.x / 32] = a1;
+    red2[threadIdx.x / 32] = a2;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double t1 = 0.0, t2 = 0.0;
+    for (int w = 0; w < THREADS / 32; ++w) {
+      t1 += red1[w];
+      t2 += red2[w];
+    }
+    const double cnt = (double)HW * cg;
+    const double mean = t1 / cnt;
+    const double var = fmax(t2 / cnt - mean * mean, 0.0);
+    stats[0] = (float)mean;
+    stats[1] = (float)(1.0 / sqrt(var + (double)eps));
+  }
+  __syncthreads();
+  for (int c = g * cg + threadIdx.x; c < (g + 1) * cg; c += THREADS) {
+    const float sc = stats[1] * gamma[c];
+    scale[(long long)n * C + c] = sc;
+    shift[(long long)n * C + c] = beta[c] - stats[0] * sc;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ scale, const float* __restrict__ shift,
+                    T* __restrict__ y, long long total_vecs, long long vecs_per_sample, int C, int silu) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int vecs_per_row = C / VEC;
+  const long long stride = (long long)gridDim.x * THREADS;
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < total_vecs; i += stride) {
+    const long long n = i / vecs_per_sample;
+    const int c0 = (int)(i % vecs_per_row) * VEC;
+    const uint4 raw = reinterpret_cast<const uint4*>(x)[i];
+    const T* vals = reinterpret_cast<const T*>(&raw);
+    const float* sc = scale + n * C + c0;
+    const float* sh = shift + n * C + c0;
+    uint4 res;
+    T* outv = reinterpret_cast<T*>(&res);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      float z = fmaf(to_f(vals[e]), sc[e], sh[e]);
+      if (silu) z = z / (1.f + __expf(-z));
+      outv[e] = from_f<T>(z);
+    }
+    reinterpret_cast<uint4*>(y)[i] = res;
+  }
+}
+
+int sm_count() {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+}  // namespace
+
+// x: contiguous [N, HW, C] (dtype 0 = fp32, 1 = bf16); gamma/beta fp32 [C];
+// partial: fp32 scratch [N, n_chunks, 2, C]; scale/shift: fp32 [N, C] outputs.
+extern "C" int uwu_gn_stats(const void* x, const void* gamma, const void* beta, void* partial, void* scale,
+                            void* shift, int dtype, int N, int HW, int C, int G, int n_chunks, float eps,
+                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rows_per_chunk = (HW + n_chunks - 1) / n_chunks;
+  const dim3 grid(n_chunks, N);
+  int cpt, tx_n, ty_n;
+  partial_layout(C / (dtype == 1 ? 8 : 4), &cpt, &tx_n, &ty_n);
+  const size_t smem = 2 * (size_t)ty_n * C * sizeof(float);  // <= 48 KB for C within the limits below
+  if (dtype == 1) {
+    if (C / 8 > THREADS * MAX_COLS_PER_THREAD) return static_cast<int>(cudaErrorInvalidValue);
+    gn_partial_kernel<__nv_bfloat16><<<grid, THREADS, smem, s>>>(static_cast<const __nv_bfloat16*>(x),
+                                                                 static_cast<float*>(partial), HW, C,
+                                                                 rows_per_chunk);
+  } else if (dtype == 0) {
+    if (C / 4 > THREADS * MAX_COLS_PER_THREAD) return static_cast<int>(cudaErrorInvalidValue);
+    gn_partial_kernel<float><<<grid, THREADS, smem, s>>>(static_cast<const float*>(x),
+                                                         static_cast<float*>(partial), HW, C, rows_per_chunk);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gn_finalize_kernel<<<dim3(G, N), THREADS, 0, s>>>(static_cast<const float*>(partial),
+                                                    static_cast<const float*>(gamma),
+                                                    static_cast<const float*>(beta), static_cast<float*>(scale),
+                                                    static_cast<float*>(shift), HW, C, G, n_chunks, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// y = silu(x*scale[n, c] + shift[n, c]) (silu = 1) or the affine alone (silu = 0).
+extern "C" int uwu_gn_apply(const void* x, const void* scale, const void* shift, void* y, int dtype, int N,
+                            int HW, int C, int silu, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int vec = dtype == 1 ? 8 : 4;
+  const long long per_sample = (long long)HW * C / vec;
+  const long long total = per_sample * N;
+  const long long want = (total + THREADS - 1) / THREADS;
+  const int blocks = (int)(want < (long long)sm_count() * 16 ? want : (long long)sm_count() * 16);
+  if (dtype == 1) {
+    gn_apply_kernel<__nv_bfloat16><<<blocks, THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(scale), static_cast<const float*>(shift),
+        static_cast<__nv_bfloat16*>(y), total, per_sample, C, silu);
+  } else if (dtype == 0) {
+    gn_apply_kernel<float><<<blocks, THREADS, 0, s>>>(static_cast<const float*>(x), static_cast<const float*>(scale),
+                                                      static_cast<const float*>(shift), static_cast<float*>(y),
+                                                      total, per_sample, C, silu);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,156 @@
+"""Multi-text-encoder conditioning (``uwudiff_tpu/models/text_encoders.py``).
+
+``ConcatTextEncoders`` runs every CLIP tower and assembles the context:
+feature concat within a bucket, sequence concat across buckets, pooled
+concat, and zeroed padding positions. ``TextEncodingPipeline`` holds the
+host-side tokenizers and runs the plain (non-nested) ``encode`` path.
+T5, long prompts, prompt weighting and nested captions come later.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from uwudiff_tpu_torch.models.clip import CLIPTextModel
+from uwudiff_tpu_torch.utils import resolve_device
+
+__all__ = ["TextModelExtraConfig", "ConcatTextEncoders", "TextEncodingPipeline"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TextModelExtraConfig:
+    concat_bucket: int = 0
+    use_pooled: bool = False
+    layer_idx: int = -1
+    need_mask: bool = False
+
+
+def _cat(parts, dim):
+    return torch.cat(parts, dim=dim) if parts else None
+
+
+class ConcatTextEncoders(nn.Module):
+    """Returns ``(embedding, normed_embedding, pooled, attn_mask)``."""
+
+    def __init__(
+        self,
+        text_models: Sequence[CLIPTextModel],
+        configs: Sequence[TextModelExtraConfig],
+        zero_for_padding: bool = True,
+        use_normed_ctx: bool = False,
+    ):
+        super().__init__()
+        self.configs = tuple(configs)
+        self.zero_for_padding = zero_for_padding
+        self.use_normed_ctx = use_normed_ctx
+        self.model_names = [f"text_models_{i}" for i in range(len(text_models))]
+        for name, model in zip(self.model_names, text_models):
+            self.add_module(name, model)
+
+    @classmethod
+    def from_config(
+        cls,
+        text_model_and_configs: Sequence[tuple],
+        device="cuda",
+        dtype=torch.float32,
+        zero_for_padding: bool = True,
+        use_normed_ctx: bool = False,
+    ) -> "ConcatTextEncoders":
+        """``[(model_cfg, extra_cfg), ...]`` with ``model_cfg`` a dict
+        holding ``preset`` and/or ``CLIPTextModel`` arguments."""
+        models, configs = [], []
+        for model_cfg, extra_cfg in text_model_and_configs:
+            model_cfg = dict(model_cfg)
+            if model_cfg.pop("model_type", "clip") != "clip":
+                raise NotImplementedError("only CLIP text towers are ported")
+            preset = model_cfg.pop("preset", None)
+            models.append(CLIPTextModel.from_config(
+                preset if preset else {}, device=device, dtype=dtype, **model_cfg
+            ))
+            if not isinstance(extra_cfg, TextModelExtraConfig):
+                extra_cfg = TextModelExtraConfig(**extra_cfg)
+            configs.append(extra_cfg)
+        return cls(models, configs, zero_for_padding, use_normed_ctx)
+
+    def forward(self, tokenizer_outputs):
+        n_buckets = max(c.concat_bucket for c in self.configs) + 1
+        attn_masks = [None] * n_buckets
+        embs = [[] for _ in range(n_buckets)]
+        normed = [[] for _ in range(n_buckets)]
+        pooled = [[] for _ in range(n_buckets)]
+        for tokens, name, config in zip(tokenizer_outputs, self.model_names, self.configs):
+            model = getattr(self, name)
+            input_ids, attn_mask = tokens["input_ids"], tokens["attention_mask"]
+            if input_ids.shape[1] > model.max_position_embeddings:
+                raise NotImplementedError("long prompts are not ported yet")
+            bucket = config.concat_bucket
+            if attn_masks[bucket] is None and config.need_mask:
+                attn_masks[bucket] = attn_mask
+            out = model(input_ids, attn_mask, layer_idx=config.layer_idx)
+            embedding, normed_embedding = out.embedding, out.normed_embedding
+            if self.zero_for_padding:
+                m = attn_mask[..., None].to(embedding.dtype)
+                embedding = embedding * m
+                normed_embedding = normed_embedding * m
+            embs[bucket].append(embedding)
+            normed[bucket].append(normed_embedding)
+            if config.use_pooled:
+                pooled[bucket].append(out.pooler_output)
+
+        emb_b = [_cat(e, -1) for e in embs]
+        normed_b = [_cat(e, -1) for e in normed]
+        pooled_b = [_cat(p, -1) for p in pooled]
+        max_dim = max(e.shape[-1] for e in emb_b if e is not None)
+
+        def pad_feat(e):
+            if e is None or e.shape[-1] == max_dim:
+                return e
+            return F.pad(e, (0, max_dim - e.shape[-1]))
+
+        emb_b = [pad_feat(e) for e in emb_b]
+        normed_b = [pad_feat(e) for e in normed_b]
+        attn_mask_out = None
+        if any(m is not None for m in attn_masks):
+            full = [
+                (torch.ones(e.shape[:2], dtype=torch.int32, device=e.device)
+                 if attn_masks[i] is None else attn_masks[i].to(torch.int32))
+                for i, e in enumerate(emb_b) if e is not None
+            ]
+            attn_mask_out = torch.cat(full, dim=1)
+        pooled_out = _cat([p for p in pooled_b if p is not None], -1)
+        embedding_out = torch.cat([e for e in emb_b if e is not None], dim=1)
+        normed_out = torch.cat([e for e in normed_b if e is not None], dim=1)
+        return embedding_out, normed_out, pooled_out, attn_mask_out
+
+
+class TextEncodingPipeline:
+    """Host-side companion: tokenizers + the encoder module on ``device``."""
+
+    def __init__(self, module: ConcatTextEncoders, tokenizers: Sequence, device="cuda"):
+        self.module = module
+        self.tokenizers = list(tokenizers)
+        self.device = resolve_device(device)
+
+    @property
+    def use_normed_ctx(self) -> bool:
+        return self.module.use_normed_ctx
+
+    def tokenize(self, text, **kwargs):
+        return [tok(text, **kwargs) for tok in self.tokenizers]
+
+    @torch.inference_mode()
+    def forward(self, tokenizer_outputs):
+        tensors = [
+            {k: torch.as_tensor(v).to(self.device, non_blocking=True) for k, v in t.items()}
+            for t in tokenizer_outputs
+        ]
+        return self.module(tensors)
+
+    def encode(self, text, **kwargs):
+        """str | list[str] -> (embedding, normed_embedding, pooled, mask)."""
+        return self.forward(self.tokenize(text, **kwargs))

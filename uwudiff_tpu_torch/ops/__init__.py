@@ -1,0 +1,39 @@
+"""Kernels of the port and the dispatch around them."""
+
+from uwudiff_tpu_torch.ops.attention import (
+    attention_bias_from_mask,
+    attention_reference,
+    dot_product_attention,
+)
+from uwudiff_tpu_torch.ops.flash_attention import flash_attention, flash_fwd
+from uwudiff_tpu_torch.ops.groupnorm_silu import (
+    gn_silu_apply,
+    gn_stats,
+    group_norm_silu,
+)
+
+__all__ = [
+    "KERNELS",
+    "attention_bias_from_mask",
+    "attention_reference",
+    "dot_product_attention",
+    "flash_attention",
+    "gn_silu_apply",
+    "gn_stats",
+    "group_norm_silu",
+    "launch_counts",
+    "reset_launch_counts",
+]
+
+# every wrapper that launches a hand-written kernel; each keeps a plain
+# integer ``launches`` that it raises by one per launch
+KERNELS = {"flash_fwd": flash_fwd, "gn_stats": gn_stats, "gn_silu_apply": gn_silu_apply}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

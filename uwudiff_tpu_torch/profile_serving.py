@@ -1,0 +1,103 @@
+"""Device-time breakdown of SDXL serving on one GPU.
+
+    python -m uwudiff_tpu_torch.profile_serving [--batch 4] [--steps 4]
+
+Builds the SDXL serving stack at full width with random weights
+(``serving.sdxl_pipeline``), warms it up, then traces one request batch
+(1024x1024, CFG 5) with ``torch.profiler`` and reports the device time by
+kernel family, the device's busy share of the traced window, and the
+slowest kernels. The profiler's host overhead lengthens the window, so
+the busy share is a lower bound. Writes the tables to
+``chiprun_out/profile_serving.json`` beside the checkout's root.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import torch
+
+# kernel-name fragments -> family, first match wins
+_FAMILIES = (
+    ("flash_fwd (K1)", ("flash_fwd_kernel",)),
+    ("groupnorm (K2/K3)", ("gn_partial_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
+    ("attention einsum/softmax", ("softmax",)),
+    ("convolution", ("conv", "implicit", "dgrad", "wgrad", "fprop", "nchw", "nhwc")),
+    ("matmul", ("gemm", "nvjet", "cutlass", "matmul", "gemv")),
+    ("layernorm", ("layer_norm", "layernorm")),
+    ("copy/cat", ("copy", "cat", "memcpy", "transpose")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "reduce")),
+)
+
+
+def _family(name: str) -> str:
+    low = name.lower()
+    for family, keys in _FAMILIES:
+        if any(k in low for k in keys):
+            return family
+    return "other"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--steps", type=int, default=4)
+    args = ap.parse_args()
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from uwudiff_tpu_torch.serving import sdxl_pipeline
+
+    pipe = sdxl_pipeline("cuda")
+    kw = dict(prompt=["a red fox in snow"] * args.batch, num_steps=args.steps,
+              num_samples=args.batch, cfg_scale=5.0, width=1024, height=1024,
+              seed=list(range(args.batch)))
+    for _ in range(2):
+        pipe.sample_device(**kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe.sample_device(**kw)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+
+    kernels = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        k = kernels.setdefault(ev.name, [0.0, 0])
+        k[0] += ev.time_range.elapsed_us() / 1e3
+        k[1] += 1
+    busy_ms = sum(t for t, _ in kernels.values())
+    families: dict[str, list] = {}
+    for name, (t, n) in kernels.items():
+        f = families.setdefault(_family(name), [0.0, 0])
+        f[0] += t
+        f[1] += n
+    report = {
+        "card": torch.cuda.get_device_name(0),
+        "batch": args.batch, "steps": args.steps, "window_ms": window_ms,
+        "device_busy_ms": busy_ms, "device_busy_share": busy_ms / window_ms,
+        "families": {f: {"ms": t, "launches": n, "share_of_busy": t / busy_ms}
+                     for f, (t, n) in sorted(families.items(), key=lambda kv: -kv[1][0])},
+        "top_kernels": [{"name": name[:120], "ms": t, "launches": n}
+                        for name, (t, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]],
+    }
+    print(f"window {window_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / window_ms:.1f} %)")
+    for f, v in report["families"].items():
+        print(f"  {f:26s} {v['ms']:9.2f} ms {v['launches']:6d} launches {100 * v['share_of_busy']:5.1f} %")
+    for k in report["top_kernels"][:12]:
+        print(f"  {k['ms']:9.2f} ms x{k['launches']:<5d} {k['name'][:100]}")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(root, "chiprun_out", "profile_serving.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
