@@ -191,11 +191,59 @@ def test_batching_server_groups_pads_and_sheds():
         gate.set()
         for f in held:
             f.result(timeout=30)
+        # a future's done-callback (which frees its slot) runs just after
+        # its waiters wake, on the resolving thread
+        deadline = time.monotonic() + 10
+        while server.load() and time.monotonic() < deadline:
+            time.sleep(0.01)
         assert server.load() == 0
         server.submit(Request(prompt="after")).result(timeout=30)
     finally:
         gate.set()
         server.stop()
+
+
+def test_batching_server_admission_under_concurrent_submitters():
+    """16 threads submit at once against max_queue=8: every accepted
+    request resolves with its own seed, every other one is rejected, and
+    the unresolved count returns to 0 (a lost update would leave it off)."""
+    import sys
+
+    server = BatchingServer(_FakePipeline(), buckets=[(64, 64)], max_batch=4,
+                            max_wait_s=0.001, max_queue=8).start()
+    accepted, rejected, lock = [], [], threading.Lock()
+
+    def client(tid):
+        for i in range(25):
+            seed = tid * 100 + i
+            try:
+                fut = server.submit(Request(prompt="p", seed=seed))
+            except ServerOverloaded:
+                with lock:
+                    rejected.append(seed)
+                continue
+            with lock:
+                accepted.append((seed, fut))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads)
+        for seed, fut in accepted:
+            assert float(fut.result(timeout=30)[0, 0]) == seed
+    finally:
+        sys.setswitchinterval(old)
+        server.stop()
+    assert len(accepted) + len(rejected) == 16 * 25 and accepted
+    deadline = time.monotonic() + 10
+    while server.load() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert server.load() == 0
 
 
 def _cpu_pipeline():
