@@ -154,13 +154,13 @@ class _FakePipeline:
     def __init__(self, delay=0.0, gate=None):
         self.calls, self.delay, self.gate = [], delay, gate
 
-    def __call__(self, prompt, neg_prompt, num_steps, num_samples, cfg_scale, width, height,
-                 seed, return_latents):
+    def sample_device(self, prompt, neg_prompt, num_steps, num_samples, cfg_scale, width, height,
+                      seed, return_latents):
         if self.gate is not None:
             self.gate.wait(10)
         self.calls.append({"n": num_samples, "seeds": list(seed), "wh": (width, height)})
         time.sleep(self.delay)
-        return [np.full((2, 2), s, np.float32) for s in seed]
+        return torch.stack([torch.full((2, 2), float(s)) for s in seed]), False
 
 
 def test_batching_server_groups_pads_and_sheds():

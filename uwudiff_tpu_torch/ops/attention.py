@@ -3,25 +3,34 @@
 ``dot_product_attention(q, k, v, bias)`` takes ``[B, S, H, D]`` tensors
 and returns ``[B, Sq, H, D]``, as ``uwudiff_tpu/ops/attention.py`` does.
 
-The gate is the port's own: on CUDA every call whose head dim the flash
-kernel takes (:data:`~uwudiff_tpu_torch.ops.flash_attention.HEAD_DIMS`)
-goes to it, whatever Sq and Sk are; that covers UNet self-attention,
-cross-attention over the 77 text keys and CLIP's causal 77x77 attention
-with its full bias. The TPU's ``Sq >= 128``/``Sk >= 128`` thresholds were
-launch-cost verdicts measured on the TPU and are not carried over. The
-einsum (:func:`attention_reference`, fp32 softmax) serves CPU tensors
-and the VAE's single-head D=512 attention, which has no kernel here or
-in the JAX package. Ring, head- and sequence-parallel attention belong
-to a later slice.
+The gate is the port's own: on CUDA every call with a head dim up to
+:data:`FLASH_MAX_HEAD_DIM` goes to the flash kernel, whatever Sq and Sk
+are; that covers UNet self-attention, cross-attention over the 77 text
+keys and CLIP's causal 77x77 attention with its full bias. A head dim in
+that range that the kernel was not built for
+(:data:`~uwudiff_tpu_torch.ops.flash_attention.HEAD_DIMS`) raises there.
+The TPU's ``Sq >= 128``/``Sk >= 128`` thresholds were launch-cost
+verdicts measured on the TPU and are not carried over. The einsum
+(:func:`attention_reference`, fp32 softmax) serves CPU tensors and the
+VAE's single-head D=512 attention, which has no kernel here or in the
+JAX package. Ring, head- and sequence-parallel attention belong to a
+later slice.
 """
 
 from __future__ import annotations
 
 import torch
 
-from uwudiff_tpu_torch.ops.flash_attention import HEAD_DIMS, flash_attention
+from uwudiff_tpu_torch.ops.flash_attention import flash_fwd
 
-__all__ = ["attention_bias_from_mask", "attention_reference", "dot_product_attention"]
+__all__ = [
+    "FLASH_MAX_HEAD_DIM",
+    "attention_bias_from_mask",
+    "attention_reference",
+    "dot_product_attention",
+]
+
+FLASH_MAX_HEAD_DIM = 256  # the TPU kernel's limit; the einsum takes larger heads
 
 
 def attention_bias_from_mask(mask, dtype=torch.float32):
@@ -48,6 +57,6 @@ def attention_reference(q, k, v, bias=None, scale=None):
 def dot_product_attention(q, k, v, bias=None, scale=None):
     """Scaled dot-product attention over ``[B, S, H, D]`` tensors; ``bias``
     is additive and broadcastable to ``[B, H, Sq, Sk]``."""
-    if q.is_cuda and q.shape[-1] in HEAD_DIMS:
-        return flash_attention(q, k, v, bias=bias, scale=scale)
+    if q.is_cuda and q.shape[-1] <= FLASH_MAX_HEAD_DIM:
+        return flash_fwd(q, k, v, bias, scale)[0]
     return attention_reference(q, k, v, bias=bias, scale=scale)

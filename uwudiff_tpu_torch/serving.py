@@ -325,16 +325,10 @@ class BatchingServer:
             return_latents=return_latents,
         )
         try:
-            sample_device = getattr(self.pipeline, "sample_device", None)
-            if sample_device is not None:
-                # asynchronous: hand the pending device tensor to the fetch
-                # thread and go on to the next group
-                out, is_images = sample_device(**kwargs)
-                self._fetch_queue.put((out, is_images, futs))
-            else:  # duck-typed pipelines (tests): synchronous
-                out = self.pipeline(**kwargs)
-                for i, fut in enumerate(futs):
-                    fut.set_result(out[i])
+            # asynchronous: hand the pending device tensor to the fetch
+            # thread and go on to the next group
+            out, is_images = self.pipeline.sample_device(**kwargs)
+            self._fetch_queue.put((out, is_images, futs))
         except Exception as e:  # surfaced to every caller of the group
             for fut in futs:
                 if not fut.done():
