@@ -6,17 +6,27 @@
 Phases, each fatal on failure:
   1. build   - compile every hand-written kernel (csrc/*.cu, nvcc, sm_90a)
   2. kernels - each kernel against its plain PyTorch version on the card,
-               in bf16, at the serving path's shapes; median ms of the
-               kernel, the plain version and one library call, and the
-               card's lower bound for the same work. Then small
-               SDXL-shaped models, bf16 on the card through the kernels,
-               against the same weights in fp32 on the CPU
+               in bf16: the forward kernels at the serving path's shapes,
+               the backward kernels at the training path's (and twice, for
+               bitwise reproducibility); median ms of the kernel, the plain
+               version and one library call, and the card's lower bound for
+               the same work. Then small SDXL-shaped models, bf16 on the
+               card through the kernels, against the same weights in fp32
+               on the CPU: forwards, and one training step's loss and
+               gradients
   3. serve   - SDXL at full width (random weights from a fixed seed, bf16):
                BatchingServer -> clip_l + clip_bigg -> CFG 5.0
                Euler-ancestral UNet -> VAE decode, 1024x1024 requests: a
                batch of 4 with distinct seeds, then a lone request. Checks
-               the images, seed-lane isolation and that every kernel was
-               launched by that run.
+               the images, seed-lane isolation and that every forward kernel
+               was launched by that run.
+  4. train   - the SDXL full fine-tune step at full width
+               (training/bench_setup.py: batch 8, 64x64 latents, bf16
+               params with stochastic rounding, adamw_factored): one
+               warm-up step and 5 timed steps. Checks finite losses and
+               grad norms, that every parameter took an update, and that
+               each step launched every kernel exactly as often as the
+               UNet's plan says.
 Prints the card's name and power limit, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA is
 unavailable or the package is missing. A full report goes to
@@ -25,7 +35,9 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -238,6 +250,211 @@ def check_gn(results, failures):
         torch.cuda.empty_cache()
 
 
+def close_enough(got, ref):
+    """The flash check's bound, per output: max error <= 2^-7 max|ref| +
+    2^-10, RMS error <= 2^-7 RMS(ref). Returns (ok, max_err, rms_err, tol)."""
+    diff, ref = got.float() - ref.float(), ref.float()
+    err, rms_err = diff.abs().max().item(), diff.pow(2).mean().sqrt().item()
+    tol = 2.0**-7 * ref.abs().max().item() + 2.0**-10
+    ok = bool(torch.isfinite(got).all()) and err <= tol and rms_err <= 2.0**-7 * ref.pow(2).mean().sqrt().item()
+    return ok, err, rms_err, tol
+
+
+def flash_bwd_cases():
+    # (name, B, Sq, Sk, H, D, bias kind): the training path's attentions at
+    # 64x64 latents (level 1: 32x32 tokens, 10 heads; level 2: 16x16, 20)
+    return [
+        ("train_l1_self", 8, 1024, 1024, 10, 64, "none"),
+        ("train_l1_cross", 8, 1024, 77, 10, 64, "none"),
+        ("train_l2_self", 8, 256, 256, 20, 64, "none"),
+        ("train_l2_cross", 8, 256, 77, 20, 64, "none"),
+        ("ragged_keymask", 2, 200, 77, 4, 64, "key"),
+        ("full_bias", 8, 77, 77, 20, 64, "full"),
+    ]
+
+
+def check_flash_bwd(results, failures):
+    import torch.nn.functional as F
+
+    from uwudiff_tpu_torch.ops import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from uwudiff_tpu_torch.ops.flash_attention import NEG_INF, flash_attention_backward_reference
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    for name, b, sq, sk, h, d, kind in flash_bwd_cases():
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
+                   for s in (sq, sk, sk))
+        bias = make_bias(kind, b, h, sq, sk, dev)
+        out, lse = flash_fwd(q, k, v, bias)
+        dout = torch.randn(out.shape, generator=gen, device=dev, dtype=torch.bfloat16)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        dq = flash_bwd_dq(q, k, v, dout, lse, delta, bias)
+        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, bias)
+        torch.cuda.synchronize()
+        bitwise = (torch.equal(dq, flash_bwd_dq(q, k, v, dout, lse, delta, bias))
+                   and all(torch.equal(a, b_) for a, b_ in zip((dk, dv), flash_bwd_dkv(q, k, v, dout, lse, delta, bias))))
+        refs = flash_attention_backward_reference(q, k, v, bias, out, lse, dout)
+        checks = {o: close_enough(g, r) for o, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs)}
+        ok = bitwise and all(c[0] for c in checks.values())
+        ms_dq = time_ms(lambda: flash_bwd_dq(q, k, v, dout, lse, delta, bias))
+        ms_dkv = time_ms(lambda: flash_bwd_dkv(q, k, v, dout, lse, delta, bias))
+        plain_ms = time_ms(lambda: flash_attention_backward_reference(q, k, v, bias, out, lse, dout),
+                           reps=2, warmup=1)
+        # the library: SDPA's backward alone (retain_graph), dq, dk and dv together
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        mask = None if bias is None else bias.clamp_min(NEG_INF).to(torch.bfloat16)
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        dout_t = dout.transpose(1, 2)
+        library_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dout_t, retain_graph=True))
+        del lib_out, qt, kt, vt
+        io = 2 * (2 * b * sq * h * d + 2 * b * sk * h * d) + 8 * b * h * sq  # q, dO, k, v; lse, delta
+        if kind == "key":
+            io += 4 * b * sk
+        elif kind == "full":
+            io += 4 * b * h * sq * sk
+        mm = b * h * sq * sk * d
+        for kernel, ms, flops, nbytes, outs in (
+            ("flash_bwd_dq", ms_dq, 6.0 * mm, io + 2 * b * sq * h * d, ("dq",)),
+            ("flash_bwd_dkv", ms_dkv, 8.0 * mm, io + 4 * b * sk * h * d, ("dk", "dv")),
+        ):
+            bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16)
+            results.append(dict(
+                kernel=kernel, case=name, shape=[b, sq, sk, h, d], bias=kind, ok=ok, bitwise=bitwise,
+                max_abs_err=max(checks[o][1] for o in outs), rms_err={o: checks[o][2] for o in outs},
+                tol={o: checks[o][3] for o in outs}, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                library_computes="dq, dk and dv (SDPA backward)", pair_ms=ms_dq + ms_dkv,
+                bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9))
+        errs = " ".join(f"{o} {c[1]:.1e}/{c[3]:.1e}" for o, c in checks.items())
+        log(f"  flash_bwd {name:15s} {errs} bitwise {bitwise} {'ok' if ok else 'FAIL'}"
+            f" | dq {ms_dq:.3f} dkv {ms_dkv:.3f} ms (pair {ms_dq + ms_dkv:.3f}) sdpa bwd {library_ms:.3f}"
+            f" plain {plain_ms:.2f}")
+        if not ok:
+            failures.append(f"flash_bwd {name}: {checks} bitwise {bitwise}")
+        del q, k, v, out, lse, dout, dq, dk, dv, refs
+        torch.cuda.empty_cache()
+
+
+def gn_bwd_cases():
+    # the training path's GroupNorms at 64x64 latents (level 0 at 4096
+    # tokens, 1 at 1024, 2 at 256; the up path's concatenations widen C)
+    return [(8, hw, c, silu) for hw, c in ((4096, 320), (4096, 960), (1024, 640), (256, 1280), (256, 2560))
+            for silu in (True, False)]
+
+
+def check_gn_bwd(results, failures):
+    import torch.nn.functional as F
+
+    from uwudiff_tpu_torch.ops import gn_bwd_dx, gn_bwd_partials, group_norm_silu
+    from uwudiff_tpu_torch.ops.groupnorm_silu import (
+        gn_bwd_dx_reference,
+        gn_bwd_partials_reference,
+        group_norm_silu_reference,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    groups, eps = 32, 1e-5
+    for n, hw, c, silu in gn_bwd_cases():
+        x = (torch.randn((n, hw, c), generator=gen, device=dev) * 2.0 + 0.5).to(torch.bfloat16)
+        g = torch.randn((n, hw, c), generator=gen, device=dev).to(torch.bfloat16)
+        coef = torch.randn((n, 4, c), generator=gen, device=dev) * 0.5
+        t = gn_bwd_partials(x, g, coef, silu)
+        dx = gn_bwd_dx(x, g, coef, silu)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(t, gn_bwd_partials(x, g, coef, silu)) and torch.equal(dx, gn_bwd_dx(x, g, coef, silu))
+        checks = {"t": close_enough(t, gn_bwd_partials_reference(x, g, coef, silu)),
+                  "dx_kernel": close_enough(dx, gn_bwd_dx_reference(x, g, coef, silu))}
+        # the whole backward through autograd against autograd of the fp32 plain forward
+        gamma = (torch.randn(c, generator=gen, device=dev) * 0.2 + 1.0).requires_grad_()
+        beta = (torch.randn(c, generator=gen, device=dev) * 0.1).requires_grad_()
+        xg = x.detach().requires_grad_()
+        got = torch.autograd.grad(group_norm_silu(xg, gamma, beta, groups, eps, silu), (xg, gamma, beta), g)
+        xr = x.float().requires_grad_()
+        ref = torch.autograd.grad(group_norm_silu_reference(xr, gamma, beta, groups, eps, silu),
+                                  (xr, gamma, beta), g.float())
+        checks.update({o: close_enough(a, r) for o, a, r in zip(("dx", "dgamma", "dbeta"), got, ref)})
+        ok = bitwise and all(v[0] for v in checks.values())
+        ms_t = time_ms(lambda: gn_bwd_partials(x, g, coef, silu))
+        ms_dx = time_ms(lambda: gn_bwd_dx(x, g, coef, silu))
+        plain_t = time_ms(lambda: gn_bwd_partials_reference(x, g, coef, silu), reps=3)
+        plain_dx = time_ms(lambda: gn_bwd_dx_reference(x, g, coef, silu), reps=3)
+        # the library: F.group_norm + F.silu's backward alone, contiguous NCHW
+        side = int(round(hw**0.5))
+        x_nchw = x.transpose(1, 2).reshape(n, c, side, side).contiguous().requires_grad_()
+        gb, bb = (p.detach().bfloat16().requires_grad_() for p in (gamma, beta))
+        y_lib = F.group_norm(x_nchw, groups, gb, bb, eps)
+        y_lib = F.silu(y_lib) if silu else y_lib
+        g_nchw = g.transpose(1, 2).reshape(n, c, side, side).contiguous()
+        library_ms = time_ms(lambda: torch.autograd.grad(y_lib, (x_nchw, gb, bb), g_nchw, retain_graph=True))
+        del y_lib, x_nchw, g_nchw
+        elems = n * hw * c
+        per_elem = 14.0 if silu else 4.0
+        tb, tby = bound(4 * elems + 16 * n * c + 8 * n * c, per_elem * elems, PEAK_FP32)
+        xb, xby = bound(6 * elems + 16 * n * c, (per_elem + 2.0) * elems, PEAK_FP32)
+        case = f"{n}x{hw}x{c}{'' if silu else '-nosilu'}"
+        common = dict(shape=[n, hw, c], silu=silu, ok=ok, bitwise=bitwise, tol={o: v[3] for o, v in checks.items()},
+                      errs={o: v[1] for o, v in checks.items()}, pair_ms=ms_t + ms_dx, library_ms=library_ms,
+                      library_computes="dx, dgamma and dbeta (F.group_norm+F.silu backward, NCHW)")
+        results.append(dict(kernel="gn_bwd_partials", case=case, ms=ms_t, plain_ms=plain_t, bound_ms=tb,
+                            bound_by=tby, max_abs_err=checks["t"][1], **common))
+        results.append(dict(kernel="gn_bwd_dx", case=case, ms=ms_dx, plain_ms=plain_dx, bound_ms=xb,
+                            bound_by=xby, max_abs_err=checks["dx_kernel"][1], **common))
+        log(f"  gn_bwd [{n},{hw},{c}] silu={silu} " + " ".join(f"{o} {v[1]:.1e}/{v[3]:.1e}" for o, v in checks.items())
+            + f" bitwise {bitwise} {'ok' if ok else 'FAIL'} | partials {ms_t:.3f} dx {ms_dx:.3f}"
+            f" (pair {ms_t + ms_dx:.3f}) ms vs F.group_norm+silu bwd {library_ms:.3f}; bound {tb + xb:.3f};"
+            f" plain {plain_t + plain_dx:.2f}")
+        if not ok:
+            failures.append(f"gn_bwd {case}: {checks} bitwise {bitwise}")
+        del x, g, t, dx, got, ref
+        torch.cuda.empty_cache()
+
+
+def small_unet(device, dtype):
+    """A small SDXL-shaped UNet with head dim 64 (the tiny presets' 16 and
+    32 are not among the flash kernels' head dims)."""
+    from uwudiff_tpu_torch.models import UNet2DConditionModel
+
+    return UNet2DConditionModel.from_config(
+        "tiny_sdxl", device=device, dtype=dtype, block_out_channels=(64, 128), cross_attention_dim=256,
+        projection_class_embeddings_input_dim=128 + 48)
+
+
+def check_train_vs_cpu(failures):
+    """One training step's loss and gradients of a small SDXL-shaped UNet:
+    bf16 on the card through the kernels against the same weights in fp32
+    on the CPU through the plain versions (which the CPU tests hold
+    against the JAX package), the same noise and timesteps."""
+    import copy
+
+    from uwudiff_tpu_torch.diffusion import DiffusionLoss, NoiseSchedule
+    from uwudiff_tpu_torch.training import DMTrainer
+
+    torch.manual_seed(SEED + 6)
+    cpu = small_unet("cpu", torch.float32)
+    gpu = copy.deepcopy(cpu).to(device="cuda", dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    batch = {"sample": torch.randn((2, 32, 32, 4), generator=gen), "ctx": torch.randn((2, 77, 256), generator=gen),
+             "pooled": torch.randn((2, 128), generator=gen),
+             "added_cond": {"time_ids": torch.tensor([[256.0, 256, 0, 0, 256, 256]] * 2)}}
+    noise = torch.randn((2, 32, 32, 4), generator=gen)
+    timesteps = torch.tensor([37, 712])
+    losses, grads = {}, {}
+    for dev, unet, pdt in (("cpu", cpu, None), ("cuda", gpu, "bfloat16")):
+        tr = DMTrainer({"unet": unet}, loss_config=DiffusionLoss(schedule=NoiseSchedule.sd15()),
+                       param_dtype=pdt, device=dev)
+        loss, _ = tr.forward_backward(batch, noise, timesteps)
+        losses[dev] = loss.float().cpu()
+        grads[dev] = torch.cat([p.grad.float().cpu().flatten() for _, p in tr.params])
+    loss_err = ((losses["cuda"] - losses["cpu"]).abs() / losses["cpu"].abs()).item()
+    grad_err = ((grads["cuda"] - grads["cpu"]).norm() / grads["cpu"].norm()).item()
+    tol = 5e-2  # bf16 weights, activations and gradients through a few dozen layers
+    log(f"  training step, card bf16 vs CPU fp32 plain: loss rel err {loss_err:.2e},"
+        f" grad |d|/|ref| {grad_err:.2e} (tol {tol})")
+    if not (loss_err <= tol and grad_err <= tol):
+        failures.append(f"training step card vs CPU: loss {loss_err} grad {grad_err} > {tol}")
+    return {"loss_rel_err": loss_err, "grad_rel_err": grad_err, "tol": tol}
+
+
 def check_models_vs_cpu(failures):
     """Small SDXL-shaped models (head dim 64: the tiny presets' 16 and 32
     are not among the flash kernel's head dims): the card's bf16 forward
@@ -246,16 +463,14 @@ def check_models_vs_cpu(failures):
     package."""
     import copy
 
-    from uwudiff_tpu_torch.models import AutoencoderKL, ConcatTextEncoders, UNet2DConditionModel
+    from uwudiff_tpu_torch.models import AutoencoderKL, ConcatTextEncoders
 
     torch.manual_seed(SEED + 2)
     clip = {"preset": "tiny", "hidden_size": 128, "num_heads": 2}
     cpu = {
         "te": ConcatTextEncoders.from_config(
             [(clip, {"layer_idx": -2}), (clip, {"use_pooled": True, "layer_idx": -2})], device="cpu"),
-        "unet": UNet2DConditionModel.from_config(
-            "tiny_sdxl", device="cpu", block_out_channels=(64, 128), cross_attention_dim=256,
-            projection_class_embeddings_input_dim=128 + 48),
+        "unet": small_unet("cpu", torch.float32),
         "vae": AutoencoderKL.from_config("tiny", device="cpu", block_out_channels=(32, 64)),
     }
     gpu = {k: copy.deepcopy(m).to(device="cuda", dtype=torch.bfloat16) for k, m in cpu.items()}
@@ -323,7 +538,7 @@ def phase_times(pipe, n):
 
 
 def serve(report, failures):
-    from uwudiff_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
+    from uwudiff_tpu_torch.ops import FORWARD_KERNELS, launch_counts, reset_launch_counts
     from uwudiff_tpu_torch.serving import BatchingServer, Request, sdxl_pipeline
 
     t0 = time.perf_counter()
@@ -365,7 +580,7 @@ def serve(report, failures):
     for i, img in enumerate(images):
         if img.shape != (RES, RES, 3) or img.dtype.name != "uint8":
             failures.append(f"image {i}: shape {img.shape} dtype {img.dtype}")
-    for name in KERNELS:
+    for name in FORWARD_KERNELS:
         if counts[name] == 0:
             failures.append(f"kernel {name} was not launched on the serving path")
     img_diff = float(abs(lone.astype(int) - batch_imgs[1].astype(int)).mean())
@@ -402,6 +617,100 @@ def serve(report, failures):
     return counts
 
 
+# ------------------------------------------------------------------ train
+
+TRAIN_STEPS = 5
+
+
+def plan_launches(unet) -> dict:
+    """Each kernel's launches per training step, from the UNet's modules:
+    one flash forward and one dQ/dK-dV pair per attention, one stats,
+    apply, partials and dx launch per GroupNorm (the backward keeps the
+    forward's statistics, so it launches no stats pass of its own)."""
+    from uwudiff_tpu_torch.models.layers import GroupNorm
+    from uwudiff_tpu_torch.models.transformer import BasicTransformerBlock
+
+    attn = sum(2 if m.has_cross else 1 for m in unet.modules() if isinstance(m, BasicTransformerBlock))
+    gn = sum(isinstance(m, GroupNorm) for m in unet.modules())
+    return {"flash_fwd": attn, "flash_bwd_dq": attn, "flash_bwd_dkv": attn,
+            "gn_stats": gn, "gn_silu_apply": gn, "gn_bwd_partials": gn, "gn_bwd_dx": gn}
+
+
+def train(report, failures):
+    from uwudiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from uwudiff_tpu_torch.ops.groupnorm_silu import GroupNormSiLUFunction
+    from uwudiff_tpu_torch.training.bench_setup import build_trainer_and_batch
+
+    t0 = time.perf_counter()
+    trainer, data = build_trainer_and_batch(batch=8, latent=64, seed=SEED)
+    trainer.setup()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    dev = trainer.device
+    batch = {"sample": torch.as_tensor(data["sample"], device=dev), "ctx": torch.as_tensor(data["ctx"], device=dev),
+             "pooled": torch.as_tensor(data["pooled"], device=dev),
+             "added_cond": {"time_ids": torch.as_tensor(data["added_cond"]["time_ids"], device=dev)}}
+    n_params = sum(p.numel() for _, p in trainer.params)
+    start = [p.detach().clone() for _, p in trainer.params]
+    log(f"  built the sdxl trainer ({n_params / 1e9:.3f} G bf16 params, {len(start)} leaves) in {build_s:.1f} s")
+
+    t0 = time.perf_counter()
+    warm, _ = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    GroupNormSiLUFunction.grad_layout_copies = 0
+    reset_launch_counts()  # the main path's run starts here
+    steps = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics, _ = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        phases = trainer.step_phase_ms()
+        steps.append(dict(step_s=time.perf_counter() - t0, loss=metrics["train/loss"].item(),
+                          grad_norm=metrics["train/grad_norm"].item(), lr=metrics["train/lr"], **phases))
+    counts = launch_counts()  # the main path's run ends here
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    copies = GroupNormSiLUFunction.grad_layout_copies
+
+    plan = plan_launches(trainer.unet)
+    for name, per_step in plan.items():
+        if counts[name] != per_step * TRAIN_STEPS:
+            failures.append(f"{name}: {counts[name]} launches in {TRAIN_STEPS} steps, plan {per_step} a step")
+    losses = [warm["train/loss"].item()] + [s["loss"] for s in steps]
+    norms = [warm["train/grad_norm"].item()] + [s["grad_norm"] for s in steps]
+    if not all(map(math.isfinite, losses + norms)):
+        failures.append(f"non-finite training metrics: losses {losses} grad norms {norms}")
+    # every leaf took an update: its momentum is finite and not all zero
+    moments_ok = all(bool(torch.isfinite(st["mu"]).all()) and bool(st["mu"].any())
+                     for st in trainer.opt_state.leaves)
+    if not moments_ok or trainer.opt_state.count != TRAIN_STEPS + 1:
+        failures.append(f"optimizer state: moments ok {moments_ok}, count {trainer.opt_state.count}")
+    # and moved. Stochastic rounding moves an element by one bf16 step
+    # (2^-8 just below 1.0) with probability |update| / step; at lr 1e-5 a
+    # norm weight initialised to ones (update ~1e-6 a step) may keep every
+    # value for many steps, so only those may stay unchanged; they are listed
+    unchanged = [name for (name, p), p0 in zip(trainer.params, start) if torch.equal(p, p0)]
+    moved_wrongly = [n for n in unchanged if not (n.endswith("weight") and "norm" in n.rsplit(".", 2)[-2])]
+    if moved_wrongly:
+        failures.append(f"{len(moved_wrongly)} parameter leaves unchanged after {TRAIN_STEPS + 1} steps:"
+                        f" {moved_wrongly[:8]}")
+    step_s = sorted(s["step_s"] for s in steps)[TRAIN_STEPS // 2]
+    fb_ms = sorted(s["forward_backward_ms"] for s in steps)[TRAIN_STEPS // 2]
+    opt_ms = sorted(s["optimizer_ms"] for s in steps)[TRAIN_STEPS // 2]
+    report["train"] = dict(
+        batch=8, latent=64, params=n_params, leaves=len(start), build_s=build_s, warmup_step_s=warmup_s,
+        steps=steps, median_step_s=step_s, imgs_per_s=8 / step_s, median_forward_backward_ms=fb_ms,
+        median_optimizer_ms=opt_ms, peak_memory_gib=peak_gib, launches=counts, plan_per_step=plan,
+        gn_grad_layout_copies=copies, unchanged_leaves=unchanged, losses=losses, grad_norms=norms)
+    log(f"  train: step {step_s:.3f} s ({8 / step_s:.2f} imgs/s), forward+backward {fb_ms:.1f} ms,"
+        f" optimizer {opt_ms:.1f} ms, peak {peak_gib:.1f} GiB; losses {[round(v, 4) for v in losses]},"
+        f" grad norms {[round(v, 3) for v in norms]}; launches/step {plan}; GN grad copies {copies};"
+        f" leaves unchanged {len(unchanged)} of {len(start)}, all unit-initialised norm weights:"
+        f" {not moved_wrongly}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -420,7 +729,7 @@ def main() -> int:
     report = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
     failures: list[str] = []
 
-    log("[1/3] build")
+    log("[1/4] build")
     built = build_all()
     report["build_s"] = built["seconds"]
     log(f"  built in {built['seconds']:.1f} s")
@@ -429,31 +738,46 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
 
-    log("[2/3] kernels vs plain (bf16)")
+    log("[2/4] kernels vs plain (bf16)")
     results: list[dict] = []
     check_flash(results, failures)
     check_gn(results, failures)
+    check_flash_bwd(results, failures)
+    check_gn_bwd(results, failures)
     report["kernel_checks"] = results
     report["models_vs_cpu_rel_err"] = check_models_vs_cpu(failures)
+    report["train_step_vs_cpu"] = check_train_vs_cpu(failures)
 
-    log("[3/3] serve SDXL 1024x1024")
-    counts = serve(report, failures)
+    log("[3/4] serve SDXL 1024x1024")
+    serve_counts = serve(report, failures)
+    gc.collect()
+    torch.cuda.empty_cache()  # the serving stack is gone before the trainer is built
 
-    main_case = {"flash_fwd": "sdxl_l1_self", "gn_stats": "8x16384x320", "gn_silu_apply": "8x16384x320"}
-    source = {"flash_fwd": "uwudiff_tpu_torch/csrc/flash_fwd.cu",
-              "gn_stats": "uwudiff_tpu_torch/csrc/groupnorm_silu.cu",
-              "gn_silu_apply": "uwudiff_tpu_torch/csrc/groupnorm_silu.cu"}
+    log("[4/4] train SDXL (full fine-tune, batch 8, 64x64 latents)")
+    counts = train(report, failures)
+
+    main_case = {"flash_fwd": "sdxl_l1_self", "flash_bwd_dq": "train_l1_self", "flash_bwd_dkv": "train_l1_self",
+                 "gn_stats": "8x16384x320", "gn_silu_apply": "8x16384x320",
+                 "gn_bwd_partials": "8x4096x320", "gn_bwd_dx": "8x4096x320"}
+    csrc = "uwudiff_tpu_torch/csrc/"
+    source = {"flash_fwd": csrc + "flash_fwd.cu", "flash_bwd_dq": csrc + "flash_bwd.cu",
+              "flash_bwd_dkv": csrc + "flash_bwd.cu"}
     replaces = {"flash_fwd": "uwudiff_tpu/ops/flash_attention.py:152",
+                "flash_bwd_dq": "uwudiff_tpu/ops/flash_attention.py:271",
+                "flash_bwd_dkv": "uwudiff_tpu/ops/flash_attention.py:365",
                 "gn_stats": "uwudiff_tpu/ops/groupnorm_silu.py:171",
-                "gn_silu_apply": "uwudiff_tpu/ops/groupnorm_silu.py:118"}
+                "gn_silu_apply": "uwudiff_tpu/ops/groupnorm_silu.py:118",
+                "gn_bwd_partials": "uwudiff_tpu/ops/groupnorm_silu.py:321",
+                "gn_bwd_dx": "uwudiff_tpu/ops/groupnorm_silu.py:349"}
     kernels = []
     for name, case in main_case.items():
         row = next(r for r in results if r["kernel"] == name and r["case"] == case)
         kernels.append(dict(
-            name=name, route="cuda", source=source[name], replaces=replaces[name],
-            launches=counts[name], max_abs_err=max(r["max_abs_err"] for r in results if r["kernel"] == name),
+            name=name, route="cuda", source=source.get(name, csrc + "groupnorm_silu.cu"),
+            replaces=replaces[name], launches=counts[name],
+            max_abs_err=max(r["max_abs_err"] for r in results if r["kernel"] == name),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row["library_ms"], shape=row["shape"],
+            library_ms=row["library_ms"], shape=row["shape"], serving_launches=serve_counts[name],
         ))
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start

@@ -7,14 +7,15 @@ without JAX:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances are bf16 ones: the kernels round their outputs (and flash
-attention its P tile) to bf16 once, the plain versions compute in fp32.
+attention its P and dS tiles) to bf16 once, the plain versions compute
+in fp32. The backward kernels are also held to bitwise reproducibility.
 """
 
 import pytest
 import torch
 
-from uwudiff_tpu_torch.ops import launch_counts, reset_launch_counts
-from uwudiff_tpu_torch.ops.flash_attention import flash_attention_reference, flash_fwd
+from uwudiff_tpu_torch.ops import FORWARD_KERNELS, launch_counts, reset_launch_counts
+from uwudiff_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference, flash_fwd
 from uwudiff_tpu_torch.ops.groupnorm_silu import (
     gn_silu_apply,
     gn_stats,
@@ -46,11 +47,13 @@ def _bias(kind, b, h, sq, sk, dev, gen):
 
 
 def _assert_flash_close(out, ref):
-    """Out and ref are both rounded to bf16, so they may differ by one bf16
-    step (2**-7 relative at most) per element: the largest error is held to
-    one step of the largest output plus 2**-10 for the P tile's rounding,
-    and the RMS error to one step of the RMS output, which a lost K/V tile
-    (~1/n_tiles of every row) exceeds many times over."""
+    """The bound of every kernel check, per output (out, dq, dk, dv, t1/t2,
+    dx, dgamma, dbeta). Out and ref are both rounded to bf16, so they may
+    differ by one bf16 step (2**-7 relative at most) per element: the
+    largest error is held to one step of the largest output plus 2**-10
+    for the P (or dS) tile's rounding, and the RMS error to one step of
+    the RMS output, which a lost K/V tile (~1/n_tiles of every row)
+    exceeds many times over."""
     diff, ref = (out.float() - ref.float()), ref.float()
     assert diff.abs().max().item() <= 2.0**-7 * ref.abs().max().item() + 2.0**-10
     assert diff.pow(2).mean().sqrt().item() <= 2.0**-7 * ref.pow(2).mean().sqrt().item()
@@ -182,4 +185,117 @@ def test_tiny_pipeline_runs_through_the_kernels(dev):
     images = pipe(["a cat", "a dog"], num_steps=2, num_samples=2, width=64, height=64, seed=[1, 2])
     counts = launch_counts()
     assert all(img.shape == (64, 64, 3) for img in images)
+    assert all(counts[k] > 0 for k in FORWARD_KERNELS), counts  # serving runs no backward
+
+
+# ------------------------------------------------------------------ backward
+
+@pytest.mark.parametrize(
+    "b,sq,sk,h,d,kind",
+    [
+        (2, 256, 256, 2, 64, "none"),
+        (2, 200, 77, 3, 64, "none"),  # ragged Sq, cross-attention's 77 keys
+        (2, 128, 77, 2, 64, "key"),
+        (2, 77, 77, 4, 64, "full"),
+        (1, 130, 300, 2, 40, "key"),
+        (1, 64, 129, 2, 80, "none"),
+    ],
+)
+def test_flash_bwd_kernels_match_plain(dev, b, sq, sk, h, d, kind):
+    from uwudiff_tpu_torch.ops.flash_attention import flash_attention_backward_reference, flash_bwd
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
+               for s in (sq, sk, sk))
+    bias = _bias(kind, b, h, sq, sk, dev, gen)
+    out, lse = flash_fwd(q, k, v, bias)
+    dout = torch.randn(out.shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    got = flash_bwd(q, k, v, bias, out, lse, dout)
+    ref = flash_attention_backward_reference(q, k, v, bias, out, lse, dout)
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        _assert_flash_close(g, r)
+    again = flash_bwd(q, k, v, bias, out, lse, dout)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))  # no atomics: bitwise reproducible
+
+
+def test_flash_autograd_runs_the_kernel_pair_on_strided_heads(dev):
+    """q/k/v as column slices of one projection, as the models make them."""
+    qkv = torch.randn((2, 96, 3 * 2 * 64), device=dev, dtype=torch.bfloat16, requires_grad=True)
+    q, k, v = (t.view(2, 96, 2, 64) for t in qkv.chunk(3, dim=-1))
+    reset_launch_counts()
+    out = flash_attention(q, k, v)
+    out.backward(torch.ones_like(out))
+    counts = launch_counts()
+    assert counts["flash_fwd"] == counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 1
+    ref_qkv = qkv.detach().float().requires_grad_()
+    rq, rk, rv = (t.view(2, 96, 2, 64) for t in ref_qkv.chunk(3, dim=-1))
+    flash_attention_reference(rq, rk, rv)[0].backward(torch.ones_like(out).float())
+    _assert_flash_close(qkv.grad, ref_qkv.grad)
+
+
+def test_flash_bwd_raises_for_a_head_dim_it_was_not_built_for(dev):
+    """D = 160 runs forward (SD1.5's level 3) but has no backward build."""
+    from uwudiff_tpu_torch.ops.flash_attention import flash_bwd
+
+    q = torch.randn((1, 64, 2, 160), device=dev, dtype=torch.bfloat16)
+    out, lse = flash_fwd(q, q, q)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_bwd(q, q, q, None, out, lse, torch.ones_like(out))
+
+
+@pytest.mark.parametrize("n,hw,c,groups", [(2, 1000, 320, 32), (8, 256, 2560, 32), (3, 77, 40, 4)])
+@pytest.mark.parametrize("silu", [True, False])
+def test_gn_bwd_kernels_match_plain(dev, n, hw, c, groups, silu):
+    from uwudiff_tpu_torch.ops.groupnorm_silu import (
+        gn_bwd_dx,
+        gn_bwd_dx_reference,
+        gn_bwd_partials,
+        gn_bwd_partials_reference,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = (torch.randn((n, hw, c), generator=gen, device=dev) * 2.0 + 0.5).to(torch.bfloat16)
+    g = torch.randn((n, hw, c), generator=gen, device=dev).to(torch.bfloat16)
+    coef = torch.randn((n, 4, c), generator=gen, device=dev) * 0.5
+    t = gn_bwd_partials(x, g, coef, silu)
+    tr = gn_bwd_partials_reference(x, g, coef, silu)
+    _assert_flash_close(t, tr)  # fp32 sums over HW: far inside the bound
+    assert torch.equal(t, gn_bwd_partials(x, g, coef, silu))
+    dx = gn_bwd_dx(x, g, coef, silu)
+    _assert_flash_close(dx, gn_bwd_dx_reference(x, g, coef, silu))
+    # the whole backward through autograd, against autograd of the plain forward
+    xg = x.detach().requires_grad_()
+    gamma = (torch.randn(c, generator=gen, device=dev) * 0.2 + 1.0).requires_grad_()
+    beta = (torch.randn(c, generator=gen, device=dev) * 0.1).requires_grad_()
+    got = torch.autograd.grad(group_norm_silu(xg, gamma, beta, groups, 1e-5, silu), (xg, gamma, beta), g)
+    xr = x.float().requires_grad_()
+    ref = torch.autograd.grad(group_norm_silu_reference(xr, gamma, beta, groups, 1e-5, silu),
+                              (xr, gamma, beta), g.float())
+    for a, r in zip(got, ref):
+        _assert_flash_close(a, r)
+
+
+def test_tiny_unet_trains_through_every_kernel(dev):
+    from uwudiff_tpu_torch.diffusion import DiffusionLoss, NoiseSchedule
+    from uwudiff_tpu_torch.models import UNet2DConditionModel
+    from uwudiff_tpu_torch.training import DMTrainer
+
+    torch.manual_seed(0)
+    unet = UNet2DConditionModel.from_config(
+        "tiny_sdxl", device=dev, dtype=torch.bfloat16, block_out_channels=(64, 128),
+        cross_attention_dim=256, projection_class_embeddings_input_dim=128 + 48,
+    )
+    trainer = DMTrainer({"unet": unet}, lr=1e-4, optimizer="adamw_factored", use_warm_up=False,
+                        opt_config={"weight_decay": 0.01, "betas": (0.9, 0.999), "clipping_threshold": 1.0},
+                        loss_config=DiffusionLoss(schedule=NoiseSchedule.sd15()), grad_clip=None,
+                        param_dtype="bfloat16", seed=0, device=dev)
+    batch = {"sample": torch.randn(2, 32, 32, 4), "ctx": torch.randn(2, 77, 256),
+             "pooled": torch.randn(2, 128), "added_cond": {"time_ids": torch.tensor([[256.0, 256, 0, 0, 256, 256]] * 2)}}
+    reset_launch_counts()
+    metrics, _ = trainer.train_step(batch)
+    counts = launch_counts()
     assert all(v > 0 for v in counts.values()), counts
+    assert counts["flash_fwd"] == counts["flash_bwd_dq"] == counts["flash_bwd_dkv"]
+    assert counts["gn_silu_apply"] == counts["gn_bwd_partials"] == counts["gn_bwd_dx"] == counts["gn_stats"]
+    assert torch.isfinite(metrics["train/loss"]) and torch.isfinite(metrics["train/grad_norm"])

@@ -13,6 +13,11 @@ only the leaf needs translating:
 A module may name whole subtrees it does not port in
 ``jax_skip_subtrees`` (the VAE's encoder). Any other missing, extra or
 mis-shaped key raises.
+
+:func:`to_jax_params` is the inverse: a module's state dict, or any
+tensors named like it (its gradients), as a flax-named nested dict of
+numpy arrays, so that tests compare the port with the JAX package leaf
+by leaf.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-__all__ = ["load_jax_params"]
+__all__ = ["load_jax_params", "to_jax_params"]
 
 
 def _flatten(tree, prefix=()):
@@ -72,3 +77,32 @@ def load_jax_params(module: torch.nn.Module, params) -> torch.nn.Module:
         for key, tensor in dst.items():
             tensor.copy_(torch.from_numpy(np.array(src[key], copy=True)))
     return module
+
+
+def to_jax_params(module: torch.nn.Module, tensors: Mapping | None = None) -> dict:
+    """``tensors`` (default: ``module.state_dict()``), keyed by the module's
+    parameter names, -> a flax param tree of fp32 numpy arrays: Linear and
+    Conv2d weights become transposed ``kernel`` leaves, norm weights
+    ``scale``, Embedding weights ``embedding``."""
+    tensors = module.state_dict() if tensors is None else tensors
+    tree: dict = {}
+    for name, t in tensors.items():
+        *mods, leaf = name.split(".")
+        arr = t.detach().float().cpu().numpy()
+        if leaf == "weight":
+            owner = module.get_submodule(".".join(mods))
+            if isinstance(owner, torch.nn.Linear):
+                leaf, arr = "kernel", arr.T
+            elif isinstance(owner, torch.nn.Conv2d):
+                leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+            elif isinstance(owner, torch.nn.Embedding):
+                leaf = "embedding"
+            elif arr.ndim == 1:
+                leaf = "scale"
+            else:
+                raise ValueError(f"{name}: no flax name for a {type(owner).__name__} weight")
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.array(arr, copy=True, order="C")  # never a view of a live tensor
+    return tree

@@ -26,18 +26,17 @@
 //   - the no-bias instantiation loads no bias at all.
 // wgmma/TMA warp specialisation is the later step for speed.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace flash;
 
 constexpr int BLOCK_M = 64;
 constexpr int NUM_WARPS = 4;
 constexpr int NUM_THREADS = NUM_WARPS * 32;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct Cfg {
@@ -48,53 +47,6 @@ struct Cfg {
   static constexpr int D_CHUNKS = D / 8;         // chunks that hold real data
   static constexpr int SMEM = (BLOCK_M + 4 * BLOCK_N) * STRIDE * 2;  // Q + two stages of K and V
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = pred ? 16 : 0;  // 0 -> the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // BIAS: 0 none, 1 key bias [B, Sk] fp32, 2 full bias [B*H, Sq, Sk] fp32.
 // Biases arrive clamped at -1e30 (natural-log units).
@@ -121,26 +73,17 @@ __global__ void __launch_bounds__(NUM_THREADS)
   const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
   const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
 
-  for (int i = tid; i < BLOCK_M * C::CHUNKS; i += NUM_THREADS) {
-    const int r = i / C::CHUNKS, c = i % C::CHUNKS;
-    const bool ok = (q0 + r < Sq) && (c < C::D_CHUNKS);
-    cp_async16(sQ + r * C::STRIDE + c * 8, ok ? qb + (q0 + r) * q_ss + c * 8 : qb, ok);
-  }
+  load_tile<BLOCK_M, C::CHUNKS, C::D_CHUNKS, C::STRIDE, NUM_THREADS>(sQ, qb, q_ss, q0, Sq, tid);
   auto load_kv = [&](int stage, int n0) {
-    __nv_bfloat16* dK = sK + stage * BN * C::STRIDE;
-    __nv_bfloat16* dV = sV + stage * BN * C::STRIDE;
-    for (int i = tid; i < BN * C::CHUNKS; i += NUM_THREADS) {
-      const int r = i / C::CHUNKS, c = i % C::CHUNKS;
-      const bool ok = (n0 + r < Sk) && (c < C::D_CHUNKS);
-      cp_async16(dK + r * C::STRIDE + c * 8, ok ? kb + (n0 + r) * k_ss + c * 8 : kb, ok);
-      cp_async16(dV + r * C::STRIDE + c * 8, ok ? vb + (n0 + r) * v_ss + c * 8 : vb, ok);
-    }
+    load_tile<BN, C::CHUNKS, C::D_CHUNKS, C::STRIDE, NUM_THREADS>(sK + stage * BN * C::STRIDE, kb, k_ss, n0, Sk,
+                                                                   tid);
+    load_tile<BN, C::CHUNKS, C::D_CHUNKS, C::STRIDE, NUM_THREADS>(sV + stage * BN * C::STRIDE, vb, v_ss, n0, Sk,
+                                                                   tid);
   };
   load_kv(0, 0);
   cp_async_commit();
 
   const int n_tiles = (Sk + BN - 1) / BN;
-  const int l8 = lane % 8, mi = lane / 8;
   const int row_a = q0 + warp * 16 + lane / 4;  // this thread's rows: row_a and row_a + 8
   uint32_t qf[C::DP / 16][4];
   float o[C::DP / 8][4];
@@ -157,8 +100,7 @@ __global__ void __launch_bounds__(NUM_THREADS)
     __syncthreads();
     if (j == 0) {
 #pragma unroll
-      for (int kk = 0; kk < C::DP / 16; ++kk)
-        ldmatrix_x4(qf[kk], sQ + (warp * 16 + lane % 16) * C::STRIDE + kk * 16 + (lane / 16) * 8);
+      for (int kk = 0; kk < C::DP / 16; ++kk) load_a<C::STRIDE>(qf[kk], sQ + warp * 16 * C::STRIDE, kk, lane);
     }
     const __nv_bfloat16* tK = sK + stage * BN * C::STRIDE;
     const __nv_bfloat16* tV = sV + stage * BN * C::STRIDE;
@@ -166,16 +108,7 @@ __global__ void __launch_bounds__(NUM_THREADS)
     float s[BN / 8][4];
 #pragma unroll
     for (int i = 0; i < BN / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < C::DP / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < BN / 16; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, tK + (np * 16 + l8 + (mi / 2) * 8) * C::STRIDE + kk * 16 + (mi % 2) * 8);
-        mma_16816(s[2 * np], qf[kk], bf[0], bf[1]);
-        mma_16816(s[2 * np + 1], qf[kk], bf[2], bf[3]);
-      }
-    }
+    mma_abt<C::DP, BN / 8, C::STRIDE>(s, qf, tK, lane);
 
     const int n0 = j * BN;
 #pragma unroll
@@ -224,21 +157,7 @@ __global__ void __launch_bounds__(NUM_THREADS)
       }
     }
 
-#pragma unroll
-    for (int kt = 0; kt < BN / 16; ++kt) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kt][0], s[2 * kt][1]);
-      a[1] = pack_bf16(s[2 * kt][2], s[2 * kt][3]);
-      a[2] = pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]);
-      a[3] = pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < C::DP / 16; ++dp) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, tV + (kt * 16 + l8 + (mi % 2) * 8) * C::STRIDE + dp * 16 + (mi / 2) * 8);
-        mma_16816(o[2 * dp], a, bf[0], bf[1]);
-        mma_16816(o[2 * dp + 1], a, bf[2], bf[3]);
-      }
-    }
+    mma_ab<C::DP, BN, C::STRIDE>(o, s, tV, lane);
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
@@ -298,7 +217,7 @@ int dispatch_bias(int bias_mode, const void* q, const void* k, const void* v, co
 extern "C" int uwu_flash_fwd(const void* q, const void* k, const void* v, const void* bias, void* out,
                              void* lse, int B, int H, int Sq, int Sk, int D, int bias_mode,
                              const long long* strides, float scale, void* stream) {
-  const float qk_scale = scale * LOG2E;
+  const float qk_scale = scale * flash::LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 40: return dispatch_bias<40>(bias_mode, q, k, v, bias, out, lse, B, H, Sq, Sk, strides, qk_scale, s);

@@ -1,27 +1,43 @@
-// GroupNorm (+ SiLU) forward for Hopper (sm_90a) over a [N, HW, C] view.
+// GroupNorm (+ SiLU) forward and backward for Hopper (sm_90a) over a
+// [N, HW, C] view.
 //
-// Replaces the TPU kernels uwudiff_tpu/ops/groupnorm_silu.py::_gn_silu_kernel
-// (single pass over a VMEM-resident tile) and ::_gn_stats_kernel (per-channel
-// sums over HW chunks for tiles that do not fit VMEM). On the TPU the split
-// between them was a VMEM limit; here both map onto one pair:
+// Forward. Replaces the TPU kernels
+// uwudiff_tpu/ops/groupnorm_silu.py::_gn_silu_kernel (single pass over a
+// VMEM-resident tile) and ::_gn_stats_kernel (per-channel sums over HW chunks
+// for tiles that do not fit VMEM). On the TPU the split between them was a
+// VMEM limit; here both map onto one pair:
 //   gn_stats : per-(n, HW chunk, channel) sums -> per-(n, group) mean/var ->
 //              per-(n, channel) scale = inv*gamma and shift = beta - mean*scale
+//              (and, for the backward, the per-(n, group) mean and inv)
 //   gn_apply : y = silu(x*scale + shift) (or the affine alone), elementwise
 //
-// What bounds it on an H100: bytes. Each element is read twice (stats, apply)
-// and written once, at a handful of flops per element, so the floor is
-// 3 * N*HW*C*itemsize / 3.35 TB/s. The design therefore:
+// Backward. Replaces ::_gn_bwd_partials_kernel (K7) and ::_gn_bwd_dx_kernel
+// (K8); the TPU's pass A (stats recomputed by _gn_stats_kernel) is not
+// needed: the autograd function keeps the forward's [N, C]/[N, G] stats.
+//   gn_bwd_partials : dz = g*silu'(z) (dz = g without SiLU), per-(n, channel)
+//                     t1 = sum_hw dz and t2 = sum_hw dz*xhat, split over HW
+//                     chunks like gn_stats and merged in a fixed order in fp64
+//   gn_bwd_dx       : dx = scale*dz + P*x + Q, elementwise, where the
+//                     per-(n, channel) P, Q fold the group means of the GN
+//                     backward (PyTorch glue on [N, C] between the two)
+//
+// What bounds it on an H100: bytes. Forward, each element is read twice
+// (stats, apply) and written once; backward, x and g are read twice
+// (partials, dx) and dx written once; a few dozen flops per element against
+// 6-10 bytes, far below the ridge. The design therefore:
 //   - reads 16 bytes per thread per load, neighbouring threads on neighbouring
 //     addresses (channels are the contiguous axis);
-//   - splits HW across many blocks so the stats pass fills all 132 SMs even at
-//     N = 1 (the VAE's [1, 1048576, 128]); each block accumulates fp32 sums in
+//   - splits HW across many blocks so the reduction passes (stats, backward
+//     partials) fill all 132 SMs even at N = 1 (the VAE's [1, 1048576, 128])
+//     or HW = 256 (the UNet's level 2); each block accumulates fp32 sums in
 //     registers, adds its row-threads' sums in shared memory in a fixed
 //     order, and writes one partial row per (n, chunk) — no atomics, so a
 //     result is bitwise the same from run to run;
 //   - merges the partials in a second small kernel in fp64 and computes
 //     var = E[x^2] - mean^2 there (the TPU kernels do the same in fp32);
 //   - keeps every intermediate out of device memory except the tiny partials
-//     and the [N, C] scale/shift vectors.
+//     and the [N, C] per-channel vectors; the elementwise passes read those
+//     vectors through the L1 cache.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -116,9 +132,9 @@ __global__ void __launch_bounds__(THREADS)
 __global__ void __launch_bounds__(THREADS)
     gn_finalize_kernel(const float* __restrict__ partial, const float* __restrict__ gamma,
                        const float* __restrict__ beta, float* __restrict__ scale, float* __restrict__ shift,
-                       int HW, int C, int G, int n_chunks, float eps) {
+                       float* __restrict__ stats, int HW, int C, int G, int n_chunks, float eps) {
   __shared__ double red1[THREADS / 32], red2[THREADS / 32];
-  __shared__ float stats[2];
+  __shared__ float mi[2];  // mean, inv
   const int g = blockIdx.x, n = blockIdx.y;
   const int cg = C / G;
   const float* pn = partial + (long long)n * n_chunks * 2 * C;
@@ -147,14 +163,18 @@ __global__ void __launch_bounds__(THREADS)
     const double cnt = (double)HW * cg;
     const double mean = t1 / cnt;
     const double var = fmax(t2 / cnt - mean * mean, 0.0);
-    stats[0] = (float)mean;
-    stats[1] = (float)(1.0 / sqrt(var + (double)eps));
+    mi[0] = (float)mean;
+    mi[1] = (float)(1.0 / sqrt(var + (double)eps));
+    if (stats != nullptr) {  // [N, 2, G]: mean, inv
+      stats[(long long)n * 2 * G + g] = mi[0];
+      stats[(long long)n * 2 * G + G + g] = mi[1];
+    }
   }
   __syncthreads();
   for (int c = g * cg + threadIdx.x; c < (g + 1) * cg; c += THREADS) {
-    const float sc = stats[1] * gamma[c];
+    const float sc = mi[1] * gamma[c];
     scale[(long long)n * C + c] = sc;
-    shift[(long long)n * C + c] = beta[c] - stats[0] * sc;
+    shift[(long long)n * C + c] = beta[c] - mi[0] * sc;
   }
 }
 
@@ -184,19 +204,186 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// ------------------------------------------------------------------ backward
+
+// VEC consecutive per-channel floats, 16-byte aligned, as float4 loads
+template <int VEC>
+__device__ __forceinline__ void load_vec(float out[VEC], const float* p) {
+#pragma unroll
+  for (int i = 0; i < VEC / 4; ++i) {
+    const float4 v = reinterpret_cast<const float4*>(p)[i];
+    out[4 * i] = v.x;
+    out[4 * i + 1] = v.y;
+    out[4 * i + 2] = v.z;
+    out[4 * i + 3] = v.w;
+  }
+}
+
+// dz of y = silu(z), z = x*scale + shift: g * sigmoid(z) * (1 + z*(1 - sigmoid(z)))
+__device__ __forceinline__ float silu_dz(float x, float g, float sc, float sh) {
+  const float z = fmaf(x, sc, sh);
+  const float sig = 1.f / (1.f + __expf(-z));
+  return g * sig * fmaf(z, 1.f - sig, 1.f);
+}
+
+// grid (n_chunks, N); dynamic smem 2*ty_n*C floats. coef: [N, 4, C] fp32
+// (scale, shift, inv, -mean*inv per channel), so xhat = x*inv - mean*inv.
+// partial: [N, n_chunks, 2, C] fp32 (t1 = sum dz, t2 = sum dz*xhat).
+template <typename T, int CPT>
+__global__ void __launch_bounds__(THREADS)
+    gn_bwd_partial_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* __restrict__ coef,
+                          float* __restrict__ partial, int HW, int C, int rows_per_chunk, int silu) {
+  constexpr int VEC = 16 / sizeof(T);
+  extern __shared__ float red[];  // [ty_n, 2, C], summed in a fixed order
+  const int vecs = C / VEC;
+  const int tx_n = (vecs + CPT - 1) / CPT, ty_n = THREADS / tx_n;
+  const int tx = threadIdx.x % tx_n, ty = threadIdx.x / tx_n;
+  const int n = blockIdx.y, chunk = blockIdx.x;
+  const int r0 = chunk * rows_per_chunk;
+  const int r1 = min(HW, r0 + rows_per_chunk);
+  const float* cn = coef + (long long)n * 4 * C;
+
+  float t1[CPT][VEC], t2[CPT][VEC], sc[CPT][VEC], sh[CPT][VEC], iv[CPT][VEC], nm[CPT][VEC];
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) t1[c][e] = t2[c][e] = 0.f;
+    const int col = tx + c * tx_n;
+    if (ty < ty_n && col < vecs) {  // this thread's channels, loaded once
+      load_vec<VEC>(sc[c], cn + col * VEC);
+      load_vec<VEC>(sh[c], cn + C + col * VEC);
+      load_vec<VEC>(iv[c], cn + 2 * C + col * VEC);
+      load_vec<VEC>(nm[c], cn + 3 * C + col * VEC);
+    }
+  }
+
+  if (ty < ty_n) {
+    const long long base = (long long)n * HW * C;
+    for (int r = r0 + ty; r < r1; r += ty_n) {
+      const uint4* xrow = reinterpret_cast<const uint4*>(x + base + (long long)r * C);
+      const uint4* grow = reinterpret_cast<const uint4*>(g + base + (long long)r * C);
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const int col = tx + c * tx_n;
+        if (col < vecs) {
+          const uint4 xr = xrow[col], gr = grow[col];
+          const T* xv = reinterpret_cast<const T*>(&xr);
+          const T* gv = reinterpret_cast<const T*>(&gr);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            const float xf = to_f(xv[e]), gf = to_f(gv[e]);
+            const float dz = silu ? silu_dz(xf, gf, sc[c][e], sh[c][e]) : gf;
+            t1[c][e] += dz;
+            t2[c][e] = fmaf(dz, fmaf(xf, iv[c][e], nm[c][e]), t2[c][e]);
+          }
+        }
+      }
+    }
+    float* mine = red + ty * 2 * C;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const int col = tx + c * tx_n;
+      if (col < vecs) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          mine[col * VEC + e] = t1[c][e];
+          mine[C + col * VEC + e] = t2[c][e];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  float* out = partial + ((long long)n * gridDim.x + chunk) * 2 * C;
+  for (int i = threadIdx.x; i < 2 * C; i += THREADS) {
+    float acc = 0.f;
+    for (int t = 0; t < ty_n; ++t) acc += red[t * 2 * C + i];
+    out[i] = acc;
+  }
+}
+
+// grid (ceil(2C / THREADS), N): out[n, :, c] = sum over chunks, in order, in fp64
+__global__ void __launch_bounds__(THREADS)
+    gn_bwd_merge_kernel(const float* __restrict__ partial, float* __restrict__ out, int C, int n_chunks) {
+  const int i = blockIdx.x * THREADS + threadIdx.x, n = blockIdx.y;
+  if (i >= 2 * C) return;
+  const float* p = partial + (long long)n * n_chunks * 2 * C + i;
+  double acc = 0.0;
+  for (int k = 0; k < n_chunks; ++k) acc += p[(long long)k * 2 * C];
+  out[(long long)n * 2 * C + i] = (float)acc;
+}
+
+// coef: [N, 4, C] fp32 (scale, shift, P, Q per channel); dx = scale*dz + P*x + Q
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    gn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* __restrict__ coef,
+                     T* __restrict__ dx, long long total_vecs, long long vecs_per_sample, int C, int silu) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int vecs_per_row = C / VEC;
+  const long long stride = (long long)gridDim.x * THREADS;
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < total_vecs; i += stride) {
+    const long long n = i / vecs_per_sample;
+    const int c0 = (int)(i % vecs_per_row) * VEC;
+    const uint4 xr = reinterpret_cast<const uint4*>(x)[i];
+    const uint4 gr = reinterpret_cast<const uint4*>(g)[i];
+    const T* xv = reinterpret_cast<const T*>(&xr);
+    const T* gv = reinterpret_cast<const T*>(&gr);
+    const float* cn = coef + n * 4 * C + c0;
+    float sc[VEC], sh[VEC], pc[VEC], qc[VEC];
+    load_vec<VEC>(sc, cn);
+    load_vec<VEC>(sh, cn + C);
+    load_vec<VEC>(pc, cn + 2 * C);
+    load_vec<VEC>(qc, cn + 3 * C);
+    uint4 res;
+    T* outv = reinterpret_cast<T*>(&res);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const float xf = to_f(xv[e]), gf = to_f(gv[e]);
+      const float dz = silu ? silu_dz(xf, gf, sc[e], sh[e]) : gf;
+      outv[e] = from_f<T>(fmaf(sc[e], dz, fmaf(pc[e], xf, qc[e])));
+    }
+    reinterpret_cast<uint4*>(dx)[i] = res;
+  }
+}
+
 int sm_count() {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   return sms;
 }
 
+template <typename T, int CPT>
+void launch_bwd_partial(const void* x, const void* g, const void* coef, void* partial, int N, int HW, int C,
+                        int n_chunks, int silu, cudaStream_t s) {
+  const int vecs = C / (16 / (int)sizeof(T));
+  const int ty_n = THREADS / ((vecs + CPT - 1) / CPT);
+  const size_t smem = 2 * (size_t)ty_n * C * sizeof(float);
+  gn_bwd_partial_kernel<T, CPT><<<dim3(n_chunks, N), THREADS, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const float*>(coef),
+      static_cast<float*>(partial), HW, C, (HW + n_chunks - 1) / n_chunks, silu);
+}
+
+template <typename T>
+int bwd_partial_cpt(const void* x, const void* g, const void* coef, void* partial, int N, int HW, int C,
+                    int n_chunks, int silu, cudaStream_t s) {
+  int cpt, tx_n, ty_n;
+  partial_layout(C / (16 / (int)sizeof(T)), &cpt, &tx_n, &ty_n);
+  switch (cpt) {
+    case 1: launch_bwd_partial<T, 1>(x, g, coef, partial, N, HW, C, n_chunks, silu, s); break;
+    case 2: launch_bwd_partial<T, 2>(x, g, coef, partial, N, HW, C, n_chunks, silu, s); break;
+    case 3: launch_bwd_partial<T, 3>(x, g, coef, partial, N, HW, C, n_chunks, silu, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x: contiguous [N, HW, C] (dtype 0 = fp32, 1 = bf16); gamma/beta fp32 [C];
-// partial: fp32 scratch [N, n_chunks, 2, C]; scale/shift: fp32 [N, C] outputs.
+// partial: fp32 scratch [N, n_chunks, 2, C]; scale/shift: fp32 [N, C] outputs;
+// stats: null or an fp32 [N, 2, G] output (per-group mean, inv).
 extern "C" int uwu_gn_stats(const void* x, const void* gamma, const void* beta, void* partial, void* scale,
-                            void* shift, int dtype, int N, int HW, int C, int G, int n_chunks, float eps,
-                            void* stream) {
+                            void* shift, void* stats, int dtype, int N, int HW, int C, int G, int n_chunks,
+                            float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows_per_chunk = (HW + n_chunks - 1) / n_chunks;
   const dim3 grid(n_chunks, N);
@@ -220,7 +407,8 @@ extern "C" int uwu_gn_stats(const void* x, const void* gamma, const void* beta, 
   gn_finalize_kernel<<<dim3(G, N), THREADS, 0, s>>>(static_cast<const float*>(partial),
                                                     static_cast<const float*>(gamma),
                                                     static_cast<const float*>(beta), static_cast<float*>(scale),
-                                                    static_cast<float*>(shift), HW, C, G, n_chunks, eps);
+                                                    static_cast<float*>(shift), static_cast<float*>(stats), HW, C,
+                                                    G, n_chunks, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -241,6 +429,50 @@ extern "C" int uwu_gn_apply(const void* x, const void* scale, const void* shift,
     gn_apply_kernel<float><<<blocks, THREADS, 0, s>>>(static_cast<const float*>(x), static_cast<const float*>(scale),
                                                       static_cast<const float*>(shift), static_cast<float*>(y),
                                                       total, per_sample, C, silu);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x, g: contiguous [N, HW, C] of one dtype (0 = fp32, 1 = bf16); coef: fp32
+// [N, 4, C] (scale, shift, inv, -mean*inv); partial: fp32 scratch
+// [N, n_chunks, 2, C]; out: fp32 [N, 2, C] (t1 = sum dz, t2 = sum dz*xhat).
+extern "C" int uwu_gn_bwd_partials(const void* x, const void* g, const void* coef, void* partial, void* out,
+                                   int dtype, int N, int HW, int C, int n_chunks, int silu, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err;
+  if (dtype == 1) {
+    err = bwd_partial_cpt<__nv_bfloat16>(x, g, coef, partial, N, HW, C, n_chunks, silu, s);
+  } else if (dtype == 0) {
+    err = bwd_partial_cpt<float>(x, g, coef, partial, N, HW, C, n_chunks, silu, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != cudaSuccess) return err;
+  gn_bwd_merge_kernel<<<dim3((2 * C + THREADS - 1) / THREADS, N), THREADS, 0, s>>>(
+      static_cast<const float*>(partial), static_cast<float*>(out), C, n_chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x, g, dx: contiguous [N, HW, C] of one dtype; coef: fp32 [N, 4, C]
+// (scale, shift, P, Q): dx = scale*dz + P*x + Q.
+extern "C" int uwu_gn_bwd_dx(const void* x, const void* g, const void* coef, void* dx, int dtype, int N, int HW,
+                             int C, int silu, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int vec = dtype == 1 ? 8 : 4;
+  const long long per_sample = (long long)HW * C / vec;
+  const long long total = per_sample * N;
+  const long long want = (total + THREADS - 1) / THREADS;
+  const int blocks = (int)(want < (long long)sm_count() * 16 ? want : (long long)sm_count() * 16);
+  if (dtype == 1) {
+    gn_bwd_dx_kernel<__nv_bfloat16><<<blocks, THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g),
+        static_cast<const float*>(coef), static_cast<__nv_bfloat16*>(dx), total, per_sample, C, silu);
+  } else if (dtype == 0) {
+    gn_bwd_dx_kernel<float><<<blocks, THREADS, 0, s>>>(static_cast<const float*>(x), static_cast<const float*>(g),
+                                                       static_cast<const float*>(coef), static_cast<float*>(dx),
+                                                       total, per_sample, C, silu);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

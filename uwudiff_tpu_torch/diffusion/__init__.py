@@ -1,3 +1,4 @@
+from uwudiff_tpu_torch.diffusion.losses import DiffusionLoss, DiffusionLossAux
 from uwudiff_tpu_torch.diffusion.schedules import NoiseSchedule
 
-__all__ = ["NoiseSchedule"]
+__all__ = ["DiffusionLoss", "DiffusionLossAux", "NoiseSchedule"]

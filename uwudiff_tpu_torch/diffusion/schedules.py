@@ -56,6 +56,8 @@ class NoiseSchedule:
         """The SDXL training schedule (scaled_linear 0.00085..0.012, N=1000)."""
         return cls.ddpm(prediction_type=prediction_type)
 
+    sd15 = sdxl  # SD1.5 uses the same beta schedule
+
     def to(self, device) -> "NoiseSchedule":
         return NoiseSchedule(
             self.alphas_cumprod.to(device), self.betas.to(device), self.prediction_type
@@ -88,6 +90,20 @@ class NoiseSchedule:
         w = t - torch.floor(t)
         log_sigma = (1 - w) * self.log_sigmas[low_idx] + w * self.log_sigmas[high_idx]
         return torch.exp(log_sigma)
+
+    def sigma_for_timestep(self, timesteps: torch.Tensor) -> torch.Tensor:
+        """sigma for integer timesteps."""
+        return self.sigmas[timesteps]
+
+    def snr_for_sigma(self, sigma: torch.Tensor) -> torch.Tensor:
+        """snr = sigma^-2: ``alphas_cumprod/(1 - alphas_cumprod)`` at integer
+        timesteps, extended to continuous sigmas."""
+        return sigma**-2
+
+    def velocity(self, x0: torch.Tensor, noise: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+        """v-prediction target ``sqrt(acp)*noise - sqrt(1 - acp)*x0``."""
+        acp = self.alphas_cumprod[timesteps].reshape(timesteps.shape + (1,) * (x0.dim() - timesteps.dim()))
+        return acp.sqrt() * noise - (1.0 - acp).sqrt() * x0
 
     def sample_sigmas_descending(self, num_steps: int) -> torch.Tensor:
         """``sigmas_descending`` at ``linspace(0, N, steps+1)`` truncated to

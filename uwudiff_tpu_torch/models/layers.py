@@ -91,9 +91,10 @@ def _conv3x3(cin, cout, stride=1):
 
 
 class ResnetBlock2D(nn.Module):
-    """GN -> SiLU -> conv3x3 -> (+time proj) -> GN -> SiLU -> conv3x3,
-    residual with a 1x1 shortcut when the width changes. Both GN+SiLU
-    pairs run through the kernels. Inference only: no dropout."""
+    """GN -> SiLU -> conv3x3 -> (+time proj) -> GN -> SiLU -> (dropout) ->
+    conv3x3, residual with a 1x1 shortcut when the width changes. Both
+    GN+SiLU pairs run through the kernels. The dropout acts in train mode
+    only and defaults to 0.0, as in the JAX package."""
 
     def __init__(
         self,
@@ -102,8 +103,10 @@ class ResnetBlock2D(nn.Module):
         temb_channels: int | None = None,
         groups: int = 32,
         eps: float = 1e-5,
+        dropout: float = 0.0,
     ):
         super().__init__()
+        self.dropout = dropout
         self.norm1 = GroupNorm(in_channels, groups, eps)
         self.conv1 = _conv3x3(in_channels, out_channels)
         if temb_channels is not None:
@@ -117,7 +120,10 @@ class ResnetBlock2D(nn.Module):
         h = self.conv1(self.norm1(hidden_states))
         if temb is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(self.norm2(h))
+        h = self.norm2(h)
+        if self.dropout > 0:
+            h = F.dropout(h, self.dropout, self.training)
+        h = self.conv2(h)
         residual = hidden_states
         if hasattr(self, "conv_shortcut"):
             residual = self.conv_shortcut(residual)

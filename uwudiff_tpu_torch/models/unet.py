@@ -4,6 +4,9 @@ Public layout is the JAX package's NHWC: ``sample`` ``[B, H, W, C]`` in,
 ``[B, H, W, C]`` fp32 out. Inside, feature maps are NCHW-logical in
 channels-last memory. SDXL micro-conditioning (``text_time``) is ported;
 ControlNet mode, FreeU, remat and scanned transformer stacks are not.
+The model computes in its parameters' dtype; it trains as it serves (the
+GroupNorm and attention kernels carry their own backward), without
+gradient checkpointing.
 """
 
 from __future__ import annotations

@@ -5,14 +5,22 @@ from uwudiff_tpu_torch.ops.attention import (
     attention_reference,
     dot_product_attention,
 )
-from uwudiff_tpu_torch.ops.flash_attention import flash_attention, flash_fwd
+from uwudiff_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_bwd_dkv,
+    flash_bwd_dq,
+    flash_fwd,
+)
 from uwudiff_tpu_torch.ops.groupnorm_silu import (
+    gn_bwd_dx,
+    gn_bwd_partials,
     gn_silu_apply,
     gn_stats,
     group_norm_silu,
 )
 
 __all__ = [
+    "FORWARD_KERNELS",
     "KERNELS",
     "attention_bias_from_mask",
     "attention_reference",
@@ -27,7 +35,16 @@ __all__ = [
 
 # every wrapper that launches a hand-written kernel; each keeps a plain
 # integer ``launches`` that it raises by one per launch
-KERNELS = {"flash_fwd": flash_fwd, "gn_stats": gn_stats, "gn_silu_apply": gn_silu_apply}
+KERNELS = {
+    "flash_fwd": flash_fwd,
+    "flash_bwd_dq": flash_bwd_dq,
+    "flash_bwd_dkv": flash_bwd_dkv,
+    "gn_stats": gn_stats,
+    "gn_silu_apply": gn_silu_apply,
+    "gn_bwd_partials": gn_bwd_partials,
+    "gn_bwd_dx": gn_bwd_dx,
+}
+FORWARD_KERNELS = ("flash_fwd", "gn_stats", "gn_silu_apply")  # what serving launches
 
 
 def launch_counts() -> dict[str, int]:

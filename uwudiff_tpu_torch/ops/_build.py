@@ -5,7 +5,8 @@ shared library with a plain C interface, loaded with ``ctypes``. Builds
 run at first use, one ``nvcc`` per source, all started together, into
 ``csrc/build/`` (git-ignored); a library is named by a hash of its
 source and flags, so an edited source rebuilds and an unchanged one is
-reused. Nothing here runs at import time.
+reused; the shared headers (``csrc/*.cuh``) enter every hash. Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ __all__ = ["SOURCES", "build_all", "library"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = _CSRC / "build"
-SOURCES = ("flash_fwd.cu", "groupnorm_silu.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "groupnorm_silu.cu")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -44,9 +45,10 @@ def _nvcc() -> str:
 
 
 def _target(source: str) -> Path:
-    digest = hashlib.sha256(
-        (_CSRC / source).read_bytes() + " ".join(_FLAGS).encode()
-    ).hexdigest()[:16]
+    h = hashlib.sha256((_CSRC / source).read_bytes() + " ".join(_FLAGS).encode())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return _BUILD_DIR / f"{Path(source).stem}_{digest}.so"
 
 

@@ -4,11 +4,14 @@
 and returns ``[B, Sq, H, D]``, as ``uwudiff_tpu/ops/attention.py`` does.
 
 The gate is the port's own: on CUDA every call with a head dim up to
-:data:`FLASH_MAX_HEAD_DIM` goes to the flash kernel, whatever Sq and Sk
+:data:`FLASH_MAX_HEAD_DIM` goes to the flash kernels, whatever Sq and Sk
 are; that covers UNet self-attention, cross-attention over the 77 text
-keys and CLIP's causal 77x77 attention with its full bias. A head dim in
-that range that the kernel was not built for
-(:data:`~uwudiff_tpu_torch.ops.flash_attention.HEAD_DIMS`) raises there.
+keys and CLIP's causal 77x77 attention with its full bias. The call goes
+through the autograd function, so a backward pass runs the flash
+backward kernels; without gradients it is the forward kernel alone. A
+head dim in that range that a kernel was not built for
+(:data:`~uwudiff_tpu_torch.ops.flash_attention.HEAD_DIMS`, and
+``BWD_HEAD_DIMS`` for the backward) raises there.
 The TPU's ``Sq >= 128``/``Sk >= 128`` thresholds were launch-cost
 verdicts measured on the TPU and are not carried over. The einsum
 (:func:`attention_reference`, fp32 softmax) serves CPU tensors and the
@@ -21,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from uwudiff_tpu_torch.ops.flash_attention import flash_fwd
+from uwudiff_tpu_torch.ops.flash_attention import flash_attention
 
 __all__ = [
     "FLASH_MAX_HEAD_DIM",
@@ -58,5 +61,5 @@ def dot_product_attention(q, k, v, bias=None, scale=None):
     """Scaled dot-product attention over ``[B, S, H, D]`` tensors; ``bias``
     is additive and broadcastable to ``[B, H, Sq, Sk]``."""
     if q.is_cuda and q.shape[-1] <= FLASH_MAX_HEAD_DIM:
-        return flash_fwd(q, k, v, bias, scale)[0]
+        return flash_attention(q, k, v, bias, scale)
     return attention_reference(q, k, v, bias=bias, scale=scale)

@@ -1,19 +1,26 @@
-"""Flash-attention forward: the hand-written CUDA kernel and its plain version.
+"""Flash attention: the hand-written CUDA kernels and their plain versions.
 
-Replaces ``uwudiff_tpu/ops/flash_attention.py::_fwd_kernel`` (the TPU's
-online-softmax forward). The kernel is ``csrc/flash_fwd.cu``; its source
-note says what bounds it on an H100 and how the design answers that.
+Replaces ``uwudiff_tpu/ops/flash_attention.py``: the TPU's online-softmax
+forward ``_fwd_kernel`` (``csrc/flash_fwd.cu``) and its backward pair
+``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` (``csrc/flash_bwd.cu``). Each
+source note says what bounds the kernel on an H100 and how the design
+answers that.
 
 Contract (the JAX function's): ``q`` ``[B, Sq, H, D]``, ``k``/``v``
 ``[B, Sk, H, D]``, out ``[B, Sq, H, D]`` in the input dtype and, on
 request, the natural-log row logsumexp ``[B, H, Sq]`` in fp32. The bias
 is none, a key bias broadcastable to ``[B, 1, 1, Sk]`` or a full bias
 broadcastable to ``[B, H, Sq, Sk]``; it is clamped at ``-1e30`` so that
-a bias holding ``-inf`` (CLIP adds ``finfo.min`` twice) gives no NaN.
+a bias holding ``-inf`` (CLIP adds ``finfo.min`` twice) gives no NaN. The
+bias is a constant: it gets no gradient (the JAX function's
+``bias_grad=False``; the dBias kernel is not ported).
 
-:func:`flash_fwd` launches the kernel and takes CUDA tensors only;
-:func:`flash_attention_reference` is the plain PyTorch version;
-:func:`flash_attention` picks between them by the tensors' device.
+:func:`flash_fwd`, :func:`flash_bwd_dq` and :func:`flash_bwd_dkv` launch
+the kernels and take CUDA tensors only; :func:`flash_attention_reference`
+and :func:`flash_attention_backward_reference` are the plain PyTorch
+versions; :class:`FlashAttentionFunction` is the autograd function (K1
+forward, K4 + K6 backward) and picks between kernels and plain versions
+by the tensors' device.
 """
 
 from __future__ import annotations
@@ -23,34 +30,40 @@ import ctypes
 import torch
 
 __all__ = [
+    "BWD_HEAD_DIMS",
+    "FlashAttentionFunction",
     "HEAD_DIMS",
     "NEG_INF",
     "flash_attention",
+    "flash_attention_backward_reference",
     "flash_attention_reference",
+    "flash_bwd",
+    "flash_bwd_dkv",
+    "flash_bwd_dq",
     "flash_fwd",
 ]
 
 NEG_INF = -1e30
-HEAD_DIMS = (40, 64, 80, 160)  # the kernel's instantiations (SDXL 64; SD1.5 40/80/160)
+HEAD_DIMS = (40, 64, 80, 160)  # the forward's instantiations (SDXL 64; SD1.5 40/80/160)
+BWD_HEAD_DIMS = (40, 64, 80)  # the backward's; 160's dK+dV accumulators do not fit registers
 
-_SOURCE = "flash_fwd.cu"
-_fn = None
+_fns: dict = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(source, name, n_ptrs):
+    fn = _fns.get(name)
+    if fn is None:
         from uwudiff_tpu_torch.ops._build import library
 
-        fn = library(_SOURCE).uwu_flash_fwd
+        fn = getattr(library(source), name)
         fn.restype = ctypes.c_int
         fn.argtypes = (
-            [ctypes.c_void_p] * 6
+            [ctypes.c_void_p] * n_ptrs
             + [ctypes.c_int] * 6
             + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
         )
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def _split_bias(bias, b, h, sq, sk):
@@ -68,66 +81,104 @@ def _split_bias(bias, b, h, sq, sk):
     return 2, full.reshape(b * h, sq, sk).contiguous()
 
 
-def flash_attention_reference(q, k, v, bias=None, scale=None):
-    """Plain version: fp32 logits, exact softmax. Returns (out, lse)."""
-    d = q.shape[-1]
-    scale = scale if scale is not None else d**-0.5
+def _logits(q, k, bias, scale):
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if bias is not None:
         logits = logits + bias.float().clamp_min(NEG_INF)
+    return logits
+
+
+def flash_attention_reference(q, k, v, bias=None, scale=None):
+    """Plain version: fp32 logits, exact softmax. Returns (out, lse)."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    logits = _logits(q, k, bias, scale)
     lse = torch.logsumexp(logits, dim=-1)
     p = torch.exp(logits - lse[..., None])
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
     return out, lse
 
 
-def _check(q, k, v):
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def flash_attention_backward_reference(q, k, v, bias, out, lse, dout, scale=None):
+    """Plain version of the backward pair, in fp32: P recomputed from the
+    forward's ``lse``, ``delta = rowsum(dO * O)``, ``dS = P (dP - delta)``.
+    Returns (dq, dk, dv) in the inputs' dtype."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    p = torch.exp(_logits(q, k, bias, scale) - lse[..., None])  # [B, H, Sq, Sk]
+    do = dout.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v.float())
+    delta = (do * out.float()).sum(-1).transpose(1, 2)  # [B, H, Sq]
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check(who, head_dims, *tensors):
+    for name, t in tensors:
         if not t.is_cuda:
-            raise ValueError(f"flash_fwd: {name} is not a CUDA tensor")
+            raise ValueError(f"{who}: {name} is not a CUDA tensor")
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_fwd takes bf16, got {name}.dtype={t.dtype}")
+            raise TypeError(f"{who} takes bf16, got {name}.dtype={t.dtype}")
         if t.dim() != 4:
-            raise ValueError(f"flash_fwd: {name} must be [B, S, H, D]")
+            raise ValueError(f"{who}: {name} must be [B, S, H, D]")
         if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]):
             raise ValueError(
-                f"flash_fwd: {name} needs unit stride over D and strides that "
+                f"{who}: {name} needs unit stride over D and strides that "
                 f"are multiples of 8 elements, got {tuple(t.stride())}"
             )
         if t.data_ptr() % 16:
-            raise ValueError(f"flash_fwd: {name} is not 16-byte aligned")
+            raise ValueError(f"{who}: {name} is not 16-byte aligned")
+    (_, q), (_, k), (_, v) = tensors[:3]
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    if k.shape != (b, sk, h, d) or v.shape != (b, sk, h, d):
-        raise ValueError(f"flash_fwd: shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_fwd: head dim {d} not in {HEAD_DIMS}")
+    if k.shape != (b, sk, h, d) or v.shape != (b, sk, h, d) or any(
+        t.shape != q.shape for _, t in tensors[3:]
+    ):
+        shapes = " ".join(f"{n}{tuple(t.shape)}" for n, t in tensors)
+        raise ValueError(f"{who}: shapes {shapes}")
+    if d not in head_dims:
+        raise ValueError(f"{who}: head dim {d} not in {head_dims}")
     if b * h > 65535 or sq == 0 or sk == 0:
-        raise ValueError(f"flash_fwd: unsupported sizes B*H={b * h}, Sq={sq}, Sk={sk}")
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash_fwd: q, k, v on different devices")
+        raise ValueError(f"{who}: unsupported sizes B*H={b * h}, Sq={sq}, Sk={sk}")
+    if any(t.device != q.device for _, t in tensors):
+        raise ValueError(f"{who}: inputs on different devices")
+
+
+def _bias_arg(who, bias, q, k):
+    b, sq, h, _ = q.shape
+    mode, bias_t = _split_bias(bias, b, h, sq, k.shape[1])
+    if bias_t is not None and bias_t.device != q.device:
+        raise ValueError(f"{who}: bias on another device than q")
+    return mode, bias_t
+
+
+def _strides(*tensors):
+    return (ctypes.c_longlong * (3 * len(tensors)))(*(s for t in tensors for s in t.stride()[:3]))
+
+
+def _stats_arg(who, t, q):
+    b, sq, h, _ = q.shape
+    if t.dtype != torch.float32 or t.shape != (b, h, sq) or not t.is_contiguous() or t.device != q.device:
+        raise ValueError(f"{who}: lse/delta must be contiguous fp32 [B, H, Sq] on q's device")
+    return t
 
 
 def flash_fwd(q, k, v, bias=None, scale=None):
-    """Launch the CUDA kernel. Returns (out [B, Sq, H, D], lse [B, H, Sq])."""
-    _check(q, k, v)
+    """Launch the forward kernel (K1). Returns (out [B, Sq, H, D], lse [B, H, Sq])."""
+    _check("flash_fwd", HEAD_DIMS, ("q", q), ("k", k), ("v", v))
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = scale if scale is not None else d**-0.5
-    mode, bias_t = _split_bias(bias, b, h, sq, sk)
-    if bias_t is not None and bias_t.device != q.device:
-        raise ValueError("flash_fwd: bias on another device than q")
+    mode, bias_t = _bias_arg("flash_fwd", bias, q, k)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 9)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3]
-    )
-    rc = _kernel()(
+    rc = _kernel("flash_fwd.cu", "uwu_flash_fwd", 6)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias_t.data_ptr() if bias_t is not None else None,
         out.data_ptr(), lse.data_ptr(),
         b, h, sq, sk, d, mode,
-        ctypes.cast(strides, ctypes.c_void_p), float(scale),
+        ctypes.cast(_strides(q, k, v), ctypes.c_void_p), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
@@ -139,12 +190,105 @@ def flash_fwd(q, k, v, bias=None, scale=None):
 flash_fwd.launches = 0
 
 
-def flash_attention(q, k, v, bias=None, scale=None, return_lse=False):
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+def flash_bwd_dq(q, k, v, dout, lse, delta, bias=None, scale=None):
+    """Launch the dQ kernel (K4): ``dq`` [B, Sq, H, D] from the forward's
+    ``lse`` and ``delta = rowsum(dO * O)``, both fp32 [B, H, Sq]."""
+    _check("flash_bwd_dq", BWD_HEAD_DIMS, ("q", q), ("k", k), ("v", v), ("dout", dout))
+    b, sq, h, d = q.shape
+    scale = scale if scale is not None else d**-0.5
+    mode, bias_t = _bias_arg("flash_bwd_dq", bias, q, k)
+    lse, delta = _stats_arg("flash_bwd_dq", lse, q), _stats_arg("flash_bwd_dq", delta, q)
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    rc = _kernel("flash_bwd.cu", "uwu_flash_bwd_dq", 8)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        bias_t.data_ptr() if bias_t is not None else None,
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        b, h, sq, k.shape[1], d, mode,
+        ctypes.cast(_strides(q, k, v, dout), ctypes.c_void_p), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dq launch failed: cudaError {rc}")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, bias=None, scale=None):
+    """Launch the dK/dV kernel (K6). Returns (dk, dv), each [B, Sk, H, D]."""
+    _check("flash_bwd_dkv", BWD_HEAD_DIMS, ("q", q), ("k", k), ("v", v), ("dout", dout))
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = scale if scale is not None else d**-0.5
+    mode, bias_t = _bias_arg("flash_bwd_dkv", bias, q, k)
+    lse, delta = _stats_arg("flash_bwd_dkv", lse, q), _stats_arg("flash_bwd_dkv", delta, q)
+    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
+    fn = _kernel("flash_bwd.cu", "uwu_flash_bwd_dkv", 9)
+    rc = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        bias_t.data_ptr() if bias_t is not None else None,
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, sq, sk, d, mode,
+        ctypes.cast(_strides(q, k, v, dout), ctypes.c_void_p), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dkv launch failed: cudaError {rc}")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_bwd(q, k, v, bias, out, lse, dout, scale=None):
+    """The backward pair on CUDA tensors: ``delta = rowsum(dO * O)`` (PyTorch),
+    then K4 and K6. Returns (dq, dk, dv)."""
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()  # [B, H, Sq]
+    dq = flash_bwd_dq(q, k, v, dout, lse, delta, bias, scale)
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, bias, scale)
+    return dq, dk, dv
+
+
+def _forward(q, k, v, bias, scale):
     if q.is_cuda:
-        out, lse = flash_fwd(q, k, v, bias, scale)
-    elif q.device.type == "cpu":
-        out, lse = flash_attention_reference(q, k, v, bias, scale)
+        return flash_fwd(q, k, v, bias, scale)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, bias, scale)
+    raise ValueError(f"flash attention: unsupported device {q.device}")
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Attention with the flash kernels on both sides: the forward (K1)
+    saves ``q, k, v, out, lse``; the backward recomputes P from the lse
+    (K4 + K6). CPU tensors take the plain versions. The bias gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias=None, scale=None):
+        out, lse = _forward(q, k, v, bias, scale)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        bwd = flash_bwd if q.is_cuda else flash_attention_backward_reference
+        dq, dk, dv = bwd(q, k, v, bias, out, lse, dout, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, bias=None, scale=None, return_lse=False):
+    """Differentiable flash attention: the kernels for CUDA tensors, the
+    plain versions for CPU tensors. Without gradients it is the forward
+    alone, outside autograd. The lse, if returned, is a constant."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        out, lse = FlashAttentionFunction.apply(q, k, v, bias, scale)
     else:
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+        out, lse = _forward(q, k, v, bias, scale)
     return (out, lse) if return_lse else out

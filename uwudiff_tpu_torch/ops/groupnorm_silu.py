@@ -1,21 +1,35 @@
-"""GroupNorm (+ SiLU): the hand-written CUDA kernel pair and its plain version.
+"""GroupNorm (+ SiLU): the hand-written CUDA kernels and their plain versions.
 
-Replaces ``uwudiff_tpu/ops/groupnorm_silu.py::_gn_silu_kernel`` and
-``::_gn_stats_kernel``. The TPU chose between a single-pass kernel and a
-chunked-stats kernel by VMEM size; on the H100 both map onto one pair in
-``csrc/groupnorm_silu.cu`` (its source note says what bounds it and how
-the design answers that):
+Replaces ``uwudiff_tpu/ops/groupnorm_silu.py``: the forward kernels
+``_gn_silu_kernel`` and ``_gn_stats_kernel`` and the backward kernels
+``_gn_bwd_partials_kernel`` and ``_gn_bwd_dx_kernel``, all in
+``csrc/groupnorm_silu.cu`` (its source note says what bounds them and how
+the design answers that). The TPU chose between a single-pass kernel and
+a chunked-stats kernel by VMEM size; on the H100 the forward is one pair:
 
 - :func:`gn_stats`: per-(n, group) statistics over ``[N, HW, C]`` ->
-  per-(n, channel) ``scale = inv*gamma`` and ``shift = beta - mean*scale``;
-- :func:`gn_silu_apply`: ``y = silu(x*scale + shift)`` elementwise.
+  per-(n, channel) ``scale = inv*gamma`` and ``shift = beta - mean*scale``
+  (and, for the backward, the per-group mean and inv);
+- :func:`gn_silu_apply`: ``y = silu(x*scale + shift)`` elementwise;
+
+and the backward a pair around PyTorch glue on ``[N, C]`` tensors:
+
+- :func:`gn_bwd_partials`: per-(n, channel) ``t1 = sum dz`` and
+  ``t2 = sum dz*xhat`` with ``dz = g*silu'(z)``;
+- :func:`gn_bwd_dx`: ``dx = scale*dz + P*x + Q``, the GN backward with its
+  two group means folded into ``P`` and ``Q``.
+
+:class:`GroupNormSiLUFunction` ties them together for autograd. It saves
+``x``, ``gamma`` and the forward's ``[N, C]``/``[N, G]`` fp32 statistics,
+never a full-size fp32 intermediate, so the TPU backward's pass A (stats
+recomputed) is not needed.
 
 Layout contract (the JAX function's): ``x`` is ``[N, H, W, C]`` or
 ``[N, S, C]``, channels last and contiguous; ``gamma``/``beta`` ``[C]``.
 The kernels run at any HW and any ``C % groups == 0``; the TPU's
 ``_chunk_for``/``_tile_fits_vmem`` gates were VMEM artifacts. ``silu=False``
 gives the plain GroupNorm that the transformer and VAE attention norms
-use, through the same kernels.
+use, through the same kernels (``dz = g``).
 """
 
 from __future__ import annotations
@@ -27,12 +41,17 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
-    "group_norm_silu",
-    "group_norm_silu_reference",
-    "gn_stats",
-    "gn_stats_reference",
+    "GroupNormSiLUFunction",
+    "gn_bwd_dx",
+    "gn_bwd_dx_reference",
+    "gn_bwd_partials",
+    "gn_bwd_partials_reference",
     "gn_silu_apply",
     "gn_silu_apply_reference",
+    "gn_stats",
+    "gn_stats_reference",
+    "group_norm_silu",
+    "group_norm_silu_reference",
 ]
 
 _SOURCE = "groupnorm_silu.cu"
@@ -50,10 +69,12 @@ def _kernel(name):
         fn.restype = ctypes.c_int
         if name == "uwu_gn_stats":
             fn.argtypes = (
-                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                 + [ctypes.c_float, ctypes.c_void_p]
             )
-        else:
+        elif name == "uwu_gn_bwd_partials":
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        else:  # uwu_gn_apply, uwu_gn_bwd_dx
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         _fns[name] = fn
     return fn
@@ -72,8 +93,9 @@ def group_norm_silu_reference(x, gamma, beta, groups: int, eps: float, silu: boo
     return y.reshape(x.shape).to(x.dtype)
 
 
-def gn_stats_reference(x3, gamma, beta, groups: int, eps: float):
-    """Plain version of :func:`gn_stats`: (scale, shift), fp32 [N, C]."""
+def gn_stats_reference(x3, gamma, beta, groups: int, eps: float, with_group_stats: bool = False):
+    """Plain version of :func:`gn_stats`: (scale, shift), fp32 [N, C], and
+    with ``with_group_stats`` also (mean, inv), fp32 [N, G]."""
     n, _, c = x3.shape
     xr = x3.reshape(n, -1, groups, c // groups).float()
     mean = xr.mean(dim=(1, 3))
@@ -81,13 +103,38 @@ def gn_stats_reference(x3, gamma, beta, groups: int, eps: float):
     gs = c // groups
     scale = inv.repeat_interleave(gs, dim=1) * gamma.float()
     shift = beta.float() - mean.repeat_interleave(gs, dim=1) * scale
-    return scale, shift
+    return (scale, shift, mean, inv) if with_group_stats else (scale, shift)
 
 
 def gn_silu_apply_reference(x3, scale, shift, silu: bool = True):
     """Plain version of :func:`gn_silu_apply`."""
     z = x3.float() * scale[:, None, :] + shift[:, None, :]
     return (F.silu(z) if silu else z).to(x3.dtype)
+
+
+def _silu_dz(x, g, scale, shift):
+    """dz of ``y = silu(z)``, ``z = x*scale + shift``, in fp32."""
+    z = x * scale + shift
+    sig = torch.sigmoid(z)
+    return g * sig * (1.0 + z * (1.0 - sig))
+
+
+def gn_bwd_partials_reference(x3, g3, coef, silu: bool = True):
+    """Plain version of :func:`gn_bwd_partials`: ``coef`` [N, 4, C] holds
+    (scale, shift, inv, -mean*inv); returns fp32 [N, 2, C] (t1, t2)."""
+    x, g = x3.float(), g3.float()
+    sc, sh, iv, nm = (coef[:, i, None, :] for i in range(4))
+    dz = _silu_dz(x, g, sc, sh) if silu else g
+    return torch.stack([dz.sum(1), (dz * (x * iv + nm)).sum(1)], dim=1)
+
+
+def gn_bwd_dx_reference(x3, g3, coef, silu: bool = True):
+    """Plain version of :func:`gn_bwd_dx`: ``coef`` [N, 4, C] holds
+    (scale, shift, P, Q); returns ``scale*dz + P*x + Q`` in x's dtype."""
+    x, g = x3.float(), g3.float()
+    sc, sh, p, q = (coef[:, i, None, :] for i in range(4))
+    dz = _silu_dz(x, g, sc, sh) if silu else g
+    return (sc * dz + (p * x + q)).to(x3.dtype)
 
 
 def _check_x3(x3, who):
@@ -105,9 +152,10 @@ def _check_x3(x3, who):
         raise ValueError(f"{who}: unsupported shape {tuple(x3.shape)} for {x3.dtype}")
 
 
-def gn_stats(x3, gamma, beta, groups: int, eps: float):
+def gn_stats(x3, gamma, beta, groups: int, eps: float, with_group_stats: bool = False):
     """Launch the stats kernels on ``x3`` [N, HW, C]. Returns fp32
-    (scale, shift) [N, C] with ``scale = inv*gamma``, ``shift = beta - mean*scale``."""
+    (scale, shift) [N, C] with ``scale = inv*gamma``, ``shift = beta - mean*scale``,
+    and with ``with_group_stats`` also (mean, inv), fp32 [N, G]."""
     _check_x3(x3, "gn_stats")
     n, hw, c = x3.shape
     if c % groups:
@@ -122,15 +170,18 @@ def gn_stats(x3, gamma, beta, groups: int, eps: float):
     partial = torch.empty((n, n_chunks, 2, c), dtype=torch.float32, device=x3.device)
     scale = torch.empty((n, c), dtype=torch.float32, device=x3.device)
     shift = torch.empty((n, c), dtype=torch.float32, device=x3.device)
+    stats = (torch.empty((n, 2, groups), dtype=torch.float32, device=x3.device)
+             if with_group_stats else None)
     rc = _kernel("uwu_gn_stats")(
         x3.data_ptr(), gamma.data_ptr(), beta.data_ptr(), partial.data_ptr(),
-        scale.data_ptr(), shift.data_ptr(), _DTYPES[x3.dtype], n, hw, c, groups,
+        scale.data_ptr(), shift.data_ptr(), stats.data_ptr() if stats is not None else None,
+        _DTYPES[x3.dtype], n, hw, c, groups,
         n_chunks, float(eps), torch.cuda.current_stream(x3.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"gn_stats launch failed: cudaError {rc}")
     gn_stats.launches += 1
-    return scale, shift
+    return (scale, shift, stats[:, 0], stats[:, 1]) if with_group_stats else (scale, shift)
 
 
 gn_stats.launches = 0
@@ -159,18 +210,142 @@ def gn_silu_apply(x3, scale, shift, silu: bool = True):
 gn_silu_apply.launches = 0
 
 
-def group_norm_silu(x, gamma, beta, groups: int = 32, eps: float = 1e-5, silu: bool = True):
-    """GroupNorm(+SiLU) over a channels-last ``x``: the kernel pair for a
-    CUDA tensor (which must be contiguous: no silent copy), the plain
-    version for a CPU tensor."""
+def _check_coef(coef, x3, who):
+    n, _, c = x3.shape
+    if (coef.dtype != torch.float32 or coef.shape != (n, 4, c) or not coef.is_contiguous()
+            or coef.device != x3.device or coef.data_ptr() % 16):
+        raise ValueError(f"{who}: coef must be a contiguous, aligned fp32 [N, 4, C] on x's device")
+
+
+def _check_g3(g3, x3, who):
+    _check_x3(g3, who)
+    if g3.shape != x3.shape or g3.dtype != x3.dtype or g3.device != x3.device:
+        raise ValueError(f"{who}: g {tuple(g3.shape)} {g3.dtype} does not match x "
+                         f"{tuple(x3.shape)} {x3.dtype}")
+
+
+def gn_bwd_partials(x3, g3, coef, silu: bool = True):
+    """Launch the backward partials kernels (K7) on ``x3``, ``g3`` [N, HW, C]
+    with ``coef`` [N, 4, C] = (scale, shift, inv, -mean*inv). Returns fp32
+    [N, 2, C]: ``t1 = sum_hw dz``, ``t2 = sum_hw dz*xhat``."""
+    _check_x3(x3, "gn_bwd_partials")
+    _check_g3(g3, x3, "gn_bwd_partials")
+    _check_coef(coef, x3, "gn_bwd_partials")
+    n, hw, c = x3.shape
+    # >= 8 rows per chunk keeps the partials a fraction of x's and g's bytes;
+    # ~512 (n, chunk) blocks fill the SMs at N = 8 and HW = 256 (32 chunks)
+    n_chunks = max(1, min(math.ceil(hw / 8), math.ceil(512 / n)))
+    partial = torch.empty((n, n_chunks, 2, c), dtype=torch.float32, device=x3.device)
+    out = torch.empty((n, 2, c), dtype=torch.float32, device=x3.device)
+    rc = _kernel("uwu_gn_bwd_partials")(
+        x3.data_ptr(), g3.data_ptr(), coef.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        _DTYPES[x3.dtype], n, hw, c, n_chunks, int(silu),
+        torch.cuda.current_stream(x3.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"gn_bwd_partials launch failed: cudaError {rc}")
+    gn_bwd_partials.launches += 1
+    return out
+
+
+gn_bwd_partials.launches = 0
+
+
+def gn_bwd_dx(x3, g3, coef, silu: bool = True):
+    """Launch the dx kernel (K8): ``dx = scale*dz + P*x + Q`` over
+    ``x3``, ``g3`` [N, HW, C] with ``coef`` [N, 4, C] = (scale, shift, P, Q)."""
+    _check_x3(x3, "gn_bwd_dx")
+    _check_g3(g3, x3, "gn_bwd_dx")
+    _check_coef(coef, x3, "gn_bwd_dx")
+    n, hw, c = x3.shape
+    dx = torch.empty_like(x3)
+    rc = _kernel("uwu_gn_bwd_dx")(
+        x3.data_ptr(), g3.data_ptr(), coef.data_ptr(), dx.data_ptr(),
+        _DTYPES[x3.dtype], n, hw, c, int(silu),
+        torch.cuda.current_stream(x3.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"gn_bwd_dx launch failed: cudaError {rc}")
+    gn_bwd_dx.launches += 1
+    return dx
+
+
+gn_bwd_dx.launches = 0
+
+
+def _gn_backward(x3, g3, gamma, scale, shift, mean, inv, silu):
+    """dx, dgamma, dbeta of GroupNorm(+SiLU) from the forward's statistics:
+    K7, the group means of the GN backward on [N, C] tensors, K8."""
+    n, hw, c = x3.shape
+    groups = mean.shape[1]
+    gs = c // groups
+    inv_c = inv.repeat_interleave(gs, dim=1)
+    nmi_c = (-mean * inv).repeat_interleave(gs, dim=1)  # xhat = x*inv_c + nmi_c
+    coef = torch.stack([scale, shift, inv_c, nmi_c], dim=1)
+    t = gn_bwd_partials(x3, g3, coef, silu) if x3.is_cuda else gn_bwd_partials_reference(x3, g3, coef, silu)
+    t1, t2 = t[:, 0], t[:, 1]
+    # the two group means of the GN backward, a = mean(gamma*dz), b = mean(gamma*dz*xhat):
+    # dx = inv*(gamma*dz - a - xhat*b) = scale*dz + P*x + Q
+    g32 = gamma.float()
+    a_c = (g32 * t1).view(n, groups, gs).sum(-1).repeat_interleave(gs, dim=1) / (hw * gs)
+    b_c = (g32 * t2).view(n, groups, gs).sum(-1).repeat_interleave(gs, dim=1) / (hw * gs)
+    p = -inv_c * inv_c * b_c
+    q = -inv_c * (a_c + b_c * nmi_c)
+    coef = torch.stack([scale, shift, p, q], dim=1)
+    dx = gn_bwd_dx(x3, g3, coef, silu) if x3.is_cuda else gn_bwd_dx_reference(x3, g3, coef, silu)
+    return dx, t2.sum(0), t1.sum(0)
+
+
+def _forward(x, gamma, beta, groups, eps, silu, with_group_stats):
+    """(y, stats): the kernel pair for a CUDA ``x``, the plain version for a
+    CPU one; ``stats`` is gn_stats's (with ``with_group_stats``)."""
+    x3 = x.reshape(x.shape[0], -1, x.shape[-1])  # a view: CUDA x is contiguous
     if x.is_cuda:
-        if not x.is_contiguous():
-            raise ValueError(
-                f"group_norm_silu: x {tuple(x.shape)} is not a contiguous channels-last view"
-            )
-        x3 = x.view(x.shape[0], -1, x.shape[-1])
-        scale, shift = gn_stats(x3, gamma, beta, groups, eps)
-        return gn_silu_apply(x3, scale, shift, silu).view(x.shape)
-    if x.device.type == "cpu":
-        return group_norm_silu_reference(x, gamma, beta, groups, eps, silu)
-    raise ValueError(f"group_norm_silu: unsupported device {x.device}")
+        stats = gn_stats(x3, gamma, beta, groups, eps, with_group_stats)
+        return gn_silu_apply(x3, stats[0], stats[1], silu).view(x.shape), stats
+    y = group_norm_silu_reference(x, gamma, beta, groups, eps, silu)
+    return y, (gn_stats_reference(x3, gamma, beta, groups, eps, with_group_stats) if with_group_stats else ())
+
+
+class GroupNormSiLUFunction(torch.autograd.Function):
+    """GroupNorm(+SiLU) over a contiguous channels-last ``x`` with the
+    kernels on both sides (CPU tensors take the plain versions).
+
+    The incoming gradient must be channels-last too; one that is not is
+    copied with ``.contiguous()``, and :attr:`grad_layout_copies` counts
+    those copies so that a run can see them."""
+
+    grad_layout_copies = 0
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, groups, eps, silu):
+        y, stats = _forward(x, gamma, beta, groups, eps, silu, with_group_stats=True)
+        ctx.save_for_backward(x, gamma, *stats)
+        ctx.silu, ctx.beta_dtype = silu, beta.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, scale, shift, mean, inv = ctx.saved_tensors
+        if not g.is_contiguous():
+            g = g.contiguous()
+            GroupNormSiLUFunction.grad_layout_copies += 1
+        x3 = x.reshape(x.shape[0], -1, x.shape[-1])
+        dx, dgamma, dbeta = _gn_backward(x3, g.view(x3.shape), gamma, scale, shift, mean, inv, ctx.silu)
+        return dx.view(x.shape), dgamma.to(gamma.dtype), dbeta.to(ctx.beta_dtype), None, None, None
+
+
+def group_norm_silu(x, gamma, beta, groups: int = 32, eps: float = 1e-5, silu: bool = True):
+    """Differentiable GroupNorm(+SiLU) over a channels-last ``x``: the
+    kernels for a CUDA tensor (which must be contiguous: no silent copy),
+    the plain versions for a CPU tensor. Without gradients it is the
+    forward pair alone, outside autograd."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"group_norm_silu: unsupported device {x.device}")
+    if x.is_cuda and not x.is_contiguous():
+        raise ValueError(
+            f"group_norm_silu: x {tuple(x.shape)} is not a contiguous channels-last view"
+        )
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad or beta.requires_grad):
+        return GroupNormSiLUFunction.apply(x, gamma, beta, groups, eps, silu)
+    return _forward(x, gamma, beta, groups, eps, silu, with_group_stats=False)[0]

@@ -1,14 +1,19 @@
-"""Device-time breakdown of SDXL serving on one GPU.
+"""Device-time breakdown of SDXL serving, or of one SDXL training step, on one GPU.
 
     python -m uwudiff_tpu_torch.profile_serving [--batch 4] [--steps 4]
+    python -m uwudiff_tpu_torch.profile_serving --train [--batch 8]
 
-Builds the SDXL serving stack at full width with random weights
+Serving: builds the SDXL serving stack at full width with random weights
 (``serving.sdxl_pipeline``), warms it up, then traces one request batch
-(1024x1024, CFG 5) with ``torch.profiler`` and reports the device time by
-kernel family, the device's busy share of the traced window, and the
-slowest kernels. The profiler's host overhead lengthens the window, so
-the busy share is a lower bound. Writes the tables to
-``chiprun_out/profile_serving.json`` beside the checkout's root.
+(1024x1024, CFG 5) with ``torch.profiler``. ``--train``: builds the SDXL
+full fine-tune step of ``training/bench_setup.py`` (64x64 latents, bf16
+params, ``adamw_factored``), runs two warm-up steps, then traces one
+step. Either way it reports the device time by kernel family (the
+backward kernels as families of their own), the device's busy share of
+the traced window, and the slowest kernels. The profiler's host overhead
+lengthens the window, so the busy share is a lower bound. Writes the
+tables to ``chiprun_out/profile_serving.json`` (``profile_train.json``
+with ``--train``) beside the checkout's root.
 """
 
 from __future__ import annotations
@@ -23,6 +28,9 @@ import torch
 # kernel-name fragments -> family, first match wins
 _FAMILIES = (
     ("flash_fwd (K1)", ("flash_fwd_kernel",)),
+    ("flash_bwd_dq (K4)", ("flash_bwd_dq_kernel",)),
+    ("flash_bwd_dkv (K6)", ("flash_bwd_dkv_kernel",)),
+    ("groupnorm bwd (K7/K8)", ("gn_bwd_partial_kernel", "gn_bwd_merge_kernel", "gn_bwd_dx_kernel")),
     ("groupnorm (K2/K3)", ("gn_partial_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
     ("attention einsum/softmax", ("softmax",)),
     ("convolution", ("conv", "implicit", "dgrad", "wgrad", "fprop", "nchw", "nhwc")),
@@ -43,24 +51,36 @@ def _family(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=None, help="requests (serving, 4) or images (--train, 8)")
+    ap.add_argument("--steps", type=int, default=4, help="sampler steps (serving)")
+    ap.add_argument("--train", action="store_true", help="trace one SDXL training step")
     args = ap.parse_args()
 
     from torch.profiler import ProfilerActivity, profile
 
-    from uwudiff_tpu_torch.serving import sdxl_pipeline
+    if args.train:
+        from uwudiff_tpu_torch.training.bench_setup import build_trainer_and_batch
 
-    pipe = sdxl_pipeline("cuda")
-    kw = dict(prompt=["a red fox in snow"] * args.batch, num_steps=args.steps,
-              num_samples=args.batch, cfg_scale=5.0, width=1024, height=1024,
-              seed=list(range(args.batch)))
-    for _ in range(2):
-        pipe.sample_device(**kw)
+        batch = args.batch or 8
+        trainer, data = build_trainer_and_batch(batch=batch)
+        run = lambda: trainer.train_step(data)  # noqa: E731
+        out_name = "profile_train.json"
+    else:
+        from uwudiff_tpu_torch.serving import sdxl_pipeline
+
+        batch = args.batch or 4
+        pipe = sdxl_pipeline("cuda")
+        kw = dict(prompt=["a red fox in snow"] * batch, num_steps=args.steps,
+                  num_samples=batch, cfg_scale=5.0, width=1024, height=1024,
+                  seed=list(range(batch)))
+        run = lambda: pipe.sample_device(**kw)  # noqa: E731
+        out_name = "profile_serving.json"
+    for _ in range(2):  # warm-up
+        run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.sample_device(**kw)
+        run()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
 
@@ -78,8 +98,8 @@ def main() -> int:
         f[0] += t
         f[1] += n
     report = {
-        "card": torch.cuda.get_device_name(0),
-        "batch": args.batch, "steps": args.steps, "window_ms": window_ms,
+        "card": torch.cuda.get_device_name(0), "mode": "train" if args.train else "serve",
+        "batch": batch, "steps": None if args.train else args.steps, "window_ms": window_ms,
         "device_busy_ms": busy_ms, "device_busy_share": busy_ms / window_ms,
         "families": {f: {"ms": t, "launches": n, "share_of_busy": t / busy_ms}
                      for f, (t, n) in sorted(families.items(), key=lambda kv: -kv[1][0])},
@@ -94,7 +114,7 @@ def main() -> int:
         print(f"  {k['ms']:9.2f} ms x{k['launches']:<5d} {k['name'][:100]}")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(root, "chiprun_out", "profile_serving.json"), "w") as f:
+    with open(os.path.join(root, "chiprun_out", out_name), "w") as f:
         json.dump(report, f, indent=1)
     return 0
 
