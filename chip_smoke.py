@@ -6,14 +6,16 @@
 Phases, each fatal on failure:
   1. build   - compile every hand-written kernel (csrc/*.cu, nvcc, sm_90a)
   2. kernels - each kernel against its plain PyTorch version on the card,
-               in bf16: the forward kernels at the serving path's shapes,
-               the backward kernels at the training path's (and twice, for
-               bitwise reproducibility); median ms of the kernel, the plain
-               version and one library call, and the card's lower bound for
-               the same work. Then small SDXL-shaped models, bf16 on the
-               card through the kernels, against the same weights in fp32
-               on the CPU: forwards, and one training step's loss and
-               gradients
+               in bf16: the forward and backward kernels at the serving,
+               training and textual-inversion paths' shapes (CLIP-L/bigG,
+               T5-XXL, the MMDiT's joint attention), the backward twice for
+               bitwise reproducibility, the dQ + dBias kernel at T5-XXL's;
+               median ms of the kernel, the plain version and one library
+               call, and the card's lower bound for the same work. Then
+               small SDXL- and SD3-shaped models, bf16 on the card through
+               the kernels, against the same weights in fp32 on the CPU:
+               forwards, one SDXL training step's loss and gradients, and
+               one textual-inversion step's loss and row gradients
   3. serve   - SDXL at full width (random weights from a fixed seed, bf16):
                BatchingServer -> clip_l + clip_bigg -> CFG 5.0
                Euler-ancestral UNet -> VAE decode, 1024x1024 requests: a
@@ -27,6 +29,15 @@ Phases, each fatal on failure:
                grad norms, that every parameter took an update, and that
                each step launched every kernel exactly as often as the
                UNet's plan says.
+  5. ti      - SD3-medium textual inversion at full width
+               (training/bench_setup.py: MMDiT + CLIP-L + CLIP-bigG +
+               T5-XXL at 256 tokens, batch 8, 64x64x16 latents, bf16
+               frozen weights, two placeholder vectors per encoder): one
+               warm-up step and 5 timed steps. Checks finite losses,
+               non-zero grad norms, that every row table moved, that no
+               frozen leaf changed (per-leaf fp64 checksums) and each
+               step's launches against the plan from the modules (K5 once
+               per T5 layer).
 Prints the card's name and power limit, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA is
 unavailable or the package is missing. A full report goes to
@@ -80,6 +91,32 @@ def time_ms(fn, reps=20, warmup=2, runs=3):
     return times[len(times) // 2]
 
 
+def profiled_ms(fn, family, reps=10):
+    """Device time of one call from torch.profiler over ``reps`` calls:
+    (the kernels of ``family``, as profile_serving names them; every other
+    kernel or copy the call puts on the device)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from uwudiff_tpu_torch.profile_serving import _family
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    mine = other = 0.0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            if _family(ev.name) == family:
+                mine += ev.time_range.elapsed_us() / 1e3
+            else:
+                other += ev.time_range.elapsed_us() / 1e3
+    if mine == 0.0:
+        raise RuntimeError(f"the profiler saw no {family} kernel")
+    return mine / reps, other / reps
+
+
 def bound(nbytes, flops, peak_flops):
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -88,34 +125,55 @@ def bound(nbytes, flops, peak_flops):
 # ---------------------------------------------------------------- kernels
 
 
+# the textual-inversion path's attentions: CLIP-L/bigG causal over 77
+# tokens, T5-XXL over 256 (scale 1.0, learned bias), the MMDiT's joint
+# attention over 77 + 256 text and 1024 image tokens with the text mask
+TI_CONTEXT = (77, 256)
+
+
 def flash_cases():
-    # (name, B, Sq, Sk, H, D, bias kind)
+    # (name, B, Sq, Sk, H, D, bias kind, scale; None is 1/sqrt(D))
     return [
-        ("sdxl_l1_self", 8, 4096, 4096, 10, 64, "none"),
-        ("sdxl_l2_self", 8, 1024, 1024, 20, 64, "none"),
-        ("sdxl_l1_cross", 8, 4096, 77, 10, 64, "none"),
-        ("sdxl_l2_cross", 8, 1024, 77, 20, 64, "none"),
-        ("clip_bigg_causal", 8, 77, 77, 20, 64, "full"),
-        ("ragged_keymask", 2, 200, 200, 4, 64, "key"),
-        ("sd15_d40", 4, 4096, 4096, 8, 40, "none"),
-        ("sd15_d80", 4, 1024, 1024, 8, 80, "none"),
-        ("sd15_d160", 4, 256, 256, 8, 160, "none"),
+        ("sdxl_l1_self", 8, 4096, 4096, 10, 64, "none", None),
+        ("sdxl_l2_self", 8, 1024, 1024, 20, 64, "none", None),
+        ("sdxl_l1_cross", 8, 4096, 77, 10, 64, "none", None),
+        ("sdxl_l2_cross", 8, 1024, 77, 20, 64, "none", None),
+        ("clip_bigg_causal", 8, 77, 77, 20, 64, "full", None),
+        ("clip_l_causal", 8, 77, 77, 12, 64, "full", None),
+        ("t5_xxl", 8, 256, 256, 64, 64, "t5", 1.0),
+        ("mmdit_joint", 8, 1357, 1357, 24, 64, "joint", None),
+        ("ragged_keymask", 2, 200, 200, 4, 64, "key", None),
+        ("sd15_d40", 4, 4096, 4096, 8, 40, "none", None),
+        ("sd15_d80", 4, 1024, 1024, 8, 80, "none", None),
+        ("sd15_d160", 4, 256, 256, 8, 160, "none", None),
     ]
 
 
-def make_bias(kind, b, h, sq, sk, dev):
+def make_bias(kind, b, h, sq, sk, dev, gen):
     if kind == "none":
         return None
+    if kind == "t5":
+        return t5_bias(b, h, sq, dev, gen)
     neg = torch.finfo(torch.float32).min
     if kind == "key":
         mask = torch.ones(b, sk, device=dev)
         mask[:, sk - 37:] = 0
         return torch.where(mask.bool(), 0.0, neg)[:, None, None, :]
+    if kind == "joint":  # [CLIP pair's 77 | T5's 256 | image]: each prompt's T5 tokens padded after its length
+        keys = torch.arange(sk, device=dev)[None, :]
+        t5_len = (torch.arange(b, device=dev) * 53) % TI_CONTEXT[1] + 7
+        masked = (keys >= TI_CONTEXT[0] + t5_len[:, None]) & (keys < sum(TI_CONTEXT))
+        return torch.where(masked, neg, 0.0)[:, None, None, :]
     # CLIP: causal + padding, finfo.min added twice -> -inf
     causal = torch.ones(sq, sk, dtype=torch.bool, device=dev).tril()
     lengths = (torch.arange(b, device=dev) * 37) % sk + 1  # tokens kept per prompt
     pad = torch.arange(sk, device=dev)[None, :] < lengths[:, None]
     return torch.where(causal, 0.0, neg)[None, None] + torch.where(pad, 0.0, neg)[:, None, None, :]
+
+
+def bias_bytes(kind, b, h, sq, sk):
+    """fp32 bias bytes a kernel reads once: [B, Sk] or [B*H, Sq, Sk]."""
+    return {"none": 0, "key": 4 * b * sk, "joint": 4 * b * sk}.get(kind, 4 * b * h * sq * sk)
 
 
 def check_flash(results, failures):
@@ -126,15 +184,15 @@ def check_flash(results, failures):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    for name, b, sq, sk, h, d, kind in flash_cases():
+    for name, b, sq, sk, h, d, kind, scale in flash_cases():
         q, k, v = (
             torch.randn((b, s, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
             for s in (sq, sk, sk)
         )
-        bias = make_bias(kind, b, h, sq, sk, dev)
-        out, lse = flash_fwd(q, k, v, bias)
+        bias = make_bias(kind, b, h, sq, sk, dev, gen)
+        out, lse = flash_fwd(q, k, v, bias, scale)
         torch.cuda.synchronize()
-        ref, ref_lse = flash_attention_reference(q, k, v, bias)
+        ref, ref_lse = flash_attention_reference(q, k, v, bias, scale)
         err = (out.float() - ref.float()).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
         finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(lse).all())
@@ -148,19 +206,15 @@ def check_flash(results, failures):
         rms_err = (out.float() - ref.float()).pow(2).mean().sqrt().item()
         tol, rms_tol, lse_tol = 2.0**-7 * ref_max + 2.0**-10, 2.0**-7 * ref_rms, 1e-3
         ok = finite and err <= tol and rms_err <= rms_tol and lse_err <= lse_tol
-        ms = time_ms(lambda: flash_fwd(q, k, v, bias))
-        plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, bias), reps=2, warmup=1)
+        ms = time_ms(lambda: flash_fwd(q, k, v, bias, scale))
+        plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, bias, scale), reps=2, warmup=1)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         mask = None if bias is None else bias.clamp_min(NEG_INF).to(torch.bfloat16)
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale))
         flops = 4.0 * b * h * sq * sk * d
-        nbytes = 2 * (2 * b * sq * h * d + 2 * b * sk * h * d) + 4 * b * h * sq
-        if kind == "key":
-            nbytes += 4 * b * sk
-        elif kind == "full":
-            nbytes += 4 * b * h * sq * sk
+        nbytes = 2 * (2 * b * sq * h * d + 2 * b * sk * h * d) + 4 * b * h * sq + bias_bytes(kind, b, h, sq, sk)
         bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16)
-        row = dict(kernel="flash_fwd", case=name, shape=[b, sq, sk, h, d], bias=kind,
+        row = dict(kernel="flash_fwd", case=name, shape=[b, sq, sk, h, d], bias=kind, scale=scale,
                    max_abs_err=err, lse_max_abs_err=lse_err, tol=tol, ref_max_abs=ref_max,
                    rms_err=rms_err, rms_tol=rms_tol, ok=ok, ms=ms,
                    plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -229,24 +283,29 @@ def check_gn(results, failures):
         del x_nchw
         x_cl = x.view(n, side, side, c).permute(0, 3, 1, 2)
         library_cl_ms = time_ms(lambda: F.silu(F.group_norm(x_cl, groups, gb, bb, eps)))
+        # K3's statistics alone: one library reduction over the same groups
+        x_g = x.view(n, hw, groups, c // groups)
+        stats_library_ms = time_ms(lambda: torch.var_mean(x_g, dim=(1, 3), correction=0))
         elems = n * hw * c
         sb, sby = bound(2 * elems + 8 * n * c + 8 * c, 3.0 * elems, PEAK_FP32)
         ab, aby = bound(4 * elems + 8 * n * c, 5.0 * elems, PEAK_FP32)
         common = dict(shape=[n, hw, c], max_abs_err=err, tol=tol, ok=ok, pair_ms=ms_stats + ms_apply,
                       pair_library_ms=library_ms, pair_library_channels_last_ms=library_cl_ms)
         results.append(dict(kernel="gn_stats", case=f"{n}x{hw}x{c}", ms=ms_stats, plain_ms=plain_stats,
-                            library_ms=None, bound_ms=sb, bound_by=sby, stats_rel_err=stats_err, **common))
+                            library_ms=stats_library_ms, library_computes="torch.var_mean over the groups",
+                            bound_ms=sb, bound_by=sby, stats_rel_err=stats_err, **common))
         results.append(dict(kernel="gn_silu_apply", case=f"{n}x{hw}x{c}", ms=ms_apply,
                             plain_ms=plain_apply, library_ms=None, bound_ms=ab, bound_by=aby,
                             apply_err=apply_err, **common))
         log(f"  gn [{n},{hw},{c}] err {err:.2e} (tol {tol:.1e}) stats {stats_err:.1e}"
             f" {'ok' if ok else 'FAIL'} | stats {ms_stats:.3f} apply {ms_apply:.3f}"
             f" pair {ms_stats + ms_apply:.3f} ms vs F.group_norm+silu {library_ms:.3f}"
+            f" (stats vs var_mean {stats_library_ms:.3f})"
             f" (channels-last {library_cl_ms:.3f});"
             f" bound {sb + ab:.3f} ms; plain {plain_stats + plain_apply:.2f}")
         if not ok:
             failures.append(f"gn {n}x{hw}x{c}: err {err} apply {apply_err} stats {stats_err}")
-        del x, x_cl, y, yr
+        del x, x_cl, x_g, y, yr
         torch.cuda.empty_cache()
 
 
@@ -261,15 +320,21 @@ def close_enough(got, ref):
 
 
 def flash_bwd_cases():
-    # (name, B, Sq, Sk, H, D, bias kind): the training path's attentions at
-    # 64x64 latents (level 1: 32x32 tokens, 10 heads; level 2: 16x16, 20)
+    # (name, B, Sq, Sk, H, D, bias kind, scale): the SDXL training path's
+    # attentions at 64x64 latents (level 1: 32x32 tokens, 10 heads; level 2:
+    # 16x16, 20) and the textual-inversion path's (CLIP-bigG as
+    # "full_bias", CLIP-L, T5-XXL, whose dQ pass there is K5, and the
+    # MMDiT's joint attention)
     return [
-        ("train_l1_self", 8, 1024, 1024, 10, 64, "none"),
-        ("train_l1_cross", 8, 1024, 77, 10, 64, "none"),
-        ("train_l2_self", 8, 256, 256, 20, 64, "none"),
-        ("train_l2_cross", 8, 256, 77, 20, 64, "none"),
-        ("ragged_keymask", 2, 200, 77, 4, 64, "key"),
-        ("full_bias", 8, 77, 77, 20, 64, "full"),
+        ("train_l1_self", 8, 1024, 1024, 10, 64, "none", None),
+        ("train_l1_cross", 8, 1024, 77, 10, 64, "none", None),
+        ("train_l2_self", 8, 256, 256, 20, 64, "none", None),
+        ("train_l2_cross", 8, 256, 77, 20, 64, "none", None),
+        ("ragged_keymask", 2, 200, 77, 4, 64, "key", None),
+        ("full_bias", 8, 77, 77, 20, 64, "full", None),
+        ("clip_l_causal", 8, 77, 77, 12, 64, "full", None),
+        ("t5_xxl", 8, 256, 256, 64, 64, "t5", 1.0),
+        ("mmdit_joint", 8, 1357, 1357, 24, 64, "joint", None),
     ]
 
 
@@ -281,37 +346,35 @@ def check_flash_bwd(results, failures):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    for name, b, sq, sk, h, d, kind in flash_bwd_cases():
+    for name, b, sq, sk, h, d, kind, scale in flash_bwd_cases():
         q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
                    for s in (sq, sk, sk))
-        bias = make_bias(kind, b, h, sq, sk, dev)
-        out, lse = flash_fwd(q, k, v, bias)
+        bias = make_bias(kind, b, h, sq, sk, dev, gen)
+        out, lse = flash_fwd(q, k, v, bias, scale)
         dout = torch.randn(out.shape, generator=gen, device=dev, dtype=torch.bfloat16)
         delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-        dq = flash_bwd_dq(q, k, v, dout, lse, delta, bias)
-        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, bias)
+        dq = flash_bwd_dq(q, k, v, dout, lse, delta, bias, scale)
+        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, bias, scale)
         torch.cuda.synchronize()
-        bitwise = (torch.equal(dq, flash_bwd_dq(q, k, v, dout, lse, delta, bias))
-                   and all(torch.equal(a, b_) for a, b_ in zip((dk, dv), flash_bwd_dkv(q, k, v, dout, lse, delta, bias))))
-        refs = flash_attention_backward_reference(q, k, v, bias, out, lse, dout)
+        bitwise = (torch.equal(dq, flash_bwd_dq(q, k, v, dout, lse, delta, bias, scale))
+                   and all(torch.equal(a, b_) for a, b_ in
+                           zip((dk, dv), flash_bwd_dkv(q, k, v, dout, lse, delta, bias, scale))))
+        refs = flash_attention_backward_reference(q, k, v, bias, out, lse, dout, scale)[:3]
         checks = {o: close_enough(g, r) for o, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs)}
         ok = bitwise and all(c[0] for c in checks.values())
-        ms_dq = time_ms(lambda: flash_bwd_dq(q, k, v, dout, lse, delta, bias))
-        ms_dkv = time_ms(lambda: flash_bwd_dkv(q, k, v, dout, lse, delta, bias))
-        plain_ms = time_ms(lambda: flash_attention_backward_reference(q, k, v, bias, out, lse, dout),
+        ms_dq = time_ms(lambda: flash_bwd_dq(q, k, v, dout, lse, delta, bias, scale))
+        ms_dkv = time_ms(lambda: flash_bwd_dkv(q, k, v, dout, lse, delta, bias, scale))
+        plain_ms = time_ms(lambda: flash_attention_backward_reference(q, k, v, bias, out, lse, dout, scale),
                            reps=2, warmup=1)
         # the library: SDPA's backward alone (retain_graph), dq, dk and dv together
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
         mask = None if bias is None else bias.clamp_min(NEG_INF).to(torch.bfloat16)
-        lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale)
         dout_t = dout.transpose(1, 2)
         library_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dout_t, retain_graph=True))
-        del lib_out, qt, kt, vt
-        io = 2 * (2 * b * sq * h * d + 2 * b * sk * h * d) + 8 * b * h * sq  # q, dO, k, v; lse, delta
-        if kind == "key":
-            io += 4 * b * sk
-        elif kind == "full":
-            io += 4 * b * h * sq * sk
+        del lib_out, qt, kt, vt, mask
+        # q, dO, k, v; lse, delta; the bias
+        io = 2 * (2 * b * sq * h * d + 2 * b * sk * h * d) + 8 * b * h * sq + bias_bytes(kind, b, h, sq, sk)
         mm = b * h * sq * sk * d
         for kernel, ms, flops, nbytes, outs in (
             ("flash_bwd_dq", ms_dq, 6.0 * mm, io + 2 * b * sq * h * d, ("dq",)),
@@ -319,7 +382,7 @@ def check_flash_bwd(results, failures):
         ):
             bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16)
             results.append(dict(
-                kernel=kernel, case=name, shape=[b, sq, sk, h, d], bias=kind, ok=ok, bitwise=bitwise,
+                kernel=kernel, case=name, shape=[b, sq, sk, h, d], bias=kind, scale=scale, ok=ok, bitwise=bitwise,
                 max_abs_err=max(checks[o][1] for o in outs), rms_err={o: checks[o][2] for o in outs},
                 tol={o: checks[o][3] for o in outs}, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 library_computes="dq, dk and dv (SDPA backward)", pair_ms=ms_dq + ms_dkv,
@@ -331,6 +394,98 @@ def check_flash_bwd(results, failures):
         if not ok:
             failures.append(f"flash_bwd {name}: {checks} bitwise {bitwise}")
         del q, k, v, out, lse, dout, dq, dk, dv, refs
+        torch.cuda.empty_cache()
+
+
+def flash_dbias_cases():
+    # (name, B, S, H, D, scale): T5-XXL's attention at 256 tokens (no
+    # 1/sqrt(d) scale), a ragged case and another head dim
+    return [("t5_xxl", 8, 256, 64, 64, 1.0), ("ragged", 2, 200, 4, 64, 1.0), ("d80", 2, 256, 8, 80, None)]
+
+
+def t5_bias(b, h, s, dev, gen):
+    """T5's bias, built as T5EncoderModel builds it (contiguous, fp32): a
+    [32, H] table at the relative-position buckets, plus key padding (each
+    prompt keeps a different number of tokens)."""
+    from uwudiff_tpu_torch.models.t5 import relative_position_bucket
+
+    pos = torch.arange(s, device=dev)
+    table = torch.randn((32, h), generator=gen, device=dev)
+    rel = table[relative_position_bucket(pos[None, :] - pos[:, None]).long()].permute(2, 0, 1).contiguous()[None]
+    keep = pos[None, :] < ((torch.arange(b, device=dev) * 53) % s + 7)[:, None]
+    return rel + torch.where(keep, 0.0, torch.finfo(torch.float32).min)[:, None, None, :]
+
+
+def check_flash_dbias(results, failures):
+    """K5: dq within the flash bound; dBias (dS itself, no sum to average
+    rounding out) within 2^-12 of max|dS| and of RMS(dS)."""
+    import torch.nn.functional as F
+
+    from uwudiff_tpu_torch.ops import flash_bwd_dq_dbias, flash_fwd
+    from uwudiff_tpu_torch.ops.flash_attention import NEG_INF, flash_attention_backward_reference
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    for name, b, s, h, d, scale in flash_dbias_cases():
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(3))
+        bias = t5_bias(b, h, s, dev, gen)
+        out, lse = flash_fwd(q, k, v, bias, scale)
+        dout = torch.randn(out.shape, generator=gen, device=dev, dtype=torch.bfloat16)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        dq, dbias = flash_bwd_dq_dbias(q, k, v, dout, lse, delta, bias, scale)
+        torch.cuda.synchronize()
+        dq2, dbias2 = flash_bwd_dq_dbias(q, k, v, dout, lse, delta, bias, scale)
+        bitwise = torch.equal(dq, dq2) and torch.equal(dbias, dbias2)
+        del dq2, dbias2
+        rq, _, _, rds = flash_attention_backward_reference(q, k, v, bias, out, lse, dout, scale)
+        dq_ok, dq_err, dq_rms, dq_tol = close_enough(dq, rq)
+        diff = dbias.view(rds.shape) - rds
+        db_err, db_rms = diff.abs().max().item(), diff.pow(2).mean().sqrt().item()
+        db_tol, db_rms_tol = 2.0**-12 * rds.abs().max().item(), 2.0**-12 * rds.pow(2).mean().sqrt().item()
+        db_ok = bool(torch.isfinite(dbias).all()) and db_err <= db_tol and db_rms <= db_rms_tol
+        del diff
+        ok = bitwise and dq_ok and db_ok
+        ms = time_ms(lambda: flash_bwd_dq_dbias(q, k, v, dout, lse, delta, bias, scale))
+        # the kernel alone, and whatever else the wrapper puts on the device
+        # (nothing, for a bias that is already fp32, full and contiguous)
+        kernel_ms, wrapper_other_ms = profiled_ms(
+            lambda: flash_bwd_dq_dbias(q, k, v, dout, lse, delta, bias, scale), "flash_bwd_dq_dbias (K5)")
+        plain_ms = time_ms(lambda: flash_attention_backward_reference(q, k, v, bias, out, lse, dout, scale),
+                           reps=2, warmup=1)
+        # the library: SDPA's backward with a bias that requires a gradient (dq, dk, dv, dbias)
+        library_ms, library_note = None, "dq, dk, dv and dbias (SDPA backward, bf16 bias requiring grad)"
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        mask = bias.clamp_min(NEG_INF).expand(b, h, s, s).to(torch.bfloat16).contiguous().requires_grad_()
+        try:
+            lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale)
+            dout_t = dout.transpose(1, 2)
+            library_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt, mask), dout_t, retain_graph=True))
+            del lib_out
+        except RuntimeError as e:  # the yardstick only; no kernel of the port is involved
+            library_note = f"no SDPA backend gives this bias gradient: {str(e).splitlines()[0][:200]}"
+        del qt, kt, vt, mask
+        mm = b * h * s * s * d
+        # q, k, v, dO and dq in bf16; lse, delta; the fp32 bias read and dBias write
+        nbytes = 2 * 5 * b * s * h * d + 8 * b * h * s + 8 * b * h * s * s
+        bound_ms, bound_by = bound(nbytes, 6.0 * mm, PEAK_BF16)
+        results.append(dict(
+            kernel="flash_bwd_dq_dbias", case=name, shape=[b, s, s, h, d], bias="full", scale=scale, ok=ok,
+            bitwise=bitwise, max_abs_err=max(dq_err, db_err), dq_err=dq_err, dq_rms_err=dq_rms, dq_tol=dq_tol,
+            dbias_err=db_err, dbias_tol=db_tol, dbias_rms_err=db_rms, dbias_rms_tol=db_rms_tol, ms=ms,
+            kernel_ms=kernel_ms, wrapper_other_device_ms=wrapper_other_ms,
+            plain_ms=plain_ms, library_ms=library_ms, library_computes=library_note, bound_ms=bound_ms,
+            bound_by=bound_by, bytes=nbytes, gb_per_s=nbytes / ms / 1e6))
+        log(f"  flash_dq_dbias {name:8s} dq {dq_err:.1e}/{dq_tol:.1e} dbias {db_err:.1e}/{db_tol:.1e}"
+            f" rms {db_rms:.1e}/{db_rms_tol:.1e} bitwise {bitwise} {'ok' if ok else 'FAIL'}"
+            f" | {ms:.3f} ms ({nbytes / ms / 1e6:.0f} GB/s; kernel alone {kernel_ms:.3f},"
+            f" other device work {wrapper_other_ms:.3f}) bound {bound_ms:.3f} ({bound_by})"
+            f" sdpa bwd {library_ms if library_ms is None else round(library_ms, 3)} plain {plain_ms:.2f}")
+        if library_ms is None:
+            log(f"    {library_note}")
+        if not ok:
+            failures.append(f"flash_dq_dbias {name}: dq {dq_err}/{dq_tol} dbias {db_err}/{db_tol}"
+                            f" rms {db_rms}/{db_rms_tol} bitwise {bitwise}")
+        del q, k, v, out, lse, dout, delta, dq, dbias, rq, rds
         torch.cuda.empty_cache()
 
 
@@ -453,6 +608,66 @@ def check_train_vs_cpu(failures):
     if not (loss_err <= tol and grad_err <= tol):
         failures.append(f"training step card vs CPU: loss {loss_err} grad {grad_err} > {tol}")
     return {"loss_rel_err": loss_err, "grad_rel_err": grad_err, "tol": tol}
+
+
+def small_ti_trainer(device, dtype):
+    """A small SD3-shaped textual-inversion stack, head dim 64 everywhere:
+    two 128-wide CLIPs (bucket 0, pooled), a 128-wide T5 at 256 tokens
+    (bucket 1, masked), a 2-block MMDiT with SD3's switches on."""
+    from uwudiff_tpu_torch.diffusion import NoiseSchedule, RectifiedFlowLoss
+    from uwudiff_tpu_torch.models import ConcatTextEncoders, MMDiT, SimpleTokenizer
+    from uwudiff_tpu_torch.training import TextualInversionTrainer
+    from uwudiff_tpu_torch.training.bench_setup import fill_zero_initialised
+
+    clip = {"model_type": "clip", "preset": "tiny", "hidden_size": 128, "num_heads": 2}
+    t5 = {"model_type": "t5", "preset": "tiny", "d_model": 128, "num_heads": 2, "d_kv": 64, "d_ff": 256}
+    te = ConcatTextEncoders.from_config(
+        [(clip, {"use_pooled": True, "layer_idx": -2}), (clip, {"use_pooled": True, "layer_idx": -2}),
+         (t5, {"concat_bucket": 1, "need_mask": True})],
+        device=device, dtype=dtype, zero_for_padding=False, pad_context_to=256)
+    mmdit = fill_zero_initialised(MMDiT.from_config(
+        "tiny", device=device, dtype=dtype, hidden_size=128, depth=2, context_dim=256, pooled_dim=256,
+        context_pre_only=True, pos_embed_max_size=16, pos_embed_base_size=8))
+    return TextualInversionTrainer(
+        {"unet": mmdit, "te": te, "tokenizers": [SimpleTokenizer(), SimpleTokenizer(),
+                                                 SimpleTokenizer(model_max_length=256)]},
+        lr=5e-3, optimizer="adamw", use_warm_up=False, num_vectors=2, seed=SEED, device=device,
+        loss_config=RectifiedFlowLoss(schedule=NoiseSchedule.sdxl(), time_sampling_type="logit_normal"))
+
+
+def check_ti_vs_cpu(failures):
+    """One textual-inversion step's loss and row gradients of the small
+    SD3-shaped stack: bf16 on the card through the kernels (K5 in the T5
+    layers) against the same weights in fp32 on the CPU through the plain
+    versions, which the CPU tests hold against the JAX package; the same
+    noise and logit-normal draws."""
+    torch.manual_seed(SEED + 9)
+    cpu = small_ti_trainer("cpu", torch.float32)
+    gpu = small_ti_trainer("cuda", torch.bfloat16)
+    for name in ("te", "unet"):  # the CPU weights; the card keeps its own dtypes (T5's fp32 norms)
+        getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
+    rng = torch.Generator().manual_seed(SEED + 10)
+    batch = {"latent": torch.randn((2, 16, 16, 4), generator=rng),
+             "tokenizer_outputs": [tok(["a photo of <concept>", "<concept> by a lake at dawn, oil on canvas"])
+                                   for tok in cpu.tokenizers]}
+    noise, z = torch.randn((2, 16, 16, 4), generator=rng), torch.randn((2,), generator=rng)
+    from uwudiff_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    losses, grads = {}, {}
+    for dev, tr in (("cpu", cpu), ("cuda", gpu)):
+        reset_launch_counts()
+        loss, _ = tr.forward_backward(batch, noise=noise, time_draws=z)
+        losses[dev] = loss.float().cpu()
+        grads[dev] = torch.cat([p.grad.float().cpu().flatten() for _, p in tr.params])
+    k5 = launch_counts()["flash_bwd_dq_dbias"]
+    loss_err = ((losses["cuda"] - losses["cpu"]).abs() / losses["cpu"].abs()).item()
+    grad_err = ((grads["cuda"] - grads["cpu"]).norm() / grads["cpu"].norm()).item()
+    tol = 5e-2  # bf16 weights, activations and gradients through three encoders and the MMDiT
+    log(f"  textual-inversion step, card bf16 vs CPU fp32 plain: loss rel err {loss_err:.2e},"
+        f" row grad |d|/|ref| {grad_err:.2e} (tol {tol}); |grad| {grads['cpu'].norm():.3e}; K5 launches {k5}")
+    if not (loss_err <= tol and grad_err <= tol and grads["cpu"].norm() > 0 and k5 == 2):
+        failures.append(f"TI step card vs CPU: loss {loss_err} grad {grad_err} > {tol} or K5 launches {k5} != 2")
+    return {"loss_rel_err": loss_err, "grad_rel_err": grad_err, "tol": tol, "grad_norm": grads["cpu"].norm().item()}
 
 
 def check_models_vs_cpu(failures):
@@ -711,6 +926,102 @@ def train(report, failures):
     return counts
 
 
+# --------------------------------------------------------------------- ti
+
+TI_STEPS = 5
+
+
+def plan_ti_launches(trainer) -> dict:
+    """Each kernel's launches per textual-inversion step, from the modules:
+    every attention (CLIP layers, MMDiT blocks, T5 layers) runs one flash
+    forward and one dK/dV pass; the dQ pass is K4, or K5 where the bias is
+    learned (every T5 layer). No GroupNorm on this path."""
+    from uwudiff_tpu_torch.models.clip import _CLIPLayer
+    from uwudiff_tpu_torch.models.mmdit import MMDiTBlock
+    from uwudiff_tpu_torch.models.t5 import _T5Layer
+
+    modules = list(trainer.te.modules()) + list(trainer.unet.modules())
+    plain = sum(isinstance(m, (_CLIPLayer, MMDiTBlock)) for m in modules)
+    t5 = sum(isinstance(m, _T5Layer) for m in modules)
+    return {"flash_fwd": plain + t5, "flash_bwd_dq": plain, "flash_bwd_dq_dbias": t5,
+            "flash_bwd_dkv": plain + t5, "gn_stats": 0, "gn_silu_apply": 0, "gn_bwd_partials": 0,
+            "gn_bwd_dx": 0}
+
+
+def ti(report, failures):
+    from uwudiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from uwudiff_tpu_torch.training.bench_setup import build_ti_trainer_and_batch
+
+    t0 = time.perf_counter()
+    trainer, data = build_ti_trainer_and_batch(batch=8, latent=64, seed=SEED)
+    trainer.setup()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    dev = trainer.device
+    batch = {"latent": torch.as_tensor(data["latent"], device=dev),
+             "tokenizer_outputs": [{k: torch.as_tensor(v, device=dev) for k, v in t.items()}
+                                   for t in data["tokenizer_outputs"]]}
+    frozen = [(f"{m}.{n}", p) for m in ("unet", "te") for n, p in getattr(trainer, m).named_parameters()]
+    n_frozen = {m: sum(p.numel() for p in getattr(trainer, m).parameters()) for m in ("unet", "te")}
+    n_frozen["te_models"] = [sum(p.numel() for p in getattr(trainer.te, n).parameters())
+                             for n in trainer.te.model_names]
+
+    def checksums():  # one fp64 sum per frozen leaf
+        return torch.stack([torch.sum(p.detach(), dtype=torch.float64) for _, p in frozen]).cpu()
+
+    sums0 = checksums()
+    rows0 = [p.detach().clone() for _, p in trainer.params]
+    log(f"  built sd3_medium + clip_l + clip_bigg + t5_xxl in {build_s:.1f} s: frozen params {n_frozen},"
+        f" {len(frozen)} leaves; trainable {[tuple(p.shape) for _, p in trainer.params]}")
+    t0 = time.perf_counter()
+    warm, _ = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()  # the main path's run starts here
+    steps = []
+    for _ in range(TI_STEPS):
+        t0 = time.perf_counter()
+        metrics, _ = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        phases = trainer.step_phase_ms()
+        steps.append(dict(step_s=time.perf_counter() - t0, loss=metrics["train/loss"].item(),
+                          grad_norm=metrics["train/grad_norm"].item(), lr=metrics["train/lr"], **phases))
+    counts = launch_counts()  # the main path's run ends here
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    plan = plan_ti_launches(trainer)
+    for name, per_step in plan.items():
+        if counts[name] != per_step * TI_STEPS:
+            failures.append(f"ti {name}: {counts[name]} launches in {TI_STEPS} steps, plan {per_step} a step")
+    losses = [warm["train/loss"].item()] + [s["loss"] for s in steps]
+    norms = [warm["train/grad_norm"].item()] + [s["grad_norm"] for s in steps]
+    if not all(map(math.isfinite, losses + norms)) or not all(n > 0 for n in norms):
+        failures.append(f"ti metrics: losses {losses} grad norms {norms} (finite, norms > 0)")
+    moved = [not torch.equal(p, p0) for (_, p), p0 in zip(trainer.params, rows0)]
+    if not all(moved):
+        failures.append(f"ti rows unchanged: {[n for (n, _), m in zip(trainer.params, moved) if not m]}")
+    changed = [name for (name, _), a, b in zip(frozen, sums0, checksums()) if not torch.equal(a, b)]
+    if changed:
+        failures.append(f"ti frozen leaves changed: {changed[:8]}")
+    step_s = sorted(s["step_s"] for s in steps)[TI_STEPS // 2]
+    fb_ms = sorted(s["forward_backward_ms"] for s in steps)[TI_STEPS // 2]
+    opt_ms = sorted(s["optimizer_ms"] for s in steps)[TI_STEPS // 2]
+    ctx_len = sum(t["input_ids"].shape[1] for t in data["tokenizer_outputs"][1:])
+    report["ti"] = dict(
+        batch=8, latent=64, context_tokens=ctx_len, joint_tokens=ctx_len + (64 // 2) ** 2, params=n_frozen,
+        frozen_leaves=len(frozen), build_s=build_s, warmup_step_s=warmup_s, steps=steps, median_step_s=step_s,
+        imgs_per_s=8 / step_s, median_forward_backward_ms=fb_ms, median_optimizer_ms=opt_ms,
+        peak_memory_gib=peak_gib, launches=counts, plan_per_step=plan, losses=losses, grad_norms=norms,
+        rows_moved=moved, frozen_changed=changed)
+    log(f"  ti ({report['card']}): step {step_s:.3f} s ({8 / step_s:.2f} imgs/s),"
+        f" forward+backward {fb_ms:.1f} ms,"
+        f" optimizer {opt_ms:.1f} ms, peak {peak_gib:.1f} GiB; losses {[round(v, 4) for v in losses]},"
+        f" grad norms {[float(f'{v:.3g}') for v in norms]}; launches/step {plan}; rows moved {moved};"
+        f" frozen leaves changed {len(changed)} of {len(frozen)}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -729,7 +1040,7 @@ def main() -> int:
     report = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
     failures: list[str] = []
 
-    log("[1/4] build")
+    log("[1/5] build")
     built = build_all()
     report["build_s"] = built["seconds"]
     log(f"  built in {built['seconds']:.1f} s")
@@ -738,32 +1049,40 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
 
-    log("[2/4] kernels vs plain (bf16)")
+    log("[2/5] kernels vs plain (bf16)")
     results: list[dict] = []
     check_flash(results, failures)
     check_gn(results, failures)
     check_flash_bwd(results, failures)
+    check_flash_dbias(results, failures)
     check_gn_bwd(results, failures)
     report["kernel_checks"] = results
     report["models_vs_cpu_rel_err"] = check_models_vs_cpu(failures)
     report["train_step_vs_cpu"] = check_train_vs_cpu(failures)
+    report["ti_step_vs_cpu"] = check_ti_vs_cpu(failures)
 
-    log("[3/4] serve SDXL 1024x1024")
+    log("[3/5] serve SDXL 1024x1024")
     serve_counts = serve(report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # the serving stack is gone before the trainer is built
 
-    log("[4/4] train SDXL (full fine-tune, batch 8, 64x64 latents)")
+    log("[4/5] train SDXL (full fine-tune, batch 8, 64x64 latents)")
     counts = train(report, failures)
+    gc.collect()
+    torch.cuda.empty_cache()  # and the SDXL trainer before the SD3 one
+
+    log("[5/5] textual inversion SD3-medium + CLIP-L + CLIP-bigG + T5-XXL (batch 8, 64x64x16 latents)")
+    ti_counts = ti(report, failures)
 
     main_case = {"flash_fwd": "sdxl_l1_self", "flash_bwd_dq": "train_l1_self", "flash_bwd_dkv": "train_l1_self",
-                 "gn_stats": "8x16384x320", "gn_silu_apply": "8x16384x320",
+                 "flash_bwd_dq_dbias": "t5_xxl", "gn_stats": "8x16384x320", "gn_silu_apply": "8x16384x320",
                  "gn_bwd_partials": "8x4096x320", "gn_bwd_dx": "8x4096x320"}
     csrc = "uwudiff_tpu_torch/csrc/"
     source = {"flash_fwd": csrc + "flash_fwd.cu", "flash_bwd_dq": csrc + "flash_bwd.cu",
-              "flash_bwd_dkv": csrc + "flash_bwd.cu"}
+              "flash_bwd_dq_dbias": csrc + "flash_bwd.cu", "flash_bwd_dkv": csrc + "flash_bwd.cu"}
     replaces = {"flash_fwd": "uwudiff_tpu/ops/flash_attention.py:152",
                 "flash_bwd_dq": "uwudiff_tpu/ops/flash_attention.py:271",
+                "flash_bwd_dq_dbias": "uwudiff_tpu/ops/flash_attention.py:312",
                 "flash_bwd_dkv": "uwudiff_tpu/ops/flash_attention.py:365",
                 "gn_stats": "uwudiff_tpu/ops/groupnorm_silu.py:171",
                 "gn_silu_apply": "uwudiff_tpu/ops/groupnorm_silu.py:118",
@@ -774,10 +1093,14 @@ def main() -> int:
         row = next(r for r in results if r["kernel"] == name and r["case"] == case)
         kernels.append(dict(
             name=name, route="cuda", source=source.get(name, csrc + "groupnorm_silu.cu"),
-            replaces=replaces[name], launches=counts[name],
+            replaces=replaces[name],
+            # the count of the run whose path this row's shape is from: K5's is
+            # the textual-inversion step's, the others' the SDXL training step's
+            launches=ti_counts[name] if name == "flash_bwd_dq_dbias" else counts[name],
             max_abs_err=max(r["max_abs_err"] for r in results if r["kernel"] == name),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], shape=row["shape"], serving_launches=serve_counts[name],
+            train_launches=counts[name], ti_launches=ti_counts[name],
         ))
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start

@@ -212,11 +212,45 @@ def test_flash_bwd_kernels_match_plain(dev, b, sq, sk, h, d, kind):
     dout = torch.randn(out.shape, generator=gen, device=dev, dtype=torch.bfloat16)
     got = flash_bwd(q, k, v, bias, out, lse, dout)
     ref = flash_attention_backward_reference(q, k, v, bias, out, lse, dout)
-    for g, r in zip(got, ref):
+    assert got[3] is None  # no dBias without bias_grad
+    for g, r in zip(got[:3], ref[:3]):
         assert torch.isfinite(g).all()
         _assert_flash_close(g, r)
     again = flash_bwd(q, k, v, bias, out, lse, dout)
-    assert all(torch.equal(x, y) for x, y in zip(got, again))  # no atomics: bitwise reproducible
+    assert all(torch.equal(x, y) for x, y in zip(got[:3], again[:3]))  # no atomics: bitwise reproducible
+
+
+@pytest.mark.parametrize("kind", ["key", "full"])
+def test_flash_kernels_clamp_an_infinite_bias_they_take_uncopied(dev, kind):
+    """An fp32 contiguous bias reaches the kernels as it is (no clamped
+    copy); each kernel clamps its -inf entries at -1e30 as it loads them."""
+    from uwudiff_tpu_torch.ops.flash_attention import (
+        _split_bias,
+        flash_attention_backward_reference,
+        flash_bwd,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, s, h, d = 2, 96, 2, 64
+    q, k, v, dout = (torch.randn((b, s, h, d), generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(4))
+    shape = (b, 1, 1, s) if kind == "key" else (b, h, s, s)
+    bias = torch.randn(shape, generator=gen, device=dev)
+    bias[..., s - 30:] = float("-inf")
+    assert _split_bias(bias, b, h, s, s)[1].data_ptr() == bias.data_ptr()
+    out, lse = flash_fwd(q, k, v, bias)
+    ref, _ = flash_attention_reference(q, k, v, bias)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    _assert_flash_close(out, ref)
+    for bias_grad in (False, True):
+        got = flash_bwd(q, k, v, bias, out, lse, dout, bias_grad=bias_grad)
+        refs = flash_attention_backward_reference(q, k, v, bias, out, lse, dout)
+        for g, r in zip(got[:3], refs[:3]):
+            assert torch.isfinite(g).all()
+            _assert_flash_close(g, r)
+        if bias_grad:
+            _assert_dbias_close(got[3], refs[3])
+            assert got[3][..., s - 30:].abs().max() == 0
+    assert bias[..., s - 1].isneginf().all()  # the caller's bias is untouched
 
 
 def test_flash_autograd_runs_the_kernel_pair_on_strided_heads(dev):
@@ -295,7 +329,102 @@ def test_tiny_unet_trains_through_every_kernel(dev):
     reset_launch_counts()
     metrics, _ = trainer.train_step(batch)
     counts = launch_counts()
+    assert counts.pop("flash_bwd_dq_dbias") == 0, counts  # the UNet learns no attention bias
     assert all(v > 0 for v in counts.values()), counts
     assert counts["flash_fwd"] == counts["flash_bwd_dq"] == counts["flash_bwd_dkv"]
     assert counts["gn_silu_apply"] == counts["gn_bwd_partials"] == counts["gn_bwd_dx"] == counts["gn_stats"]
     assert torch.isfinite(metrics["train/loss"]) and torch.isfinite(metrics["train/grad_norm"])
+
+
+# ------------------------------------------------------------ dQ + dBias (K5)
+
+def _t5_bias(b, h, s, dev, gen):
+    """A T5-style full bias: a smooth relative-position part per head plus
+    key padding (finfo.min on the last keys of every other row)."""
+    rel = torch.arange(s, device=dev)[None, :] - torch.arange(s, device=dev)[:, None]
+    bias = torch.randn((1, h, 1, 1), generator=gen, device=dev) * torch.tanh(rel / 16.0)[None, None]
+    lengths = torch.tensor([s, s - 37], device=dev).repeat(b)[:b]
+    keep = torch.arange(s, device=dev)[None, :] < lengths[:, None]
+    return bias + torch.where(keep, 0.0, torch.finfo(torch.float32).min)[:, None, None, :]
+
+
+def _assert_dbias_close(got, ref):
+    """dBias is dS pointwise (no sum over D to average rounding out): max
+    error 2^-12 of the largest |dS|, RMS error 2^-12 of the RMS dS."""
+    diff, ref = got.float() - ref.float(), ref.float()
+    assert torch.isfinite(got).all()
+    assert diff.abs().max().item() <= 2.0**-12 * ref.abs().max().item()
+    assert diff.pow(2).mean().sqrt().item() <= 2.0**-12 * ref.pow(2).mean().sqrt().item()
+
+
+@pytest.mark.parametrize(
+    "b,s,h,d,scale",
+    [
+        (8, 256, 64, 64, 1.0),  # T5-XXL: no 1/sqrt(d) scale, padded keys
+        (2, 200, 4, 64, 1.0),  # ragged: Sq, Sk not multiples of the 64-row tiles
+        (2, 256, 8, 80, None),
+        (1, 130, 2, 40, None),
+        (1, 77, 2, 80, None),  # odd Sk: 4-byte dBias stores
+    ],
+)
+def test_flash_dbias_kernel_matches_plain(dev, b, s, h, d, scale):
+    from uwudiff_tpu_torch.ops.flash_attention import (
+        flash_attention_backward_reference,
+        flash_bwd,
+        flash_bwd_dq_dbias,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(3))
+    bias = _t5_bias(b, h, s, dev, gen)
+    out, lse = flash_fwd(q, k, v, bias, scale)
+    dout = torch.randn(out.shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    reset_launch_counts()
+    dq, dk, dv, dbias = flash_bwd(q, k, v, bias, out, lse, dout, scale, bias_grad=True)
+    assert launch_counts()["flash_bwd_dq_dbias"] == 1 and launch_counts()["flash_bwd_dq"] == 0
+    rq, rk, rv, rds = flash_attention_backward_reference(q, k, v, bias, out, lse, dout, scale)
+    for g, r in ((dq, rq), (dk, rk), (dv, rv)):
+        _assert_flash_close(g, r)
+    assert dbias.shape == (b, h, s, s) and dbias.dtype == torch.float32
+    _assert_dbias_close(dbias, rds)
+    # dQ is K4's, bitwise; both outputs bitwise reproducible
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq2, db2 = flash_bwd_dq_dbias(q, k, v, dout, lse, delta, bias, scale)
+    assert torch.equal(dq, dq2) and torch.equal(dbias.reshape(b * h, s, s), db2)
+    assert torch.equal(dq, flash_bwd(q, k, v, bias, out, lse, dout, scale)[0])
+
+
+def test_flash_autograd_bias_grad_runs_k5(dev):
+    """A learned [1, H, S, S] bias through the autograd function: its
+    gradient is dBias summed over the batch, and only the bias needs to
+    require a gradient for the call to go through autograd."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, s, h, d = 2, 192, 2, 64
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(3))
+    rel = torch.randn((1, h, s, s), generator=gen, device=dev, requires_grad=True)
+    pad = torch.where(torch.arange(s, device=dev) < s - 20, 0.0, torch.finfo(torch.float32).min)
+    dout = torch.randn((b, s, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
+    reset_launch_counts()
+    out = flash_attention(q, k, v, rel + pad, 1.0, bias_grad=True)
+    out.backward(dout)
+    counts = launch_counts()
+    assert counts["flash_fwd"] == counts["flash_bwd_dq_dbias"] == counts["flash_bwd_dkv"] == 1
+    assert counts["flash_bwd_dq"] == 0
+    ref_rel = rel.detach().clone().requires_grad_()
+    ref, _ = flash_attention_reference(q.float(), k.float(), v.float(), ref_rel + pad, 1.0)
+    ref.backward(dout.float())
+    _assert_flash_close(rel.grad, ref_rel.grad)
+    # without bias_grad the same bias is a constant
+    rel.grad = None
+    flash_attention(q.requires_grad_(), k, v, rel + pad, 1.0).backward(dout)
+    assert rel.grad is None
+
+
+def test_flash_dbias_raises_for_a_head_dim_it_was_not_built_for(dev):
+    from uwudiff_tpu_torch.ops.flash_attention import flash_bwd
+
+    q = torch.randn((1, 64, 2, 160), device=dev, dtype=torch.bfloat16)
+    bias = torch.zeros((1, 2, 64, 64), device=dev)
+    out, lse = flash_fwd(q, q, q, bias)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_bwd(q, q, q, bias, out, lse, torch.ones_like(out), bias_grad=True)

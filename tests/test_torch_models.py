@@ -55,6 +55,17 @@ def random_params(module, *args, seed=0, method=None):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
+# LLVM's cheap settings for the JAX reference programs: about half the
+# compile time on the CPU. They change how the backend lowers XLA's program,
+# which may reorder fp32 arithmetic; the tests' tolerances cover that
+FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+def compile_fast(fn, *args, **jit_kw):
+    """``jax.jit(fn, **jit_kw)`` compiled for ``args`` with FAST_COMPILE."""
+    return jax.jit(fn, **jit_kw).lower(*args).compile(FAST_COMPILE)
+
+
 def assert_close(out, ref, rel=1e-5):
     ref = np.asarray(ref)
     out = out.detach().numpy() if isinstance(out, torch.Tensor) else np.asarray(out)

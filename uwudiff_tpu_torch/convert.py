@@ -11,8 +11,10 @@ only the leaf needs translating:
 - ``bias``, CLIP's ``position_embedding`` -> as they are.
 
 A module may name whole subtrees it does not port in
-``jax_skip_subtrees`` (the VAE's encoder). Any other missing, extra or
-mis-shaped key raises.
+``jax_skip_subtrees`` (the VAE's encoder). A scanned block stack
+(``scan_blocks=True``: one ``blocks`` subtree whose leaves carry a leading
+layer axis, as the SD3 config trains the MMDiT) is unstacked into the
+port's ``blocks_{i}``. Any other missing, extra or mis-shaped key raises.
 
 :func:`to_jax_params` is the inverse: a module's state dict, or any
 tensors named like it (its gradients), as a flax-named nested dict of
@@ -59,9 +61,28 @@ def _jax_state_dict(params, skip=()) -> dict[str, np.ndarray]:
     return out
 
 
+def _unstack_scanned(module: torch.nn.Module, params):
+    """``params["blocks"]`` with a leading layer axis -> ``blocks_{i}``
+    subtrees, where the module holds ``blocks_0``, ``blocks_1``, ..."""
+    if not isinstance(params, Mapping) or "blocks" not in params or not hasattr(module, "blocks_0"):
+        return params
+
+    def take(tree, i):
+        return {k: take(v, i) if isinstance(v, Mapping) else np.asarray(v)[i] for k, v in tree.items()}
+
+    n = sum(1 for name, _ in module.named_children() if name.startswith("blocks_"))
+    depth = {np.shape(a)[0] for _, a in _flatten(params["blocks"])}
+    if depth != {n}:
+        raise ValueError(f"scanned blocks have layer axes {sorted(depth)}, the module {n} blocks")
+    out = {k: v for k, v in params.items() if k != "blocks"}
+    out.update({f"blocks_{i}": take(params["blocks"], i) for i in range(n)})
+    return out
+
+
 def load_jax_params(module: torch.nn.Module, params) -> torch.nn.Module:
     """Copy a flax param tree into ``module`` in place (dtype and device
     follow the module). Returns the module."""
+    params = _unstack_scanned(module, params)
     src = _jax_state_dict(params, getattr(module, "jax_skip_subtrees", ()))
     dst = module.state_dict()
     missing, extra = sorted(set(dst) - set(src)), sorted(set(src) - set(dst))

@@ -1,14 +1,31 @@
-// Flash-attention backward for Hopper (sm_90a): dQ and dK/dV, bf16 q/k/v/dO,
-// fp32 softmax recompute and accumulators.
+// Flash-attention backward for Hopper (sm_90a): dQ, dQ + dBias and dK/dV,
+// bf16 q/k/v/dO, fp32 softmax recompute and accumulators.
 //
 // Replaces the TPU kernels uwudiff_tpu/ops/flash_attention.py::_bwd_dq_kernel
-// (K4) and ::_bwd_dkv_kernel (K6), the FA2 backward split in two so that no
-// output is summed across blocks: no atomics, and dQ/dK/dV are bitwise the
-// same from run to run.
+// (K4), ::_bwd_dq_dbias_kernel (K5) and ::_bwd_dkv_kernel (K6), the FA2
+// backward split in two so that no output is summed across blocks: no
+// atomics, and dQ/dBias/dK/dV are bitwise the same from run to run.
 //   flash_bwd_dq  : one block owns a 64-row query tile and loops over K/V
 //                   tiles: S = Q K^T, P = exp2(S*scale*LOG2E + bias*LOG2E
 //                   - lse*LOG2E), dP = dO V^T, dS = P (dP - delta),
 //                   dQ += dS K; dQ *= scale at the end.
+//   flash_bwd_dq_dbias : the same kernel compiled with DBIAS (K5, for a
+//                   learned full bias such as T5's relative position bias):
+//                   each block also stores its fp32 dS fragment of every K/V
+//                   tile to dbias [B*H, Sq, Sk]. Each (query tile, key tile)
+//                   pair is visited by one block once, so the stores need no
+//                   atomics. The logits are S*scale + bias in natural-log
+//                   units (the scale and LOG2E are applied to the fp32 S tile
+//                   here, never folded into the bias), so dBias is dS itself,
+//                   with none of the TPU kernel's LN2 bookkeeping. q, k, dO
+//                   and V are bf16 and mma.sync sums their exact products in
+//                   fp32, so dS needs no extra-precision pass (the TPU kernel
+//                   needed Precision.HIGHEST for its fp32-scaled q). It is
+//                   bound by bytes: the fp32 bias read and dBias write are
+//                   [B*H, Sq, Sk] each, 4x the bf16 q/k/v/dO traffic at T5's
+//                   256 x 256, D = 64. Stores are direct: 8 bytes a lane (two
+//                   neighbouring keys) where Sk is even, 4 otherwise; rows >=
+//                   Sq and keys >= Sk are never written.
 //   flash_bwd_dkv : one block owns a 64-key K/V tile and loops over query
 //                   tiles, computing the transposed tiles S^T = K Q^T and
 //                   dP^T = V dO^T so that each warp's 16 keys are the rows of
@@ -18,7 +35,7 @@
 // P must be exactly the P that the forward kernel (flash_fwd.cu) normalised:
 // the logit scale and the bias's LOG2E are applied to the fp32 S tile the
 // same way (never folded into bf16 q, which would round q), the bias is
-// clamped at -1e30 by the wrapper, and p = exp2(x - lse*LOG2E) with the
+// clamped at -1e30 as it is loaded, and p = exp2(x - lse*LOG2E) with the
 // forward's ex2.approx, so P's rows sum to 1 to fp32 rounding.
 //
 // What bounds it on an H100: at the training path's shapes (Sq = 256 or 1024
@@ -88,14 +105,16 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, float acc[][4], i
 }
 
 // BIAS: 0 none, 1 key bias [B, Sk] fp32, 2 full bias [B*H, Sq, Sk] fp32;
-// natural-log units, clamped at -1e30.
-template <int D, int BIAS>
+// natural-log units, clamped at -1e30 as loaded. DBIAS (with BIAS 2 only): also write
+// dS to dbias [B*H, Sq, Sk] fp32.
+template <int D, int BIAS, bool DBIAS>
 __global__ void __launch_bounds__(NUM_THREADS)
     flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                        const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int H, int Sq, int Sk,
-                        Strides st, float qk_scale, float scale) {
+                        const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+                        float* __restrict__ dbias, int H, int Sq, int Sk, Strides st, float qk_scale,
+                        float scale) {
   using C = Cfg<D>;
   constexpr int BN = C::BN;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -170,13 +189,33 @@ __global__ void __launch_bounds__(NUM_THREADS)
         if (col < Sk) {
           float x = s[nt][e] * qk_scale;
           if (BIAS == 1) {
-            x = fmaf(bias[(long long)b * Sk + col], LOG2E, x);
+            x = fmaf(bias_at(bias + (long long)b * Sk + col), LOG2E, x);
           } else if (BIAS == 2) {
-            if (row < Sq) x = fmaf(bias[((long long)bh * Sq + row) * Sk + col], LOG2E, x);
+            if (row < Sq) x = fmaf(bias_at(bias + ((long long)bh * Sq + row) * Sk + col), LOG2E, x);
           }
           p = exp2_approx(x - lse2[e / 2]);
         }
         s[nt][e] = p * (dp[nt][e] - dl[e / 2]);  // dS
+      }
+    }
+    if constexpr (DBIAS) {  // this tile's dS, natural-log units, fp32
+      float* dbh = dbias + (long long)bh * Sq * Sk;
+      const bool even_sk = (Sk & 1) == 0;  // then (row*Sk + col) is even: 8-byte aligned pairs
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {
+        const int col = n0 + nt * 8 + (lane % 4) * 2;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row_a + r * 8;
+          if (row >= Sq || col >= Sk) continue;
+          float* dst = dbh + (long long)row * Sk + col;
+          if (even_sk) {
+            *reinterpret_cast<float2*>(dst) = make_float2(s[nt][2 * r], s[nt][2 * r + 1]);
+          } else {
+            dst[0] = s[nt][2 * r];
+            if (col + 1 < Sk) dst[1] = s[nt][2 * r + 1];
+          }
+        }
       }
     }
     mma_ab<C::DP, BN, C::STRIDE>(acc, s, tK, lane);  // dQ += dS K
@@ -237,7 +276,7 @@ __global__ void __launch_bounds__(NUM_THREADS)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int key = key_a + r * 8;
-      if (key < Sk) kbias[r] = bias[(long long)b * Sk + key];
+      if (key < Sk) kbias[r] = bias_at(bias + (long long)b * Sk + key);
     }
   }
   uint32_t kf[C::DP / 16][4], vf[C::DP / 16][4];
@@ -283,7 +322,7 @@ __global__ void __launch_bounds__(NUM_THREADS)
           if (BIAS == 1) {
             x = fmaf(kbias[e / 2], LOG2E, x);
           } else if (BIAS == 2) {
-            x = fmaf(bias[((long long)bh * Sq + m0 + i) * Sk + key], LOG2E, x);
+            x = fmaf(bias_at(bias + ((long long)bh * Sq + m0 + i) * Sk + key), LOG2E, x);
           }
           p = exp2_approx(x - tL[i]);
         }
@@ -301,17 +340,17 @@ __global__ void __launch_bounds__(NUM_THREADS)
 
 struct Args {
   const void *q, *k, *v, *bias, *dout, *lse, *delta;
-  void *out0, *out1;  // dq | dk, dv
+  void *out0, *out1;  // dq | dq, dbias | dk, dv
   int B, H, Sq, Sk;
   Strides st;
   float scale;
   cudaStream_t stream;
 };
 
-template <int D, int BIAS>
+template <int D, int BIAS, bool DBIAS>
 int launch_dq(const Args& a) {
   using C = Cfg<D>;
-  auto kern = flash_bwd_dq_kernel<D, BIAS>;
+  auto kern = flash_bwd_dq_kernel<D, BIAS, DBIAS>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_DQ);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.Sq + BLOCK - 1) / BLOCK, a.B * a.H);
@@ -319,8 +358,8 @@ int launch_dq(const Args& a) {
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v), static_cast<const float*>(a.bias),
       static_cast<const __nv_bfloat16*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<__nv_bfloat16*>(a.out0), a.H, a.Sq, a.Sk, a.st,
-      a.scale * LOG2E, a.scale);
+      static_cast<const float*>(a.delta), static_cast<__nv_bfloat16*>(a.out0), static_cast<float*>(a.out1),
+      a.H, a.Sq, a.Sk, a.st, a.scale * LOG2E, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -340,28 +379,34 @@ int launch_dkv(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool DKV, int D, int BIAS>
+enum Kind { DQ, DQ_DBIAS, DKV };
+
+template <int KIND, int D, int BIAS>
 int launch(const Args& a) {
-  if constexpr (DKV) return launch_dkv<D, BIAS>(a);
-  else return launch_dq<D, BIAS>(a);
+  if constexpr (KIND == DKV) return launch_dkv<D, BIAS>(a);
+  else return launch_dq<D, BIAS, KIND == DQ_DBIAS>(a);
 }
 
-template <bool DKV, int D>
+template <int KIND, int D>
 int dispatch_bias(int bias_mode, const Args& a) {
-  switch (bias_mode) {
-    case 0: return launch<DKV, D, 0>(a);
-    case 1: return launch<DKV, D, 1>(a);
-    case 2: return launch<DKV, D, 2>(a);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (KIND == DQ_DBIAS) {  // dBias is the gradient of a full bias only
+    return bias_mode == 2 ? launch<KIND, D, 2>(a) : static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    switch (bias_mode) {
+      case 0: return launch<KIND, D, 0>(a);
+      case 1: return launch<KIND, D, 1>(a);
+      case 2: return launch<KIND, D, 2>(a);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
 }
 
-template <bool DKV>
+template <int KIND>
 int dispatch(int D, int bias_mode, const Args& a) {
   switch (D) {
-    case 40: return dispatch_bias<DKV, 40>(bias_mode, a);
-    case 64: return dispatch_bias<DKV, 64>(bias_mode, a);
-    case 80: return dispatch_bias<DKV, 80>(bias_mode, a);
+    case 40: return dispatch_bias<KIND, 40>(bias_mode, a);
+    case 64: return dispatch_bias<KIND, 64>(bias_mode, a);
+    case 80: return dispatch_bias<KIND, 80>(bias_mode, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -384,12 +429,21 @@ Args make_args(const void* q, const void* k, const void* v, const void* bias, co
 // q, dout: bf16 [B, Sq, H, D] and k, v: bf16 [B, Sk, H, D] views with unit
 // stride over D; strides (elements) {q_b, q_s, q_h, k_*, v_*, dout_*}. lse,
 // delta: contiguous fp32 [B, H, Sq]; bias as in uwu_flash_fwd. Outputs are
-// contiguous bf16 [B, S, H, D]. Each returns a cudaError_t code.
+// contiguous bf16 [B, S, H, D]; dbias is contiguous fp32 [B*H, Sq, Sk] and
+// needs bias_mode 2. Each returns a cudaError_t code.
 extern "C" int uwu_flash_bwd_dq(const void* q, const void* k, const void* v, const void* bias, const void* dout,
                                 const void* lse, const void* delta, void* dq, int B, int H, int Sq, int Sk, int D,
                                 int bias_mode, const long long* strides, float scale, void* stream) {
   const Args a = make_args(q, k, v, bias, dout, lse, delta, dq, nullptr, B, H, Sq, Sk, strides, scale, stream);
-  return dispatch<false>(D, bias_mode, a);
+  return dispatch<DQ>(D, bias_mode, a);
+}
+
+extern "C" int uwu_flash_bwd_dq_dbias(const void* q, const void* k, const void* v, const void* bias,
+                                      const void* dout, const void* lse, const void* delta, void* dq, void* dbias,
+                                      int B, int H, int Sq, int Sk, int D, int bias_mode,
+                                      const long long* strides, float scale, void* stream) {
+  const Args a = make_args(q, k, v, bias, dout, lse, delta, dq, dbias, B, H, Sq, Sk, strides, scale, stream);
+  return dispatch<DQ_DBIAS>(D, bias_mode, a);
 }
 
 extern "C" int uwu_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* bias, const void* dout,
@@ -397,5 +451,5 @@ extern "C" int uwu_flash_bwd_dkv(const void* q, const void* k, const void* v, co
                                  int Sk, int D, int bias_mode, const long long* strides, float scale,
                                  void* stream) {
   const Args a = make_args(q, k, v, bias, dout, lse, delta, dk, dv, B, H, Sq, Sk, strides, scale, stream);
-  return dispatch<true>(D, bias_mode, a);
+  return dispatch<DKV>(D, bias_mode, a);
 }

@@ -58,6 +58,11 @@ __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// a bias element (natural-log units) clamped at -1e30, so that a bias
+// holding -inf (CLIP adds finfo.min twice) gives no NaN; the wrappers pass
+// the caller's fp32 bias uncopied
+__device__ __forceinline__ float bias_at(const float* p) { return fmaxf(*p, -1e30f); }
+
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));

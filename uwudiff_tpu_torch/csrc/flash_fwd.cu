@@ -49,7 +49,7 @@ struct Cfg {
 };
 
 // BIAS: 0 none, 1 key bias [B, Sk] fp32, 2 full bias [B*H, Sq, Sk] fp32.
-// Biases arrive clamped at -1e30 (natural-log units).
+// Natural-log units; clamped at -1e30 as they are loaded.
 template <int D, int BIAS>
 __global__ void __launch_bounds__(NUM_THREADS)
     flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -121,9 +121,9 @@ __global__ void __launch_bounds__(NUM_THREADS)
         if (col >= Sk) {
           x = -INFINITY;
         } else if (BIAS == 1) {
-          x = fmaf(bias[(long long)b * Sk + col], LOG2E, x);
+          x = fmaf(bias_at(bias + (long long)b * Sk + col), LOG2E, x);
         } else if (BIAS == 2) {
-          if (row < Sq) x = fmaf(bias[((long long)bh * Sq + row) * Sk + col], LOG2E, x);
+          if (row < Sq) x = fmaf(bias_at(bias + ((long long)bh * Sq + row) * Sk + col), LOG2E, x);
         }
         s[nt][e] = x;
       }

@@ -1,4 +1,5 @@
-"""The diffusion training loss (``uwudiff_tpu/diffusion/losses.py::DiffusionLoss``).
+"""The diffusion training losses (``uwudiff_tpu/diffusion/losses.py``:
+``DiffusionLoss``, ``RectifiedFlowLoss``).
 
 DDPM/EDM-sigma loss with epsilon/v/sample/rectified-flow targets, min-SNR
 and debiased weights, noise offset, multires noise, input perturbation,
@@ -6,8 +7,8 @@ a timestep range, a loss mask and per-sample weights, as in the JAX
 package. Its random draws (timesteps, noise, the perturbation) come from
 an explicit ``torch.Generator``, or are passed in: JAX's threefry draws
 cannot be reproduced, so a caller that must match the JAX package hands
-over the draws the JAX side made. ``RectifiedFlowLoss``,
-``NNWeightedRFLoss`` and ``EDMLoss`` are not ported yet.
+over the draws the JAX side made. ``NNWeightedRFLoss`` and ``EDMLoss``
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch.nn.functional as F
 from uwudiff_tpu_torch.diffusion.schedules import NoiseSchedule
 from uwudiff_tpu_torch.utils import append_dims
 
-__all__ = ["DiffusionLoss", "DiffusionLossAux"]
+__all__ = ["DiffusionLoss", "DiffusionLossAux", "RectifiedFlowLoss"]
 
 
 class DiffusionLossAux(NamedTuple):
@@ -240,6 +241,100 @@ class DiffusionLoss:
             losses = self.apply_snr_weight(losses, sigmas)
         if self.use_debiased_estimation:
             losses = self.apply_debiased_estimation(losses, sigmas)
+        aux = DiffusionLossAux(losses, timesteps, pred, target, noisy_latent)
+        loss = losses.mean() if sample_weight is None else (losses * sample_weight.to(losses.dtype)).mean()
+        return loss, aux
+
+
+@dataclasses.dataclass(frozen=True)
+class RectifiedFlowLoss(DiffusionLoss):
+    """Rectified-flow loss: the target is ``noise - x0``, a prediction of
+    another type is converted through (x0, eps).
+
+    ``time_sampling_type``: ``uniform_time`` draws t ~ U(0, max_time),
+    ``logit_normal`` (SD3) t = sigmoid(mean + std * z), z ~ N(0, 1), capped
+    at max_time; then sigma = t / (1 - t) and the fractional timestep
+    ``sigma_to_t(sigma)``. ``uniform_timestep`` draws integer timesteps as
+    ``DiffusionLoss`` does. ``max_time = sigma_max / (1 + sigma_max)``."""
+
+    time_sampling_type: str = "uniform_time"
+    rescale_image: bool = False
+    rescale_noise: bool = False
+    logit_normal_mean: float = 0.0
+    logit_normal_std: float = 1.0
+
+    def __post_init__(self):
+        super().__post_init__()
+        object.__setattr__(self, "target_type", "rectified_flow")
+
+    def sample_time_draws(self, batch_size: int, generator: torch.Generator, device) -> torch.Tensor:
+        """The raw draws the time is made from: U(0, 1) (``uniform_time``),
+        N(0, 1) (``logit_normal``) or integer timesteps (``uniform_timestep``)."""
+        if self.time_sampling_type == "uniform_timestep":
+            return self.sample_timesteps(batch_size, generator, device)
+        if self.time_sampling_type == "uniform_time":
+            return torch.rand((batch_size,), generator=generator, device=device)
+        if self.time_sampling_type == "logit_normal":
+            return torch.randn((batch_size,), generator=generator, device=device)
+        raise ValueError(f"Unsupported time sampling type: {self.time_sampling_type}")
+
+    def timesteps_and_sigmas(self, draws: torch.Tensor, device):
+        """(timesteps, sigmas) from the time draws."""
+        sched = self.schedule_on(device)
+        if self.time_sampling_type == "uniform_timestep":
+            timesteps = draws.long()
+            return timesteps, sched.sigma_for_timestep(timesteps)
+        sigma_max = sched.sigmas[-1]
+        max_time = sigma_max / (1 + sigma_max)
+        if self.time_sampling_type == "uniform_time":
+            time = draws.float() * max_time
+        elif self.time_sampling_type == "logit_normal":
+            time = torch.minimum(torch.sigmoid(self.logit_normal_mean + self.logit_normal_std * draws.float()),
+                                 max_time)
+        else:
+            raise ValueError(f"Unsupported time sampling type: {self.time_sampling_type}")
+        sigmas = time / (1 - time)
+        return sched.sigma_to_t(sigmas), sigmas
+
+    def get_x0_and_noises(self, x, noise):
+        """A 5-D ``[B, 2, ...]`` input carries a paired (sample, noise)."""
+        if x.dim() == 5:
+            x, noise = x[:, 0], x[:, 1]
+        if self.rescale_image:
+            x = x / append_dims(x.reshape(x.shape[0], -1).std(dim=1, unbiased=False), x.dim()) * 0.937
+        if self.rescale_noise:
+            noise = noise / append_dims(noise.reshape(noise.shape[0], -1).std(dim=1, unbiased=False), noise.dim())
+        return x, noise
+
+    def __call__(
+        self,
+        x: torch.Tensor,
+        model_fn: Callable[..., torch.Tensor],
+        *,
+        noise: torch.Tensor | None = None,
+        time_draws: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+        sample_weight: torch.Tensor | None = None,
+        loss_mask: torch.Tensor | None = None,
+        **model_kwargs: Any,
+    ) -> tuple[torch.Tensor, DiffusionLossAux]:
+        """``(loss, aux)``. ``noise`` and ``time_draws`` (see
+        :meth:`sample_time_draws`) are drawn from ``generator`` where not
+        given; a paired 5-D ``x`` brings its own noise."""
+        if noise is None and x.dim() != 5:
+            noise = self._normal(x.shape, x, generator)
+        x, noise = self.get_x0_and_noises(x, noise)
+        if time_draws is None:
+            time_draws = self.sample_time_draws(x.shape[0], generator, x.device)
+        timesteps, sigmas = self.timesteps_and_sigmas(time_draws, x.device)
+        noisy_latent = self.noise_latents(x, noise, sigmas)
+
+        model_output = model_fn(noisy_latent, timesteps, **model_kwargs)
+
+        target = noise - x
+        pred_x0, pred_eps = self.get_x0_eps_from_pred_with_sigmas(noisy_latent, model_output, sigmas)
+        pred = pred_eps - pred_x0
+        losses = self._reduce_per_sample(_LOSS_FNS[self.loss_type](pred, target), loss_mask)
         aux = DiffusionLossAux(losses, timesteps, pred, target, noisy_latent)
         loss = losses.mean() if sample_weight is None else (losses * sample_weight.to(losses.dtype)).mean()
         return loss, aux

@@ -1,6 +1,8 @@
-"""Models of the SDXL serving slice."""
+"""Models of the port: SDXL (UNet, VAE, CLIP) and SD3 (MMDiT, T5)."""
 
 from uwudiff_tpu_torch.models.clip import CLIP_PRESETS, CLIPTextModel
+from uwudiff_tpu_torch.models.mmdit import MMDIT_PRESETS, MMDiT
+from uwudiff_tpu_torch.models.t5 import T5_PRESETS, T5EncoderModel
 from uwudiff_tpu_torch.models.text_encoders import (
     ConcatTextEncoders,
     TextEncodingPipeline,
@@ -15,7 +17,11 @@ __all__ = [
     "CLIPTextModel",
     "CLIP_PRESETS",
     "ConcatTextEncoders",
+    "MMDIT_PRESETS",
+    "MMDiT",
     "SimpleTokenizer",
+    "T5EncoderModel",
+    "T5_PRESETS",
     "TextEncodingPipeline",
     "TextModelExtraConfig",
     "UNET_PRESETS",

@@ -20,6 +20,7 @@ __all__ = [
     "get_timestep_embedding",
     "TimestepEmbedding",
     "GroupNorm",
+    "RMSNorm",
     "ResnetBlock2D",
     "Downsample2D",
     "Upsample2D",
@@ -84,6 +85,22 @@ class GroupNorm(nn.Module):
             x.permute(0, 2, 3, 1), self.weight, self.bias, self.groups, self.eps, self.silu
         )
         return y.permute(0, 3, 1, 2)
+
+
+class RMSNorm(nn.Module):
+    """RMS norm over the last dim, computed in fp32, output in the input's
+    dtype (T5's ``RMSNorm`` and flax ``nn.RMSNorm``: eps 1e-6, a ``scale``
+    that loads as ``weight``)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        xf = x.float()
+        var = xf.pow(2).mean(dim=-1, keepdim=True)
+        return (xf * torch.rsqrt(var + self.eps) * self.weight.float()).to(x.dtype)
 
 
 def _conv3x3(cin, cout, stride=1):

@@ -1,10 +1,13 @@
 """Multi-text-encoder conditioning (``uwudiff_tpu/models/text_encoders.py``).
 
-``ConcatTextEncoders`` runs every CLIP tower and assembles the context:
-feature concat within a bucket, sequence concat across buckets, pooled
-concat, and zeroed padding positions. ``TextEncodingPipeline`` holds the
-host-side tokenizers and runs the plain (non-nested) ``encode`` path.
-T5, long prompts, prompt weighting and nested captions come later.
+``ConcatTextEncoders`` runs every text tower (CLIP, T5) and assembles the
+context: feature concat within a bucket, sequence concat across buckets
+after zero-padding features to the widest bucket (or ``pad_context_to``),
+pooled concat, the key mask of the buckets that ask for one, and
+optionally zeroed padding positions. SDXL is CLIP-L + CLIP-bigG in bucket
+0; SD3 adds T5 in bucket 1. ``TextEncodingPipeline`` holds the host-side
+tokenizers and runs the plain (non-nested) ``encode`` path. Long prompts,
+prompt weighting and nested captions come later.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from uwudiff_tpu_torch.models.clip import CLIPTextModel
+from uwudiff_tpu_torch.models.t5 import T5EncoderModel
 from uwudiff_tpu_torch.utils import resolve_device
 
 __all__ = ["TextModelExtraConfig", "ConcatTextEncoders", "TextEncodingPipeline"]
@@ -28,10 +32,23 @@ class TextModelExtraConfig:
     use_pooled: bool = False
     layer_idx: int = -1
     need_mask: bool = False
+    # contribute only the pooled vector (the sequence stays out of the context)
+    pooled_only: bool = False
 
 
 def _cat(parts, dim):
     return torch.cat(parts, dim=dim) if parts else None
+
+
+def _build_text_model(cfg, device, dtype):
+    cfg = dict(cfg)
+    model_type = cfg.pop("model_type", "clip")
+    cls = {"clip": CLIPTextModel, "t5": T5EncoderModel}.get(model_type)
+    if cls is None:
+        raise ValueError(f"Unknown text model_type {model_type!r}")
+    cfg.pop("dtype", None)  # the JAX configs' compute dtype; the port takes ``dtype``
+    preset = cfg.pop("preset", None)
+    return cls.from_config(preset if preset else {}, device=device, dtype=dtype, **cfg)
 
 
 class ConcatTextEncoders(nn.Module):
@@ -39,15 +56,17 @@ class ConcatTextEncoders(nn.Module):
 
     def __init__(
         self,
-        text_models: Sequence[CLIPTextModel],
+        text_models: Sequence[nn.Module],
         configs: Sequence[TextModelExtraConfig],
         zero_for_padding: bool = True,
         use_normed_ctx: bool = False,
+        pad_context_to: int | None = None,
     ):
         super().__init__()
         self.configs = tuple(configs)
         self.zero_for_padding = zero_for_padding
         self.use_normed_ctx = use_normed_ctx
+        self.pad_context_to = pad_context_to
         self.model_names = [f"text_models_{i}" for i in range(len(text_models))]
         for name, model in zip(self.model_names, text_models):
             self.add_module(name, model)
@@ -60,22 +79,18 @@ class ConcatTextEncoders(nn.Module):
         dtype=torch.float32,
         zero_for_padding: bool = True,
         use_normed_ctx: bool = False,
+        pad_context_to: int | None = None,
     ) -> "ConcatTextEncoders":
         """``[(model_cfg, extra_cfg), ...]`` with ``model_cfg`` a dict
-        holding ``preset`` and/or ``CLIPTextModel`` arguments."""
+        holding ``model_type`` (``clip`` or ``t5``), ``preset`` and/or the
+        model's arguments."""
         models, configs = [], []
         for model_cfg, extra_cfg in text_model_and_configs:
-            model_cfg = dict(model_cfg)
-            if model_cfg.pop("model_type", "clip") != "clip":
-                raise NotImplementedError("only CLIP text towers are ported")
-            preset = model_cfg.pop("preset", None)
-            models.append(CLIPTextModel.from_config(
-                preset if preset else {}, device=device, dtype=dtype, **model_cfg
-            ))
+            models.append(_build_text_model(model_cfg, device, dtype))
             if not isinstance(extra_cfg, TextModelExtraConfig):
                 extra_cfg = TextModelExtraConfig(**extra_cfg)
             configs.append(extra_cfg)
-        return cls(models, configs, zero_for_padding, use_normed_ctx)
+        return cls(models, configs, zero_for_padding, use_normed_ctx, pad_context_to)
 
     def forward(self, tokenizer_outputs):
         n_buckets = max(c.concat_bucket for c in self.configs) + 1
@@ -86,26 +101,34 @@ class ConcatTextEncoders(nn.Module):
         for tokens, name, config in zip(tokenizer_outputs, self.model_names, self.configs):
             model = getattr(self, name)
             input_ids, attn_mask = tokens["input_ids"], tokens["attention_mask"]
-            if input_ids.shape[1] > model.max_position_embeddings:
-                raise NotImplementedError("long prompts are not ported yet")
             bucket = config.concat_bucket
-            if attn_masks[bucket] is None and config.need_mask:
+            if attn_masks[bucket] is None and config.need_mask and not config.pooled_only:
                 attn_masks[bucket] = attn_mask
-            out = model(input_ids, attn_mask, layer_idx=config.layer_idx)
-            embedding, normed_embedding = out.embedding, out.normed_embedding
+            if isinstance(model, CLIPTextModel):
+                if input_ids.shape[1] > model.max_position_embeddings:
+                    raise NotImplementedError("long prompts are not ported yet")
+                out = model(input_ids, attn_mask, layer_idx=config.layer_idx)
+                embedding, normed_embedding, pool = out.embedding, out.normed_embedding, out.pooler_output
+            else:  # T5: the last hidden state, no pooled vector
+                out = model(input_ids, attn_mask)
+                embedding = normed_embedding = out.last_hidden_state
+                pool = None
             if self.zero_for_padding:
                 m = attn_mask[..., None].to(embedding.dtype)
                 embedding = embedding * m
                 normed_embedding = normed_embedding * m
-            embs[bucket].append(embedding)
-            normed[bucket].append(normed_embedding)
-            if config.use_pooled:
-                pooled[bucket].append(out.pooler_output)
+            if not config.pooled_only:
+                embs[bucket].append(embedding)
+                normed[bucket].append(normed_embedding)
+            if config.use_pooled and pool is not None:
+                pooled[bucket].append(pool)
 
         emb_b = [_cat(e, -1) for e in embs]
         normed_b = [_cat(e, -1) for e in normed]
         pooled_b = [_cat(p, -1) for p in pooled]
         max_dim = max(e.shape[-1] for e in emb_b if e is not None)
+        if self.pad_context_to is not None:
+            max_dim = max(max_dim, self.pad_context_to)
 
         def pad_feat(e):
             if e is None or e.shape[-1] == max_dim:

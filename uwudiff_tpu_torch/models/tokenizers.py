@@ -2,17 +2,42 @@
 
 ``SimpleTokenizer`` is the deterministic hash tokenizer that the JAX
 trainer falls back to when no tokenizer is configured; its ids equal the
-JAX package's for the same text. The CLIP BPE tokenizer waits until its
+JAX package's for the same text, textual-inversion placeholders
+included. The CLIP BPE and T5 SentencePiece tokenizers wait until their
 vocabulary files are in the repository.
 """
 
 from __future__ import annotations
 
 import hashlib
+import re
 
 import numpy as np
 
 __all__ = ["SimpleTokenizer"]
+
+
+def _split_on_added(text: str, added: dict[str, list[int]]):
+    """Yield ("ids", expansion) for placeholder hits (case-insensitive, keys
+    stored lowercase) and ("text", segment) for everything else.
+    Placeholders with alphanumeric edges match at word boundaries only
+    ("sks" not inside "tasks"); "<concept>" matches next to punctuation."""
+    parts = []
+    for k in added:
+        p = re.escape(k)
+        if k[0].isalnum():
+            p = r"(?<![a-z0-9])" + p
+        if k[-1].isalnum():
+            p = p + r"(?![a-z0-9])"
+        parts.append(p)
+    for part in re.split("(" + "|".join(parts) + ")", text, flags=re.IGNORECASE):
+        if part is None:
+            continue
+        key = part.lower()
+        if key in added:
+            yield ("ids", added[key])
+        elif part.strip():
+            yield ("text", part)
 
 
 class SimpleTokenizer:
@@ -31,10 +56,20 @@ class SimpleTokenizer:
         self.pad_token_id = pad_token_id
         self.bos_token_id = bos_token_id
         self.eos_token_id = eos_token_id
+        self.added_tokens: dict[str, list[int]] = {}
+
+    def add_placeholder(self, token: str, ids: list[int]) -> None:
+        """Register a textual-inversion placeholder that expands to ``ids``."""
+        self.added_tokens[str(token).lower()] = [int(i) for i in ids]
 
     def tokenize(self, text: str) -> list[int]:
-        """Raw word ids, no special tokens."""
-        return [self._word_id(w) for w in text.lower().split()]
+        """Raw word ids, no special tokens; placeholders expand to their ids."""
+        if not self.added_tokens:
+            return [self._word_id(w) for w in text.lower().split()]
+        ids: list[int] = []
+        for kind, val in _split_on_added(text, self.added_tokens):
+            ids.extend(val if kind == "ids" else (self._word_id(w) for w in val.lower().split()))
+        return ids
 
     def _word_id(self, word: str) -> int:
         h = int.from_bytes(hashlib.md5(word.encode("utf-8")).digest()[:4], "little")

@@ -9,6 +9,7 @@ from uwudiff_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_bwd_dkv,
     flash_bwd_dq,
+    flash_bwd_dq_dbias,
     flash_fwd,
 )
 from uwudiff_tpu_torch.ops.groupnorm_silu import (
@@ -38,6 +39,7 @@ __all__ = [
 KERNELS = {
     "flash_fwd": flash_fwd,
     "flash_bwd_dq": flash_bwd_dq,
+    "flash_bwd_dq_dbias": flash_bwd_dq_dbias,
     "flash_bwd_dkv": flash_bwd_dkv,
     "gn_stats": gn_stats,
     "gn_silu_apply": gn_silu_apply,

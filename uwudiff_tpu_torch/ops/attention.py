@@ -57,9 +57,11 @@ def attention_reference(q, k, v, bias=None, scale=None):
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
 
 
-def dot_product_attention(q, k, v, bias=None, scale=None):
+def dot_product_attention(q, k, v, bias=None, scale=None, bias_grad=False):
     """Scaled dot-product attention over ``[B, S, H, D]`` tensors; ``bias``
-    is additive and broadcastable to ``[B, H, Sq, Sk]``."""
+    is additive and broadcastable to ``[B, H, Sq, Sk]``. ``bias_grad=True``
+    marks a learned bias: the flash path then computes its gradient (K5);
+    the einsum is differentiable in the bias either way."""
     if q.is_cuda and q.shape[-1] <= FLASH_MAX_HEAD_DIM:
-        return flash_attention(q, k, v, bias, scale)
+        return flash_attention(q, k, v, bias, scale, bias_grad=bias_grad)
     return attention_reference(q, k, v, bias=bias, scale=scale)

@@ -1,26 +1,32 @@
 """Flash attention: the hand-written CUDA kernels and their plain versions.
 
 Replaces ``uwudiff_tpu/ops/flash_attention.py``: the TPU's online-softmax
-forward ``_fwd_kernel`` (``csrc/flash_fwd.cu``) and its backward pair
-``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` (``csrc/flash_bwd.cu``). Each
-source note says what bounds the kernel on an H100 and how the design
-answers that.
+forward ``_fwd_kernel`` (``csrc/flash_fwd.cu``) and its backward kernels
+``_bwd_dq_kernel`` / ``_bwd_dq_dbias_kernel`` / ``_bwd_dkv_kernel``
+(``csrc/flash_bwd.cu``). Each source note says what bounds the kernel on
+an H100 and how the design answers that.
 
 Contract (the JAX function's): ``q`` ``[B, Sq, H, D]``, ``k``/``v``
 ``[B, Sk, H, D]``, out ``[B, Sq, H, D]`` in the input dtype and, on
 request, the natural-log row logsumexp ``[B, H, Sq]`` in fp32. The bias
 is none, a key bias broadcastable to ``[B, 1, 1, Sk]`` or a full bias
 broadcastable to ``[B, H, Sq, Sk]``; it is clamped at ``-1e30`` so that
-a bias holding ``-inf`` (CLIP adds ``finfo.min`` twice) gives no NaN. The
-bias is a constant: it gets no gradient (the JAX function's
-``bias_grad=False``; the dBias kernel is not ported).
+a bias holding ``-inf`` (CLIP adds ``finfo.min`` twice) gives no NaN.
+With ``bias_grad=False`` (the default) the bias is a constant and gets no
+gradient. With ``bias_grad=True`` it is a learned bias (T5's relative
+position bias): it is taken as full ``[B, H, Sq, Sk]`` and the backward's
+dQ pass is the dQ + dBias kernel (K5), whose dBias (natural-log units,
+fp32) is summed back to the bias argument's shape. As in the JAX package,
+K5 runs for every ``bias_grad=True`` call with a bias, whether or not
+autograd keeps the bias gradient.
 
-:func:`flash_fwd`, :func:`flash_bwd_dq` and :func:`flash_bwd_dkv` launch
-the kernels and take CUDA tensors only; :func:`flash_attention_reference`
-and :func:`flash_attention_backward_reference` are the plain PyTorch
+:func:`flash_fwd`, :func:`flash_bwd_dq`, :func:`flash_bwd_dq_dbias` and
+:func:`flash_bwd_dkv` launch the kernels and take CUDA tensors only;
+:func:`flash_attention_reference` and
+:func:`flash_attention_backward_reference` are the plain PyTorch
 versions; :class:`FlashAttentionFunction` is the autograd function (K1
-forward, K4 + K6 backward) and picks between kernels and plain versions
-by the tensors' device.
+forward; K4 or K5, and K6 backward) and picks between kernels and plain
+versions by the tensors' device.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ __all__ = [
     "flash_bwd",
     "flash_bwd_dkv",
     "flash_bwd_dq",
+    "flash_bwd_dq_dbias",
     "flash_fwd",
 ]
 
@@ -66,19 +73,20 @@ def _kernel(source, name, n_ptrs):
     return fn
 
 
-def _split_bias(bias, b, h, sq, sk):
+def _split_bias(bias, b, h, sq, sk, full=False):
     """-> (mode, tensor): 0 none, 1 key bias [B, Sk], 2 full [B*H, Sq, Sk];
-    fp32, clamped at NEG_INF, broadcasts expanded."""
+    fp32 and contiguous, broadcasts expanded. A bias that is already so
+    (T5's, built once per forward and shared by every layer) passes
+    uncopied; the kernels clamp it at NEG_INF as they load it. ``full``
+    takes a key bias as full too (the dBias kernel's layout)."""
     if bias is None:
         return 0, None
     bias = bias.float()
     while bias.dim() < 4:
         bias = bias[None]
-    if bias.shape[1] == 1 and bias.shape[2] == 1:
-        key = bias.expand(b, 1, 1, sk)[:, 0, 0, :]
-        return 1, key.clamp_min(NEG_INF).contiguous()
-    full = bias.expand(b, h, sq, sk).clamp_min(NEG_INF)
-    return 2, full.reshape(b * h, sq, sk).contiguous()
+    if not full and bias.shape[1] == 1 and bias.shape[2] == 1:
+        return 1, bias.expand(b, 1, 1, sk)[:, 0, 0, :].contiguous()
+    return 2, bias.expand(b, h, sq, sk).reshape(b * h, sq, sk).contiguous()
 
 
 def _logits(q, k, bias, scale):
@@ -99,9 +107,10 @@ def flash_attention_reference(q, k, v, bias=None, scale=None):
 
 
 def flash_attention_backward_reference(q, k, v, bias, out, lse, dout, scale=None):
-    """Plain version of the backward pair, in fp32: P recomputed from the
+    """Plain version of the backward kernels, in fp32: P recomputed from the
     forward's ``lse``, ``delta = rowsum(dO * O)``, ``dS = P (dP - delta)``.
-    Returns (dq, dk, dv) in the inputs' dtype."""
+    Returns (dq, dk, dv) in the inputs' dtype and dS, the logits' gradient
+    (a full bias's gradient), fp32 ``[B, H, Sq, Sk]``."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     p = torch.exp(_logits(q, k, bias, scale) - lse[..., None])  # [B, H, Sq, Sk]
     do = dout.float()
@@ -111,7 +120,7 @@ def flash_attention_backward_reference(q, k, v, bias, out, lse, dout, scale=None
     ds = p * (dp - delta[..., None])
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds
 
 
 def _check(who, head_dims, *tensors):
@@ -145,9 +154,9 @@ def _check(who, head_dims, *tensors):
         raise ValueError(f"{who}: inputs on different devices")
 
 
-def _bias_arg(who, bias, q, k):
+def _bias_arg(who, bias, q, k, full=False):
     b, sq, h, _ = q.shape
-    mode, bias_t = _split_bias(bias, b, h, sq, k.shape[1])
+    mode, bias_t = _split_bias(bias, b, h, sq, k.shape[1], full)
     if bias_t is not None and bias_t.device != q.device:
         raise ValueError(f"{who}: bias on another device than q")
     return mode, bias_t
@@ -216,6 +225,35 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, bias=None, scale=None):
 flash_bwd_dq.launches = 0
 
 
+def flash_bwd_dq_dbias(q, k, v, dout, lse, delta, bias, scale=None):
+    """Launch the dQ + dBias kernel (K5) for a learned bias, taken as full.
+    Returns (dq [B, Sq, H, D], dbias [B*H, Sq, Sk] fp32, natural-log units)."""
+    _check("flash_bwd_dq_dbias", BWD_HEAD_DIMS, ("q", q), ("k", k), ("v", v), ("dout", dout))
+    if bias is None:
+        raise ValueError("flash_bwd_dq_dbias: needs a bias")
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = scale if scale is not None else d**-0.5
+    mode, bias_t = _bias_arg("flash_bwd_dq_dbias", bias, q, k, full=True)
+    lse, delta = _stats_arg("flash_bwd_dq_dbias", lse, q), _stats_arg("flash_bwd_dq_dbias", delta, q)
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dbias = torch.empty((b * h, sq, sk), dtype=torch.float32, device=q.device)
+    rc = _kernel("flash_bwd.cu", "uwu_flash_bwd_dq_dbias", 9)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_t.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dbias.data_ptr(),
+        b, h, sq, sk, d, mode,
+        ctypes.cast(_strides(q, k, v, dout), ctypes.c_void_p), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dq_dbias launch failed: cudaError {rc}")
+    flash_bwd_dq_dbias.launches += 1
+    return dq, dbias
+
+
+flash_bwd_dq_dbias.launches = 0
+
+
 def flash_bwd_dkv(q, k, v, dout, lse, delta, bias=None, scale=None):
     """Launch the dK/dV kernel (K6). Returns (dk, dv), each [B, Sk, H, D]."""
     _check("flash_bwd_dkv", BWD_HEAD_DIMS, ("q", q), ("k", k), ("v", v), ("dout", dout))
@@ -244,13 +282,19 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, bias=None, scale=None):
 flash_bwd_dkv.launches = 0
 
 
-def flash_bwd(q, k, v, bias, out, lse, dout, scale=None):
-    """The backward pair on CUDA tensors: ``delta = rowsum(dO * O)`` (PyTorch),
-    then K4 and K6. Returns (dq, dk, dv)."""
+def flash_bwd(q, k, v, bias, out, lse, dout, scale=None, bias_grad=False):
+    """The backward kernels on CUDA tensors: ``delta = rowsum(dO * O)``
+    (PyTorch), then K4 (K5 with ``bias_grad`` and a bias) and K6. Returns
+    (dq, dk, dv, dbias): dbias ``[B, H, Sq, Sk]`` fp32 from K5, else None."""
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()  # [B, H, Sq]
-    dq = flash_bwd_dq(q, k, v, dout, lse, delta, bias, scale)
+    dbias = None
+    if bias_grad and bias is not None:
+        dq, dbias = flash_bwd_dq_dbias(q, k, v, dout, lse, delta, bias, scale)
+        dbias = dbias.view(q.shape[0], q.shape[2], q.shape[1], k.shape[1])
+    else:
+        dq = flash_bwd_dq(q, k, v, dout, lse, delta, bias, scale)
     dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, bias, scale)
-    return dq, dk, dv
+    return dq, dk, dv, dbias
 
 
 def _forward(q, k, v, bias, scale):
@@ -264,31 +308,42 @@ def _forward(q, k, v, bias, scale):
 class FlashAttentionFunction(torch.autograd.Function):
     """Attention with the flash kernels on both sides: the forward (K1)
     saves ``q, k, v, out, lse``; the backward recomputes P from the lse
-    (K4 + K6). CPU tensors take the plain versions. The bias gets no
-    gradient."""
+    (K4 + K6, or K5 + K6 with ``bias_grad``). CPU tensors take the plain
+    versions. The bias gets a gradient only with ``bias_grad``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias=None, scale=None):
+    def forward(ctx, q, k, v, bias=None, scale=None, bias_grad=False):
         out, lse = _forward(q, k, v, bias, scale)
         ctx.save_for_backward(q, k, v, bias, out, lse)
-        ctx.scale = scale
+        ctx.scale, ctx.bias_grad = scale, bias_grad
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, bias, out, lse = ctx.saved_tensors
-        bwd = flash_bwd if q.is_cuda else flash_attention_backward_reference
-        dq, dk, dv = bwd(q, k, v, bias, out, lse, dout, ctx.scale)
-        return dq, dk, dv, None, None
+        with_dbias = ctx.bias_grad and bias is not None
+        if q.is_cuda:
+            dq, dk, dv, dbias = flash_bwd(q, k, v, bias, out, lse, dout, ctx.scale, with_dbias)
+        else:
+            dq, dk, dv, dbias = flash_attention_backward_reference(q, k, v, bias, out, lse, dout, ctx.scale)
+        dbias = dbias.sum_to_size(bias.shape).to(bias.dtype) if with_dbias else None
+        return dq, dk, dv, dbias, None, None
 
 
-def flash_attention(q, k, v, bias=None, scale=None, return_lse=False):
+def flash_attention(q, k, v, bias=None, scale=None, return_lse=False, bias_grad=False):
     """Differentiable flash attention: the kernels for CUDA tensors, the
     plain versions for CPU tensors. Without gradients it is the forward
-    alone, outside autograd. The lse, if returned, is a constant."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        out, lse = FlashAttentionFunction.apply(q, k, v, bias, scale)
+    alone, outside autograd. The lse, if returned, is a constant.
+    ``bias_grad=True`` makes the bias a learned one (the JAX function's
+    contract; not with ``return_lse``)."""
+    if bias_grad and return_lse:
+        raise NotImplementedError("bias_grad with return_lse is unsupported")
+    wants_grad = q.requires_grad or k.requires_grad or v.requires_grad
+    if bias_grad and bias is not None:
+        wants_grad = wants_grad or bias.requires_grad
+    if torch.is_grad_enabled() and wants_grad:
+        out, lse = FlashAttentionFunction.apply(q, k, v, bias, scale, bias_grad)
     else:
         out, lse = _forward(q, k, v, bias, scale)
     return (out, lse) if return_lse else out

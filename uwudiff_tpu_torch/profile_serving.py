@@ -1,19 +1,21 @@
-"""Device-time breakdown of SDXL serving, or of one SDXL training step, on one GPU.
+"""Device-time breakdown of SDXL serving, or of one training step, on one GPU.
 
     python -m uwudiff_tpu_torch.profile_serving [--batch 4] [--steps 4]
     python -m uwudiff_tpu_torch.profile_serving --train [--batch 8]
+    python -m uwudiff_tpu_torch.profile_serving --ti [--batch 8]
 
 Serving: builds the SDXL serving stack at full width with random weights
 (``serving.sdxl_pipeline``), warms it up, then traces one request batch
 (1024x1024, CFG 5) with ``torch.profiler``. ``--train``: builds the SDXL
 full fine-tune step of ``training/bench_setup.py`` (64x64 latents, bf16
 params, ``adamw_factored``), runs two warm-up steps, then traces one
-step. Either way it reports the device time by kernel family (the
-backward kernels as families of their own), the device's busy share of
-the traced window, and the slowest kernels. The profiler's host overhead
-lengthens the window, so the busy share is a lower bound. Writes the
-tables to ``chiprun_out/profile_serving.json`` (``profile_train.json``
-with ``--train``) beside the checkout's root.
+step. ``--ti``: the same for the SD3-medium textual-inversion step
+(``build_ti_trainer_and_batch``). Each reports the device time by kernel
+family (the backward kernels as families of their own), the device's
+busy share of the traced window, and the slowest kernels. The profiler's
+host overhead lengthens the window, so the busy share is a lower bound.
+Writes the tables to ``chiprun_out/profile_serving.json``
+(``profile_train.json``, ``profile_ti.json``) beside the checkout's root.
 """
 
 from __future__ import annotations
@@ -43,6 +45,8 @@ _FAMILIES = (
 
 def _family(name: str) -> str:
     low = name.lower()
+    if "flash_bwd_dq_kernel" in low and "true>" in low:  # the DBIAS instantiation
+        return "flash_bwd_dq_dbias (K5)"
     for family, keys in _FAMILIES:
         if any(k in low for k in keys):
             return family
@@ -54,11 +58,20 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=None, help="requests (serving, 4) or images (--train, 8)")
     ap.add_argument("--steps", type=int, default=4, help="sampler steps (serving)")
     ap.add_argument("--train", action="store_true", help="trace one SDXL training step")
+    ap.add_argument("--ti", action="store_true", help="trace one SD3-medium textual-inversion step")
     args = ap.parse_args()
 
     from torch.profiler import ProfilerActivity, profile
 
-    if args.train:
+    mode = "ti" if args.ti else "train" if args.train else "serve"
+    if args.ti:
+        from uwudiff_tpu_torch.training.bench_setup import build_ti_trainer_and_batch
+
+        batch = args.batch or 8
+        trainer, data = build_ti_trainer_and_batch(batch=batch)
+        run = lambda: trainer.train_step(data)  # noqa: E731
+        out_name = "profile_ti.json"
+    elif args.train:
         from uwudiff_tpu_torch.training.bench_setup import build_trainer_and_batch
 
         batch = args.batch or 8
@@ -98,8 +111,8 @@ def main() -> int:
         f[0] += t
         f[1] += n
     report = {
-        "card": torch.cuda.get_device_name(0), "mode": "train" if args.train else "serve",
-        "batch": batch, "steps": None if args.train else args.steps, "window_ms": window_ms,
+        "card": torch.cuda.get_device_name(0), "mode": mode,
+        "batch": batch, "steps": args.steps if mode == "serve" else None, "window_ms": window_ms,
         "device_busy_ms": busy_ms, "device_busy_share": busy_ms / window_ms,
         "families": {f: {"ms": t, "launches": n, "share_of_busy": t / busy_ms}
                      for f, (t, n) in sorted(families.items(), key=lambda kv: -kv[1][0])},
