@@ -8,10 +8,13 @@ Phases, each fatal on failure:
   2. kernels - each kernel against its plain PyTorch version on the card,
                in bf16: the forward and backward kernels at the serving,
                training and textual-inversion paths' shapes (CLIP-L/bigG,
-               T5-XXL, the MMDiT's joint attention), the backward twice for
-               bitwise reproducibility, the dQ + dBias kernel at T5-XXL's;
-               median ms of the kernel, the plain version and one library
-               call, and the card's lower bound for the same work. Then
+               T5-XXL, the MMDiT's joint attention), each twice for bitwise
+               reproducibility, the dQ + dBias kernel at T5-XXL's; the
+               Hopper forward (D = 64) also on strided head views of one
+               fused tensor, and raising on a view TMA cannot take; median
+               ms of the kernel, the plain version and one library call,
+               the card's lower bound for the same work and, for the
+               forward, the exp2 floor. Then
                small SDXL- and SD3-shaped models, bf16 on the card through
                the kernels, against the same weights in fp32 on the CPU:
                forwards, one SDXL training step's loss and gradients, and
@@ -21,14 +24,15 @@ Phases, each fatal on failure:
                Euler-ancestral UNet -> VAE decode, 1024x1024 requests: a
                batch of 4 with distinct seeds, then a lone request. Checks
                the images, seed-lane isolation and that every forward kernel
-               was launched by that run.
+               was launched by that run, every flash forward on the Hopper
+               kernel.
   4. train   - the SDXL full fine-tune step at full width
                (training/bench_setup.py: batch 8, 64x64 latents, bf16
                params with stochastic rounding, adamw_factored): one
                warm-up step and 5 timed steps. Checks finite losses and
                grad norms, that every parameter took an update, and that
                each step launched every kernel exactly as often as the
-               UNet's plan says.
+               UNet's plan says, every flash forward on the Hopper kernel.
   5. ti      - SD3-medium textual inversion at full width
                (training/bench_setup.py: MMDiT + CLIP-L + CLIP-bigG +
                T5-XXL at 256 tokens, batch 8, 64x64x16 latents, bf16
@@ -37,7 +41,7 @@ Phases, each fatal on failure:
                non-zero grad norms, that every row table moved, that no
                frozen leaf changed (per-leaf fp64 checksums) and each
                step's launches against the plan from the modules (K5 once
-               per T5 layer).
+               per T5 layer, every flash forward on the Hopper kernel).
 Prints the card's name and power limit, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA is
 unavailable or the package is missing. A full report goes to
@@ -66,6 +70,8 @@ RES = 1024
 PEAK_BYTES = 3.35e12  # HBM3, bytes/s
 PEAK_BF16 = 989e12  # tensor cores, flop/s
 PEAK_FP32 = 67e12  # CUDA cores, flop/s
+EXP2_PER_CLOCK = 16  # SFU exp2 results a clock per SM
+SM_CLOCK_HZ = None  # nvidia-smi's clocks.max.sm, read in main()
 
 
 def log(*args):
@@ -91,30 +97,52 @@ def time_ms(fn, reps=20, warmup=2, runs=3):
     return times[len(times) // 2]
 
 
-def profiled_ms(fn, family, reps=10):
+def profiled_ms(fn, family=None, reps=10, tries=3):
     """Device time of one call from torch.profiler over ``reps`` calls:
     (the kernels of ``family``, as profile_serving names them; every other
-    kernel or copy the call puts on the device)."""
+    kernel or copy the call puts on the device), or with no ``family`` the
+    sum of every kernel and copy. A trace that caught no device activity
+    (it happens) is taken again; after ``tries`` empty traces the sum is
+    None, and a family the profiler never saw raises."""
     from torch.profiler import ProfilerActivity, profile
 
     from uwudiff_tpu_torch.profile_serving import _family
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    mine = other = 0.0
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            if _family(ev.name) == family:
-                mine += ev.time_range.elapsed_us() / 1e3
-            else:
-                other += ev.time_range.elapsed_us() / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        mine = other = 0.0
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                if family is not None and _family(ev.name) == family:
+                    mine += ev.time_range.elapsed_us() / 1e3
+                else:
+                    other += ev.time_range.elapsed_us() / 1e3
+        if mine + other > 0:
+            break
+    if family is None:
+        return other / reps if other > 0 else None
     if mine == 0.0:
         raise RuntimeError(f"the profiler saw no {family} kernel")
     return mine / reps, other / reps
+
+
+def _ms(t):
+    return "n/a" if t is None else f"{t:.4f}"
+
+
+def exp_floor_ms(b, h, sq, sk):
+    """The SFU floor of the whole flash-forward function: one exp2 per
+    query-key pair, every one on the SFU, at its rate over every SM at the
+    card's maximum SM clock. Computed, not measured; flash_fwd_sm90 sends
+    one n8-tile in eight to the FMA pipe, so its own SFU work is 7/8 of
+    this."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return b * h * sq * sk / (EXP2_PER_CLOCK * sms * SM_CLOCK_HZ) * 1e3
 
 
 def bound(nbytes, flops, peak_flops):
@@ -138,6 +166,11 @@ def flash_cases():
         ("sdxl_l2_self", 8, 1024, 1024, 20, 64, "none", None),
         ("sdxl_l1_cross", 8, 4096, 77, 10, 64, "none", None),
         ("sdxl_l2_cross", 8, 1024, 77, 20, 64, "none", None),
+        # the SDXL training path's at 64x64 latents (levels 1 and 2)
+        ("train_l1_self", 8, 1024, 1024, 10, 64, "none", None),
+        ("train_l2_self", 8, 256, 256, 20, 64, "none", None),
+        ("train_l1_cross", 8, 1024, 77, 10, 64, "none", None),
+        ("train_l2_cross", 8, 256, 77, 20, 64, "none", None),
         ("clip_bigg_causal", 8, 77, 77, 20, 64, "full", None),
         ("clip_l_causal", 8, 77, 77, 12, 64, "full", None),
         ("t5_xxl", 8, 256, 256, 64, 64, "t5", 1.0),
@@ -171,27 +204,32 @@ def make_bias(kind, b, h, sq, sk, dev, gen):
     return torch.where(causal, 0.0, neg)[None, None] + torch.where(pad, 0.0, neg)[:, None, None, :]
 
 
-def bias_bytes(kind, b, h, sq, sk):
-    """fp32 bias bytes a kernel reads once: [B, Sk] or [B*H, Sq, Sk]."""
-    return {"none": 0, "key": 4 * b * sk, "joint": 4 * b * sk}.get(kind, 4 * b * h * sq * sk)
+def bias_bytes(bias):
+    """Bias bytes the function must read: the bias as it is given, read
+    once (CLIP's [B, 1, Sq, Sk] once for every head, T5's [B, H, Sq, Sk]
+    whole, a key bias [B, 1, 1, Sk] once for every query row)."""
+    return 0 if bias is None else bias.numel() * bias.element_size()
 
 
 def check_flash(results, failures):
     import torch.nn.functional as F
 
-    from uwudiff_tpu_torch.ops import flash_fwd
-    from uwudiff_tpu_torch.ops.flash_attention import NEG_INF, flash_attention_reference
+    from uwudiff_tpu_torch.ops.flash_attention import NEG_INF, flash_attention_reference, forward_kernel
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     for name, b, sq, sk, h, d, kind, scale in flash_cases():
+        fwd = forward_kernel(d)  # flash_fwd_sm90 at D = 64, flash_fwd_mma at 40/80/160
         q, k, v = (
             torch.randn((b, s, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
             for s in (sq, sk, sk)
         )
         bias = make_bias(kind, b, h, sq, sk, dev, gen)
-        out, lse = flash_fwd(q, k, v, bias, scale)
+        out, lse = fwd(q, k, v, bias, scale)
         torch.cuda.synchronize()
+        out2, lse2 = fwd(q, k, v, bias, scale)
+        bitwise = torch.equal(out, out2) and torch.equal(lse, lse2)
+        del out2, lse2
         ref, ref_lse = flash_attention_reference(q, k, v, bias, scale)
         err = (out.float() - ref.float()).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
@@ -205,29 +243,64 @@ def check_flash(results, failures):
         ref_rms = ref.float().pow(2).mean().sqrt().item()
         rms_err = (out.float() - ref.float()).pow(2).mean().sqrt().item()
         tol, rms_tol, lse_tol = 2.0**-7 * ref_max + 2.0**-10, 2.0**-7 * ref_rms, 1e-3
-        ok = finite and err <= tol and rms_err <= rms_tol and lse_err <= lse_tol
-        ms = time_ms(lambda: flash_fwd(q, k, v, bias, scale))
+        ok = finite and bitwise and err <= tol and rms_err <= rms_tol and lse_err <= lse_tol
+        ms = time_ms(lambda: fwd(q, k, v, bias, scale))
         plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, bias, scale), reps=2, warmup=1)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         mask = None if bias is None else bias.clamp_min(NEG_INF).to(torch.bfloat16)
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale))
+        library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale)  # noqa: E731
+        library_ms = time_ms(library)
         flops = 4.0 * b * h * sq * sk * d
-        nbytes = 2 * (2 * b * sq * h * d + 2 * b * sk * h * d) + 4 * b * h * sq + bias_bytes(kind, b, h, sq, sk)
+        nbytes = 2 * (2 * b * sq * h * d + 2 * b * sk * h * d) + 4 * b * h * sq + bias_bytes(bias)
         bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16)
-        row = dict(kernel="flash_fwd", case=name, shape=[b, sq, sk, h, d], bias=kind, scale=scale,
+        row = dict(kernel=fwd.__name__, case=name, shape=[b, sq, sk, h, d], bias=kind, scale=scale,
                    max_abs_err=err, lse_max_abs_err=lse_err, tol=tol, ref_max_abs=ref_max,
-                   rms_err=rms_err, rms_tol=rms_tol, ok=ok, ms=ms,
+                   rms_err=rms_err, rms_tol=rms_tol, bitwise=bitwise, ok=ok, ms=ms,
                    plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   tflops=flops / ms / 1e9)
+                   exp_ms=exp_floor_ms(b, h, sq, sk), tflops=flops / ms / 1e9)
+        # device time alone, from the profiler (the wrapper's bias copy included
+        # where it makes one); at the small shapes the host time of a call is
+        # most of ms
+        row["kernel_device_ms"] = profiled_ms(lambda: fwd(q, k, v, bias, scale))
+        row["library_device_ms"] = profiled_ms(library)
         results.append(row)
-        log(f"  flash_fwd {name:18s} err {err:.2e} (tol {tol:.1e}) rms {rms_err:.1e} (tol {rms_tol:.1e})"
-            f" lse {lse_err:.1e} {'ok' if ok else 'FAIL'}"
-            f" | {ms:.3f} ms ({row['tflops']:.0f} TF/s) plain {plain_ms:.2f} sdpa {library_ms:.3f}"
-            f" bound {bound_ms:.3f} ({bound_by})")
+        log(f"  {fwd.__name__} {name:18s} err {err:.2e} (tol {tol:.1e}) rms {rms_err:.1e} (tol {rms_tol:.1e})"
+            f" lse {lse_err:.1e} bitwise {bitwise} {'ok' if ok else 'FAIL'}"
+            f" | {ms:.4f} ms ({row['tflops']:.0f} TF/s) plain {plain_ms:.2f} sdpa {library_ms:.4f}"
+            f" bound {bound_ms:.3f} ({bound_by}) SFU floor {row['exp_ms']:.3f};"
+            f" device {_ms(row['kernel_device_ms'])} vs sdpa {_ms(row['library_device_ms'])}")
         if not ok:
-            failures.append(f"flash_fwd {name}: err {err} (tol {tol}) rms {rms_err} (tol {rms_tol})"
-                            f" lse_err {lse_err} finite {finite}")
-        del q, k, v, out, lse, ref, ref_lse
+            failures.append(f"{fwd.__name__} {name}: err {err} (tol {tol}) rms {rms_err} (tol {rms_tol})"
+                            f" lse_err {lse_err} finite {finite} bitwise {bitwise}")
+        del q, k, v, out, lse, ref, ref_lse, mask
+        torch.cuda.empty_cache()
+    check_flash_views(failures)
+
+
+def check_flash_views(failures):
+    """The Hopper forward on q/k/v cut as strided head views from one fused
+    [B, S, 3, H, D] projection (taken uncopied by TMA), and refusing a view
+    TMA cannot take (k expanded over heads, stride 0): it raises, it does
+    not copy."""
+    from uwudiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from uwudiff_tpu_torch.ops.flash_attention import flash_attention_reference, flash_fwd_sm90
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    qkv = torch.randn((8, 1024, 3, 10, 64), generator=gen, device="cuda", dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    ok, err, rms_err, tol = close_enough(flash_fwd_sm90(q, k, v)[0], flash_attention_reference(q, k, v)[0])
+    log(f"  flash_fwd_sm90 fused-qkv views {tuple(q.stride())}: err {err:.2e} (tol {tol:.1e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"flash_fwd_sm90 on fused-qkv views: err {err} rms {rms_err} (tol {tol})")
+    k_shared = k[:, :, :1].expand(k.shape)
+    reset_launch_counts()
+    try:
+        flash_fwd_sm90(q, k_shared, k_shared)
+        failures.append("flash_fwd_sm90 took a view with a zero head stride")
+    except ValueError as e:
+        log(f"  flash_fwd_sm90 refuses a stride-0 head view: {e}")
+    if launch_counts()["flash_fwd"] != 0:
+        failures.append("a refused view still launched a forward kernel")
 
 
 def gn_cases():
@@ -374,7 +447,7 @@ def check_flash_bwd(results, failures):
         library_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dout_t, retain_graph=True))
         del lib_out, qt, kt, vt, mask
         # q, dO, k, v; lse, delta; the bias
-        io = 2 * (2 * b * sq * h * d + 2 * b * sk * h * d) + 8 * b * h * sq + bias_bytes(kind, b, h, sq, sk)
+        io = 2 * (2 * b * sq * h * d + 2 * b * sk * h * d) + 8 * b * h * sq + bias_bytes(bias)
         mm = b * h * sq * sk * d
         for kernel, ms, flops, nbytes, outs in (
             ("flash_bwd_dq", ms_dq, 6.0 * mm, io + 2 * b * sq * h * d, ("dq",)),
@@ -718,6 +791,14 @@ def check_models_vs_cpu(failures):
     return errs
 
 
+def check_forward_route(counts, phase, failures):
+    """Every flash forward of a path ran the Hopper kernel (all its
+    attentions have head dim 64) and none the mma.sync one."""
+    if counts["flash_fwd_mma"] != 0 or counts["flash_fwd_sm90"] != counts["flash_fwd"] or counts["flash_fwd"] == 0:
+        failures.append(f"{phase}: flash forward launches sm90 {counts['flash_fwd_sm90']},"
+                        f" mma {counts['flash_fwd_mma']}; every one should be on flash_fwd_sm90")
+
+
 # ------------------------------------------------------------------ serve
 
 
@@ -798,6 +879,7 @@ def serve(report, failures):
     for name in FORWARD_KERNELS:
         if counts[name] == 0:
             failures.append(f"kernel {name} was not launched on the serving path")
+    check_forward_route(counts, "serve", failures)
     img_diff = float(abs(lone.astype(int) - batch_imgs[1].astype(int)).mean())
 
     # seed-lane isolation on the latents: lane 1 of the batch vs the lone run
@@ -839,7 +921,8 @@ TRAIN_STEPS = 5
 
 def plan_launches(unet) -> dict:
     """Each kernel's launches per training step, from the UNet's modules:
-    one flash forward and one dQ/dK-dV pair per attention, one stats,
+    one flash forward (the sum over both forward kernels) and one dQ/dK-dV
+    pair per attention, one stats,
     apply, partials and dx launch per GroupNorm (the backward keeps the
     forward's statistics, so it launches no stats pass of its own)."""
     from uwudiff_tpu_torch.models.layers import GroupNorm
@@ -892,6 +975,7 @@ def train(report, failures):
     for name, per_step in plan.items():
         if counts[name] != per_step * TRAIN_STEPS:
             failures.append(f"{name}: {counts[name]} launches in {TRAIN_STEPS} steps, plan {per_step} a step")
+    check_forward_route(counts, "train", failures)
     losses = [warm["train/loss"].item()] + [s["loss"] for s in steps]
     norms = [warm["train/grad_norm"].item()] + [s["grad_norm"] for s in steps]
     if not all(map(math.isfinite, losses + norms)):
@@ -935,7 +1019,8 @@ def plan_ti_launches(trainer) -> dict:
     """Each kernel's launches per textual-inversion step, from the modules:
     every attention (CLIP layers, MMDiT blocks, T5 layers) runs one flash
     forward and one dK/dV pass; the dQ pass is K4, or K5 where the bias is
-    learned (every T5 layer). No GroupNorm on this path."""
+    learned (every T5 layer). The flash forward is the sum over both forward
+    kernels. No GroupNorm on this path."""
     from uwudiff_tpu_torch.models.clip import _CLIPLayer
     from uwudiff_tpu_torch.models.mmdit import MMDiTBlock
     from uwudiff_tpu_torch.models.t5 import _T5Layer
@@ -994,6 +1079,7 @@ def ti(report, failures):
     for name, per_step in plan.items():
         if counts[name] != per_step * TI_STEPS:
             failures.append(f"ti {name}: {counts[name]} launches in {TI_STEPS} steps, plan {per_step} a step")
+    check_forward_route(counts, "ti", failures)
     losses = [warm["train/loss"].item()] + [s["loss"] for s in steps]
     norms = [warm["train/grad_norm"].item()] + [s["grad_norm"] for s in steps]
     if not all(map(math.isfinite, losses + norms)) or not all(n > 0 for n in norms):
@@ -1037,7 +1123,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    report = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
+    global SM_CLOCK_HZ
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    SM_CLOCK_HZ = float(clock) * 1e6
+    report = {"card": smi, "sm_clock_max_mhz": float(clock), "torch": torch.__version__, "cuda": torch.version.cuda}
     failures: list[str] = []
 
     log("[1/5] build")
@@ -1046,7 +1138,7 @@ def main() -> int:
     log(f"  built in {built['seconds']:.1f} s")
     for src, text in built["logs"].items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "(C75" in line:  # C75xx: wgmma serialised
                 log(f"  {src}: {line.strip()}")
 
     log("[2/5] kernels vs plain (bf16)")
@@ -1074,13 +1166,16 @@ def main() -> int:
     log("[5/5] textual inversion SD3-medium + CLIP-L + CLIP-bigG + T5-XXL (batch 8, 64x64x16 latents)")
     ti_counts = ti(report, failures)
 
-    main_case = {"flash_fwd": "sdxl_l1_self", "flash_bwd_dq": "train_l1_self", "flash_bwd_dkv": "train_l1_self",
+    main_case = {"flash_fwd_sm90": "sdxl_l1_self", "flash_fwd_mma": "sd15_d40",
+                 "flash_bwd_dq": "train_l1_self", "flash_bwd_dkv": "train_l1_self",
                  "flash_bwd_dq_dbias": "t5_xxl", "gn_stats": "8x16384x320", "gn_silu_apply": "8x16384x320",
                  "gn_bwd_partials": "8x4096x320", "gn_bwd_dx": "8x4096x320"}
     csrc = "uwudiff_tpu_torch/csrc/"
-    source = {"flash_fwd": csrc + "flash_fwd.cu", "flash_bwd_dq": csrc + "flash_bwd.cu",
+    source = {"flash_fwd_sm90": csrc + "flash_fwd_sm90.cu", "flash_fwd_mma": csrc + "flash_fwd.cu",
+              "flash_bwd_dq": csrc + "flash_bwd.cu",
               "flash_bwd_dq_dbias": csrc + "flash_bwd.cu", "flash_bwd_dkv": csrc + "flash_bwd.cu"}
-    replaces = {"flash_fwd": "uwudiff_tpu/ops/flash_attention.py:152",
+    replaces = {"flash_fwd_sm90": "uwudiff_tpu/ops/flash_attention.py:152",
+                "flash_fwd_mma": "uwudiff_tpu/ops/flash_attention.py:152",
                 "flash_bwd_dq": "uwudiff_tpu/ops/flash_attention.py:271",
                 "flash_bwd_dq_dbias": "uwudiff_tpu/ops/flash_attention.py:312",
                 "flash_bwd_dkv": "uwudiff_tpu/ops/flash_attention.py:365",

@@ -8,14 +8,21 @@ without JAX:
 
 Tolerances are bf16 ones: the kernels round their outputs (and flash
 attention its P and dS tiles) to bf16 once, the plain versions compute
-in fp32. The backward kernels are also held to bitwise reproducibility.
+in fp32. The Hopper forward (D = 64) and the backward kernels are also
+held to bitwise reproducibility.
 """
 
 import pytest
 import torch
 
 from uwudiff_tpu_torch.ops import FORWARD_KERNELS, launch_counts, reset_launch_counts
-from uwudiff_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference, flash_fwd
+from uwudiff_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_reference,
+    flash_fwd,
+    flash_fwd_mma,
+    flash_fwd_sm90,
+)
 from uwudiff_tpu_torch.ops.groupnorm_silu import (
     gn_silu_apply,
     gn_stats,
@@ -39,7 +46,7 @@ def _bias(kind, b, h, sq, sk, dev, gen):
     if kind == "none":
         return None
     if kind == "key":
-        keep = torch.arange(sk, device=dev)[None, :] < torch.tensor([sk // 3, sk], device=dev)[:b, None]
+        keep = torch.arange(sk, device=dev)[None, :] < torch.tensor([sk // 3, sk] * b, device=dev)[:b, None]
         return torch.where(keep, 0.0, neg)[:, None, None, :]
     causal = torch.ones(sq, sk, dtype=torch.bool, device=dev).tril()
     full = torch.where(causal, 0.0, neg)[None, None] + torch.where(causal, 0.0, neg)[None, None]
@@ -89,6 +96,99 @@ def test_flash_kernel_takes_strided_heads(dev):
     out, _ = flash_fwd(q, k, v)
     ref, _ = flash_attention_reference(q, k, v)
     _assert_flash_close(out, ref)
+
+
+# every D = 64 attention shape the serve, train and textual-inversion paths
+# run (B, Sq, Sk, H, bias kind, scale), and a ragged one with a key mask
+_PATH_CASES = [
+    (8, 4096, 4096, 10, "none", None),  # SDXL level 1 self-attention, serving (128^2 latents)
+    (8, 1024, 1024, 20, "none", None),  # level 2, serving
+    (8, 4096, 77, 10, "none", None),  # cross-attention over the 77 text tokens
+    (8, 1024, 77, 20, "none", None),
+    (8, 1024, 1024, 10, "none", None),  # the training step at 64^2 latents
+    (8, 256, 256, 20, "none", None),
+    (8, 1024, 77, 10, "none", None),
+    (8, 256, 77, 20, "none", None),
+    (8, 77, 77, 20, "full", None),  # CLIP-bigG, causal + padding
+    (8, 77, 77, 12, "full", None),  # CLIP-L
+    (8, 256, 256, 64, "full", 1.0),  # T5-XXL: learned bias, no 1/sqrt(d)
+    (8, 1357, 1357, 24, "key", None),  # the SD3 MMDiT's joint attention with the text mask
+    (2, 200, 200, 4, "key", None),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kind,scale", _PATH_CASES)
+def test_hopper_forward_matches_plain_at_the_path_shapes(dev, b, sq, sk, h, kind, scale):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn((b, s, h, 64), generator=gen, device=dev, dtype=torch.bfloat16)
+               for s in (sq, sk, sk))
+    bias = _bias(kind, b, h, sq, sk, dev, gen)
+    reset_launch_counts()
+    out, lse = flash_fwd(q, k, v, bias, scale)
+    assert launch_counts()["flash_fwd_sm90"] == 1 and launch_counts()["flash_fwd_mma"] == 0
+    again = flash_fwd(q, k, v, bias, scale)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])  # bitwise from run to run
+    del again
+    ref, ref_lse = flash_attention_reference(q, k, v, bias, scale)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    _assert_flash_close(out, ref)
+    assert (lse - ref_lse).abs().max().item() < 1e-3
+
+
+def test_hopper_forward_takes_fused_qkv_head_views(dev):
+    """q/k/v as [B, S, H, D] views of one [B, S, 3, H, D] projection go
+    into the tensor maps with their own strides, uncopied."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    qkv = torch.randn((2, 300, 3, 4, 64), generator=gen, device=dev, dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    out, lse = flash_fwd_sm90(q, k, v)
+    ref, ref_lse = flash_attention_reference(q, k, v)
+    _assert_flash_close(out, ref)
+    assert (lse - ref_lse).abs().max().item() < 1e-3
+
+
+@pytest.mark.parametrize("bias_shape", [(2, 1, 100, 130), (1, 3, 100, 130), (1, 1, 100, 130)])
+def test_hopper_forward_reads_a_broadcast_full_bias_in_place(dev, bias_shape):
+    """A full bias that broadcasts over heads or batch (CLIP's [B, 1, Sq,
+    Sk]) is read through zero strides, not expanded into a copy."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn((2, 100, 3, 64), generator=gen, device=dev, dtype=torch.bfloat16)
+    k, v = (torch.randn((2, 130, 3, 64), generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(2))
+    bias = torch.randn(bias_shape, generator=gen, device=dev)
+    bias[..., 100:] = float("-inf")
+    out, lse = flash_fwd_sm90(q, k, v, bias)
+    ref, ref_lse = flash_attention_reference(q, k, v, bias)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    _assert_flash_close(out, ref)
+    assert (lse - ref_lse).abs().max().item() < 1e-3
+
+
+def test_hopper_forward_refuses_views_tma_cannot_take(dev):
+    """A stride-0 head view (k shared across heads) and a start that is not
+    16-byte aligned raise; nothing is copied and nothing launches."""
+    q = torch.randn((2, 128, 4, 64), device=dev, dtype=torch.bfloat16)
+    shared = torch.randn((2, 128, 1, 64), device=dev, dtype=torch.bfloat16).expand(2, 128, 4, 64)
+    flat = torch.randn(2 * 128 * 4 * 64 + 4, device=dev, dtype=torch.bfloat16)
+    misaligned = flat[4:].view(2, 128, 4, 64)  # 8 bytes past an aligned start
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="TMA"):
+        flash_fwd(q, shared, shared)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_fwd(q, misaligned, misaligned)
+    assert launch_counts()["flash_fwd"] == 0
+
+
+@pytest.mark.parametrize("d,kernel", [(64, "flash_fwd_sm90"), (40, "flash_fwd_mma"), (80, "flash_fwd_mma"),
+                                      (160, "flash_fwd_mma")])
+def test_forward_dispatches_on_the_head_dim(dev, d, kernel):
+    q = torch.randn((1, 130, 2, d), device=dev, dtype=torch.bfloat16)
+    reset_launch_counts()
+    out, _ = flash_fwd(q, q, q)
+    counts = launch_counts()
+    assert counts[kernel] == counts["flash_fwd"] == 1
+    _assert_flash_close(out, flash_attention_reference(q, q, q)[0])
+    with pytest.raises(ValueError, match="head dim"):
+        (flash_fwd_mma if kernel == "flash_fwd_sm90" else flash_fwd_sm90)(q, q, q)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -330,6 +430,7 @@ def test_tiny_unet_trains_through_every_kernel(dev):
     metrics, _ = trainer.train_step(batch)
     counts = launch_counts()
     assert counts.pop("flash_bwd_dq_dbias") == 0, counts  # the UNet learns no attention bias
+    assert counts.pop("flash_fwd_mma") == 0, counts  # head dim 64: every forward is the Hopper kernel
     assert all(v > 0 for v in counts.values()), counts
     assert counts["flash_fwd"] == counts["flash_bwd_dq"] == counts["flash_bwd_dkv"]
     assert counts["gn_silu_apply"] == counts["gn_bwd_partials"] == counts["gn_bwd_dx"] == counts["gn_stats"]

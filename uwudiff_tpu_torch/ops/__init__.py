@@ -11,6 +11,8 @@ from uwudiff_tpu_torch.ops.flash_attention import (
     flash_bwd_dq,
     flash_bwd_dq_dbias,
     flash_fwd,
+    flash_fwd_mma,
+    flash_fwd_sm90,
 )
 from uwudiff_tpu_torch.ops.groupnorm_silu import (
     gn_bwd_dx,
@@ -35,9 +37,12 @@ __all__ = [
 ]
 
 # every wrapper that launches a hand-written kernel; each keeps a plain
-# integer ``launches`` that it raises by one per launch
+# integer ``launches`` that it raises by one per launch. The forward has two
+# (the Hopper kernel at D = 64, the mma.sync one at D = 40/80/160);
+# launch_counts() also gives their sum as "flash_fwd".
 KERNELS = {
-    "flash_fwd": flash_fwd,
+    "flash_fwd_sm90": flash_fwd_sm90,
+    "flash_fwd_mma": flash_fwd_mma,
     "flash_bwd_dq": flash_bwd_dq,
     "flash_bwd_dq_dbias": flash_bwd_dq_dbias,
     "flash_bwd_dkv": flash_bwd_dkv,
@@ -46,11 +51,13 @@ KERNELS = {
     "gn_bwd_partials": gn_bwd_partials,
     "gn_bwd_dx": gn_bwd_dx,
 }
-FORWARD_KERNELS = ("flash_fwd", "gn_stats", "gn_silu_apply")  # what serving launches
+FORWARD_KERNELS = ("flash_fwd_sm90", "gn_stats", "gn_silu_apply")  # what serving launches
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    counts = {name: fn.launches for name, fn in KERNELS.items()}
+    counts["flash_fwd"] = counts["flash_fwd_sm90"] + counts["flash_fwd_mma"]
+    return counts
 
 
 def reset_launch_counts() -> None:

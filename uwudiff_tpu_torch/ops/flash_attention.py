@@ -1,10 +1,16 @@
 """Flash attention: the hand-written CUDA kernels and their plain versions.
 
 Replaces ``uwudiff_tpu/ops/flash_attention.py``: the TPU's online-softmax
-forward ``_fwd_kernel`` (``csrc/flash_fwd.cu``) and its backward kernels
-``_bwd_dq_kernel`` / ``_bwd_dq_dbias_kernel`` / ``_bwd_dkv_kernel``
-(``csrc/flash_bwd.cu``). Each source note says what bounds the kernel on
-an H100 and how the design answers that.
+forward ``_fwd_kernel`` and its backward kernels ``_bwd_dq_kernel`` /
+``_bwd_dq_dbias_kernel`` / ``_bwd_dkv_kernel`` (``csrc/flash_bwd.cu``).
+The forward dispatches on the head dim: D = 64, the only head dim of
+SDXL, CLIP, T5 and the SD3 MMDiT, runs the Hopper kernel
+(``csrc/flash_fwd_sm90.cu``: TMA loads into an mbarrier ring, wgmma,
+a producer warpgroup and two consumer warpgroups), whose tensor maps are
+computed and checked here (:func:`tma_map`) and encoded by the C side;
+D = 40/80/160 run the mma.sync kernel (``csrc/flash_fwd.cu``). Each
+source note says what bounds the kernel on an H100 and how the design
+answers that.
 
 Contract (the JAX function's): ``q`` ``[B, Sq, H, D]``, ``k``/``v``
 ``[B, Sk, H, D]``, out ``[B, Sq, H, D]`` in the input dtype and, on
@@ -20,8 +26,9 @@ fp32) is summed back to the bias argument's shape. As in the JAX package,
 K5 runs for every ``bias_grad=True`` call with a bias, whether or not
 autograd keeps the bias gradient.
 
-:func:`flash_fwd`, :func:`flash_bwd_dq`, :func:`flash_bwd_dq_dbias` and
-:func:`flash_bwd_dkv` launch the kernels and take CUDA tensors only;
+:func:`flash_fwd` (through :func:`forward_kernel`: :func:`flash_fwd_sm90`
+or :func:`flash_fwd_mma`), :func:`flash_bwd_dq`, :func:`flash_bwd_dq_dbias`
+and :func:`flash_bwd_dkv` launch the kernels and take CUDA tensors only;
 :func:`flash_attention_reference` and
 :func:`flash_attention_backward_reference` are the plain PyTorch
 versions; :class:`FlashAttentionFunction` is the autograd function (K1
@@ -31,7 +38,9 @@ versions by the tensors' device.
 
 from __future__ import annotations
 
+import array
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -48,10 +57,16 @@ __all__ = [
     "flash_bwd_dq",
     "flash_bwd_dq_dbias",
     "flash_fwd",
+    "flash_fwd_mma",
+    "flash_fwd_sm90",
+    "forward_kernel",
+    "tma_map",
 ]
 
 NEG_INF = -1e30
-HEAD_DIMS = (40, 64, 80, 160)  # the forward's instantiations (SDXL 64; SD1.5 40/80/160)
+SM90_HEAD_DIMS = (64,)  # the Hopper forward (SDXL, CLIP, T5, the SD3 MMDiT)
+MMA_HEAD_DIMS = (40, 80, 160)  # the mma.sync forward (SD1.5)
+HEAD_DIMS = (40, 64, 80, 160)  # every head dim a forward was built for
 BWD_HEAD_DIMS = (40, 64, 80)  # the backward's; 160's dK+dV accumulators do not fit registers
 
 _fns: dict = {}
@@ -173,30 +188,137 @@ def _stats_arg(who, t, q):
     return t
 
 
+TMA_BOX_ROWS = 128  # rows of q (a work item's query tile) or k/v (a key tile) per TMA box, as the kernel tiles
+_TMA_ENCODE_FAILED = 100000  # the C side's code for a tensor map the driver refused (+ its CUresult)
+
+
+class TmaMap(NamedTuple):
+    """A rank-4 TMA tensor map over a bf16 ``[B, S, H, D]`` view, innermost
+    first: ``dims`` (D, H, S, B) in elements, ``strides`` of H, S and B in
+    bytes, ``box`` (D, 1, rows, 1) in elements."""
+
+    dims: tuple
+    strides: tuple
+    box: tuple
+
+    def words(self):
+        return self.dims + self.strides + self.box
+
+
+def tma_map(t, who="flash_fwd_sm90", name="t"):
+    """The tensor map the Hopper forward loads ``t`` with, checked against
+    what TMA takes with a 128-byte swizzle: a 16-byte aligned start, unit
+    stride over a 64-wide bf16 head dim (one 128-byte swizzle row), other
+    strides positive multiples of 16 bytes below 2**40, dims below 2**32.
+    Raises ValueError for any other view: the kernel neither copies it nor
+    takes it."""
+    if t.dtype != torch.bfloat16 or t.dim() != 4:
+        raise ValueError(f"{who}: {name} must be a bf16 [B, S, H, D] view for TMA, got {t.dtype} {tuple(t.shape)}")
+    b, s, h, d = t.shape
+    sb, ss, sh, sd = t.stride()
+    if d != 64 or sd != 1:
+        raise ValueError(f"{who}: {name} needs a contiguous head dim of 128 bytes for TMA, got D={d} stride {sd}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{who}: {name} starts at an address TMA cannot take (not 16-byte aligned)")
+    strides = (2 * sh, 2 * ss, 2 * sb)
+    if min(strides) <= 0 or max(strides) >= 2**40 or (sh | ss | sb) % 8:
+        raise ValueError(f"{who}: {name} has strides TMA cannot take: {strides} bytes over (H, S, B); "
+                         "each must be a positive multiple of 16 below 2**40")
+    dims = (d, h, s, b)
+    if max(dims) >= 2**32:
+        raise ValueError(f"{who}: {name} dims {dims} out of TMA's range")
+    return TmaMap(dims, strides, (d, 1, TMA_BOX_ROWS, 1))
+
+
+def forward_kernel(d):
+    """The forward kernel's wrapper for head dim ``d``: the Hopper kernel at
+    D = 64, the mma.sync kernel at D = 40/80/160; any other raises."""
+    if d in SM90_HEAD_DIMS:
+        return flash_fwd_sm90
+    if d in MMA_HEAD_DIMS:
+        return flash_fwd_mma
+    raise ValueError(f"flash_fwd: head dim {d} not in {HEAD_DIMS}")
+
+
 def flash_fwd(q, k, v, bias=None, scale=None):
-    """Launch the forward kernel (K1). Returns (out [B, Sq, H, D], lse [B, H, Sq])."""
-    _check("flash_fwd", HEAD_DIMS, ("q", q), ("k", k), ("v", v))
+    """Launch the forward kernel for q's head dim (K1, see
+    :func:`forward_kernel`). Returns (out [B, Sq, H, D], lse [B, H, Sq])."""
+    return forward_kernel(q.shape[-1])(q, k, v, bias, scale)
+
+
+def _fwd_outputs(q, scale):
     b, sq, h, d = q.shape
-    sk = k.shape[1]
-    scale = scale if scale is not None else d**-0.5
-    mode, bias_t = _bias_arg("flash_fwd", bias, q, k)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    return scale if scale is not None else d**-0.5, out, lse
+
+
+def _bias_in_place(who, bias, q, k):
+    """-> (mode, tensor, batch stride, head stride) for the Hopper forward.
+    A full fp32 bias whose rows are Sk contiguous keys is read where it
+    lies, through its batch and head strides (0 where it broadcasts, as
+    CLIP's [B, 1, Sq, Sk] does over the heads), so it is not expanded and
+    copied; any other bias goes through :func:`_split_bias`."""
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    if bias is not None and bias.dim() == 4 and bias.dtype == torch.float32 and bias.device == q.device:
+        bb, bh, bq, bk = bias.shape
+        if bb in (1, b) and bh in (1, h) and (bq, bk) == (sq, sk) and bias.stride(3) == 1 and bias.stride(2) == sk:
+            return 2, bias, bias.stride(0) if bb == b else 0, bias.stride(1) if bh == h else 0
+    mode, bias_t = _bias_arg(who, bias, q, k)
+    return (mode, bias_t) + ((sk, 0) if mode == 1 else (h * sq * sk, sq * sk))
+
+
+def flash_fwd_sm90(q, k, v, bias=None, scale=None):
+    """Launch the Hopper forward (D = 64): q/k/v go in uncopied through TMA
+    tensor maps (:func:`tma_map`). Returns (out, lse)."""
+    _check("flash_fwd_sm90", SM90_HEAD_DIMS, ("q", q), ("k", k), ("v", v))
+    maps = [tma_map(t, who="flash_fwd_sm90", name=n) for n, t in (("q", q), ("k", k), ("v", v))]
+    b, sq, h, d = q.shape
+    scale, out, lse = _fwd_outputs(q, scale)
+    mode, bias_t, bias_sb, bias_sh = _bias_in_place("flash_fwd_sm90", bias, q, k)
+    words = array.array("Q", maps[0].words() + maps[1].words() + maps[2].words() + (bias_sb, bias_sh))
+    rc = _kernel("flash_fwd_sm90.cu", "uwu_flash_fwd_sm90", 6)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        bias_t.data_ptr() if bias_t is not None else None,
+        out.data_ptr(), lse.data_ptr(),
+        b, h, sq, k.shape[1], d, mode,
+        words.buffer_info()[0], float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc >= _TMA_ENCODE_FAILED:
+        raise RuntimeError(f"flash_fwd_sm90: the driver refused a tensor map (CUresult {rc - _TMA_ENCODE_FAILED},"
+                           f" {_TMA_ENCODE_FAILED} if cuTensorMapEncodeTiled was not found): {maps}")
+    if rc != 0:
+        raise RuntimeError(f"flash_fwd_sm90 launch failed: cudaError {rc}")
+    flash_fwd_sm90.launches += 1
+    return out, lse
+
+
+flash_fwd_sm90.launches = 0
+
+
+def flash_fwd_mma(q, k, v, bias=None, scale=None):
+    """Launch the mma.sync forward (D = 40/80/160). Returns (out, lse)."""
+    _check("flash_fwd_mma", MMA_HEAD_DIMS, ("q", q), ("k", k), ("v", v))
+    b, sq, h, d = q.shape
+    scale, out, lse = _fwd_outputs(q, scale)
+    mode, bias_t = _bias_arg("flash_fwd_mma", bias, q, k)
     rc = _kernel("flash_fwd.cu", "uwu_flash_fwd", 6)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias_t.data_ptr() if bias_t is not None else None,
         out.data_ptr(), lse.data_ptr(),
-        b, h, sq, sk, d, mode,
+        b, h, sq, k.shape[1], d, mode,
         ctypes.cast(_strides(q, k, v), ctypes.c_void_p), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"flash_fwd launch failed: cudaError {rc}")
-    flash_fwd.launches += 1
+        raise RuntimeError(f"flash_fwd_mma launch failed: cudaError {rc}")
+    flash_fwd_mma.launches += 1
     return out, lse
 
 
-flash_fwd.launches = 0
+flash_fwd_mma.launches = 0
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, bias=None, scale=None):
