@@ -10,11 +10,12 @@ Phases, each fatal on failure:
                training and textual-inversion paths' shapes (CLIP-L/bigG,
                T5-XXL, the MMDiT's joint attention), each twice for bitwise
                reproducibility, the dQ + dBias kernel at T5-XXL's; the
-               Hopper forward (D = 64) also on strided head views of one
-               fused tensor, and raising on a view TMA cannot take; median
-               ms of the kernel, the plain version and one library call,
-               the card's lower bound for the same work and, for the
-               forward, the exp2 floor. Then
+               Hopper forward and backward (D = 64) also on strided head
+               views of one fused tensor, and raising on a view TMA cannot
+               take; the Hopper backward reading CLIP's broadcast bias in
+               place; median ms of the kernel, the plain version and one
+               library call, the profiler's device time, the card's lower
+               bound for the same work and the exp2 floor. Then
                small SDXL- and SD3-shaped models, bf16 on the card through
                the kernels, against the same weights in fp32 on the CPU:
                forwards, one SDXL training step's loss and gradients, and
@@ -32,7 +33,8 @@ Phases, each fatal on failure:
                warm-up step and 5 timed steps. Checks finite losses and
                grad norms, that every parameter took an update, and that
                each step launched every kernel exactly as often as the
-               UNet's plan says, every flash forward on the Hopper kernel.
+               UNet's plan says, every flash forward, dQ and dK/dV on the
+               Hopper kernels.
   5. ti      - SD3-medium textual inversion at full width
                (training/bench_setup.py: MMDiT + CLIP-L + CLIP-bigG +
                T5-XXL at 256 tokens, batch 8, 64x64x16 latents, bf16
@@ -41,7 +43,8 @@ Phases, each fatal on failure:
                non-zero grad norms, that every row table moved, that no
                frozen leaf changed (per-leaf fp64 checksums) and each
                step's launches against the plan from the modules (K5 once
-               per T5 layer, every flash forward on the Hopper kernel).
+               per T5 layer, every flash forward, dQ and dK/dV on the Hopper
+               kernels).
 Prints the card's name and power limit, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA is
 unavailable or the package is missing. A full report goes to
@@ -397,7 +400,7 @@ def flash_bwd_cases():
     # attentions at 64x64 latents (level 1: 32x32 tokens, 10 heads; level 2:
     # 16x16, 20) and the textual-inversion path's (CLIP-bigG as
     # "full_bias", CLIP-L, T5-XXL, whose dQ pass there is K5, and the
-    # MMDiT's joint attention)
+    # MMDiT's joint attention), all at D = 64 on the Hopper kernels
     return [
         ("train_l1_self", 8, 1024, 1024, 10, 64, "none", None),
         ("train_l1_cross", 8, 1024, 77, 10, 64, "none", None),
@@ -408,35 +411,49 @@ def flash_bwd_cases():
         ("clip_l_causal", 8, 77, 77, 12, 64, "full", None),
         ("t5_xxl", 8, 256, 256, 64, 64, "t5", 1.0),
         ("mmdit_joint", 8, 1357, 1357, 24, 64, "joint", None),
+        # SD1.5's head dims, on the mma.sync kernels (on no path yet)
+        ("sd15_d40", 4, 1024, 1024, 8, 40, "none", None),
+        ("sd15_d80", 4, 256, 256, 8, 80, "none", None),
     ]
 
 
 def check_flash_bwd(results, failures):
     import torch.nn.functional as F
 
-    from uwudiff_tpu_torch.ops import flash_bwd_dkv, flash_bwd_dq, flash_fwd
-    from uwudiff_tpu_torch.ops.flash_attention import NEG_INF, flash_attention_backward_reference
+    from uwudiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from uwudiff_tpu_torch.ops.flash_attention import (
+        NEG_INF,
+        backward_kernels,
+        flash_attention_backward_reference,
+        flash_fwd,
+    )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     for name, b, sq, sk, h, d, kind, scale in flash_bwd_cases():
+        bwd_dq, bwd_dkv = backward_kernels(d)  # the _sm90 pair at D = 64, the _mma pair at 40/80
         q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
                    for s in (sq, sk, sk))
         bias = make_bias(kind, b, h, sq, sk, dev, gen)
         out, lse = flash_fwd(q, k, v, bias, scale)
         dout = torch.randn(out.shape, generator=gen, device=dev, dtype=torch.bfloat16)
         delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-        dq = flash_bwd_dq(q, k, v, dout, lse, delta, bias, scale)
-        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, bias, scale)
+        reset_launch_counts()
+        dq = bwd_dq(q, k, v, dout, lse, delta, bias, scale)
+        dk, dv = bwd_dkv(q, k, v, dout, lse, delta, bias, scale)
         torch.cuda.synchronize()
-        bitwise = (torch.equal(dq, flash_bwd_dq(q, k, v, dout, lse, delta, bias, scale))
+        counts = launch_counts()
+        routed = counts[bwd_dq.__name__] == counts[bwd_dkv.__name__] == 1
+        bitwise = (torch.equal(dq, bwd_dq(q, k, v, dout, lse, delta, bias, scale))
                    and all(torch.equal(a, b_) for a, b_ in
-                           zip((dk, dv), flash_bwd_dkv(q, k, v, dout, lse, delta, bias, scale))))
+                           zip((dk, dv), bwd_dkv(q, k, v, dout, lse, delta, bias, scale))))
         refs = flash_attention_backward_reference(q, k, v, bias, out, lse, dout, scale)[:3]
         checks = {o: close_enough(g, r) for o, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs)}
-        ok = bitwise and all(c[0] for c in checks.values())
-        ms_dq = time_ms(lambda: flash_bwd_dq(q, k, v, dout, lse, delta, bias, scale))
-        ms_dkv = time_ms(lambda: flash_bwd_dkv(q, k, v, dout, lse, delta, bias, scale))
+        ok = routed and bitwise and all(c[0] for c in checks.values())
+        ms_dq = time_ms(lambda: bwd_dq(q, k, v, dout, lse, delta, bias, scale))
+        ms_dkv = time_ms(lambda: bwd_dkv(q, k, v, dout, lse, delta, bias, scale))
+        dev_dq = profiled_ms(lambda: bwd_dq(q, k, v, dout, lse, delta, bias, scale))
+        dev_dkv = profiled_ms(lambda: bwd_dkv(q, k, v, dout, lse, delta, bias, scale))
         plain_ms = time_ms(lambda: flash_attention_backward_reference(q, k, v, bias, out, lse, dout, scale),
                            reps=2, warmup=1)
         # the library: SDPA's backward alone (retain_graph), dq, dk and dv together
@@ -444,30 +461,95 @@ def check_flash_bwd(results, failures):
         mask = None if bias is None else bias.clamp_min(NEG_INF).to(torch.bfloat16)
         lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale)
         dout_t = dout.transpose(1, 2)
-        library_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dout_t, retain_graph=True))
+        library = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dout_t, retain_graph=True)  # noqa: E731
+        library_ms = time_ms(library)
+        library_dev = profiled_ms(library)
         del lib_out, qt, kt, vt, mask
         # q, dO, k, v; lse, delta; the bias
         io = 2 * (2 * b * sq * h * d + 2 * b * sk * h * d) + 8 * b * h * sq + bias_bytes(bias)
         mm = b * h * sq * sk * d
-        for kernel, ms, flops, nbytes, outs in (
-            ("flash_bwd_dq", ms_dq, 6.0 * mm, io + 2 * b * sq * h * d, ("dq",)),
-            ("flash_bwd_dkv", ms_dkv, 8.0 * mm, io + 4 * b * sk * h * d, ("dk", "dv")),
+        exp_ms = exp_floor_ms(b, h, sq, sk)  # each kernel recomputes one exp2 per query-key pair
+        for kernel, ms, dev_ms, flops, nbytes, outs in (
+            (bwd_dq.__name__, ms_dq, dev_dq, 6.0 * mm, io + 2 * b * sq * h * d, ("dq",)),
+            (bwd_dkv.__name__, ms_dkv, dev_dkv, 8.0 * mm, io + 4 * b * sk * h * d, ("dk", "dv")),
         ):
             bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16)
             results.append(dict(
                 kernel=kernel, case=name, shape=[b, sq, sk, h, d], bias=kind, scale=scale, ok=ok, bitwise=bitwise,
-                max_abs_err=max(checks[o][1] for o in outs), rms_err={o: checks[o][2] for o in outs},
-                tol={o: checks[o][3] for o in outs}, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                routed=routed, max_abs_err=max(checks[o][1] for o in outs), rms_err={o: checks[o][2] for o in outs},
+                tol={o: checks[o][3] for o in outs}, ms=ms, kernel_device_ms=dev_ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_device_ms=library_dev,
                 library_computes="dq, dk and dv (SDPA backward)", pair_ms=ms_dq + ms_dkv,
-                bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9))
+                bound_ms=bound_ms, bound_by=bound_by, exp_ms=exp_ms, tflops=flops / ms / 1e9))
         errs = " ".join(f"{o} {c[1]:.1e}/{c[3]:.1e}" for o, c in checks.items())
         log(f"  flash_bwd {name:15s} {errs} bitwise {bitwise} {'ok' if ok else 'FAIL'}"
-            f" | dq {ms_dq:.3f} dkv {ms_dkv:.3f} ms (pair {ms_dq + ms_dkv:.3f}) sdpa bwd {library_ms:.3f}"
-            f" plain {plain_ms:.2f}")
+            f" | {bwd_dq.__name__} {ms_dq:.4f} {bwd_dkv.__name__} {ms_dkv:.4f} ms (pair {ms_dq + ms_dkv:.4f})"
+            f" sdpa bwd {library_ms:.4f}; device {_ms(dev_dq)} + {_ms(dev_dkv)} vs sdpa {_ms(library_dev)};"
+            f" SFU floor {exp_ms:.4f} each; plain {plain_ms:.2f}")
         if not ok:
-            failures.append(f"flash_bwd {name}: {checks} bitwise {bitwise}")
+            failures.append(f"flash_bwd {name}: {checks} bitwise {bitwise} launches {counts}")
         del q, k, v, out, lse, dout, dq, dk, dv, refs
         torch.cuda.empty_cache()
+    check_flash_bwd_views(failures)
+
+
+def check_flash_bwd_views(failures):
+    """The Hopper backward on q/k/v/dO cut as strided head views (taken
+    uncopied by TMA), refusing a stride-0 view (it raises, it does not
+    copy), and reading CLIP's [B, 1, Sq, Sk] bias in place: the kernels
+    allocate their outputs and nothing else, no [B*H, Sq, Sk] copy."""
+    from uwudiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from uwudiff_tpu_torch.ops.flash_attention import (
+        flash_attention_backward_reference,
+        flash_bwd_dkv_sm90,
+        flash_bwd_dq_sm90,
+        flash_fwd,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    qkv = torch.randn((8, 1024, 4, 10, 64), generator=gen, device="cuda", dtype=torch.bfloat16)
+    q, k, v, dout = qkv.unbind(2)  # dO as a head view too
+    out, lse = flash_fwd(q, k, v)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    got = (flash_bwd_dq_sm90(q, k, v, dout, lse, delta),) + flash_bwd_dkv_sm90(q, k, v, dout, lse, delta)
+    refs = flash_attention_backward_reference(q, k, v, None, out, lse, dout)[:3]
+    for o, g, r in zip(("dq", "dk", "dv"), got, refs):
+        ok, err, rms_err, tol = close_enough(g, r)
+        log(f"  flash_bwd_sm90 fused-qkv views {o}: err {err:.2e} (tol {tol:.1e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"flash_bwd_sm90 on fused-qkv views: {o} err {err} rms {rms_err} (tol {tol})")
+    k_shared = k[:, :, :1].expand(k.shape)
+    reset_launch_counts()
+    for fn in (flash_bwd_dq_sm90, flash_bwd_dkv_sm90):
+        try:
+            fn(q, k_shared, k_shared, dout, lse, delta)
+            failures.append(f"{fn.__name__} took a view with a zero head stride")
+        except ValueError as e:
+            log(f"  {fn.__name__} refuses a stride-0 head view: {e}")
+    if launch_counts()["flash_bwd_dq"] + launch_counts()["flash_bwd_dkv"] != 0:
+        failures.append("a refused view still launched a backward kernel")
+    del qkv, q, k, v, dout, out, lse, delta, got, refs
+    # CLIP-bigG's causal + padding bias, one per prompt, broadcast over the heads
+    b, s, h = 8, 77, 20
+    q, k, v, dout = (torch.randn((b, s, h, 64), generator=gen, device="cuda", dtype=torch.bfloat16)
+                     for _ in range(4))
+    bias = make_bias("full", b, h, s, s, "cuda", gen)
+    out, lse = flash_fwd(q, k, v, bias)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    for fn, out_bytes in ((flash_bwd_dq_sm90, q.numel() * 2), (flash_bwd_dkv_sm90, 2 * k.numel() * 2)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        res = fn(q, k, v, dout, lse, delta, bias)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - before
+        # the caching allocator rounds each block up to 512 bytes
+        in_place = extra <= out_bytes + 1024
+        log(f"  {fn.__name__} CLIP bias {tuple(bias.shape)}: {extra} bytes allocated for {out_bytes} of output"
+            f" (an expanded copy would add {b * h * s * s * 4}) {'ok' if in_place else 'FAIL'}")
+        if not in_place:
+            failures.append(f"{fn.__name__} allocated {extra} bytes with CLIP's bias, outputs {out_bytes}")
+        del res
 
 
 def flash_dbias_cases():
@@ -799,6 +881,15 @@ def check_forward_route(counts, phase, failures):
                         f" mma {counts['flash_fwd_mma']}; every one should be on flash_fwd_sm90")
 
 
+def check_backward_route(counts, phase, failures):
+    """Every dQ (but K5's) and every dK/dV launch of a training path ran
+    the Hopper kernels and none the mma.sync ones."""
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        if counts[name + "_mma"] != 0 or counts[name + "_sm90"] != counts[name] or counts[name] == 0:
+            failures.append(f"{phase}: {name} launches sm90 {counts[name + '_sm90']}, mma {counts[name + '_mma']};"
+                            f" every one should be on {name}_sm90")
+
+
 # ------------------------------------------------------------------ serve
 
 
@@ -976,6 +1067,7 @@ def train(report, failures):
         if counts[name] != per_step * TRAIN_STEPS:
             failures.append(f"{name}: {counts[name]} launches in {TRAIN_STEPS} steps, plan {per_step} a step")
     check_forward_route(counts, "train", failures)
+    check_backward_route(counts, "train", failures)
     losses = [warm["train/loss"].item()] + [s["loss"] for s in steps]
     norms = [warm["train/grad_norm"].item()] + [s["grad_norm"] for s in steps]
     if not all(map(math.isfinite, losses + norms)):
@@ -1080,6 +1172,7 @@ def ti(report, failures):
         if counts[name] != per_step * TI_STEPS:
             failures.append(f"ti {name}: {counts[name]} launches in {TI_STEPS} steps, plan {per_step} a step")
     check_forward_route(counts, "ti", failures)
+    check_backward_route(counts, "ti", failures)
     losses = [warm["train/loss"].item()] + [s["loss"] for s in steps]
     norms = [warm["train/grad_norm"].item()] + [s["grad_norm"] for s in steps]
     if not all(map(math.isfinite, losses + norms)) or not all(n > 0 for n in norms):
@@ -1167,18 +1260,22 @@ def main() -> int:
     ti_counts = ti(report, failures)
 
     main_case = {"flash_fwd_sm90": "sdxl_l1_self", "flash_fwd_mma": "sd15_d40",
-                 "flash_bwd_dq": "train_l1_self", "flash_bwd_dkv": "train_l1_self",
+                 "flash_bwd_dq_sm90": "train_l1_self", "flash_bwd_dkv_sm90": "train_l1_self",
+                 "flash_bwd_dq_mma": "sd15_d40", "flash_bwd_dkv_mma": "sd15_d40",
                  "flash_bwd_dq_dbias": "t5_xxl", "gn_stats": "8x16384x320", "gn_silu_apply": "8x16384x320",
                  "gn_bwd_partials": "8x4096x320", "gn_bwd_dx": "8x4096x320"}
     csrc = "uwudiff_tpu_torch/csrc/"
     source = {"flash_fwd_sm90": csrc + "flash_fwd_sm90.cu", "flash_fwd_mma": csrc + "flash_fwd.cu",
-              "flash_bwd_dq": csrc + "flash_bwd.cu",
-              "flash_bwd_dq_dbias": csrc + "flash_bwd.cu", "flash_bwd_dkv": csrc + "flash_bwd.cu"}
+              "flash_bwd_dq_sm90": csrc + "flash_bwd_sm90.cu", "flash_bwd_dkv_sm90": csrc + "flash_bwd_sm90.cu",
+              "flash_bwd_dq_mma": csrc + "flash_bwd.cu", "flash_bwd_dkv_mma": csrc + "flash_bwd.cu",
+              "flash_bwd_dq_dbias": csrc + "flash_bwd.cu"}
     replaces = {"flash_fwd_sm90": "uwudiff_tpu/ops/flash_attention.py:152",
                 "flash_fwd_mma": "uwudiff_tpu/ops/flash_attention.py:152",
-                "flash_bwd_dq": "uwudiff_tpu/ops/flash_attention.py:271",
+                "flash_bwd_dq_sm90": "uwudiff_tpu/ops/flash_attention.py:271",
+                "flash_bwd_dq_mma": "uwudiff_tpu/ops/flash_attention.py:271",
                 "flash_bwd_dq_dbias": "uwudiff_tpu/ops/flash_attention.py:312",
-                "flash_bwd_dkv": "uwudiff_tpu/ops/flash_attention.py:365",
+                "flash_bwd_dkv_sm90": "uwudiff_tpu/ops/flash_attention.py:365",
+                "flash_bwd_dkv_mma": "uwudiff_tpu/ops/flash_attention.py:365",
                 "gn_stats": "uwudiff_tpu/ops/groupnorm_silu.py:171",
                 "gn_silu_apply": "uwudiff_tpu/ops/groupnorm_silu.py:118",
                 "gn_bwd_partials": "uwudiff_tpu/ops/groupnorm_silu.py:321",

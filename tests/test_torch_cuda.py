@@ -8,7 +8,7 @@ without JAX:
 
 Tolerances are bf16 ones: the kernels round their outputs (and flash
 attention its P and dS tiles) to bf16 once, the plain versions compute
-in fp32. The Hopper forward (D = 64) and the backward kernels are also
+in fp32. The Hopper kernels (D = 64) and the backward kernels are also
 held to bitwise reproducibility.
 """
 
@@ -378,6 +378,142 @@ def test_flash_bwd_raises_for_a_head_dim_it_was_not_built_for(dev):
         flash_bwd(q, q, q, None, out, lse, torch.ones_like(out))
 
 
+# every D = 64 backward shape of the train and textual-inversion paths (B,
+# Sq, Sk, H, bias kind, scale), and a ragged one with a key mask
+_BWD_PATH_CASES = [
+    (8, 1024, 1024, 10, "none", None),  # SDXL training, level 1 self-attention (64^2 latents)
+    (8, 1024, 77, 10, "none", None),  # level 1 cross-attention
+    (8, 256, 256, 20, "none", None),  # level 2
+    (8, 256, 77, 20, "none", None),
+    (2, 200, 77, 4, "key", None),  # ragged Sq and Sk, key mask
+    (8, 77, 77, 20, "full", None),  # CLIP-bigG (its full bias)
+    (8, 77, 77, 12, "full", None),  # CLIP-L
+    (8, 256, 256, 64, "full", 1.0),  # T5-XXL's dK/dV (its dQ is K5)
+    (8, 1357, 1357, 24, "key", None),  # the SD3 MMDiT's joint attention with the text mask
+]
+
+
+def _bwd_inputs(b, sq, sk, h, kind, scale, seed, d=64):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+               for s in (sq, sk, sk))
+    bias = _bias(kind, b, h, sq, sk, "cuda", gen)
+    out, lse = flash_fwd(q, k, v, bias, scale)
+    dout = torch.randn(out.shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, bias, out, lse, dout, delta
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kind,scale", _BWD_PATH_CASES)
+def test_hopper_backward_matches_plain_at_the_path_shapes(dev, b, sq, sk, h, kind, scale):
+    from uwudiff_tpu_torch.ops.flash_attention import flash_attention_backward_reference, flash_bwd_dkv, flash_bwd_dq
+
+    q, k, v, bias, out, lse, dout, delta = _bwd_inputs(b, sq, sk, h, kind, scale, seed=10)
+    reset_launch_counts()
+    dq = flash_bwd_dq(q, k, v, dout, lse, delta, bias, scale)
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, bias, scale)
+    counts = launch_counts()
+    assert counts["flash_bwd_dq_sm90"] == counts["flash_bwd_dkv_sm90"] == 1
+    assert counts["flash_bwd_dq_mma"] == counts["flash_bwd_dkv_mma"] == 0
+    refs = flash_attention_backward_reference(q, k, v, bias, out, lse, dout, scale)[:3]
+    for g, r in zip((dq, dk, dv), refs):
+        assert torch.isfinite(g).all()
+        _assert_flash_close(g, r)
+    assert torch.equal(dq, flash_bwd_dq(q, k, v, dout, lse, delta, bias, scale))  # bitwise from run to run
+    assert all(torch.equal(x, y) for x, y in zip((dk, dv), flash_bwd_dkv(q, k, v, dout, lse, delta, bias, scale)))
+
+
+def test_hopper_backward_takes_fused_qkv_head_views(dev):
+    """q/k/v/dO as [B, S, H, D] views of one [B, S, 4, H, D] tensor go into
+    the tensor maps with their own strides, uncopied."""
+    from uwudiff_tpu_torch.ops.flash_attention import (
+        flash_attention_backward_reference,
+        flash_bwd_dkv_sm90,
+        flash_bwd_dq_sm90,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    qkv = torch.randn((2, 300, 4, 3, 64), generator=gen, device=dev, dtype=torch.bfloat16)
+    q, k, v, dout = qkv.unbind(2)
+    out, lse = flash_fwd(q, k, v)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    got = (flash_bwd_dq_sm90(q, k, v, dout, lse, delta),) + flash_bwd_dkv_sm90(q, k, v, dout, lse, delta)
+    for g, r in zip(got, flash_attention_backward_reference(q, k, v, None, out, lse, dout)[:3]):
+        _assert_flash_close(g, r)
+
+
+def test_hopper_backward_refuses_views_tma_cannot_take(dev):
+    """A stride-0 head view and a start that is not 16-byte aligned raise;
+    nothing is copied and nothing launches."""
+    from uwudiff_tpu_torch.ops.flash_attention import flash_bwd_dkv, flash_bwd_dq
+
+    q, k, v, _, out, lse, dout, delta = _bwd_inputs(2, 128, 128, 4, "none", None, seed=12)
+    shared = k[:, :, :1].expand(k.shape)
+    flat = torch.randn(q.numel() + 4, device=dev, dtype=torch.bfloat16)
+    misaligned = flat[4:].view(q.shape)  # 8 bytes past an aligned start
+    reset_launch_counts()
+    for fn in (flash_bwd_dq, flash_bwd_dkv):
+        with pytest.raises(ValueError, match="TMA"):
+            fn(q, shared, shared, dout, lse, delta)
+        with pytest.raises(ValueError, match="aligned"):
+            fn(q, k, v, misaligned, lse, delta)
+    assert launch_counts()["flash_bwd_dq"] == launch_counts()["flash_bwd_dkv"] == 0
+
+
+@pytest.mark.parametrize("which", ["dq", "dkv"])
+def test_hopper_backward_reads_clips_bias_in_place(dev, which):
+    """CLIP's causal + padding bias [B, 1, Sq, Sk] is read through a zero
+    head stride: the call allocates its outputs and no [B*H, Sq, Sk] copy."""
+    from uwudiff_tpu_torch.ops.flash_attention import (
+        flash_attention_backward_reference,
+        flash_bwd_dkv_sm90,
+        flash_bwd_dq_sm90,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    b, s, h = 8, 77, 20
+    q, k, v, dout = (torch.randn((b, s, h, 64), generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(4))
+    neg = torch.finfo(torch.float32).min
+    causal = torch.where(torch.ones(s, s, dtype=torch.bool, device=dev).tril(), 0.0, neg)
+    pad = torch.where(torch.arange(s, device=dev)[None, :] < torch.arange(1, b + 1, device=dev)[:, None] * 9, 0.0, neg)
+    bias = causal[None, None] + pad[:, None, None, :]  # [B, 1, Sq, Sk], -inf where both mask
+    out, lse = flash_fwd(q, k, v, bias)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    fn, out_bytes = (flash_bwd_dq_sm90, q.numel() * 2) if which == "dq" else (flash_bwd_dkv_sm90, 2 * k.numel() * 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    got = fn(q, k, v, dout, lse, delta, bias)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before <= out_bytes + 1024  # 512-byte allocator blocks
+    got = (got,) if which == "dq" else got
+    refs = flash_attention_backward_reference(q, k, v, bias, out, lse, dout)[:3]
+    for g, r in zip(got, refs[:1] if which == "dq" else refs[1:]):
+        assert torch.isfinite(g).all()
+        _assert_flash_close(g, r)
+
+
+@pytest.mark.parametrize("d,suffix", [(64, "_sm90"), (40, "_mma"), (80, "_mma")])
+def test_backward_dispatches_on_the_head_dim(dev, d, suffix):
+    from uwudiff_tpu_torch.ops.flash_attention import (
+        flash_attention_backward_reference,
+        flash_bwd,
+        flash_bwd_dkv_mma,
+        flash_bwd_dkv_sm90,
+    )
+
+    q, k, v, bias, out, lse, dout, delta = _bwd_inputs(1, 130, 200, 2, "none", None, seed=14, d=d)
+    reset_launch_counts()
+    got = flash_bwd(q, k, v, None, out, lse, dout)
+    counts = launch_counts()
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert counts[name + suffix] == counts[name] == 1
+    for g, r in zip(got[:3], flash_attention_backward_reference(q, k, v, None, out, lse, dout)[:3]):
+        _assert_flash_close(g, r)
+    with pytest.raises(ValueError, match="head dim"):
+        (flash_bwd_dkv_mma if suffix == "_sm90" else flash_bwd_dkv_sm90)(q, k, v, dout, lse, delta)
+
+
 @pytest.mark.parametrize("n,hw,c,groups", [(2, 1000, 320, 32), (8, 256, 2560, 32), (3, 77, 40, 4)])
 @pytest.mark.parametrize("silu", [True, False])
 def test_gn_bwd_kernels_match_plain(dev, n, hw, c, groups, silu):
@@ -431,6 +567,7 @@ def test_tiny_unet_trains_through_every_kernel(dev):
     counts = launch_counts()
     assert counts.pop("flash_bwd_dq_dbias") == 0, counts  # the UNet learns no attention bias
     assert counts.pop("flash_fwd_mma") == 0, counts  # head dim 64: every forward is the Hopper kernel
+    assert counts.pop("flash_bwd_dq_mma") == counts.pop("flash_bwd_dkv_mma") == 0, counts  # and every backward
     assert all(v > 0 for v in counts.values()), counts
     assert counts["flash_fwd"] == counts["flash_bwd_dq"] == counts["flash_bwd_dkv"]
     assert counts["gn_silu_apply"] == counts["gn_bwd_partials"] == counts["gn_bwd_dx"] == counts["gn_stats"]
@@ -488,11 +625,17 @@ def test_flash_dbias_kernel_matches_plain(dev, b, s, h, d, scale):
         _assert_flash_close(g, r)
     assert dbias.shape == (b, h, s, s) and dbias.dtype == torch.float32
     _assert_dbias_close(dbias, rds)
-    # dQ is K4's, bitwise; both outputs bitwise reproducible
+    # both outputs bitwise reproducible; dQ is the mma.sync K4's, bitwise,
+    # where K4 is that kernel (D = 40/80) and within the flash bound of the
+    # Hopper K4 at D = 64 (other products, summed in another order)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     dq2, db2 = flash_bwd_dq_dbias(q, k, v, dout, lse, delta, bias, scale)
     assert torch.equal(dq, dq2) and torch.equal(dbias.reshape(b * h, s, s), db2)
-    assert torch.equal(dq, flash_bwd(q, k, v, bias, out, lse, dout, scale)[0])
+    dq_k4 = flash_bwd(q, k, v, bias, out, lse, dout, scale)[0]
+    if d == 64:
+        _assert_flash_close(dq, dq_k4)
+    else:
+        assert torch.equal(dq, dq_k4)
 
 
 def test_flash_autograd_bias_grad_runs_k5(dev):

@@ -1,5 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a): dQ, dQ + dBias and dK/dV,
-// bf16 q/k/v/dO, fp32 softmax recompute and accumulators.
+// Flash-attention backward on mma.sync (sm_90a): dQ + dBias at head dims
+// 40/64/80, dQ and dK/dV at 40/80 (at 64 they are flash_bwd_sm90.cu's
+// Hopper kernels); bf16 q/k/v/dO, fp32 softmax recompute and accumulators.
 //
 // Replaces the TPU kernels uwudiff_tpu/ops/flash_attention.py::_bwd_dq_kernel
 // (K4), ::_bwd_dq_dbias_kernel (K5) and ::_bwd_dkv_kernel (K6), the FA2
@@ -50,7 +51,7 @@
 // no row past Sq or Sk is written. Head dims 40 and 80 are zero-padded to 48
 // and 80 in shared memory only; 160 is not built (its dK + dV accumulators
 // alone would take 160 registers a thread).
-// wgmma/TMA warp specialisation is the later step for speed.
+// flash_bwd_sm90.cu redesigns dQ and dK/dV at D = 64 on TMA and wgmma.
 
 #include <math.h>
 
@@ -401,11 +402,14 @@ int dispatch_bias(int bias_mode, const Args& a) {
   }
 }
 
+// D = 64 is built for K5 only: its dQ and dK/dV are flash_bwd_sm90.cu's
 template <int KIND>
 int dispatch(int D, int bias_mode, const Args& a) {
   switch (D) {
     case 40: return dispatch_bias<KIND, 40>(bias_mode, a);
-    case 64: return dispatch_bias<KIND, 64>(bias_mode, a);
+    case 64:
+      if constexpr (KIND == DQ_DBIAS) return dispatch_bias<KIND, 64>(bias_mode, a);
+      return static_cast<int>(cudaErrorInvalidValue);
     case 80: return dispatch_bias<KIND, 80>(bias_mode, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

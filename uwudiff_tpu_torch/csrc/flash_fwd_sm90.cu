@@ -358,48 +358,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so that
-// nothing links libcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
-                                                       &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// spec: dims[4] (elements, innermost first), strides[3] (bytes, of dims
-// 1..3), box[4] (elements), as the wrapper computed and checked them
-constexpr int MAP_WORDS = 11;
-constexpr int ENCODE_FAILED = 100000;  // + the CUresult
-
-int encode(CUtensorMap* map, const void* ptr, const unsigned long long* spec) {
-  EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return ENCODE_FAILED;
-  cuuint64_t dims[4], strides[3];
-  cuuint32_t box[4], elem_strides[4] = {1, 1, 1, 1};
-  for (int i = 0; i < 4; ++i) dims[i] = spec[i];
-  for (int i = 0; i < 3; ++i) strides[i] = spec[4 + i];
-  for (int i = 0; i < 4; ++i) box[i] = static_cast<cuuint32_t>(spec[7 + i]);
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + static_cast<int>(r);
-}
-
 template <int BIAS, bool FOLD>
 int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, const void* bias, void* out,
            void* lse, int B, int H, int Sq, int Sk, long long bias_sb, long long bias_sh, float qk_scale,
@@ -441,13 +399,13 @@ extern "C" int uwu_flash_fwd_sm90(const void* q, const void* k, const void* v, c
                                   const unsigned long long* maps, float scale, void* stream) {
   if (head_dim != D) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mq, mk, mv;
-  int rc = encode(&mq, q, maps);
-  if (rc == 0) rc = encode(&mk, k, maps + MAP_WORDS);
-  if (rc == 0) rc = encode(&mv, v, maps + 2 * MAP_WORDS);
+  int rc = hopper::encode(&mq, q, maps);
+  if (rc == 0) rc = hopper::encode(&mk, k, maps + hopper::MAP_WORDS);
+  if (rc == 0) rc = hopper::encode(&mv, v, maps + 2 * hopper::MAP_WORDS);
   if (rc != 0) return rc;
   const float qk_scale = scale * flash::LOG2E;
-  const long long sb = static_cast<long long>(maps[3 * MAP_WORDS]);
-  const long long sh = static_cast<long long>(maps[3 * MAP_WORDS + 1]);
+  const long long sb = static_cast<long long>(maps[3 * hopper::MAP_WORDS]);
+  const long long sh = static_cast<long long>(maps[3 * hopper::MAP_WORDS + 1]);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bias_mode) {
     case 0:

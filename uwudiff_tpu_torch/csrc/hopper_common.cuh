@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks for the warp-specialised kernels
-// (flash_fwd_sm90.cu): mbarriers, TMA tile loads, wgmma descriptors and
-// products, register reallocation and named barriers, as inline PTX.
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu): mbarriers, TMA tile loads, small
+// cp.async copies that report to an mbarrier, wgmma descriptors and
+// products, register reallocation and named barriers, as inline PTX; and
+// on the host, the encoding of the tensor maps the wrappers compute.
 //
 // Shared-memory tiles are written by TMA with CU_TENSOR_MAP_SWIZZLE_128B:
 // rows of 64 bf16 (128 bytes) at a 128-byte pitch, the eight 16-byte chunks
@@ -53,20 +55,28 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
+__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t addr, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done;
+}
+
 // wait until the phase of parity `parity` has completed; a fresh barrier
-// counts its (non-existent) phase of parity 1 as complete
+// counts its (non-existent) phase of parity 1 as complete. A wait of more
+// than 2^35 clocks (~17 s) can only be a broken protocol: it traps, so the
+// launch fails with an error instead of holding the card.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
+  if (mbar_try_wait(addr, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(addr, parity))
+    if (clock64() - t0 > (1ll << 35)) __trap();
 }
 
 // ---------------------------------------------------------------- TMA
@@ -81,6 +91,20 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
       : "memory");
+}
+
+// copy 4 bytes from global to shared memory (zero-filled when !pred); the
+// copies a thread issued are tracked by cp_async_arrive
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(pred ? 4 : 0)
+               : "memory");
+}
+
+// one arrival on `bar` once every cp.async this thread issued so far has
+// landed; the barrier's count includes it (.noinc)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
@@ -136,6 +160,16 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// the same for the bf16 A fragments of an RS product: the registers the
+// product reads stay live, and are not reused, until after its wait
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
 // d[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, both K-major in shared
 // memory, bf16 in, fp32 accumulate; accumulate = 0 overwrites d
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
@@ -159,6 +193,23 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d[64 x 64] (+)= A[64 x 16] (registers, bf16 pairs) . B[64 x 16]^T, B
+// K-major in shared memory
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
 // d[64 x 64] += A[64 x 16] (registers, bf16 pairs) . B[16 x 64], B
 // MN-major in shared memory (the transpose bit set)
 __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
@@ -174,5 +225,54 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
+
+// ---------------------------------------------------------------- host: tensor maps
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so that
+// nothing links libcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                                       &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// spec: dims[4] (elements, innermost first), strides[3] (bytes, of dims
+// 1..3), box[4] (elements), as the wrapper computed and checked them
+// (ops/flash_attention.py::tma_map)
+constexpr int MAP_WORDS = 11;
+constexpr int ENCODE_FAILED = 100000;  // + the CUresult
+
+inline int encode(CUtensorMap* map, const void* ptr, const unsigned long long* spec) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return ENCODE_FAILED;
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4], elem_strides[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) dims[i] = spec[i];
+  for (int i = 0; i < 3; ++i) strides[i] = spec[4 + i];
+  for (int i = 0; i < 4; ++i) box[i] = static_cast<cuuint32_t>(spec[7 + i]);
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + static_cast<int>(r);
+}
+
+// the box rows (S) of a spec: the kernel's tile, which its transaction
+// byte counts assume
+inline unsigned long long box_rows(const unsigned long long* spec) { return spec[9]; }
 
 }  // namespace hopper

@@ -8,8 +8,12 @@ from uwudiff_tpu_torch.ops.attention import (
 from uwudiff_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_bwd_dkv,
+    flash_bwd_dkv_mma,
+    flash_bwd_dkv_sm90,
     flash_bwd_dq,
     flash_bwd_dq_dbias,
+    flash_bwd_dq_mma,
+    flash_bwd_dq_sm90,
     flash_fwd,
     flash_fwd_mma,
     flash_fwd_sm90,
@@ -37,15 +41,18 @@ __all__ = [
 ]
 
 # every wrapper that launches a hand-written kernel; each keeps a plain
-# integer ``launches`` that it raises by one per launch. The forward has two
-# (the Hopper kernel at D = 64, the mma.sync one at D = 40/80/160);
-# launch_counts() also gives their sum as "flash_fwd".
+# integer ``launches`` that it raises by one per launch. The forward, dQ and
+# dK/dV have two each (the Hopper kernel at D = 64, the mma.sync one at the
+# other head dims); launch_counts() also gives each pair's sum under the
+# dispatcher's name ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv").
 KERNELS = {
     "flash_fwd_sm90": flash_fwd_sm90,
     "flash_fwd_mma": flash_fwd_mma,
-    "flash_bwd_dq": flash_bwd_dq,
+    "flash_bwd_dq_sm90": flash_bwd_dq_sm90,
+    "flash_bwd_dq_mma": flash_bwd_dq_mma,
     "flash_bwd_dq_dbias": flash_bwd_dq_dbias,
-    "flash_bwd_dkv": flash_bwd_dkv,
+    "flash_bwd_dkv_sm90": flash_bwd_dkv_sm90,
+    "flash_bwd_dkv_mma": flash_bwd_dkv_mma,
     "gn_stats": gn_stats,
     "gn_silu_apply": gn_silu_apply,
     "gn_bwd_partials": gn_bwd_partials,
@@ -56,7 +63,8 @@ FORWARD_KERNELS = ("flash_fwd_sm90", "gn_stats", "gn_silu_apply")  # what servin
 
 def launch_counts() -> dict[str, int]:
     counts = {name: fn.launches for name, fn in KERNELS.items()}
-    counts["flash_fwd"] = counts["flash_fwd_sm90"] + counts["flash_fwd_mma"]
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        counts[name] = counts[name + "_sm90"] + counts[name + "_mma"]
     return counts
 
 

@@ -2,15 +2,17 @@
 
 Replaces ``uwudiff_tpu/ops/flash_attention.py``: the TPU's online-softmax
 forward ``_fwd_kernel`` and its backward kernels ``_bwd_dq_kernel`` /
-``_bwd_dq_dbias_kernel`` / ``_bwd_dkv_kernel`` (``csrc/flash_bwd.cu``).
-The forward dispatches on the head dim: D = 64, the only head dim of
-SDXL, CLIP, T5 and the SD3 MMDiT, runs the Hopper kernel
-(``csrc/flash_fwd_sm90.cu``: TMA loads into an mbarrier ring, wgmma,
-a producer warpgroup and two consumer warpgroups), whose tensor maps are
-computed and checked here (:func:`tma_map`) and encoded by the C side;
-D = 40/80/160 run the mma.sync kernel (``csrc/flash_fwd.cu``). Each
-source note says what bounds the kernel on an H100 and how the design
-answers that.
+``_bwd_dq_dbias_kernel`` / ``_bwd_dkv_kernel``. Both sides dispatch on
+the head dim. D = 64, the only head dim of SDXL, CLIP, T5 and the SD3
+MMDiT, runs the Hopper kernels: the forward ``csrc/flash_fwd_sm90.cu``
+and the dQ and dK/dV kernels ``csrc/flash_bwd_sm90.cu`` (TMA loads into
+an mbarrier ring, wgmma, a producer warpgroup and two consumer
+warpgroups), whose tensor maps are computed and checked here
+(:func:`tma_map`) and encoded by the C side. D = 40/80/160 run the
+mma.sync forward (``csrc/flash_fwd.cu``), D = 40/80 the mma.sync
+backward (``csrc/flash_bwd.cu``), which also holds the dQ + dBias kernel
+(K5) at every backward head dim. Each source note says what bounds the
+kernel on an H100 and how the design answers that.
 
 Contract (the JAX function's): ``q`` ``[B, Sq, H, D]``, ``k``/``v``
 ``[B, Sk, H, D]``, out ``[B, Sq, H, D]`` in the input dtype and, on
@@ -27,8 +29,9 @@ K5 runs for every ``bias_grad=True`` call with a bias, whether or not
 autograd keeps the bias gradient.
 
 :func:`flash_fwd` (through :func:`forward_kernel`: :func:`flash_fwd_sm90`
-or :func:`flash_fwd_mma`), :func:`flash_bwd_dq`, :func:`flash_bwd_dq_dbias`
-and :func:`flash_bwd_dkv` launch the kernels and take CUDA tensors only;
+or :func:`flash_fwd_mma`), :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`
+(through :func:`backward_kernels`: the ``_sm90`` or the ``_mma`` pair) and
+:func:`flash_bwd_dq_dbias` launch the kernels and take CUDA tensors only;
 :func:`flash_attention_reference` and
 :func:`flash_attention_backward_reference` are the plain PyTorch
 versions; :class:`FlashAttentionFunction` is the autograd function (K1
@@ -48,14 +51,19 @@ __all__ = [
     "BWD_HEAD_DIMS",
     "FlashAttentionFunction",
     "HEAD_DIMS",
+    "backward_kernels",
     "NEG_INF",
     "flash_attention",
     "flash_attention_backward_reference",
     "flash_attention_reference",
     "flash_bwd",
     "flash_bwd_dkv",
+    "flash_bwd_dkv_mma",
+    "flash_bwd_dkv_sm90",
     "flash_bwd_dq",
     "flash_bwd_dq_dbias",
+    "flash_bwd_dq_mma",
+    "flash_bwd_dq_sm90",
     "flash_fwd",
     "flash_fwd_mma",
     "flash_fwd_sm90",
@@ -64,10 +72,11 @@ __all__ = [
 ]
 
 NEG_INF = -1e30
-SM90_HEAD_DIMS = (64,)  # the Hopper forward (SDXL, CLIP, T5, the SD3 MMDiT)
+SM90_HEAD_DIMS = (64,)  # the Hopper forward and backward (SDXL, CLIP, T5, the SD3 MMDiT)
 MMA_HEAD_DIMS = (40, 80, 160)  # the mma.sync forward (SD1.5)
 HEAD_DIMS = (40, 64, 80, 160)  # every head dim a forward was built for
-BWD_HEAD_DIMS = (40, 64, 80)  # the backward's; 160's dK+dV accumulators do not fit registers
+MMA_BWD_HEAD_DIMS = (40, 80)  # the mma.sync dQ and dK/dV kernels
+BWD_HEAD_DIMS = (40, 64, 80)  # the backward's (and K5's); 160's dK+dV accumulators do not fit registers
 
 _fns: dict = {}
 
@@ -189,6 +198,9 @@ def _stats_arg(who, t, q):
 
 
 TMA_BOX_ROWS = 128  # rows of q (a work item's query tile) or k/v (a key tile) per TMA box, as the kernel tiles
+# the Hopper backward's boxes: an item's 128 rows (q and dout for dQ, k and v
+# for dK/dV) and the 64-row tiles streamed past them
+SM90_BWD_ITEM_ROWS, SM90_BWD_TILE_ROWS = 128, 64
 _TMA_ENCODE_FAILED = 100000  # the C side's code for a tensor map the driver refused (+ its CUresult)
 
 
@@ -205,13 +217,36 @@ class TmaMap(NamedTuple):
         return self.dims + self.strides + self.box
 
 
-def tma_map(t, who="flash_fwd_sm90", name="t"):
-    """The tensor map the Hopper forward loads ``t`` with, checked against
-    what TMA takes with a 128-byte swizzle: a 16-byte aligned start, unit
-    stride over a 64-wide bf16 head dim (one 128-byte swizzle row), other
-    strides positive multiples of 16 bytes below 2**40, dims below 2**32.
-    Raises ValueError for any other view: the kernel neither copies it nor
-    takes it."""
+_tma_maps: dict = {}  # (shape, strides, rows) -> TmaMap, for views already checked
+
+
+def tma_map(t, who="flash_fwd_sm90", name="t", rows=TMA_BOX_ROWS):
+    """The tensor map a Hopper kernel loads ``t`` with, in boxes of
+    ``rows`` rows of S (the kernel's tile, which its C side checks),
+    checked against what TMA takes with a 128-byte swizzle: a 16-byte
+    aligned start, unit stride over a 64-wide bf16 head dim (one 128-byte
+    swizzle row), other strides positive multiples of 16 bytes below
+    2**40, dims below 2**32. Raises ValueError for any other view: the
+    kernel neither copies it nor takes it. A geometry seen before is
+    taken from a cache, and only the start is checked again: the
+    wrapper's host time is most of a call at CLIP's 77 tokens."""
+    if t.dtype == torch.bfloat16:
+        key = (t.shape, t.stride(), rows)
+        m = _tma_maps.get(key)
+        if m is not None:
+            if t.data_ptr() % 16:
+                raise ValueError(f"{who}: {name} starts at an address TMA cannot take (not 16-byte aligned)")
+            return m
+    m = _tma_map_checked(t, who, name, rows)
+    if len(_tma_maps) >= 4096:
+        _tma_maps.clear()
+    _tma_maps[(t.shape, t.stride(), rows)] = m
+    return m
+
+
+def _tma_map_checked(t, who, name, rows):
+    if not 1 <= rows <= 256:
+        raise ValueError(f"{who}: a TMA box holds 1 to 256 rows, not {rows}")
     if t.dtype != torch.bfloat16 or t.dim() != 4:
         raise ValueError(f"{who}: {name} must be a bf16 [B, S, H, D] view for TMA, got {t.dtype} {tuple(t.shape)}")
     b, s, h, d = t.shape
@@ -227,7 +262,7 @@ def tma_map(t, who="flash_fwd_sm90", name="t"):
     dims = (d, h, s, b)
     if max(dims) >= 2**32:
         raise ValueError(f"{who}: {name} dims {dims} out of TMA's range")
-    return TmaMap(dims, strides, (d, 1, TMA_BOX_ROWS, 1))
+    return TmaMap(dims, strides, (d, 1, rows, 1))
 
 
 def forward_kernel(d):
@@ -269,6 +304,14 @@ def _bias_in_place(who, bias, q, k):
     return (mode, bias_t) + ((sk, 0) if mode == 1 else (h * sq * sk, sq * sk))
 
 
+def _check_sm90_rc(who, rc, maps):
+    if rc >= _TMA_ENCODE_FAILED:
+        raise RuntimeError(f"{who}: the driver refused a tensor map (CUresult {rc - _TMA_ENCODE_FAILED},"
+                           f" {_TMA_ENCODE_FAILED} if cuTensorMapEncodeTiled was not found): {maps}")
+    if rc != 0:
+        raise RuntimeError(f"{who} launch failed: cudaError {rc}")
+
+
 def flash_fwd_sm90(q, k, v, bias=None, scale=None):
     """Launch the Hopper forward (D = 64): q/k/v go in uncopied through TMA
     tensor maps (:func:`tma_map`). Returns (out, lse)."""
@@ -286,11 +329,7 @@ def flash_fwd_sm90(q, k, v, bias=None, scale=None):
         words.buffer_info()[0], float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    if rc >= _TMA_ENCODE_FAILED:
-        raise RuntimeError(f"flash_fwd_sm90: the driver refused a tensor map (CUresult {rc - _TMA_ENCODE_FAILED},"
-                           f" {_TMA_ENCODE_FAILED} if cuTensorMapEncodeTiled was not found): {maps}")
-    if rc != 0:
-        raise RuntimeError(f"flash_fwd_sm90 launch failed: cudaError {rc}")
+    _check_sm90_rc("flash_fwd_sm90", rc, maps)
     flash_fwd_sm90.launches += 1
     return out, lse
 
@@ -321,14 +360,87 @@ def flash_fwd_mma(q, k, v, bias=None, scale=None):
 flash_fwd_mma.launches = 0
 
 
+def backward_kernels(d):
+    """The backward's (dQ, dK/dV) wrappers for head dim ``d``: the Hopper
+    kernels at D = 64, the mma.sync kernels at D = 40/80; any other
+    raises. (K5, the dQ + dBias kernel, is mma.sync at every head dim.)"""
+    if d in SM90_HEAD_DIMS:
+        return flash_bwd_dq_sm90, flash_bwd_dkv_sm90
+    if d in MMA_BWD_HEAD_DIMS:
+        return flash_bwd_dq_mma, flash_bwd_dkv_mma
+    raise ValueError(f"flash_bwd: head dim {d} not in {BWD_HEAD_DIMS}")
+
+
 def flash_bwd_dq(q, k, v, dout, lse, delta, bias=None, scale=None):
-    """Launch the dQ kernel (K4): ``dq`` [B, Sq, H, D] from the forward's
+    """Launch the dQ kernel (K4) for q's head dim (see
+    :func:`backward_kernels`): ``dq`` [B, Sq, H, D] from the forward's
     ``lse`` and ``delta = rowsum(dO * O)``, both fp32 [B, H, Sq]."""
-    _check("flash_bwd_dq", BWD_HEAD_DIMS, ("q", q), ("k", k), ("v", v), ("dout", dout))
+    return backward_kernels(q.shape[-1])[0](q, k, v, dout, lse, delta, bias, scale)
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, bias=None, scale=None):
+    """Launch the dK/dV kernel (K6) for q's head dim. Returns (dk, dv),
+    each [B, Sk, H, D]."""
+    return backward_kernels(q.shape[-1])[1](q, k, v, dout, lse, delta, bias, scale)
+
+
+def _bwd_sm90(who, q, k, v, dout, lse, delta, bias, scale, q_rows, k_rows):
+    """What the two Hopper backward wrappers share: checks, tensor maps
+    (q and dout in boxes of ``q_rows``, k and v of ``k_rows``), the bias
+    in place, the C call's pointers before the outputs and its arguments
+    after them. The C side reads the map specs from ``words``, which must
+    outlive the call."""
+    _check(who, SM90_HEAD_DIMS, ("q", q), ("k", k), ("v", v), ("dout", dout))
+    maps = [tma_map(t, who=who, name=n, rows=r)
+            for n, t, r in (("q", q, q_rows), ("k", k, k_rows), ("v", v, k_rows), ("dout", dout, q_rows))]
+    b, sq, h, d = q.shape
+    mode, bias_t, bias_sb, bias_sh = _bias_in_place(who, bias, q, k)
+    lse, delta = _stats_arg(who, lse, q), _stats_arg(who, delta, q)
+    words = array.array("Q", sum((m.words() for m in maps), ()) + (bias_sb, bias_sh))
+    args = (b, h, sq, k.shape[1], d, mode, words.buffer_info()[0],
+            float(scale if scale is not None else d**-0.5), torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_t.data_ptr() if bias_t is not None else None,
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    return maps, words, ptrs, args
+
+
+def flash_bwd_dq_sm90(q, k, v, dout, lse, delta, bias=None, scale=None):
+    """Launch the Hopper dQ kernel (K4, D = 64): q/k/v/dout go in uncopied
+    through TMA tensor maps, a full bias is read in place."""
+    maps, _words, ptrs, args = _bwd_sm90("flash_bwd_dq_sm90", q, k, v, dout, lse, delta, bias, scale,
+                                         SM90_BWD_ITEM_ROWS, SM90_BWD_TILE_ROWS)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    rc = _kernel("flash_bwd_sm90.cu", "uwu_flash_bwd_dq_sm90", 8)(*ptrs, dq.data_ptr(), *args)
+    _check_sm90_rc("flash_bwd_dq_sm90", rc, maps)
+    flash_bwd_dq_sm90.launches += 1
+    return dq
+
+
+flash_bwd_dq_sm90.launches = 0
+
+
+def flash_bwd_dkv_sm90(q, k, v, dout, lse, delta, bias=None, scale=None):
+    """Launch the Hopper dK/dV kernel (K6, D = 64). Returns (dk, dv)."""
+    maps, _words, ptrs, args = _bwd_sm90("flash_bwd_dkv_sm90", q, k, v, dout, lse, delta, bias, scale,
+                                         SM90_BWD_TILE_ROWS, SM90_BWD_ITEM_ROWS)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    rc = _kernel("flash_bwd_sm90.cu", "uwu_flash_bwd_dkv_sm90", 9)(*ptrs, dk.data_ptr(), dv.data_ptr(), *args)
+    _check_sm90_rc("flash_bwd_dkv_sm90", rc, maps)
+    flash_bwd_dkv_sm90.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv_sm90.launches = 0
+
+
+def flash_bwd_dq_mma(q, k, v, dout, lse, delta, bias=None, scale=None):
+    """Launch the mma.sync dQ kernel (K4, D = 40/80)."""
+    _check("flash_bwd_dq_mma", MMA_BWD_HEAD_DIMS, ("q", q), ("k", k), ("v", v), ("dout", dout))
     b, sq, h, d = q.shape
     scale = scale if scale is not None else d**-0.5
-    mode, bias_t = _bias_arg("flash_bwd_dq", bias, q, k)
-    lse, delta = _stats_arg("flash_bwd_dq", lse, q), _stats_arg("flash_bwd_dq", delta, q)
+    mode, bias_t = _bias_arg("flash_bwd_dq_mma", bias, q, k)
+    lse, delta = _stats_arg("flash_bwd_dq_mma", lse, q), _stats_arg("flash_bwd_dq_mma", delta, q)
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     rc = _kernel("flash_bwd.cu", "uwu_flash_bwd_dq", 8)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -339,12 +451,12 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, bias=None, scale=None):
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"flash_bwd_dq launch failed: cudaError {rc}")
-    flash_bwd_dq.launches += 1
+        raise RuntimeError(f"flash_bwd_dq_mma launch failed: cudaError {rc}")
+    flash_bwd_dq_mma.launches += 1
     return dq
 
 
-flash_bwd_dq.launches = 0
+flash_bwd_dq_mma.launches = 0
 
 
 def flash_bwd_dq_dbias(q, k, v, dout, lse, delta, bias, scale=None):
@@ -376,14 +488,14 @@ def flash_bwd_dq_dbias(q, k, v, dout, lse, delta, bias, scale=None):
 flash_bwd_dq_dbias.launches = 0
 
 
-def flash_bwd_dkv(q, k, v, dout, lse, delta, bias=None, scale=None):
-    """Launch the dK/dV kernel (K6). Returns (dk, dv), each [B, Sk, H, D]."""
-    _check("flash_bwd_dkv", BWD_HEAD_DIMS, ("q", q), ("k", k), ("v", v), ("dout", dout))
+def flash_bwd_dkv_mma(q, k, v, dout, lse, delta, bias=None, scale=None):
+    """Launch the mma.sync dK/dV kernel (K6, D = 40/80). Returns (dk, dv)."""
+    _check("flash_bwd_dkv_mma", MMA_BWD_HEAD_DIMS, ("q", q), ("k", k), ("v", v), ("dout", dout))
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = scale if scale is not None else d**-0.5
-    mode, bias_t = _bias_arg("flash_bwd_dkv", bias, q, k)
-    lse, delta = _stats_arg("flash_bwd_dkv", lse, q), _stats_arg("flash_bwd_dkv", delta, q)
+    mode, bias_t = _bias_arg("flash_bwd_dkv_mma", bias, q, k)
+    lse, delta = _stats_arg("flash_bwd_dkv_mma", lse, q), _stats_arg("flash_bwd_dkv_mma", delta, q)
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
     fn = _kernel("flash_bwd.cu", "uwu_flash_bwd_dkv", 9)
@@ -396,12 +508,12 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, bias=None, scale=None):
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"flash_bwd_dkv launch failed: cudaError {rc}")
-    flash_bwd_dkv.launches += 1
+        raise RuntimeError(f"flash_bwd_dkv_mma launch failed: cudaError {rc}")
+    flash_bwd_dkv_mma.launches += 1
     return dk, dv
 
 
-flash_bwd_dkv.launches = 0
+flash_bwd_dkv_mma.launches = 0
 
 
 def flash_bwd(q, k, v, bias, out, lse, dout, scale=None, bias_grad=False):
