@@ -9,7 +9,10 @@ Phases, each fatal on failure:
                in bf16: the forward and backward kernels at the serving,
                training and textual-inversion paths' shapes (CLIP-L/bigG,
                T5-XXL, the MMDiT's joint attention), each twice for bitwise
-               reproducibility, the dQ + dBias kernel at T5-XXL's; the
+               reproducibility, the dQ + dBias kernel at T5-XXL's; every
+               GroupNorm shape on the route plan_gn gives it (the fused
+               single-pass kernel or the chunked stats + apply pair), with
+               wall and device ms beside F.group_norm+F.silu; the
                Hopper forward and backward (D = 64) also on strided head
                views of one fused tensor, and raising on a view TMA cannot
                take; the Hopper backward reading CLIP's broadcast bias in
@@ -26,15 +29,16 @@ Phases, each fatal on failure:
                batch of 4 with distinct seeds, then a lone request. Checks
                the images, seed-lane isolation and that every forward kernel
                was launched by that run, every flash forward on the Hopper
-               kernel.
+               kernel, and each GroupNorm call on the route plan_gn gives
+               its shape (fused, or the chunked pair).
   4. train   - the SDXL full fine-tune step at full width
                (training/bench_setup.py: batch 8, 64x64 latents, bf16
                params with stochastic rounding, adamw_factored): one
                warm-up step and 5 timed steps. Checks finite losses and
                grad norms, that every parameter took an update, and that
                each step launched every kernel exactly as often as the
-               UNet's plan says, every flash forward, dQ and dK/dV on the
-               Hopper kernels.
+               UNet's plan says (every GroupNorm on the fused kernel),
+               every flash forward, dQ and dK/dV on the Hopper kernels.
   5. ti      - SD3-medium textual inversion at full width
                (training/bench_setup.py: MMDiT + CLIP-L + CLIP-bigG +
                T5-XXL at 256 tokens, batch 8, 64x64x16 latents, bf16
@@ -42,9 +46,9 @@ Phases, each fatal on failure:
                warm-up step and 5 timed steps. Checks finite losses,
                non-zero grad norms, that every row table moved, that no
                frozen leaf changed (per-leaf fp64 checksums) and each
-               step's launches against the plan from the modules (K5 once
-               per T5 layer, every flash forward, dQ and dK/dV on the Hopper
-               kernels).
+               step's launches against the plan from the modules (K4 in
+               every T5 layer, whose learned bias is frozen here, so no K5;
+               every flash forward, dQ and dK/dV on the Hopper kernels).
 Prints the card's name and power limit, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA is
 unavailable or the package is missing. A full report goes to
@@ -317,71 +321,113 @@ def gn_cases():
 
 
 def check_gn(results, failures):
+    """Every gn_cases() shape on the route plan_gn gives it: the fused
+    kernel (K2) or the chunked pair (K3 + the apply), against the plain
+    version (y within one bf16 step of the largest output + 1e-3, the saved
+    statistics within 1e-4 relative, bitwise over two runs); wall ms (CUDA
+    events) and the profiler's device ms beside F.group_norm+F.silu (and
+    torch.var_mean for K3) and the route's bound: 2 passes over x fused, 3
+    chunked."""
     import torch.nn.functional as F
 
-    from uwudiff_tpu_torch.ops import gn_silu_apply, gn_stats
+    from uwudiff_tpu_torch.ops import gn_silu_apply, gn_silu_fused, gn_stats, plan_gn
     from uwudiff_tpu_torch.ops.groupnorm_silu import (
         gn_silu_apply_reference,
         gn_stats_reference,
         group_norm_silu_reference,
     )
 
+    family = "groupnorm (K2/K3)"
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     groups, eps = 32, 1e-5
     for n, hw, c in gn_cases():
         x = (torch.randn((n, hw, c), generator=gen, device=dev) * 2.0 + 0.5).to(torch.bfloat16)
-        gamma = torch.randn(c, generator=gen, device=dev) * 0.2 + 1.0
-        beta = torch.randn(c, generator=gen, device=dev) * 0.1
-        scale, shift = gn_stats(x, gamma, beta, groups, eps)
-        y = gn_silu_apply(x, scale, shift)
+        # the models' affine dtype: the kernels read gamma/beta as bf16
+        gamma = (torch.randn(c, generator=gen, device=dev) * 0.2 + 1.0).bfloat16()
+        beta = (torch.randn(c, generator=gen, device=dev) * 0.1).bfloat16()
+        plan = plan_gn(n, hw, c, groups, torch.bfloat16)
+        fused = plan.route == "fused"
+        if fused:
+            y, stats = gn_silu_fused(x, gamma, beta, groups, eps, with_stats=True)
+            bitwise = torch.equal(y, gn_silu_fused(x, gamma, beta, groups, eps))
+        else:
+            stats = gn_stats(x, gamma, beta, groups, eps, with_group_stats=True)
+            y = gn_silu_apply(x, stats[0], stats[1])
+            again = gn_stats(x, gamma, beta, groups, eps, with_group_stats=True)
+            bitwise = all(torch.equal(a, b) for a, b in zip(stats, again)) and torch.equal(
+                y, gn_silu_apply(x, again[0], again[1]))
         torch.cuda.synchronize()
-        rs, rsh = gn_stats_reference(x, gamma, beta, groups, eps)
-        stats_err = max(((scale - rs).abs() / rs.abs().clamp_min(1e-3)).max().item(),
-                        (shift - rsh).abs().max().item())
+        # scale, mean and inv relative; shift = beta - mean*scale, which cancels, absolute
+        ref_stats = gn_stats_reference(x, gamma, beta, groups, eps, with_group_stats=True)
+        stats_err = max([((a - r).abs() / r.abs().clamp_min(1e-3)).max().item()
+                         for i, (a, r) in enumerate(zip(stats, ref_stats)) if i != 1]
+                        + [(stats[1] - ref_stats[1]).abs().max().item()])
         yr = group_norm_silu_reference(x, gamma, beta, groups, eps)
         err = (y.float() - yr.float()).abs().max().item()
-        apply_err = (y.float() - gn_silu_apply_reference(x, scale, shift).float()).abs().max().item()
         # one bf16 ulp at the largest output, plus fp32 stats noise
         tol = yr.float().abs().max().item() * 2.0**-7 + 1e-3
-        ok = bool(torch.isfinite(y).all()) and err <= tol and apply_err <= tol and stats_err <= 1e-4
-        ms_stats = time_ms(lambda: gn_stats(x, gamma, beta, groups, eps))
-        ms_apply = time_ms(lambda: gn_silu_apply(x, scale, shift))
-        plain_stats = time_ms(lambda: gn_stats_reference(x, gamma, beta, groups, eps), reps=3)
-        plain_apply = time_ms(lambda: gn_silu_apply_reference(x, scale, shift), reps=3)
-        # the library on the layouts a user would hand it: contiguous NCHW
-        # (its native one; the copy is made outside the timing) and the
-        # channels-last NCHW view of the same data
+        ok = bool(torch.isfinite(y).all()) and err <= tol and stats_err <= 1e-4 and bitwise
+        # the library on the layout a user would hand it: contiguous NCHW (its
+        # native one; the copy is made outside the timing)
         side = int(round(hw**0.5))
-        gb, bb = gamma.bfloat16(), beta.bfloat16()
         x_nchw = x.transpose(1, 2).reshape(n, c, side, side).contiguous()
-        library_ms = time_ms(lambda: F.silu(F.group_norm(x_nchw, groups, gb, bb, eps)))
+
+        def library():
+            return F.silu(F.group_norm(x_nchw, groups, gamma, beta, eps))
+
+        library_ms, library_dev = time_ms(library), profiled_ms(library)
         del x_nchw
-        x_cl = x.view(n, side, side, c).permute(0, 3, 1, 2)
-        library_cl_ms = time_ms(lambda: F.silu(F.group_norm(x_cl, groups, gb, bb, eps)))
-        # K3's statistics alone: one library reduction over the same groups
-        x_g = x.view(n, hw, groups, c // groups)
-        stats_library_ms = time_ms(lambda: torch.var_mean(x_g, dim=(1, 3), correction=0))
         elems = n * hw * c
-        sb, sby = bound(2 * elems + 8 * n * c + 8 * c, 3.0 * elems, PEAK_FP32)
-        ab, aby = bound(4 * elems + 8 * n * c, 5.0 * elems, PEAK_FP32)
-        common = dict(shape=[n, hw, c], max_abs_err=err, tol=tol, ok=ok, pair_ms=ms_stats + ms_apply,
-                      pair_library_ms=library_ms, pair_library_channels_last_ms=library_cl_ms)
-        results.append(dict(kernel="gn_stats", case=f"{n}x{hw}x{c}", ms=ms_stats, plain_ms=plain_stats,
-                            library_ms=stats_library_ms, library_computes="torch.var_mean over the groups",
-                            bound_ms=sb, bound_by=sby, stats_rel_err=stats_err, **common))
-        results.append(dict(kernel="gn_silu_apply", case=f"{n}x{hw}x{c}", ms=ms_apply,
-                            plain_ms=plain_apply, library_ms=None, bound_ms=ab, bound_by=aby,
-                            apply_err=apply_err, **common))
-        log(f"  gn [{n},{hw},{c}] err {err:.2e} (tol {tol:.1e}) stats {stats_err:.1e}"
-            f" {'ok' if ok else 'FAIL'} | stats {ms_stats:.3f} apply {ms_apply:.3f}"
-            f" pair {ms_stats + ms_apply:.3f} ms vs F.group_norm+silu {library_ms:.3f}"
-            f" (stats vs var_mean {stats_library_ms:.3f})"
-            f" (channels-last {library_cl_ms:.3f});"
-            f" bound {sb + ab:.3f} ms; plain {plain_stats + plain_apply:.2f}")
+        common = dict(shape=[n, hw, c], route=plan.route, plan=plan._asdict(), max_abs_err=err, tol=tol,
+                      stats_rel_err=stats_err, bitwise=bitwise, ok=ok, pair_library_ms=library_ms,
+                      pair_library_device_ms=library_dev, library_computes="F.group_norm + F.silu, NCHW")
+        if fused:
+            ms = time_ms(lambda: gn_silu_fused(x, gamma, beta, groups, eps))
+            dev_ms, other = profiled_ms(lambda: gn_silu_fused(x, gamma, beta, groups, eps), family)
+            plain = time_ms(lambda: group_norm_silu_reference(x, gamma, beta, groups, eps), reps=3)
+            fb, fby = bound(4 * elems + 4 * c, 8.0 * elems, PEAK_FP32)  # x read once, y written once
+            results.append(dict(kernel="gn_silu_fused", case=f"{n}x{hw}x{c}", ms=ms, device_ms=dev_ms,
+                                other_device_ms=other, plain_ms=plain, library_ms=library_ms, bound_ms=fb,
+                                bound_by=fby, **common))
+            log(f"  gn [{n},{hw},{c}] fused c{plan.cluster} err {err:.2e} (tol {tol:.1e}) stats {stats_err:.1e}"
+                f" bitwise {bitwise} {'ok' if ok else 'FAIL'} | {ms:.4f} ms, device {_ms(dev_ms)} vs"
+                f" F.group_norm+silu {library_ms:.4f} (device {_ms(library_dev)}); bound {fb:.4f}; plain {plain:.2f}")
+        else:
+            scale, shift = stats[0], stats[1]
+            x_g = x.view(n, hw, groups, c // groups)
+
+            def var_mean():
+                return torch.var_mean(x_g, dim=(1, 3), correction=0)
+
+            ms_stats = time_ms(lambda: gn_stats(x, gamma, beta, groups, eps))
+            ms_apply = time_ms(lambda: gn_silu_apply(x, scale, shift))
+            dev_stats, _ = profiled_ms(lambda: gn_stats(x, gamma, beta, groups, eps), family)
+            dev_apply, _ = profiled_ms(lambda: gn_silu_apply(x, scale, shift), family)
+            plain_stats = time_ms(lambda: gn_stats_reference(x, gamma, beta, groups, eps), reps=3)
+            plain_apply = time_ms(lambda: gn_silu_apply_reference(x, scale, shift), reps=3)
+            stats_library_ms, stats_library_dev = time_ms(var_mean), profiled_ms(var_mean)
+            sb, sby = bound(2 * elems + 4 * c + 8 * n * c, 3.0 * elems, PEAK_FP32)
+            ab, aby = bound(4 * elems + 8 * n * c, 5.0 * elems, PEAK_FP32)
+            apply_err = (y.float() - gn_silu_apply_reference(x, scale, shift).float()).abs().max().item()
+            common.update(pair_ms=ms_stats + ms_apply, pair_device_ms=dev_stats + dev_apply)
+            results.append(dict(kernel="gn_stats", case=f"{n}x{hw}x{c}", ms=ms_stats, device_ms=dev_stats,
+                                plain_ms=plain_stats, library_ms=stats_library_ms,
+                                library_device_ms=stats_library_dev,
+                                stats_library_computes="torch.var_mean over the groups",
+                                bound_ms=sb, bound_by=sby, **common))
+            results.append(dict(kernel="gn_silu_apply", case=f"{n}x{hw}x{c}", ms=ms_apply, device_ms=dev_apply,
+                                plain_ms=plain_apply, library_ms=None, bound_ms=ab, bound_by=aby,
+                                bound_share=ab / dev_apply, apply_err=apply_err, **common))
+            log(f"  gn [{n},{hw},{c}] chunked err {err:.2e} (tol {tol:.1e}) stats {stats_err:.1e}"
+                f" bitwise {bitwise} {'ok' if ok else 'FAIL'} | stats {ms_stats:.4f} (device {dev_stats:.4f})"
+                f" apply {ms_apply:.4f} (device {dev_apply:.4f}, {100 * ab / dev_apply:.0f} % of its bound)"
+                f" vs F.group_norm+silu {library_ms:.4f} (device {_ms(library_dev)}), stats vs var_mean"
+                f" {stats_library_ms:.4f}; bound {sb + ab:.4f}; plain {plain_stats + plain_apply:.2f}")
+            del x_g
         if not ok:
-            failures.append(f"gn {n}x{hw}x{c}: err {err} apply {apply_err} stats {stats_err}")
-        del x, x_cl, x_g, y, yr
+            failures.append(f"gn {n}x{hw}x{c} {plan.route}: err {err} stats {stats_err} bitwise {bitwise}")
+        del x, y, yr
         torch.cuda.empty_cache()
 
 
@@ -792,8 +838,8 @@ def small_ti_trainer(device, dtype):
 
 def check_ti_vs_cpu(failures):
     """One textual-inversion step's loss and row gradients of the small
-    SD3-shaped stack: bf16 on the card through the kernels (K5 in the T5
-    layers) against the same weights in fp32 on the CPU through the plain
+    SD3-shaped stack: bf16 on the card through the kernels (K4 in the T5
+    layers, whose learned bias is frozen: no K5) against the same weights in fp32 on the CPU through the plain
     versions, which the CPU tests hold against the JAX package; the same
     noise and logit-normal draws."""
     torch.manual_seed(SEED + 9)
@@ -820,8 +866,8 @@ def check_ti_vs_cpu(failures):
     tol = 5e-2  # bf16 weights, activations and gradients through three encoders and the MMDiT
     log(f"  textual-inversion step, card bf16 vs CPU fp32 plain: loss rel err {loss_err:.2e},"
         f" row grad |d|/|ref| {grad_err:.2e} (tol {tol}); |grad| {grads['cpu'].norm():.3e}; K5 launches {k5}")
-    if not (loss_err <= tol and grad_err <= tol and grads["cpu"].norm() > 0 and k5 == 2):
-        failures.append(f"TI step card vs CPU: loss {loss_err} grad {grad_err} > {tol} or K5 launches {k5} != 2")
+    if not (loss_err <= tol and grad_err <= tol and grads["cpu"].norm() > 0 and k5 == 0):
+        failures.append(f"TI step card vs CPU: loss {loss_err} grad {grad_err} > {tol} or K5 launches {k5} != 0")
     return {"loss_rel_err": loss_err, "grad_rel_err": grad_err, "tol": tol, "grad_norm": grads["cpu"].norm().item()}
 
 
@@ -925,7 +971,7 @@ def phase_times(pipe, n):
 
 
 def serve(report, failures):
-    from uwudiff_tpu_torch.ops import FORWARD_KERNELS, launch_counts, reset_launch_counts
+    from uwudiff_tpu_torch.ops import FORWARD_KERNELS, launch_counts, plan_gn, reset_launch_counts
     from uwudiff_tpu_torch.serving import BatchingServer, Request, sdxl_pipeline
 
     t0 = time.perf_counter()
@@ -938,6 +984,16 @@ def serve(report, failures):
     report["params"] = n_params
     log(f"  built sdxl unet + clip_l/clip_bigg + sdxl vae in {report['model_build_s']:.1f} s: {n_params}")
 
+    # the shape of every GroupNorm call of the main run, for the routes plan_gn gives them
+    from uwudiff_tpu_torch.models.layers import GroupNorm
+
+    gn_calls: list = []
+
+    def record(module, args):
+        x = args[0]
+        c = module.weight.shape[0]
+        gn_calls.append((x.shape[0], x.numel() // (x.shape[0] * c), c, module.groups))
+
     server = BatchingServer(pipe, buckets=[(RES, RES)], max_batch=4, max_wait_s=0.05)
     t0 = time.perf_counter()
     server.start(warmup_steps=1)  # one pass per batch size of the ladder (1, 4)
@@ -948,6 +1004,8 @@ def serve(report, failures):
                    "a bowl of ramen, studio photo", "an astronaut riding a horse"]
         seeds = [11, 12, 13, 14]
         torch.cuda.reset_peak_memory_stats()
+        hooks = [m.register_forward_pre_hook(record) for part in (pipe.unet, pipe.vae)
+                 for m in part.modules() if isinstance(m, GroupNorm)]
         reset_launch_counts()  # the main path's run starts here
         t0 = time.perf_counter()
         futs = [server.submit(Request(prompt=p, num_steps=STEPS, cfg_scale=CFG, seed=s,
@@ -960,6 +1018,8 @@ def serve(report, failures):
         lone_s = time.perf_counter() - t0
         counts = launch_counts()  # the main path's run ends here
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        for h in hooks:
+            h.remove()
     finally:
         server.stop()
 
@@ -971,6 +1031,12 @@ def serve(report, failures):
         if counts[name] == 0:
             failures.append(f"kernel {name} was not launched on the serving path")
     check_forward_route(counts, "serve", failures)
+    routes = [plan_gn(*shape, torch.bfloat16).route for shape in gn_calls]
+    gn_plan = {"gn_silu_fused": routes.count("fused"), "gn_stats": routes.count("chunked"),
+               "gn_silu_apply": routes.count("chunked")}
+    if any(counts[k] != v for k, v in gn_plan.items()):
+        failures.append(f"serve: GroupNorm launches {[counts[k] for k in gn_plan]} against plan_gn's {gn_plan}"
+                        f" over {len(gn_calls)} calls")
     img_diff = float(abs(lone.astype(int) - batch_imgs[1].astype(int)).mean())
 
     # seed-lane isolation on the latents: lane 1 of the batch vs the lone run
@@ -991,13 +1057,13 @@ def serve(report, failures):
 
     report["serve"] = dict(
         steps=STEPS, cfg=CFG, resolution=RES, batch_of_4_s=batch_s, imgs_per_s_batch=4 / batch_s,
-        lone_request_latency_s=lone_s, peak_memory_gib=peak_gb, launches=counts,
+        lone_request_latency_s=lone_s, peak_memory_gib=peak_gb, launches=counts, groupnorm_plan=gn_plan,
         lone_vs_lane_mean_abs_pixel_diff=img_diff, latents_same_seed_max_diff=d_same,
         latents_other_seed_max_diff=d_other, latents_same_seed_rms_diff=rms_same,
         latents_std=lat_b.float().std().item(),
     )
     log(f"  batch of 4: {batch_s:.2f} s ({4 / batch_s:.3f} imgs/s); lone request {lone_s:.2f} s;"
-        f" peak {peak_gb:.1f} GiB; launches {counts}")
+        f" peak {peak_gb:.1f} GiB; launches {counts}; GroupNorm routes by plan_gn {gn_plan}")
     log(f"  same seed alone vs in batch: latents max diff {d_same:.3e} (other seed {d_other:.3e});"
         f" mean pixel diff {img_diff:.3f}")
     report["phases"] = {f"batch_{n}": phase_times(pipe, n) for n in (1, 4)}
@@ -1013,16 +1079,17 @@ TRAIN_STEPS = 5
 def plan_launches(unet) -> dict:
     """Each kernel's launches per training step, from the UNet's modules:
     one flash forward (the sum over both forward kernels) and one dQ/dK-dV
-    pair per attention, one stats,
-    apply, partials and dx launch per GroupNorm (the backward keeps the
-    forward's statistics, so it launches no stats pass of its own)."""
+    pair per attention; per GroupNorm one fused launch (every GroupNorm of
+    the step at 64x64 latents fits a cluster, plan_gn), none of the chunked
+    pair, and one partials and one dx launch (the backward keeps the fused
+    kernel's statistics, so it launches no stats pass of its own)."""
     from uwudiff_tpu_torch.models.layers import GroupNorm
     from uwudiff_tpu_torch.models.transformer import BasicTransformerBlock
 
     attn = sum(2 if m.has_cross else 1 for m in unet.modules() if isinstance(m, BasicTransformerBlock))
     gn = sum(isinstance(m, GroupNorm) for m in unet.modules())
     return {"flash_fwd": attn, "flash_bwd_dq": attn, "flash_bwd_dkv": attn,
-            "gn_stats": gn, "gn_silu_apply": gn, "gn_bwd_partials": gn, "gn_bwd_dx": gn}
+            "gn_silu_fused": gn, "gn_stats": 0, "gn_silu_apply": 0, "gn_bwd_partials": gn, "gn_bwd_dx": gn}
 
 
 def train(report, failures):
@@ -1110,9 +1177,9 @@ TI_STEPS = 5
 def plan_ti_launches(trainer) -> dict:
     """Each kernel's launches per textual-inversion step, from the modules:
     every attention (CLIP layers, MMDiT blocks, T5 layers) runs one flash
-    forward and one dK/dV pass; the dQ pass is K4, or K5 where the bias is
-    learned (every T5 layer). The flash forward is the sum over both forward
-    kernels. No GroupNorm on this path."""
+    forward, one dQ and one dK/dV pass. T5's learned bias is frozen here, so
+    its dQ pass is K4 and K5 is not launched. The flash forward is the sum
+    over both forward kernels. No GroupNorm on this path."""
     from uwudiff_tpu_torch.models.clip import _CLIPLayer
     from uwudiff_tpu_torch.models.mmdit import MMDiTBlock
     from uwudiff_tpu_torch.models.t5 import _T5Layer
@@ -1120,9 +1187,9 @@ def plan_ti_launches(trainer) -> dict:
     modules = list(trainer.te.modules()) + list(trainer.unet.modules())
     plain = sum(isinstance(m, (_CLIPLayer, MMDiTBlock)) for m in modules)
     t5 = sum(isinstance(m, _T5Layer) for m in modules)
-    return {"flash_fwd": plain + t5, "flash_bwd_dq": plain, "flash_bwd_dq_dbias": t5,
-            "flash_bwd_dkv": plain + t5, "gn_stats": 0, "gn_silu_apply": 0, "gn_bwd_partials": 0,
-            "gn_bwd_dx": 0}
+    return {"flash_fwd": plain + t5, "flash_bwd_dq": plain + t5, "flash_bwd_dq_dbias": 0,
+            "flash_bwd_dkv": plain + t5, "gn_silu_fused": 0, "gn_stats": 0, "gn_silu_apply": 0,
+            "gn_bwd_partials": 0, "gn_bwd_dx": 0}
 
 
 def ti(report, failures):
@@ -1262,13 +1329,13 @@ def main() -> int:
     main_case = {"flash_fwd_sm90": "sdxl_l1_self", "flash_fwd_mma": "sd15_d40",
                  "flash_bwd_dq_sm90": "train_l1_self", "flash_bwd_dkv_sm90": "train_l1_self",
                  "flash_bwd_dq_mma": "sd15_d40", "flash_bwd_dkv_mma": "sd15_d40",
-                 "flash_bwd_dq_dbias": "t5_xxl", "gn_stats": "8x16384x320", "gn_silu_apply": "8x16384x320",
-                 "gn_bwd_partials": "8x4096x320", "gn_bwd_dx": "8x4096x320"}
+                 "flash_bwd_dq_dbias": "t5_xxl", "gn_silu_fused": "8x4096x320", "gn_stats": "8x16384x960",
+                 "gn_silu_apply": "8x16384x960", "gn_bwd_partials": "8x4096x320", "gn_bwd_dx": "8x4096x320"}
     csrc = "uwudiff_tpu_torch/csrc/"
     source = {"flash_fwd_sm90": csrc + "flash_fwd_sm90.cu", "flash_fwd_mma": csrc + "flash_fwd.cu",
               "flash_bwd_dq_sm90": csrc + "flash_bwd_sm90.cu", "flash_bwd_dkv_sm90": csrc + "flash_bwd_sm90.cu",
               "flash_bwd_dq_mma": csrc + "flash_bwd.cu", "flash_bwd_dkv_mma": csrc + "flash_bwd.cu",
-              "flash_bwd_dq_dbias": csrc + "flash_bwd.cu"}
+              "flash_bwd_dq_dbias": csrc + "flash_bwd.cu", "gn_silu_fused": csrc + "groupnorm_silu_sm90.cu"}
     replaces = {"flash_fwd_sm90": "uwudiff_tpu/ops/flash_attention.py:152",
                 "flash_fwd_mma": "uwudiff_tpu/ops/flash_attention.py:152",
                 "flash_bwd_dq_sm90": "uwudiff_tpu/ops/flash_attention.py:271",
@@ -1276,10 +1343,12 @@ def main() -> int:
                 "flash_bwd_dq_dbias": "uwudiff_tpu/ops/flash_attention.py:312",
                 "flash_bwd_dkv_sm90": "uwudiff_tpu/ops/flash_attention.py:365",
                 "flash_bwd_dkv_mma": "uwudiff_tpu/ops/flash_attention.py:365",
+                "gn_silu_fused": "uwudiff_tpu/ops/groupnorm_silu.py:118",
                 "gn_stats": "uwudiff_tpu/ops/groupnorm_silu.py:171",
-                "gn_silu_apply": "uwudiff_tpu/ops/groupnorm_silu.py:118",
+                "gn_silu_apply": "uwudiff_tpu/ops/groupnorm_silu.py:240",
                 "gn_bwd_partials": "uwudiff_tpu/ops/groupnorm_silu.py:321",
                 "gn_bwd_dx": "uwudiff_tpu/ops/groupnorm_silu.py:349"}
+    path_counts = {"flash_bwd_dq_dbias": ti_counts, "gn_stats": serve_counts, "gn_silu_apply": serve_counts}
     kernels = []
     for name, case in main_case.items():
         row = next(r for r in results if r["kernel"] == name and r["case"] == case)
@@ -1287,11 +1356,15 @@ def main() -> int:
             name=name, route="cuda", source=source.get(name, csrc + "groupnorm_silu.cu"),
             replaces=replaces[name],
             # the count of the run whose path this row's shape is from: K5's is
-            # the textual-inversion step's, the others' the SDXL training step's
-            launches=ti_counts[name] if name == "flash_bwd_dq_dbias" else counts[name],
+            # the textual-inversion step's (0: no path trains an attention bias),
+            # the chunked GroupNorm pair's the served batch's, the others' the
+            # SDXL training step's
+            launches=path_counts.get(name, counts)[name],
             max_abs_err=max(r["max_abs_err"] for r in results if r["kernel"] == name),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row["library_ms"], shape=row["shape"], serving_launches=serve_counts[name],
+            library_ms=row["library_ms"], device_ms=row.get("device_ms", row.get("kernel_device_ms")),
+            shape=row["shape"],
+            serving_launches=serve_counts[name],
             train_launches=counts[name], ti_launches=ti_counts[name],
         ))
     report["kernels"] = kernels

@@ -25,10 +25,12 @@ from uwudiff_tpu_torch.ops.flash_attention import (
 )
 from uwudiff_tpu_torch.ops.groupnorm_silu import (
     gn_silu_apply,
+    gn_silu_fused,
     gn_stats,
     gn_stats_reference,
     group_norm_silu,
     group_norm_silu_reference,
+    plan_gn,
 )
 
 pytestmark = pytest.mark.cuda
@@ -209,6 +211,81 @@ def test_gn_kernels_match_plain(dev, dtype, n, hw, c, groups, silu):
     assert (y.float() - yr.float()).abs().max().item() <= tol * max(1.0, yr.abs().max().item())
 
 
+# the GroupNorm shapes of the paths on both routes (plan_gn): the training
+# step's and the served UNet's levels and the VAE decoder's 128^2 level
+# (fused), the served UNet's [8,16384,960] and the VAE's 256^2 and 512^2
+# levels (chunked), and a ragged small shape
+GN_PATH_CASES = [
+    (8, 1024, 320, 32), (8, 256, 2560, 32), (8, 4096, 1920, 32), (8, 16384, 320, 32), (4, 16384, 512, 32),
+    (4, 65536, 512, 32), (3, 77, 64, 8), (8, 16384, 960, 32), (1, 262144, 256, 32),
+]
+
+
+@pytest.mark.parametrize("dtype,n,hw,c,groups", [(torch.bfloat16, *s) for s in GN_PATH_CASES]
+                         + [(torch.float32, *s) for s in GN_PATH_CASES if s[0] * s[1] * s[2] <= 40_000_000])
+@pytest.mark.parametrize("silu", [True, False])
+def test_gn_routes_match_plain(dev, dtype, n, hw, c, groups, silu):
+    """Each route against the plain version: y within one bf16 step of the
+    largest output plus 1e-3 (bf16) or 1e-4 relative (fp32), the
+    statistics the autograd function saves within 1e-4 relative (shift,
+    which cancels, within 1e-4 absolute + relative), bitwise
+    over two runs, one launch on the fused route (two on the chunked).
+    fp32 at the shapes up to 40 M elements (both routes among them)."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = (torch.randn((n, hw, c), generator=gen, device=dev) * 2.0 + 0.5).to(dtype)
+    gamma = (torch.randn(c, generator=gen, device=dev) * 0.2 + 1.0).to(dtype)
+    beta = (torch.randn(c, generator=gen, device=dev) * 0.1).to(dtype)
+    fused = plan_gn(n, hw, c, groups, dtype).route == "fused"
+    reset_launch_counts()
+    y = group_norm_silu(x, gamma, beta, groups, 1e-5, silu=silu)
+    counts = launch_counts()
+    assert (counts["gn_silu_fused"], counts["gn_stats"], counts["gn_silu_apply"]) == ((1, 0, 0) if fused else (0, 1, 1))
+    assert torch.equal(y, group_norm_silu(x, gamma, beta, groups, 1e-5, silu=silu))
+    yr = group_norm_silu_reference(x, gamma, beta, groups, 1e-5, silu=silu).float()
+    tol = 2.0**-7 * yr.abs().max().item() + 1e-3 if dtype == torch.bfloat16 else 1e-4 * max(1.0, yr.abs().max().item())
+    assert (y.float() - yr).abs().max().item() <= tol
+    if fused:
+        y2, stats = gn_silu_fused(x, gamma, beta, groups, 1e-5, silu, with_stats=True)
+        assert torch.equal(y2, y)
+    else:
+        stats = gn_stats(x, gamma, beta, groups, 1e-5, with_group_stats=True)
+    scale, shift, mean, inv = stats
+    rs, rsh, rm, ri = gn_stats_reference(x, gamma, beta, groups, 1e-5, with_group_stats=True)
+    for got, ref in ((scale, rs), (mean, rm), (inv, ri)):
+        assert ((got - ref).abs() / ref.abs().clamp_min(1e-3)).max().item() <= 1e-4
+    # shift = beta - mean*scale cancels near zero: held as test_gn_kernels_match_plain holds it
+    torch.testing.assert_close(shift, rsh, rtol=1e-4, atol=1e-4)
+
+
+def test_gn_fused_refuses_a_chunked_shape(dev):
+    x = torch.zeros((8, 16384, 960), device=dev, dtype=torch.bfloat16)
+    one = torch.ones(960, device=dev)
+    with pytest.raises(ValueError, match="plan_gn"):
+        gn_silu_fused(x, one, one, 32, 1e-5)
+
+
+@pytest.mark.parametrize("n,hw,c", [(8, 1024, 640), (2, 4096, 320)])
+def test_gn_fused_stats_feed_the_backward(dev, n, hw, c):
+    """Autograd through the fused kernel's saved statistics into K7/K8,
+    against autograd of the fp32 plain forward."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = (torch.randn((n, hw, c), generator=gen, device=dev) * 2.0 + 0.5).to(torch.bfloat16)
+    g = torch.randn((n, hw, c), generator=gen, device=dev).to(torch.bfloat16)
+    gamma = (torch.randn(c, generator=gen, device=dev) * 0.2 + 1.0).requires_grad_()
+    beta = (torch.randn(c, generator=gen, device=dev) * 0.1).requires_grad_()
+    assert plan_gn(n, hw, c, 32, torch.bfloat16).route == "fused"
+    xg = x.detach().requires_grad_()
+    reset_launch_counts()
+    got = torch.autograd.grad(group_norm_silu(xg, gamma, beta, 32, 1e-5), (xg, gamma, beta), g)
+    counts = launch_counts()
+    assert counts["gn_silu_fused"] == counts["gn_bwd_partials"] == counts["gn_bwd_dx"] == 1
+    assert counts["gn_stats"] == 0
+    xr = x.float().requires_grad_()
+    ref = torch.autograd.grad(group_norm_silu_reference(xr, gamma, beta, 32, 1e-5), (xr, gamma, beta), g.float())
+    for a, r in zip(got, ref):
+        _assert_flash_close(a, r)
+
+
 def test_attention_dispatch_on_cuda(dev):
     """Every head dim up to 256 goes to the kernel, at any Sq/Sk (77 keys
     included), and raises if the kernel was not built for it; the VAE's
@@ -285,7 +362,10 @@ def test_tiny_pipeline_runs_through_the_kernels(dev):
     images = pipe(["a cat", "a dog"], num_steps=2, num_samples=2, width=64, height=64, seed=[1, 2])
     counts = launch_counts()
     assert all(img.shape == (64, 64, 3) for img in images)
-    assert all(counts[k] > 0 for k in FORWARD_KERNELS), counts  # serving runs no backward
+    # every GroupNorm of this small pipeline fits a cluster (plan_gn), so the
+    # chunked pair of the forward kernels is not launched; serving runs no backward
+    assert counts.pop("gn_stats") == counts.pop("gn_silu_apply") == 0, counts
+    assert all(counts[k] > 0 for k in FORWARD_KERNELS if k in counts), counts
 
 
 # ------------------------------------------------------------------ backward
@@ -568,9 +648,12 @@ def test_tiny_unet_trains_through_every_kernel(dev):
     assert counts.pop("flash_bwd_dq_dbias") == 0, counts  # the UNet learns no attention bias
     assert counts.pop("flash_fwd_mma") == 0, counts  # head dim 64: every forward is the Hopper kernel
     assert counts.pop("flash_bwd_dq_mma") == counts.pop("flash_bwd_dkv_mma") == 0, counts  # and every backward
+    # every GroupNorm of the tiny UNet fits a cluster: one fused launch each,
+    # none on the chunked pair; the backward's K7/K8 read the fused kernel's stats
+    assert counts.pop("gn_stats") == counts.pop("gn_silu_apply") == 0, counts
     assert all(v > 0 for v in counts.values()), counts
     assert counts["flash_fwd"] == counts["flash_bwd_dq"] == counts["flash_bwd_dkv"]
-    assert counts["gn_silu_apply"] == counts["gn_bwd_partials"] == counts["gn_bwd_dx"] == counts["gn_stats"]
+    assert counts["gn_silu_fused"] == counts["gn_bwd_partials"] == counts["gn_bwd_dx"]
     assert torch.isfinite(metrics["train/loss"]) and torch.isfinite(metrics["train/grad_norm"])
 
 
@@ -662,6 +745,42 @@ def test_flash_autograd_bias_grad_runs_k5(dev):
     rel.grad = None
     flash_attention(q.requires_grad_(), k, v, rel + pad, 1.0).backward(dout)
     assert rel.grad is None
+
+
+def test_flash_frozen_learned_bias_takes_k4(dev):
+    """``bias_grad=True`` with a bias autograd keeps no gradient for (a
+    frozen T5's): the backward runs K4, not K5."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, s, h, d = 2, 128, 2, 64
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(3))
+    bias = torch.randn((1, h, s, s), generator=gen, device=dev)
+    dout = torch.randn((b, s, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
+    q.requires_grad_()
+    reset_launch_counts()
+    flash_attention(q, k, v, bias, 1.0, bias_grad=True).backward(dout)
+    counts = launch_counts()
+    assert counts["flash_bwd_dq_dbias"] == 0 and counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 1
+    ref_q = q.detach().float().requires_grad_()
+    ref, _ = flash_attention_reference(ref_q, k.float(), v.float(), bias, 1.0)
+    ref.backward(dout.float())
+    _assert_flash_close(q.grad, ref_q.grad)
+
+
+def test_flash_lse_is_differentiable_on_the_card(dev):
+    """A loss on out and lse: the lse's cotangent folds into delta."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, s, h, d = 2, 200, 2, 64
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev, dtype=torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    dout = torch.randn((b, s, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
+    dlse = torch.randn((b, h, s), generator=gen, device=dev)
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    got = torch.autograd.grad((out.float() * dout.float()).sum() + (lse * dlse).sum(), (q, k, v))
+    rq, rk, rv = (t.detach().float().requires_grad_() for t in (q, k, v))
+    rout, rlse = flash_attention_reference(rq, rk, rv)
+    ref = torch.autograd.grad((rout * dout.float()).sum() + (rlse * dlse).sum(), (rq, rk, rv))
+    for a, r in zip(got, ref):
+        _assert_flash_close(a, r)
 
 
 def test_flash_dbias_raises_for_a_head_dim_it_was_not_built_for(dev):

@@ -82,6 +82,38 @@ def test_flash_grads_match_jax_kernel(b, sq, sk, h, d, kind):
         _close(tg, jg)
 
 
+@pytest.mark.parametrize("kind", ["none", "key"])
+def test_flash_lse_grads_match_jax_kernel(kind):
+    """A loss that reads both ``out`` and the lse of
+    ``flash_attention(..., return_lse=True)``: the lse's cotangent folds
+    into the backward's delta (``delta - dlse``), as JAX's ``_flash_core_lse``
+    does. Tiny shapes; tolerance REL of the largest gradient element."""
+    rng = np.random.default_rng(4)
+    b, s, h, d = 1, 24, 2, 8
+    q, k, v = (rng.standard_normal((b, s, h, d)).astype(np.float32) for _ in range(3))
+    dout = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    dlse = rng.standard_normal((b, h, s)).astype(np.float32)
+    bias = _bias(kind, b, h, s, s, rng)
+
+    def jax_loss(q, k, v):
+        out, lse = jax_flash(q, k, v, bias=None if bias is None else jnp.asarray(bias),
+                             interpret=True, block_q=128, block_k=128, return_lse=True)
+        return jnp.sum(out * dout) + jnp.sum(lse * dlse)
+
+    jgrads = jax.grad(jax_loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out, lse = flash_attention(tq, tk, tv, None if bias is None else torch.from_numpy(bias), return_lse=True)
+    loss = (out * torch.from_numpy(dout)).sum() + (lse * torch.from_numpy(dlse)).sum()
+    for tg, jg in zip(torch.autograd.grad(loss, (tq, tk, tv)), jgrads):
+        _close(tg, jg)
+    # a loss on the lse alone: out's cotangent is undefined (None, not zeros)
+    tb = None if bias is None else torch.from_numpy(bias)
+    lse_loss = [(flash(tq, tk, tv, tb)[1] * torch.from_numpy(dlse)).sum() for flash in (
+        lambda *a: flash_attention(*a, return_lse=True), flash_attention_reference)]
+    got, ref = (torch.autograd.grad(loss, tq)[0] for loss in lse_loss)
+    _close(got, ref.detach().numpy())
+
+
 def test_flash_backward_reference_matches_autograd():
     rng = np.random.default_rng(1)
     b, sq, sk, h, d = 2, 40, 24, 2, 16

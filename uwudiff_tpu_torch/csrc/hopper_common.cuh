@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks for the warp-specialised kernels
-// (flash_fwd_sm90.cu, flash_bwd_sm90.cu): mbarriers, TMA tile loads, small
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu) and the cluster GroupNorm
+// (groupnorm_silu_sm90.cu): mbarriers, TMA tile loads and stores, small
 // cp.async copies that report to an mbarrier, wgmma descriptors and
-// products, register reallocation and named barriers, as inline PTX; and
-// on the host, the encoding of the tensor maps the wrappers compute.
+// products, register reallocation and named barriers, cluster barriers
+// and distributed shared memory, as inline PTX; and on the host, the
+// encoding of the tensor maps the wrappers compute.
 //
 // Shared-memory tiles are written by TMA with CU_TENSOR_MAP_SWIZZLE_128B:
 // rows of 64 bf16 (128 bytes) at a 128-byte pitch, the eight 16-byte chunks
@@ -93,6 +95,40 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// load one box of a rank-3 tensor map at (c0, c1, c2), innermost first,
+// reported to `bar` as transaction bytes; elements outside the tensor are
+// zero-filled
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// store one box from shared memory to a rank-3 tensor map at (c0, c1, c2);
+// elements outside the tensor are not written. Tracked as a bulk group:
+// bulk_commit, then bulk_wait_read before the shared memory is reused or
+// the block exits
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// wait until every committed bulk store has finished reading shared memory
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+
+// order this thread's generic-proxy writes to shared memory before later
+// async-proxy (TMA) reads of it
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // copy 4 bytes from global to shared memory (zero-filled when !pred); the
 // copies a thread issued are tracked by cp_async_arrive
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
@@ -131,6 +167,38 @@ __device__ __forceinline__ void named_sync(int id, int count) {
 
 __device__ __forceinline__ void named_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---------------------------------------------------------------- clusters
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster arrives (release: its earlier
+// shared-memory writes become visible to the cluster) ...
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+// ... and waits for all of them (acquire)
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory"); }
+
+// a float of block `rank`'s shared memory, at the address `p` has in this block
+__device__ __forceinline__ float ld_dsmem(const float* p, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
 }
 
 // ---------------------------------------------------------------- wgmma
@@ -274,5 +342,26 @@ inline int encode(CUtensorMap* map, const void* ptr, const unsigned long long* s
 // the box rows (S) of a spec: the kernel's tile, which its transaction
 // byte counts assume
 inline unsigned long long box_rows(const unsigned long long* spec) { return spec[9]; }
+
+// a rank-3 map with no swizzle (tiles land in shared memory row-major,
+// rows at the box's own pitch). spec: dims[3] (elements, innermost first),
+// strides[2] (bytes, of dims 1..2), box[3] (elements), as the wrapper
+// computed and checked them (ops/groupnorm_silu.py::gn_map_spec)
+constexpr int DENSE_MAP_WORDS = 8;
+
+inline int encode_dense3(CUtensorMap* map, const void* ptr, CUtensorMapDataType dtype,
+                         const unsigned long long* spec) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return ENCODE_FAILED;
+  cuuint64_t dims[3], strides[2];
+  cuuint32_t box[3], elem_strides[3] = {1, 1, 1};
+  for (int i = 0; i < 3; ++i) dims[i] = spec[i];
+  for (int i = 0; i < 2; ++i) strides[i] = spec[3 + i];
+  for (int i = 0; i < 3; ++i) box[i] = static_cast<cuuint32_t>(spec[5 + i]);
+  const CUresult r = fn(map, dtype, 3, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + static_cast<int>(r);
+}
 
 }  // namespace hopper

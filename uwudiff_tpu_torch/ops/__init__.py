@@ -22,8 +22,10 @@ from uwudiff_tpu_torch.ops.groupnorm_silu import (
     gn_bwd_dx,
     gn_bwd_partials,
     gn_silu_apply,
+    gn_silu_fused,
     gn_stats,
     group_norm_silu,
+    plan_gn,
 )
 
 __all__ = [
@@ -34,9 +36,11 @@ __all__ = [
     "dot_product_attention",
     "flash_attention",
     "gn_silu_apply",
+    "gn_silu_fused",
     "gn_stats",
     "group_norm_silu",
     "launch_counts",
+    "plan_gn",
     "reset_launch_counts",
 ]
 
@@ -53,12 +57,16 @@ KERNELS = {
     "flash_bwd_dq_dbias": flash_bwd_dq_dbias,
     "flash_bwd_dkv_sm90": flash_bwd_dkv_sm90,
     "flash_bwd_dkv_mma": flash_bwd_dkv_mma,
+    "gn_silu_fused": gn_silu_fused,
     "gn_stats": gn_stats,
     "gn_silu_apply": gn_silu_apply,
     "gn_bwd_partials": gn_bwd_partials,
     "gn_bwd_dx": gn_bwd_dx,
 }
-FORWARD_KERNELS = ("flash_fwd_sm90", "gn_stats", "gn_silu_apply")  # what serving launches
+# what serving launches: every GroupNorm of the served UNet but one shape
+# (and of the VAE decoder's 128^2 level) on the fused kernel, the rest on
+# the chunked pair (ops/groupnorm_silu.py::plan_gn)
+FORWARD_KERNELS = ("flash_fwd_sm90", "gn_silu_fused", "gn_stats", "gn_silu_apply")
 
 
 def launch_counts() -> dict[str, int]:

@@ -24,9 +24,11 @@ With ``bias_grad=False`` (the default) the bias is a constant and gets no
 gradient. With ``bias_grad=True`` it is a learned bias (T5's relative
 position bias): it is taken as full ``[B, H, Sq, Sk]`` and the backward's
 dQ pass is the dQ + dBias kernel (K5), whose dBias (natural-log units,
-fp32) is summed back to the bias argument's shape. As in the JAX package,
-K5 runs for every ``bias_grad=True`` call with a bias, whether or not
-autograd keeps the bias gradient.
+fp32) is summed back to the bias argument's shape. K5 runs only where
+autograd keeps the bias's gradient; a frozen learned bias (textual
+inversion's T5) takes K4. With ``return_lse`` the lse is differentiable:
+its cotangent folds into the backward's delta (``delta - dlse``), as in
+the JAX package.
 
 :func:`flash_fwd` (through :func:`forward_kernel`: :func:`flash_fwd_sm90`
 or :func:`flash_fwd_mma`), :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`
@@ -130,17 +132,21 @@ def flash_attention_reference(q, k, v, bias=None, scale=None):
     return out, lse
 
 
-def flash_attention_backward_reference(q, k, v, bias, out, lse, dout, scale=None):
+def flash_attention_backward_reference(q, k, v, bias, out, lse, dout, scale=None, dlse=None):
     """Plain version of the backward kernels, in fp32: P recomputed from the
     forward's ``lse``, ``delta = rowsum(dO * O)``, ``dS = P (dP - delta)``.
-    Returns (dq, dk, dv) in the inputs' dtype and dS, the logits' gradient
-    (a full bias's gradient), fp32 ``[B, H, Sq, Sk]``."""
+    ``dlse``, the lse's cotangent ``[B, H, Sq]`` (or None), folds into delta
+    as ``delta - dlse``: d lse / d logits is P. Returns (dq, dk, dv) in the
+    inputs' dtype and dS, the logits' gradient (a full bias's gradient),
+    fp32 ``[B, H, Sq, Sk]``."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     p = torch.exp(_logits(q, k, bias, scale) - lse[..., None])  # [B, H, Sq, Sk]
     do = dout.float()
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
     dp = torch.einsum("bqhd,bkhd->bhqk", do, v.float())
     delta = (do * out.float()).sum(-1).transpose(1, 2)  # [B, H, Sq]
+    if dlse is not None:
+        delta = delta - dlse.float()
     ds = p * (dp - delta[..., None])
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
@@ -516,11 +522,15 @@ def flash_bwd_dkv_mma(q, k, v, dout, lse, delta, bias=None, scale=None):
 flash_bwd_dkv_mma.launches = 0
 
 
-def flash_bwd(q, k, v, bias, out, lse, dout, scale=None, bias_grad=False):
+def flash_bwd(q, k, v, bias, out, lse, dout, scale=None, bias_grad=False, dlse=None):
     """The backward kernels on CUDA tensors: ``delta = rowsum(dO * O)``
-    (PyTorch), then K4 (K5 with ``bias_grad`` and a bias) and K6. Returns
-    (dq, dk, dv, dbias): dbias ``[B, H, Sq, Sk]`` fp32 from K5, else None."""
-    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()  # [B, H, Sq]
+    (PyTorch; ``- dlse``, the lse's cotangent, when there is one), then K4
+    (K5 with ``bias_grad`` and a bias) and K6. Returns (dq, dk, dv, dbias):
+    dbias ``[B, H, Sq, Sk]`` fp32 from K5, else None."""
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)  # [B, H, Sq]
+    if dlse is not None:
+        delta = delta - dlse.float()
+    delta = delta.contiguous()
     dbias = None
     if bias_grad and bias is not None:
         dq, dbias = flash_bwd_dq_dbias(q, k, v, dout, lse, delta, bias, scale)
@@ -542,25 +552,29 @@ def _forward(q, k, v, bias, scale):
 class FlashAttentionFunction(torch.autograd.Function):
     """Attention with the flash kernels on both sides: the forward (K1)
     saves ``q, k, v, out, lse``; the backward recomputes P from the lse
-    (K4 + K6, or K5 + K6 with ``bias_grad``). CPU tensors take the plain
-    versions. The bias gets a gradient only with ``bias_grad``."""
+    (K4 + K6, or K5 + K6 when the bias's own gradient is asked for). Both
+    outputs are differentiable: the lse's cotangent folds into delta. CPU
+    tensors take the plain versions. The bias gets a gradient only with
+    ``bias_grad``."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias=None, scale=None, bias_grad=False):
         out, lse = _forward(q, k, v, bias, scale)
         ctx.save_for_backward(q, k, v, bias, out, lse)
         ctx.scale, ctx.bias_grad = scale, bias_grad
-        ctx.mark_non_differentiable(lse)
+        ctx.set_materialize_grads(False)  # an unused lse's cotangent stays None: no zeros, no subtraction
         return out, lse
 
     @staticmethod
-    def backward(ctx, dout, _dlse):
+    def backward(ctx, dout, dlse):
         q, k, v, bias, out, lse = ctx.saved_tensors
-        with_dbias = ctx.bias_grad and bias is not None
+        if dout is None:  # a loss on the lse alone
+            dout = torch.zeros_like(out)
+        with_dbias = ctx.bias_grad and bias is not None and ctx.needs_input_grad[3]
         if q.is_cuda:
-            dq, dk, dv, dbias = flash_bwd(q, k, v, bias, out, lse, dout, ctx.scale, with_dbias)
+            dq, dk, dv, dbias = flash_bwd(q, k, v, bias, out, lse, dout, ctx.scale, with_dbias, dlse)
         else:
-            dq, dk, dv, dbias = flash_attention_backward_reference(q, k, v, bias, out, lse, dout, ctx.scale)
+            dq, dk, dv, dbias = flash_attention_backward_reference(q, k, v, bias, out, lse, dout, ctx.scale, dlse)
         dbias = dbias.sum_to_size(bias.shape).to(bias.dtype) if with_dbias else None
         return dq, dk, dv, dbias, None, None
 
@@ -568,9 +582,10 @@ class FlashAttentionFunction(torch.autograd.Function):
 def flash_attention(q, k, v, bias=None, scale=None, return_lse=False, bias_grad=False):
     """Differentiable flash attention: the kernels for CUDA tensors, the
     plain versions for CPU tensors. Without gradients it is the forward
-    alone, outside autograd. The lse, if returned, is a constant.
+    alone, outside autograd. The lse, if returned, is differentiable too.
     ``bias_grad=True`` makes the bias a learned one (the JAX function's
-    contract; not with ``return_lse``)."""
+    contract; not with ``return_lse``); K5 then runs only where autograd
+    keeps the bias's gradient."""
     if bias_grad and return_lse:
         raise NotImplementedError("bias_grad with return_lse is unsupported")
     wants_grad = q.requires_grad or k.requires_grad or v.requires_grad

@@ -1,18 +1,28 @@
 """GroupNorm (+ SiLU): the hand-written CUDA kernels and their plain versions.
 
 Replaces ``uwudiff_tpu/ops/groupnorm_silu.py``: the forward kernels
-``_gn_silu_kernel`` and ``_gn_stats_kernel`` and the backward kernels
-``_gn_bwd_partials_kernel`` and ``_gn_bwd_dx_kernel``, all in
-``csrc/groupnorm_silu.cu`` (its source note says what bounds them and how
-the design answers that). The TPU chose between a single-pass kernel and
-a chunked-stats kernel by VMEM size; on the H100 the forward is one pair:
+``_gn_silu_kernel`` (K2) and ``_gn_stats_kernel`` (K3) and the backward
+kernels ``_gn_bwd_partials_kernel`` (K7) and ``_gn_bwd_dx_kernel`` (K8).
+As the TPU chose between its two forward kernels by VMEM fit, the forward
+takes one of two routes, chosen up front from the shape by
+:func:`plan_gn` (a pure function of it; a route that fails raises, it
+never falls back to the other):
 
-- :func:`gn_stats`: per-(n, group) statistics over ``[N, HW, C]`` ->
-  per-(n, channel) ``scale = inv*gamma`` and ``shift = beta - mean*scale``
-  (and, for the backward, the per-group mean and inv);
-- :func:`gn_silu_apply`: ``y = silu(x*scale + shift)`` elementwise;
+- fused (K2, ``csrc/groupnorm_silu_sm90.cu``): :func:`gn_silu_fused`, one
+  launch that keeps each (sample, channel slab) tile in the shared memory
+  of a thread-block cluster, takes the group statistics there (exchanged
+  across the cluster through distributed shared memory) and writes
+  ``y = silu((x - mean) * inv * gamma + beta)``: x read once, y written
+  once;
+- chunked (K3 and the apply, ``csrc/groupnorm_silu.cu``), for tiles that
+  do not fit 16 blocks' shared memory: :func:`gn_stats`, one launch of
+  per-(n, group) statistics over ``[N, HW, C]`` -> per-(n, channel)
+  ``scale = inv*gamma`` and ``shift = beta - mean*scale`` (and, for the
+  backward, the per-group mean and inv); then :func:`gn_silu_apply`,
+  ``y = silu(x*scale + shift)`` elementwise (the XLA apply of the JAX
+  package's ``_gn_silu_fwd_chunked``).
 
-and the backward a pair around PyTorch glue on ``[N, C]`` tensors:
+The backward is a pair around PyTorch glue on ``[N, C]`` tensors:
 
 - :func:`gn_bwd_partials`: per-(n, channel) ``t1 = sum dz`` and
   ``t2 = sum dz*xhat`` with ``dz = g*silu'(z)``;
@@ -20,43 +30,63 @@ and the backward a pair around PyTorch glue on ``[N, C]`` tensors:
   two group means folded into ``P`` and ``Q``.
 
 :class:`GroupNormSiLUFunction` ties them together for autograd. It saves
-``x``, ``gamma`` and the forward's ``[N, C]``/``[N, G]`` fp32 statistics,
-never a full-size fp32 intermediate, so the TPU backward's pass A (stats
-recomputed) is not needed.
+``x``, ``gamma`` and the forward's ``[N, C]``/``[N, G]`` fp32 statistics
+(either route writes them), never a full-size fp32 intermediate, so the
+TPU backward's pass A (stats recomputed) is not needed.
 
 Layout contract (the JAX function's): ``x`` is ``[N, H, W, C]`` or
-``[N, S, C]``, channels last and contiguous; ``gamma``/``beta`` ``[C]``.
-The kernels run at any HW and any ``C % groups == 0``; the TPU's
-``_chunk_for``/``_tile_fits_vmem`` gates were VMEM artifacts. ``silu=False``
-gives the plain GroupNorm that the transformer and VAE attention norms
-use, through the same kernels (``dz = g``).
+``[N, S, C]``, channels last and contiguous; ``gamma``/``beta`` ``[C]``,
+fp32 or bf16 (both the same), read in their own dtype by the kernels.
+The kernels run at any HW and any ``C % groups == 0`` with 16-byte rows;
+the TPU's ``_chunk_for``/``_tile_fits_vmem`` gates were VMEM artifacts.
+``silu=False`` gives the plain GroupNorm that the transformer and VAE
+attention norms use, through the same kernels (``dz = g``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 __all__ = [
+    "GnPlan",
     "GroupNormSiLUFunction",
     "gn_bwd_dx",
     "gn_bwd_dx_reference",
     "gn_bwd_partials",
     "gn_bwd_partials_reference",
+    "gn_map_spec",
     "gn_silu_apply",
     "gn_silu_apply_reference",
+    "gn_silu_fused",
     "gn_stats",
     "gn_stats_reference",
     "group_norm_silu",
     "group_norm_silu_reference",
+    "plan_gn",
 ]
 
 _SOURCE = "groupnorm_silu.cu"
+_SM90_SOURCE = "groupnorm_silu_sm90.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_VECS = 256 * 3  # threads x vector columns per thread in gn_partial_kernel
+_MAX_VECS = 256 * 3  # threads x vector columns per thread in the chunked kernels
+_ENCODE_FAILED = 100000  # the C side's code for a tensor map the driver refused (+ its CUresult)
+
+# the fused kernel's limits, as csrc/groupnorm_silu_sm90.cu states them
+MAX_BOX_ROWS = 256  # a TMA box dim holds at most 256 elements
+MAX_BOXES = 64  # boxes (and mbarriers) of one block
+MAX_SLAB = 256  # channels of a slab: one box's inner dim
+MAX_SLAB_GROUPS = 8  # groups of a slab
+MAX_CLUSTER = 16  # blocks of a cluster (over 8 is non-portable; the H100 takes 16)
+TILE_MAX = 208896  # bytes of a block's tile: 227 KB less the kernel's static buffers
+TILE_TWO_PER_SM = 92160  # bytes of a tile that lets two blocks share an SM
+SMS = 132  # the H100 SXM's SMs: the plan fills them where the rows allow it
+MIN_ROWS = 64  # rows a block keeps at least when the plan adds blocks to fill the card
 _fns: dict = {}
 
 
@@ -65,19 +95,108 @@ def _kernel(name):
     if fn is None:
         from uwudiff_tpu_torch.ops._build import library
 
-        fn = getattr(library(_SOURCE), name)
+        fn = getattr(library(_SM90_SOURCE if name == "uwu_gn_silu_fused" else _SOURCE), name)
         fn.restype = ctypes.c_int
-        if name == "uwu_gn_stats":
-            fn.argtypes = (
-                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                + [ctypes.c_float, ctypes.c_void_p]
-            )
+        if name == "uwu_gn_silu_fused":
+            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        elif name == "uwu_gn_stats":
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                           + [ctypes.c_float, ctypes.c_void_p])
         elif name == "uwu_gn_bwd_partials":
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         else:  # uwu_gn_apply, uwu_gn_bwd_dx
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         _fns[name] = fn
     return fn
+
+
+class GnPlan(NamedTuple):
+    """The route of one GroupNorm shape. ``route`` is ``"fused"`` (K2, one
+    launch) or ``"chunked"`` (K3 + the apply); for ``"fused"``: ``slab``
+    channels (whole groups, a 16-byte multiple) per work unit, ``cluster``
+    blocks per (sample, slab), each holding ``rows_per_cta`` rows in
+    ``rows_per_cta // box_rows`` TMA boxes of ``box_rows`` rows."""
+
+    route: str
+    slab: int = 0
+    cluster: int = 0
+    rows_per_cta: int = 0
+    box_rows: int = 0
+    tile_bytes: int = 0
+
+
+_CHUNKED = GnPlan("chunked")
+
+
+def _cta_rows(hw, cluster):
+    """(rows_per_cta, box_rows): ceil(hw / cluster) rows in the fewest boxes
+    of at most MAX_BOX_ROWS rows, each a multiple of 8 rows (a box then
+    starts 128-byte aligned in shared memory, as TMA needs)."""
+    want = -(-hw // cluster)
+    boxes = -(-want // MAX_BOX_ROWS)
+    box = -(-want // boxes)
+    box = -(-box // 8) * 8
+    return boxes * box, box
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_gn(n: int, hw: int, c: int, groups: int, dtype: torch.dtype) -> GnPlan:
+    """The forward's route for ``[n, hw, c]`` in ``dtype`` with ``groups``
+    groups, a pure function of the shape (the TPU chose by VMEM fit).
+
+    The slab is the fewest whole groups whose width is a multiple of 16
+    bytes. The shape takes the fused kernel when a (sample, slab) tile fits
+    a cluster of at most MAX_CLUSTER blocks of TILE_MAX bytes each and
+    either the smallest such cluster's grid is one wave of one block an SM,
+    or a cluster's tiles let two blocks share an SM (TILE_TWO_PER_SM), so
+    that one block's stores overlap the other's loads; any other shape
+    takes the chunked pair. The cluster: a larger one costs more than its
+    share (barriers, remote reads, co-scheduling), so in a one-wave grid
+    the smallest that fits (doubled while the grid fills fewer than half
+    the SMS and each block keeps MIN_ROWS rows), else the smallest whose
+    tiles fit TILE_TWO_PER_SM."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"group_norm_silu takes fp32 or bf16, got {dtype}")
+    if c % groups:
+        raise ValueError(f"group_norm_silu: C={c} not divisible by groups={groups}")
+    es = 2 if dtype == torch.bfloat16 else 4
+    cg = c // groups
+    gps = next((k for k in range(1, MAX_SLAB_GROUPS + 1) if groups % k == 0 and k * cg * es % 16 == 0), None)
+    if gps is None or gps * cg > MAX_SLAB or n * hw == 0:
+        return _CHUNKED
+    slab = gps * cg
+    fits = []
+    for cluster in (1, 2, 4, 8, MAX_CLUSTER):
+        rows, box = _cta_rows(hw, cluster)
+        tile = rows * slab * es
+        if tile <= TILE_MAX and rows // box <= MAX_BOXES:
+            fits.append(GnPlan("fused", slab, cluster, rows, box, tile))
+    if not fits:
+        return _CHUNKED
+    units = n * (groups // gps)
+    if units * fits[0].cluster > SMS:
+        # several waves: only tiles that let two blocks share an SM; with one
+        # block an SM nothing overlaps its load, statistics and store, and the
+        # chunked pair is faster (PERF.md, §6)
+        return next((p for p in fits if p.tile_bytes <= TILE_TWO_PER_SM), _CHUNKED)
+    plan = fits[0]
+    for p in fits[1:]:
+        if units * plan.cluster < SMS // 2 and -(-hw // p.cluster) >= MIN_ROWS:
+            plan = p
+    return plan
+
+
+def gn_map_spec(n, hw, c, plan, dtype):
+    """The rank-3 TMA map geometry of a ``[n, hw, c]`` tensor for the fused
+    kernel, innermost first: dims (C, HW, N) in elements, strides of HW
+    and N in bytes, box (slab, box_rows, 1). Raises ValueError for a shape
+    TMA cannot take."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    dims, strides, box = (c, hw, n), (c * es, hw * c * es), (plan.slab, plan.box_rows, 1)
+    if max(dims) >= 2**32 or strides[1] >= 2**40 or strides[0] % 16:
+        raise ValueError(f"gn_silu_fused: [{n}, {hw}, {c}] {dtype} is out of TMA's range")
+    return dims + strides + box
 
 
 def group_norm_silu_reference(x, gamma, beta, groups: int, eps: float, silu: bool = True):
@@ -152,31 +271,60 @@ def _check_x3(x3, who):
         raise ValueError(f"{who}: unsupported shape {tuple(x3.shape)} for {x3.dtype}")
 
 
+def _affine_arg(who, gamma, beta, x3):
+    """-> 1 for bf16 gamma/beta, 0 for fp32: both [C], contiguous, on x's
+    device and of one dtype (the kernels read them as they are)."""
+    c = x3.shape[-1]
+    for name, t in (("gamma", gamma), ("beta", beta)):
+        if t.shape != (c,) or not t.is_contiguous() or t.device != x3.device:
+            raise ValueError(f"{who}: {name} must be a contiguous [C] on x's device")
+    if gamma.dtype != beta.dtype or gamma.dtype not in _DTYPES:
+        raise TypeError(f"{who}: gamma/beta must both be fp32 or both bf16, got {gamma.dtype}, {beta.dtype}")
+    return _DTYPES[gamma.dtype]
+
+
+_MERGE_SET = 64  # chunks whose partials one block of gn_stats merges (csrc/groupnorm_silu.cu::MERGE_SET)
+_counters: dict = {}  # (device, stream) -> int32 zeros that gn_stats's last blocks leave zero
+
+
+def _counter(x3, size):
+    """At least ``size`` of gn_stats's arrival counters: zeros on x's
+    device, one buffer per stream (the block that arrives last at a
+    counter resets it to zero)."""
+    stream = torch.cuda.current_stream(x3.device).cuda_stream
+    key = (x3.device, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < size:
+        buf = torch.zeros(max(1024, size), dtype=torch.int32, device=x3.device)
+        _counters[key] = buf
+    return buf, stream
+
+
 def gn_stats(x3, gamma, beta, groups: int, eps: float, with_group_stats: bool = False):
-    """Launch the stats kernels on ``x3`` [N, HW, C]. Returns fp32
-    (scale, shift) [N, C] with ``scale = inv*gamma``, ``shift = beta - mean*scale``,
-    and with ``with_group_stats`` also (mean, inv), fp32 [N, G]."""
+    """Launch the stats kernel (K3, one launch) on ``x3`` [N, HW, C].
+    Returns fp32 (scale, shift) [N, C] with ``scale = inv*gamma``,
+    ``shift = beta - mean*scale``, and with ``with_group_stats`` also
+    (mean, inv), fp32 [N, G]."""
     _check_x3(x3, "gn_stats")
     n, hw, c = x3.shape
     if c % groups:
         raise ValueError(f"gn_stats: C={c} not divisible by groups={groups}")
-    if gamma.shape != (c,) or beta.shape != (c,):
-        raise ValueError("gn_stats: gamma/beta must be [C]")
-    gamma = gamma.to(device=x3.device, dtype=torch.float32).contiguous()
-    beta = beta.to(device=x3.device, dtype=torch.float32).contiguous()
+    affine_bf16 = _affine_arg("gn_stats", gamma, beta, x3)
     # >= 64 rows per chunk keeps the partials a few percent of x's bytes;
     # ~2048 (n, chunk) blocks keep all SMs busy even at N = 1
     n_chunks = max(1, min(math.ceil(hw / 64), math.ceil(2048 / n)))
+    n_sets = -(-n_chunks // _MERGE_SET)
     partial = torch.empty((n, n_chunks, 2, c), dtype=torch.float32, device=x3.device)
+    merged = torch.empty((n, n_sets, 2, c), dtype=torch.float64, device=x3.device)
     scale = torch.empty((n, c), dtype=torch.float32, device=x3.device)
     shift = torch.empty((n, c), dtype=torch.float32, device=x3.device)
     stats = (torch.empty((n, 2, groups), dtype=torch.float32, device=x3.device)
              if with_group_stats else None)
+    counter, stream = _counter(x3, n * (n_sets + 1))
     rc = _kernel("uwu_gn_stats")(
-        x3.data_ptr(), gamma.data_ptr(), beta.data_ptr(), partial.data_ptr(),
+        x3.data_ptr(), gamma.data_ptr(), beta.data_ptr(), partial.data_ptr(), merged.data_ptr(), counter.data_ptr(),
         scale.data_ptr(), shift.data_ptr(), stats.data_ptr() if stats is not None else None,
-        _DTYPES[x3.dtype], n, hw, c, groups,
-        n_chunks, float(eps), torch.cuda.current_stream(x3.device).cuda_stream,
+        _DTYPES[x3.dtype], affine_bf16, n, hw, c, groups, n_chunks, float(eps), stream,
     )
     if rc != 0:
         raise RuntimeError(f"gn_stats launch failed: cudaError {rc}")
@@ -193,8 +341,10 @@ def gn_silu_apply(x3, scale, shift, silu: bool = True):
     n, hw, c = x3.shape
     for name, t in (("scale", scale), ("shift", shift)):
         if (t.dtype != torch.float32 or t.shape != (n, c) or not t.is_contiguous()
-                or t.device != x3.device):
-            raise ValueError(f"gn_silu_apply: {name} must be contiguous fp32 [N, C] on x's device")
+                or t.device != x3.device or t.data_ptr() % 16):
+            raise ValueError(f"gn_silu_apply: {name} must be contiguous, aligned fp32 [N, C] on x's device")
+    if hw * c // (16 // x3.element_size()) >= 2**31:
+        raise ValueError(f"gn_silu_apply: a sample of {hw}x{c} is past the kernel's 32-bit offsets")
     y = torch.empty_like(x3)
     rc = _kernel("uwu_gn_apply")(
         x3.data_ptr(), scale.data_ptr(), shift.data_ptr(), y.data_ptr(),
@@ -208,6 +358,52 @@ def gn_silu_apply(x3, scale, shift, silu: bool = True):
 
 
 gn_silu_apply.launches = 0
+
+@functools.lru_cache(maxsize=4096)
+def _fused_plan(n, hw, c, groups, dtype):
+    """(plan, the map spec as a ctypes array) of a fused shape, checked once."""
+    plan = plan_gn(n, hw, c, groups, dtype)
+    if plan.route != "fused":
+        raise ValueError(f"gn_silu_fused: [{n}, {hw}, {c}] {dtype} does not fit a cluster's shared memory;"
+                         " plan_gn routes it to gn_stats + gn_silu_apply")
+    words = gn_map_spec(n, hw, c, plan, dtype)
+    return plan, (ctypes.c_ulonglong * len(words))(*words)
+
+
+def gn_silu_fused(x3, gamma, beta, groups: int, eps: float, silu: bool = True, with_stats: bool = False):
+    """Launch the single-pass kernel (K2) on ``x3`` [N, HW, C]: the group
+    statistics from a cluster's shared memory, then ``y = silu((x - mean) *
+    inv * gamma + beta)`` (or the affine alone). Returns y, and with
+    ``with_stats`` (y, (scale, shift, mean, inv)): fp32 [N, C] scale/shift
+    and [N, G] mean/inv, as :func:`gn_stats` gives them. Raises for a shape
+    that :func:`plan_gn` routes to the chunked pair."""
+    _check_x3(x3, "gn_silu_fused")
+    affine_bf16 = _affine_arg("gn_silu_fused", gamma, beta, x3)
+    n, hw, c = x3.shape
+    plan, spec = _fused_plan(n, hw, c, groups, x3.dtype)
+    y = torch.empty_like(x3)
+    scale = shift = stats = None
+    if with_stats:
+        scale = torch.empty((n, c), dtype=torch.float32, device=x3.device)
+        shift = torch.empty((n, c), dtype=torch.float32, device=x3.device)
+        stats = torch.empty((n, 2, groups), dtype=torch.float32, device=x3.device)
+    rc = _kernel("uwu_gn_silu_fused")(
+        x3.data_ptr(), y.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        None if scale is None else scale.data_ptr(), None if shift is None else shift.data_ptr(),
+        None if stats is None else stats.data_ptr(), spec, _DTYPES[x3.dtype], affine_bf16, n, hw, c, groups,
+        plan.slab, plan.cluster, plan.rows_per_cta, plan.box_rows, float(eps), int(silu),
+        torch.cuda.current_stream(x3.device).cuda_stream,
+    )
+    if rc >= _ENCODE_FAILED:
+        raise RuntimeError(f"gn_silu_fused: the driver refused a tensor map (CUresult {rc - _ENCODE_FAILED},"
+                           f" {_ENCODE_FAILED} if cuTensorMapEncodeTiled was not found): {list(spec)}")
+    if rc != 0:
+        raise RuntimeError(f"gn_silu_fused launch failed: cudaError {rc} ({plan})")
+    gn_silu_fused.launches += 1
+    return (y, (scale, shift, stats[:, 0], stats[:, 1])) if with_stats else y
+
+
+gn_silu_fused.launches = 0
 
 
 def _check_coef(coef, x3, who):
@@ -297,10 +493,17 @@ def _gn_backward(x3, g3, gamma, scale, shift, mean, inv, silu):
 
 
 def _forward(x, gamma, beta, groups, eps, silu, with_group_stats):
-    """(y, stats): the kernel pair for a CUDA ``x``, the plain version for a
-    CPU one; ``stats`` is gn_stats's (with ``with_group_stats``)."""
+    """(y, stats): for a CUDA ``x`` the route :func:`plan_gn` picks (the
+    fused kernel, or the stats kernel and the apply), for a CPU one the
+    plain version; ``stats`` is (scale, shift, mean, inv) with
+    ``with_group_stats``."""
     x3 = x.reshape(x.shape[0], -1, x.shape[-1])  # a view: CUDA x is contiguous
     if x.is_cuda:
+        n, hw, c = x3.shape
+        if plan_gn(n, hw, c, groups, x3.dtype).route == "fused":
+            out = gn_silu_fused(x3, gamma, beta, groups, eps, silu, with_group_stats)
+            y, stats = out if with_group_stats else (out, ())
+            return y.view(x.shape), stats
         stats = gn_stats(x3, gamma, beta, groups, eps, with_group_stats)
         return gn_silu_apply(x3, stats[0], stats[1], silu).view(x.shape), stats
     y = group_norm_silu_reference(x, gamma, beta, groups, eps, silu)
@@ -337,9 +540,9 @@ class GroupNormSiLUFunction(torch.autograd.Function):
 
 def group_norm_silu(x, gamma, beta, groups: int = 32, eps: float = 1e-5, silu: bool = True):
     """Differentiable GroupNorm(+SiLU) over a channels-last ``x``: the
-    kernels for a CUDA tensor (which must be contiguous: no silent copy),
-    the plain versions for a CPU tensor. Without gradients it is the
-    forward pair alone, outside autograd."""
+    kernels for a CUDA tensor (which must be contiguous: no silent copy) on
+    the route :func:`plan_gn` picks, the plain versions for a CPU tensor.
+    Without gradients it is the forward alone, outside autograd."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"group_norm_silu: unsupported device {x.device}")
     if x.is_cuda and not x.is_contiguous():
