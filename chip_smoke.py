@@ -12,7 +12,10 @@ Phases, each fatal on failure:
                reproducibility, the dQ + dBias kernel at T5-XXL's; every
                GroupNorm shape on the route plan_gn gives it (the fused
                single-pass kernel or the chunked stats + apply pair), with
-               wall and device ms beside F.group_norm+F.silu; the
+               wall and device ms beside F.group_norm+F.silu, and the
+               training path's GroupNorm backward (and a 1024^2 one) on the
+               route plan_gn_bwd gives it (the fused single-pass kernel or
+               K7 + K8), beside F.group_norm+F.silu's backward; the
                Hopper forward and backward (D = 64) also on strided head
                views of one fused tensor, and raising on a view TMA cannot
                take; the Hopper backward reading CLIP's broadcast bias in
@@ -37,8 +40,9 @@ Phases, each fatal on failure:
                warm-up step and 5 timed steps. Checks finite losses and
                grad norms, that every parameter took an update, and that
                each step launched every kernel exactly as often as the
-               UNet's plan says (every GroupNorm on the fused kernel),
-               every flash forward, dQ and dK/dV on the Hopper kernels.
+               UNet's plan says (each GroupNorm's forward and backward on
+               the routes plan_gn and plan_gn_bwd give its shape), every
+               flash forward, dQ and dK/dV on the Hopper kernels.
   5. ti      - SD3-medium textual inversion at full width
                (training/bench_setup.py: MMDiT + CLIP-L + CLIP-bigG +
                T5-XXL at 256 tokens, batch 8, 64x64x16 latents, bf16
@@ -692,76 +696,164 @@ def check_flash_dbias(results, failures):
 
 def gn_bwd_cases():
     # the training path's GroupNorms at 64x64 latents (level 0 at 4096
-    # tokens, 1 at 1024, 2 at 256; the up path's concatenations widen C)
-    return [(8, hw, c, silu) for hw, c in ((4096, 320), (4096, 960), (1024, 640), (256, 1280), (256, 2560))
+    # tokens, 1 at 1024, 2 at 256; the up path's concatenations widen C),
+    # and level 0 of a 1024^2 training step (128x128 latents)
+    return [(8, hw, c, silu) for hw, c in ((4096, 320), (4096, 960), (1024, 640), (256, 1280), (256, 2560),
+                                           (16384, 320))
             for silu in (True, False)]
 
 
+def gn_saved_stats(x, gamma, beta, groups, eps):
+    """What the forward saves for the backward: fp32 (scale, shift) [N, C]
+    and (mean, inv) [N, G], from the route plan_gn gives the shape."""
+    from uwudiff_tpu_torch.ops import gn_silu_fused, gn_stats, plan_gn
+
+    if plan_gn(*x.shape, groups, x.dtype).route == "fused":
+        return gn_silu_fused(x, gamma, beta, groups, eps, with_stats=True)[1]
+    return gn_stats(x, gamma, beta, groups, eps, with_group_stats=True)
+
+
+def device_ops(fn, tries=3):
+    """The names of the device kernels and copies of one call of ``fn``,
+    from torch.profiler (a trace that caught nothing is taken again)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
 def check_gn_bwd(results, failures):
+    """Every gn_bwd_cases() shape on the route plan_gn_bwd gives it: the
+    fused kernel (one launch) or the pair (K7, then K8), from the forward's
+    saved statistics, against the plain versions (close_enough per output:
+    dx, t = (t1, t2) and, for the pair, K8's coefficients; bitwise over two
+    runs), and the whole backward through autograd against autograd of the
+    fp32 plain forward (dx, dgamma, dbeta), whose device work is the route's
+    kernels, the sum over samples and the two casts to the bf16 parameters'
+    dtype, nothing else (no glue). Wall ms (CUDA events) and the profiler's
+    device ms beside F.group_norm+F.silu's backward and the route's bound;
+    on the fused route the pair is timed beside it."""
     import torch.nn.functional as F
 
-    from uwudiff_tpu_torch.ops import gn_bwd_dx, gn_bwd_partials, group_norm_silu
+    from uwudiff_tpu_torch.ops import gn_bwd_dx, gn_bwd_partials, gn_silu_bwd_fused, group_norm_silu, plan_gn_bwd
     from uwudiff_tpu_torch.ops.groupnorm_silu import (
         gn_bwd_dx_reference,
         gn_bwd_partials_reference,
+        gn_silu_bwd_fused_reference,
         group_norm_silu_reference,
     )
 
+    family = "groupnorm bwd (K7/K8)"
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     groups, eps = 32, 1e-5
     for n, hw, c, silu in gn_bwd_cases():
         x = (torch.randn((n, hw, c), generator=gen, device=dev) * 2.0 + 0.5).to(torch.bfloat16)
         g = torch.randn((n, hw, c), generator=gen, device=dev).to(torch.bfloat16)
-        coef = torch.randn((n, 4, c), generator=gen, device=dev) * 0.5
-        t = gn_bwd_partials(x, g, coef, silu)
-        dx = gn_bwd_dx(x, g, coef, silu)
+        # the models' affine dtype: the kernels read gamma as bf16
+        gamma = (torch.randn(c, generator=gen, device=dev) * 0.2 + 1.0).bfloat16()
+        beta = (torch.randn(c, generator=gen, device=dev) * 0.1).bfloat16()
+        saved = (gamma, *gn_saved_stats(x, gamma, beta, groups, eps))
+        plan = plan_gn_bwd(n, hw, c, groups, torch.bfloat16)
+        fused = plan.route == "fused"
+        dx_ref, t_ref = gn_silu_bwd_fused_reference(x, g, *saved, silu)
+
+        def pair():
+            t, coef = gn_bwd_partials(x, g, *saved, silu)
+            return gn_bwd_dx(x, g, coef, silu), t, coef
+
+        if fused:
+            dx, t = gn_silu_bwd_fused(x, g, *saved, silu)
+            again = gn_silu_bwd_fused(x, g, *saved, silu)
+            bitwise = torch.equal(dx, again[0]) and torch.equal(t, again[1])
+            checks = {"dx_kernel": close_enough(dx, dx_ref), "t": close_enough(t, t_ref)}
+        else:
+            dx, t, coef = pair()
+            again = pair()
+            bitwise = all(torch.equal(a, b) for a, b in zip((dx, t, coef), again))
+            t_pair, coef_ref = gn_bwd_partials_reference(x, g, *saved, silu)
+            checks = {"t": close_enough(t, t_pair), "coef": close_enough(coef, coef_ref),
+                      "dx_kernel": close_enough(dx, gn_bwd_dx_reference(x, g, coef, silu)),
+                      "dx_plain": close_enough(dx, dx_ref)}
         torch.cuda.synchronize()
-        bitwise = torch.equal(t, gn_bwd_partials(x, g, coef, silu)) and torch.equal(dx, gn_bwd_dx(x, g, coef, silu))
-        checks = {"t": close_enough(t, gn_bwd_partials_reference(x, g, coef, silu)),
-                  "dx_kernel": close_enough(dx, gn_bwd_dx_reference(x, g, coef, silu))}
         # the whole backward through autograd against autograd of the fp32 plain forward
-        gamma = (torch.randn(c, generator=gen, device=dev) * 0.2 + 1.0).requires_grad_()
-        beta = (torch.randn(c, generator=gen, device=dev) * 0.1).requires_grad_()
+        gamma_p = gamma.float().requires_grad_()
+        beta_p = beta.float().requires_grad_()
         xg = x.detach().requires_grad_()
-        got = torch.autograd.grad(group_norm_silu(xg, gamma, beta, groups, eps, silu), (xg, gamma, beta), g)
+        got = torch.autograd.grad(group_norm_silu(xg, gamma_p, beta_p, groups, eps, silu), (xg, gamma_p, beta_p), g)
         xr = x.float().requires_grad_()
-        ref = torch.autograd.grad(group_norm_silu_reference(xr, gamma, beta, groups, eps, silu),
-                                  (xr, gamma, beta), g.float())
+        ref = torch.autograd.grad(group_norm_silu_reference(xr, gamma_p, beta_p, groups, eps, silu),
+                                  (xr, gamma_p, beta_p), g.float())
         checks.update({o: close_enough(a, r) for o, a, r in zip(("dx", "dgamma", "dbeta"), got, ref)})
-        ok = bitwise and all(v[0] for v in checks.values())
-        ms_t = time_ms(lambda: gn_bwd_partials(x, g, coef, silu))
-        ms_dx = time_ms(lambda: gn_bwd_dx(x, g, coef, silu))
-        plain_t = time_ms(lambda: gn_bwd_partials_reference(x, g, coef, silu), reps=3)
-        plain_dx = time_ms(lambda: gn_bwd_dx_reference(x, g, coef, silu), reps=3)
+        # the backward's device work with the models' bf16 parameters: the
+        # route's kernels (1 fused, 2 pair), t.sum(0) and the two casts
+        gamma_b, beta_b = gamma.clone().requires_grad_(), beta.clone().requires_grad_()
+        y = group_norm_silu(xg, gamma_b, beta_b, groups, eps, silu)
+        ops = device_ops(lambda: torch.autograd.grad(y, (xg, gamma_b, beta_b), g, retain_graph=True))
+        ok = bitwise and all(v[0] for v in checks.values()) and len(ops) == (4 if fused else 5)
+        del got, ref, xg, xr, gamma_p, beta_p, y
         # the library: F.group_norm + F.silu's backward alone, contiguous NCHW
         side = int(round(hw**0.5))
         x_nchw = x.transpose(1, 2).reshape(n, c, side, side).contiguous().requires_grad_()
-        gb, bb = (p.detach().bfloat16().requires_grad_() for p in (gamma, beta))
+        gb, bb = (p.detach().clone().requires_grad_() for p in (gamma, beta))
         y_lib = F.group_norm(x_nchw, groups, gb, bb, eps)
         y_lib = F.silu(y_lib) if silu else y_lib
         g_nchw = g.transpose(1, 2).reshape(n, c, side, side).contiguous()
         library_ms = time_ms(lambda: torch.autograd.grad(y_lib, (x_nchw, gb, bb), g_nchw, retain_graph=True))
         del y_lib, x_nchw, g_nchw
         elems = n * hw * c
-        per_elem = 14.0 if silu else 4.0
-        tb, tby = bound(4 * elems + 16 * n * c + 8 * n * c, per_elem * elems, PEAK_FP32)
-        xb, xby = bound(6 * elems + 16 * n * c, (per_elem + 2.0) * elems, PEAK_FP32)
+        small = 8 * n * c + 8 * n * groups + 2 * c  # scale/shift, mean/inv, gamma
+        # dz (silu: z, the sigmoid, the product: 11 flops; 0 without), t1, xhat and t2 (5), dx (4)
+        dz_ops = 11.0 if silu else 0.0
+        fb, fby = bound(6 * elems + small + 8 * n * c, (dz_ops + 9.0) * elems, PEAK_FP32)
+        tb, tby = bound(4 * elems + small + 24 * n * c, (dz_ops + 5.0) * elems, PEAK_FP32)  # t, coef out
+        xb, xby = bound(6 * elems + 16 * n * c, (dz_ops + 4.0) * elems, PEAK_FP32)
+        ms_t = time_ms(lambda: gn_bwd_partials(x, g, *saved, silu))
+        coef = gn_bwd_partials(x, g, *saved, silu)[1]
+        ms_dx = time_ms(lambda: gn_bwd_dx(x, g, coef, silu))
+        dev_t, _ = profiled_ms(lambda: gn_bwd_partials(x, g, *saved, silu), family)
+        dev_dx, _ = profiled_ms(lambda: gn_bwd_dx(x, g, coef, silu), family)
+        plain_t = time_ms(lambda: gn_bwd_partials_reference(x, g, *saved, silu), reps=3)
+        plain_dx = time_ms(lambda: gn_bwd_dx_reference(x, g, coef, silu), reps=3)
         case = f"{n}x{hw}x{c}{'' if silu else '-nosilu'}"
-        common = dict(shape=[n, hw, c], silu=silu, ok=ok, bitwise=bitwise, tol={o: v[3] for o, v in checks.items()},
-                      errs={o: v[1] for o, v in checks.items()}, pair_ms=ms_t + ms_dx, library_ms=library_ms,
+        common = dict(shape=[n, hw, c], silu=silu, route=plan.route, plan=plan._asdict(), ok=ok, bitwise=bitwise,
+                      backward_device_ops=ops,
+                      tol={o: v[3] for o, v in checks.items()}, errs={o: v[1] for o, v in checks.items()},
+                      pair_ms=ms_t + ms_dx, pair_device_ms=dev_t + dev_dx, library_ms=library_ms,
                       library_computes="dx, dgamma and dbeta (F.group_norm+F.silu backward, NCHW)")
-        results.append(dict(kernel="gn_bwd_partials", case=case, ms=ms_t, plain_ms=plain_t, bound_ms=tb,
-                            bound_by=tby, max_abs_err=checks["t"][1], **common))
-        results.append(dict(kernel="gn_bwd_dx", case=case, ms=ms_dx, plain_ms=plain_dx, bound_ms=xb,
-                            bound_by=xby, max_abs_err=checks["dx_kernel"][1], **common))
-        log(f"  gn_bwd [{n},{hw},{c}] silu={silu} " + " ".join(f"{o} {v[1]:.1e}/{v[3]:.1e}" for o, v in checks.items())
-            + f" bitwise {bitwise} {'ok' if ok else 'FAIL'} | partials {ms_t:.3f} dx {ms_dx:.3f}"
-            f" (pair {ms_t + ms_dx:.3f}) ms vs F.group_norm+silu bwd {library_ms:.3f}; bound {tb + xb:.3f};"
-            f" plain {plain_t + plain_dx:.2f}")
+        line = (f"  gn_bwd [{n},{hw},{c}] silu={silu} {plan.route}"
+                + (f" c{plan.cluster}" if fused else "") + " "
+                + " ".join(f"{o} {v[1]:.1e}/{v[3]:.1e}" for o, v in checks.items())
+                + f" bitwise {bitwise}; autograd's device ops {len(ops)} {'ok' if ok else 'FAIL'} |")
+        if fused:
+            ms = time_ms(lambda: gn_silu_bwd_fused(x, g, *saved, silu))
+            dev_ms, _ = profiled_ms(lambda: gn_silu_bwd_fused(x, g, *saved, silu), family)
+            plain = time_ms(lambda: gn_silu_bwd_fused_reference(x, g, *saved, silu), reps=3)
+            results.append(dict(kernel="gn_silu_bwd_fused", case=case, ms=ms, device_ms=dev_ms, plain_ms=plain,
+                                bound_ms=fb, bound_by=fby, max_abs_err=checks["dx_kernel"][1], **common))
+            line += (f" fused {ms:.4f} ms (device {_ms(dev_ms)}, {100 * fb / dev_ms:.0f} % of its bound {fb:.4f});"
+                     f" pair {ms_t + ms_dx:.4f} (device {dev_t + dev_dx:.4f})")
+        else:
+            results.append(dict(kernel="gn_bwd_partials", case=case, ms=ms_t, device_ms=dev_t, plain_ms=plain_t,
+                                bound_ms=tb, bound_by=tby, max_abs_err=checks["t"][1], **common))
+            results.append(dict(kernel="gn_bwd_dx", case=case, ms=ms_dx, device_ms=dev_dx, plain_ms=plain_dx,
+                                bound_ms=xb, bound_by=xby, bound_share=xb / dev_dx,
+                                max_abs_err=checks["dx_kernel"][1], **common))
+            line += (f" partials {ms_t:.4f} (device {dev_t:.4f}, {100 * tb / dev_t:.0f} %) dx {ms_dx:.4f}"
+                     f" (device {dev_dx:.4f}, {100 * xb / dev_dx:.0f} %) ms")
+        log(line + f" vs F.group_norm+silu bwd {library_ms:.4f}; plain {plain_t + plain_dx:.2f}")
         if not ok:
-            failures.append(f"gn_bwd {case}: {checks} bitwise {bitwise}")
-        del x, g, t, dx, got, ref
+            failures.append(f"gn_bwd {case}: {checks} bitwise {bitwise} device ops {ops}")
+        del x, g, dx, t, coef, again, saved
         torch.cuda.empty_cache()
 
 
@@ -984,16 +1076,7 @@ def serve(report, failures):
     report["params"] = n_params
     log(f"  built sdxl unet + clip_l/clip_bigg + sdxl vae in {report['model_build_s']:.1f} s: {n_params}")
 
-    # the shape of every GroupNorm call of the main run, for the routes plan_gn gives them
-    from uwudiff_tpu_torch.models.layers import GroupNorm
-
-    gn_calls: list = []
-
-    def record(module, args):
-        x = args[0]
-        c = module.weight.shape[0]
-        gn_calls.append((x.shape[0], x.numel() // (x.shape[0] * c), c, module.groups))
-
+    gn_calls: list = []  # the shape of every GroupNorm call of the main run, for the routes plan_gn gives them
     server = BatchingServer(pipe, buckets=[(RES, RES)], max_batch=4, max_wait_s=0.05)
     t0 = time.perf_counter()
     server.start(warmup_steps=1)  # one pass per batch size of the ladder (1, 4)
@@ -1004,8 +1087,7 @@ def serve(report, failures):
                    "a bowl of ramen, studio photo", "an astronaut riding a horse"]
         seeds = [11, 12, 13, 14]
         torch.cuda.reset_peak_memory_stats()
-        hooks = [m.register_forward_pre_hook(record) for part in (pipe.unet, pipe.vae)
-                 for m in part.modules() if isinstance(m, GroupNorm)]
+        hooks = record_gn_calls([pipe.unet, pipe.vae], gn_calls)
         reset_launch_counts()  # the main path's run starts here
         t0 = time.perf_counter()
         futs = [server.submit(Request(prompt=p, num_steps=STEPS, cfg_scale=CFG, seed=s,
@@ -1076,20 +1158,37 @@ def serve(report, failures):
 TRAIN_STEPS = 5
 
 
-def plan_launches(unet) -> dict:
-    """Each kernel's launches per training step, from the UNet's modules:
-    one flash forward (the sum over both forward kernels) and one dQ/dK-dV
-    pair per attention; per GroupNorm one fused launch (every GroupNorm of
-    the step at 64x64 latents fits a cluster, plan_gn), none of the chunked
-    pair, and one partials and one dx launch (the backward keeps the fused
-    kernel's statistics, so it launches no stats pass of its own)."""
-    from uwudiff_tpu_torch.models.layers import GroupNorm
+def plan_launches(unet, gn_calls) -> dict:
+    """Each kernel's launches per training step, from the UNet's modules
+    and the shapes of the step's GroupNorm calls: one flash forward (the sum
+    over both forward kernels) and one dQ/dK-dV pair per attention; per
+    GroupNorm call the forward's route by plan_gn (one fused launch, or the
+    chunked pair) and the backward's by plan_gn_bwd (one fused launch, or
+    K7 and K8; either reads the forward's statistics, so no stats pass)."""
     from uwudiff_tpu_torch.models.transformer import BasicTransformerBlock
+    from uwudiff_tpu_torch.ops import plan_gn, plan_gn_bwd
 
     attn = sum(2 if m.has_cross else 1 for m in unet.modules() if isinstance(m, BasicTransformerBlock))
-    gn = sum(isinstance(m, GroupNorm) for m in unet.modules())
+    fwd = [plan_gn(*shape, torch.bfloat16).route for shape in gn_calls]
+    bwd = [plan_gn_bwd(*shape, torch.bfloat16).route for shape in gn_calls]
     return {"flash_fwd": attn, "flash_bwd_dq": attn, "flash_bwd_dkv": attn,
-            "gn_silu_fused": gn, "gn_stats": 0, "gn_silu_apply": 0, "gn_bwd_partials": gn, "gn_bwd_dx": gn}
+            "gn_silu_fused": fwd.count("fused"), "gn_stats": fwd.count("chunked"),
+            "gn_silu_apply": fwd.count("chunked"), "gn_silu_bwd_fused": bwd.count("fused"),
+            "gn_bwd_partials": bwd.count("pair"), "gn_bwd_dx": bwd.count("pair")}
+
+
+def record_gn_calls(modules, calls):
+    """Forward pre-hooks that append (n, hw, c, groups) of every GroupNorm
+    call under ``modules`` to ``calls``; returns the hooks."""
+    from uwudiff_tpu_torch.models.layers import GroupNorm
+
+    def record(module, args):
+        x = args[0]
+        c = module.weight.shape[0]
+        calls.append((x.shape[0], x.numel() // (x.shape[0] * c), c, module.groups))
+
+    return [m.register_forward_pre_hook(record) for part in modules for m in part.modules()
+            if isinstance(m, GroupNorm)]
 
 
 def train(report, failures):
@@ -1110,10 +1209,14 @@ def train(report, failures):
     start = [p.detach().clone() for _, p in trainer.params]
     log(f"  built the sdxl trainer ({n_params / 1e9:.3f} G bf16 params, {len(start)} leaves) in {build_s:.1f} s")
 
+    gn_calls: list = []  # the step's GroupNorm shapes, for the routes plan_gn(_bwd) give them
+    hooks = record_gn_calls([trainer.unet], gn_calls)
     t0 = time.perf_counter()
     warm, _ = trainer.train_step(batch)
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
     torch.cuda.reset_peak_memory_stats()
     GroupNormSiLUFunction.grad_layout_copies = 0
     reset_launch_counts()  # the main path's run starts here
@@ -1129,7 +1232,7 @@ def train(report, failures):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     copies = GroupNormSiLUFunction.grad_layout_copies
 
-    plan = plan_launches(trainer.unet)
+    plan = plan_launches(trainer.unet, gn_calls)
     for name, per_step in plan.items():
         if counts[name] != per_step * TRAIN_STEPS:
             failures.append(f"{name}: {counts[name]} launches in {TRAIN_STEPS} steps, plan {per_step} a step")
@@ -1160,6 +1263,7 @@ def train(report, failures):
         batch=8, latent=64, params=n_params, leaves=len(start), build_s=build_s, warmup_step_s=warmup_s,
         steps=steps, median_step_s=step_s, imgs_per_s=8 / step_s, median_forward_backward_ms=fb_ms,
         median_optimizer_ms=opt_ms, peak_memory_gib=peak_gib, launches=counts, plan_per_step=plan,
+        gn_shapes=sorted(set(gn_calls)),
         gn_grad_layout_copies=copies, unchanged_leaves=unchanged, losses=losses, grad_norms=norms)
     log(f"  train: step {step_s:.3f} s ({8 / step_s:.2f} imgs/s), forward+backward {fb_ms:.1f} ms,"
         f" optimizer {opt_ms:.1f} ms, peak {peak_gib:.1f} GiB; losses {[round(v, 4) for v in losses]},"
@@ -1189,7 +1293,7 @@ def plan_ti_launches(trainer) -> dict:
     t5 = sum(isinstance(m, _T5Layer) for m in modules)
     return {"flash_fwd": plain + t5, "flash_bwd_dq": plain + t5, "flash_bwd_dq_dbias": 0,
             "flash_bwd_dkv": plain + t5, "gn_silu_fused": 0, "gn_stats": 0, "gn_silu_apply": 0,
-            "gn_bwd_partials": 0, "gn_bwd_dx": 0}
+            "gn_silu_bwd_fused": 0, "gn_bwd_partials": 0, "gn_bwd_dx": 0}
 
 
 def ti(report, failures):
@@ -1330,12 +1434,14 @@ def main() -> int:
                  "flash_bwd_dq_sm90": "train_l1_self", "flash_bwd_dkv_sm90": "train_l1_self",
                  "flash_bwd_dq_mma": "sd15_d40", "flash_bwd_dkv_mma": "sd15_d40",
                  "flash_bwd_dq_dbias": "t5_xxl", "gn_silu_fused": "8x4096x320", "gn_stats": "8x16384x960",
-                 "gn_silu_apply": "8x16384x960", "gn_bwd_partials": "8x4096x320", "gn_bwd_dx": "8x4096x320"}
+                 "gn_silu_apply": "8x16384x960", "gn_silu_bwd_fused": "8x4096x320", "gn_bwd_partials": "8x4096x960",
+                 "gn_bwd_dx": "8x4096x960"}
     csrc = "uwudiff_tpu_torch/csrc/"
     source = {"flash_fwd_sm90": csrc + "flash_fwd_sm90.cu", "flash_fwd_mma": csrc + "flash_fwd.cu",
               "flash_bwd_dq_sm90": csrc + "flash_bwd_sm90.cu", "flash_bwd_dkv_sm90": csrc + "flash_bwd_sm90.cu",
               "flash_bwd_dq_mma": csrc + "flash_bwd.cu", "flash_bwd_dkv_mma": csrc + "flash_bwd.cu",
-              "flash_bwd_dq_dbias": csrc + "flash_bwd.cu", "gn_silu_fused": csrc + "groupnorm_silu_sm90.cu"}
+              "flash_bwd_dq_dbias": csrc + "flash_bwd.cu", "gn_silu_fused": csrc + "groupnorm_silu_sm90.cu",
+              "gn_silu_bwd_fused": csrc + "groupnorm_silu_bwd_sm90.cu"}
     replaces = {"flash_fwd_sm90": "uwudiff_tpu/ops/flash_attention.py:152",
                 "flash_fwd_mma": "uwudiff_tpu/ops/flash_attention.py:152",
                 "flash_bwd_dq_sm90": "uwudiff_tpu/ops/flash_attention.py:271",
@@ -1346,6 +1452,7 @@ def main() -> int:
                 "gn_silu_fused": "uwudiff_tpu/ops/groupnorm_silu.py:118",
                 "gn_stats": "uwudiff_tpu/ops/groupnorm_silu.py:171",
                 "gn_silu_apply": "uwudiff_tpu/ops/groupnorm_silu.py:240",
+                "gn_silu_bwd_fused": "uwudiff_tpu/ops/groupnorm_silu.py:321,349",
                 "gn_bwd_partials": "uwudiff_tpu/ops/groupnorm_silu.py:321",
                 "gn_bwd_dx": "uwudiff_tpu/ops/groupnorm_silu.py:349"}
     path_counts = {"flash_bwd_dq_dbias": ti_counts, "gn_stats": serve_counts, "gn_silu_apply": serve_counts}

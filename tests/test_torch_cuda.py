@@ -24,13 +24,20 @@ from uwudiff_tpu_torch.ops.flash_attention import (
     flash_fwd_sm90,
 )
 from uwudiff_tpu_torch.ops.groupnorm_silu import (
+    gn_bwd_dx,
+    gn_bwd_dx_reference,
+    gn_bwd_partials,
+    gn_bwd_partials_reference,
     gn_silu_apply,
+    gn_silu_bwd_fused,
+    gn_silu_bwd_fused_reference,
     gn_silu_fused,
     gn_stats,
     gn_stats_reference,
     group_norm_silu,
     group_norm_silu_reference,
     plan_gn,
+    plan_gn_bwd,
 )
 
 pytestmark = pytest.mark.cuda
@@ -266,20 +273,20 @@ def test_gn_fused_refuses_a_chunked_shape(dev):
 
 @pytest.mark.parametrize("n,hw,c", [(8, 1024, 640), (2, 4096, 320)])
 def test_gn_fused_stats_feed_the_backward(dev, n, hw, c):
-    """Autograd through the fused kernel's saved statistics into K7/K8,
-    against autograd of the fp32 plain forward."""
+    """Autograd through the fused kernel's saved statistics into the fused
+    backward, against autograd of the fp32 plain forward."""
     gen = torch.Generator(device=dev).manual_seed(4)
     x = (torch.randn((n, hw, c), generator=gen, device=dev) * 2.0 + 0.5).to(torch.bfloat16)
     g = torch.randn((n, hw, c), generator=gen, device=dev).to(torch.bfloat16)
     gamma = (torch.randn(c, generator=gen, device=dev) * 0.2 + 1.0).requires_grad_()
     beta = (torch.randn(c, generator=gen, device=dev) * 0.1).requires_grad_()
-    assert plan_gn(n, hw, c, 32, torch.bfloat16).route == "fused"
+    assert plan_gn(n, hw, c, 32, torch.bfloat16).route == plan_gn_bwd(n, hw, c, 32, torch.bfloat16).route == "fused"
     xg = x.detach().requires_grad_()
     reset_launch_counts()
     got = torch.autograd.grad(group_norm_silu(xg, gamma, beta, 32, 1e-5), (xg, gamma, beta), g)
     counts = launch_counts()
-    assert counts["gn_silu_fused"] == counts["gn_bwd_partials"] == counts["gn_bwd_dx"] == 1
-    assert counts["gn_stats"] == 0
+    assert counts["gn_silu_fused"] == counts["gn_silu_bwd_fused"] == 1
+    assert counts["gn_stats"] == counts["gn_bwd_partials"] == counts["gn_bwd_dx"] == 0
     xr = x.float().requires_grad_()
     ref = torch.autograd.grad(group_norm_silu_reference(xr, gamma, beta, 32, 1e-5), (xr, gamma, beta), g.float())
     for a, r in zip(got, ref):
@@ -594,27 +601,41 @@ def test_backward_dispatches_on_the_head_dim(dev, d, suffix):
         (flash_bwd_dkv_mma if suffix == "_sm90" else flash_bwd_dkv_sm90)(q, k, v, dout, lse, delta)
 
 
+def _gn_bwd_inputs(dev, n, hw, c, groups, dtype=torch.bfloat16, seed=3):
+    """x, the incoming gradient and what the forward saves for the backward
+    (gamma, scale, shift, mean, inv), the statistics from the forward's route."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn((n, hw, c), generator=gen, device=dev) * 2.0 + 0.5).to(dtype)
+    g = torch.randn((n, hw, c), generator=gen, device=dev).to(dtype)
+    gamma = (torch.randn(c, generator=gen, device=dev) * 0.2 + 1.0).to(dtype)
+    beta = (torch.randn(c, generator=gen, device=dev) * 0.1).to(dtype)
+    if plan_gn(n, hw, c, groups, dtype).route == "fused":
+        stats = gn_silu_fused(x, gamma, beta, groups, 1e-5, with_stats=True)[1]
+    else:
+        stats = gn_stats(x, gamma, beta, groups, 1e-5, with_group_stats=True)
+    return x, g, (gamma, *stats)
+
+
 @pytest.mark.parametrize("n,hw,c,groups", [(2, 1000, 320, 32), (8, 256, 2560, 32), (3, 77, 40, 4)])
 @pytest.mark.parametrize("silu", [True, False])
 def test_gn_bwd_kernels_match_plain(dev, n, hw, c, groups, silu):
-    from uwudiff_tpu_torch.ops.groupnorm_silu import (
-        gn_bwd_dx,
-        gn_bwd_dx_reference,
-        gn_bwd_partials,
-        gn_bwd_partials_reference,
-    )
-
-    gen = torch.Generator(device=dev).manual_seed(3)
-    x = (torch.randn((n, hw, c), generator=gen, device=dev) * 2.0 + 0.5).to(torch.bfloat16)
-    g = torch.randn((n, hw, c), generator=gen, device=dev).to(torch.bfloat16)
-    coef = torch.randn((n, 4, c), generator=gen, device=dev) * 0.5
-    t = gn_bwd_partials(x, g, coef, silu)
-    tr = gn_bwd_partials_reference(x, g, coef, silu)
+    """K7 (t and K8's coefficients) and K8 against their plain versions at
+    any shape (they take every one; plan_gn_bwd sends the large ones to
+    them), bitwise over two runs, and the whole backward through autograd
+    against autograd of the fp32 plain forward."""
+    x, g, saved = _gn_bwd_inputs(dev, n, hw, c, groups)
+    t, coef = gn_bwd_partials(x, g, *saved, silu)
+    tr, coef_r = gn_bwd_partials_reference(x, g, *saved, silu)
     _assert_flash_close(t, tr)  # fp32 sums over HW: far inside the bound
-    assert torch.equal(t, gn_bwd_partials(x, g, coef, silu))
+    _assert_flash_close(coef, coef_r)
+    again = gn_bwd_partials(x, g, *saved, silu)
+    assert torch.equal(t, again[0]) and torch.equal(coef, again[1])
     dx = gn_bwd_dx(x, g, coef, silu)
     _assert_flash_close(dx, gn_bwd_dx_reference(x, g, coef, silu))
+    assert torch.equal(dx, gn_bwd_dx(x, g, coef, silu))
+    _assert_flash_close(dx, gn_silu_bwd_fused_reference(x, g, *saved, silu)[0])
     # the whole backward through autograd, against autograd of the plain forward
+    gen = torch.Generator(device=dev).manual_seed(4)
     xg = x.detach().requires_grad_()
     gamma = (torch.randn(c, generator=gen, device=dev) * 0.2 + 1.0).requires_grad_()
     beta = (torch.randn(c, generator=gen, device=dev) * 0.1).requires_grad_()
@@ -624,6 +645,74 @@ def test_gn_bwd_kernels_match_plain(dev, n, hw, c, groups, silu):
                               (xr, gamma, beta), g.float())
     for a, r in zip(got, ref):
         _assert_flash_close(a, r)
+
+
+# the SDXL training step's GroupNorm shapes at 64x64 latents (46 calls, 12
+# shapes: all fused but [8,4096,960]) and level 0 of a 1024^2 step (pair)
+GN_TRAIN_SHAPES = [(8, 256, c, 32) for c in (640, 1280, 1920, 2560)] + [
+    (8, 1024, c, 32) for c in (320, 640, 960, 1280, 1920)] + [(8, 4096, c, 32) for c in (320, 640, 960)] + [
+    (8, 16384, 320, 32)]
+
+
+@pytest.mark.parametrize("dtype,n,hw,c,groups", [(torch.bfloat16, *s) for s in GN_TRAIN_SHAPES]
+                         + [(torch.float32, 2, 1000, 320, 32), (torch.float32, 8, 4096, 960, 32)])
+@pytest.mark.parametrize("silu", [True, False])
+def test_gn_bwd_routes_match_plain(dev, dtype, n, hw, c, groups, silu):
+    """Each shape on the route plan_gn_bwd gives it, against the plain
+    backward (dx and t = (t1, t2)), bitwise over two runs; autograd
+    through group_norm_silu launches exactly that route (one fused launch,
+    or K7 and K8)."""
+    x, g, saved = _gn_bwd_inputs(dev, n, hw, c, groups, dtype)
+    fused = plan_gn_bwd(n, hw, c, groups, dtype).route == "fused"
+    if fused:
+        dx, t = gn_silu_bwd_fused(x, g, *saved, silu)
+        assert all(torch.equal(a, b) for a, b in zip((dx, t), gn_silu_bwd_fused(x, g, *saved, silu)))
+    else:
+        t, coef = gn_bwd_partials(x, g, *saved, silu)
+        dx = gn_bwd_dx(x, g, coef, silu)
+        assert torch.equal(dx, gn_bwd_dx(x, g, gn_bwd_partials(x, g, *saved, silu)[1], silu))
+    dx_r, t_r = gn_silu_bwd_fused_reference(x, g, *saved, silu)
+    _assert_flash_close(dx, dx_r)
+    _assert_flash_close(t, t_r)
+    xg = x.detach().requires_grad_()
+    gamma, beta = saved[0].clone().requires_grad_(), saved[0].clone().requires_grad_()
+    y = group_norm_silu(xg, gamma, beta, groups, 1e-5, silu)
+    reset_launch_counts()
+    torch.autograd.grad(y, (xg, gamma, beta), g)
+    counts = launch_counts()
+    assert (counts["gn_silu_bwd_fused"], counts["gn_bwd_partials"], counts["gn_bwd_dx"]) == (
+        (1, 0, 0) if fused else (0, 1, 1))
+
+
+def test_gn_bwd_fused_refuses_a_pair_shape(dev):
+    x, g, saved = _gn_bwd_inputs(dev, 8, 4096, 960, 32)
+    with pytest.raises(ValueError, match="plan_gn_bwd"):
+        gn_silu_bwd_fused(x, g, *saved)
+
+
+def test_tensor_map_kernels_run_from_a_fresh_thread(dev):
+    """The kernels that encode TMA maps work from a thread that has made no
+    CUDA runtime call (as autograd's device thread may be): the encoder, a
+    driver call, needs the thread's context bound first."""
+    import threading
+
+    x, g, saved = _gn_bwd_inputs(dev, 2, 1024, 320, 32)
+    q = torch.randn((2, 256, 2, 64), device=dev, dtype=torch.bfloat16)
+    want = (gn_silu_bwd_fused(x, g, *saved), flash_fwd_sm90(q, q, q)[0])
+    got = {}
+
+    def run():
+        try:
+            got["out"] = (gn_silu_bwd_fused(x, g, *saved), flash_fwd_sm90(q, q, q)[0])
+        except Exception as e:  # noqa: BLE001  (reported below)
+            got["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join(timeout=60)
+    assert not thread.is_alive()
+    assert "error" not in got, got.get("error")
+    assert all(torch.equal(a, b) for a, b in zip(got["out"][0], want[0])) and torch.equal(got["out"][1], want[1])
 
 
 def test_tiny_unet_trains_through_every_kernel(dev):
@@ -648,12 +737,14 @@ def test_tiny_unet_trains_through_every_kernel(dev):
     assert counts.pop("flash_bwd_dq_dbias") == 0, counts  # the UNet learns no attention bias
     assert counts.pop("flash_fwd_mma") == 0, counts  # head dim 64: every forward is the Hopper kernel
     assert counts.pop("flash_bwd_dq_mma") == counts.pop("flash_bwd_dkv_mma") == 0, counts  # and every backward
-    # every GroupNorm of the tiny UNet fits a cluster: one fused launch each,
-    # none on the chunked pair; the backward's K7/K8 read the fused kernel's stats
+    # every GroupNorm of the tiny UNet fits a cluster both ways: one fused
+    # launch each, forward and backward, none on the chunked pair or K7/K8;
+    # the fused backward reads the fused forward's statistics
     assert counts.pop("gn_stats") == counts.pop("gn_silu_apply") == 0, counts
+    assert counts.pop("gn_bwd_partials") == counts.pop("gn_bwd_dx") == 0, counts
     assert all(v > 0 for v in counts.values()), counts
     assert counts["flash_fwd"] == counts["flash_bwd_dq"] == counts["flash_bwd_dkv"]
-    assert counts["gn_silu_fused"] == counts["gn_bwd_partials"] == counts["gn_bwd_dx"]
+    assert counts["gn_silu_fused"] == counts["gn_silu_bwd_fused"]
     assert torch.isfinite(metrics["train/loss"]) and torch.isfinite(metrics["train/grad_norm"])
 
 

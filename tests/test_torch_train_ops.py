@@ -198,15 +198,22 @@ def test_gn_backward_pair_matches_autograd_of_the_plain_forward(silu):
 
 
 def test_gn_backward_plain_kernels_keep_their_contract():
-    """K7's (t1, t2) are the per-channel sums of dz and dz*xhat; K8 with
-    P = Q = 0 and a unit scale returns dz."""
+    """K7's t = (t1, t2) are the per-channel sums of dz and dz*xhat, and
+    its coef (scale, shift, P, Q) folds the group means a, b of gamma*dz and
+    gamma*dz*xhat into dx = scale*dz + P*x + Q; K8 with P = Q = 0 and a unit
+    scale returns dz."""
     x, gamma, beta, g = _gn_data((2, 10, 16), seed=4)
     x3, g3 = torch.from_numpy(x), torch.from_numpy(g)
     sc, sh = torch.full((2, 16), 0.7), torch.full((2, 16), 0.1)
-    inv, nmi = torch.full((2, 16), 1.3), torch.full((2, 16), -0.2)
-    t = gn_bwd_partials_reference(x3, g3, torch.stack([sc, sh, inv, nmi], 1), silu=False)
+    mean, inv = torch.full((2, 4), 0.2 / 1.3), torch.full((2, 4), 1.3)  # 4 groups of 4 channels
+    t, coef = gn_bwd_partials_reference(x3, g3, torch.from_numpy(gamma), sc, sh, mean, inv, silu=False)
     _close(t[:, 0], g.sum(1), rel=1e-6)
     _close(t[:, 1], (g * (x * 1.3 - 0.2)).sum(1), rel=1e-6)
+    a, b = (np.repeat((gamma * s).reshape(2, 4, 4).sum(-1) / 40, 4, axis=1)
+            for s in (g.sum(1), (g * (x * 1.3 - 0.2)).sum(1)))
+    assert torch.equal(coef[:, 0], sc) and torch.equal(coef[:, 1], sh)
+    _close(coef[:, 2], -1.3 * 1.3 * b, rel=1e-5)
+    _close(coef[:, 3], -1.3 * (a - 0.2 * b), rel=1e-5)
     ones, zeros = torch.ones(2, 16), torch.zeros(2, 16)
     z = x * 0.7 + 0.1
     dz = torch.from_numpy(g) * torch.sigmoid(torch.from_numpy(z)) * (

@@ -319,6 +319,22 @@ inline EncodeTiled encode_fn() {
   return fn;
 }
 
+// the encoder is a driver call and needs a context current in the calling
+// thread. A thread that has made no runtime call that binds one has none:
+// autograd's device threads among them, since PyTorch skips cudaSetDevice
+// when the device asked for is already the current one. cudaSetDevice binds
+// the device's primary context to the thread; once a thread, per thread.
+inline int bind_context() {
+  static thread_local bool bound = false;
+  if (bound) return 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  if (err == cudaSuccess) err = cudaFree(nullptr);
+  bound = err == cudaSuccess;
+  return static_cast<int>(err);
+}
+
 // spec: dims[4] (elements, innermost first), strides[3] (bytes, of dims
 // 1..3), box[4] (elements), as the wrapper computed and checked them
 // (ops/flash_attention.py::tma_map)
@@ -328,6 +344,7 @@ constexpr int ENCODE_FAILED = 100000;  // + the CUresult
 inline int encode(CUtensorMap* map, const void* ptr, const unsigned long long* spec) {
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return ENCODE_FAILED;
+  if (const int err = bind_context()) return err;
   cuuint64_t dims[4], strides[3];
   cuuint32_t box[4], elem_strides[4] = {1, 1, 1, 1};
   for (int i = 0; i < 4; ++i) dims[i] = spec[i];
@@ -353,6 +370,7 @@ inline int encode_dense3(CUtensorMap* map, const void* ptr, CUtensorMapDataType 
                          const unsigned long long* spec) {
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return ENCODE_FAILED;
+  if (const int err = bind_context()) return err;
   cuuint64_t dims[3], strides[2];
   cuuint32_t box[3], elem_strides[3] = {1, 1, 1};
   for (int i = 0; i < 3; ++i) dims[i] = spec[i];

@@ -22,10 +22,12 @@ from uwudiff_tpu_torch.ops.groupnorm_silu import (
     gn_bwd_dx,
     gn_bwd_partials,
     gn_silu_apply,
+    gn_silu_bwd_fused,
     gn_silu_fused,
     gn_stats,
     group_norm_silu,
     plan_gn,
+    plan_gn_bwd,
 )
 
 __all__ = [
@@ -36,11 +38,13 @@ __all__ = [
     "dot_product_attention",
     "flash_attention",
     "gn_silu_apply",
+    "gn_silu_bwd_fused",
     "gn_silu_fused",
     "gn_stats",
     "group_norm_silu",
     "launch_counts",
     "plan_gn",
+    "plan_gn_bwd",
     "reset_launch_counts",
 ]
 
@@ -60,6 +64,7 @@ KERNELS = {
     "gn_silu_fused": gn_silu_fused,
     "gn_stats": gn_stats,
     "gn_silu_apply": gn_silu_apply,
+    "gn_silu_bwd_fused": gn_silu_bwd_fused,
     "gn_bwd_partials": gn_bwd_partials,
     "gn_bwd_dx": gn_bwd_dx,
 }

@@ -22,12 +22,23 @@ never falls back to the other):
   ``y = silu(x*scale + shift)`` elementwise (the XLA apply of the JAX
   package's ``_gn_silu_fwd_chunked``).
 
-The backward is a pair around PyTorch glue on ``[N, C]`` tensors:
+The backward takes one of two routes the same way, chosen by
+:func:`plan_gn_bwd` (the forward's rules applied to the x and dy tiles
+together):
 
-- :func:`gn_bwd_partials`: per-(n, channel) ``t1 = sum dz`` and
-  ``t2 = sum dz*xhat`` with ``dz = g*silu'(z)``;
-- :func:`gn_bwd_dx`: ``dx = scale*dz + P*x + Q``, the GN backward with its
-  two group means folded into ``P`` and ``Q``.
+- fused (``csrc/groupnorm_silu_bwd_sm90.cu``): :func:`gn_silu_bwd_fused`,
+  one launch that keeps each (sample, slab) tile of x and of the incoming
+  gradient in a cluster's shared memory, takes the per-channel
+  ``t1 = sum dz`` and ``t2 = sum dz*xhat`` (``dz = g*silu'(z)``) and the
+  two group means of the GN backward there, and writes
+  ``dx = inv*(gamma*dz - a - xhat*b)``: x and g read once, dx written once;
+- pair (K7 then K8, ``csrc/groupnorm_silu.cu``), for tiles that do not fit:
+  :func:`gn_bwd_partials`, one launch of the per-channel sums whose last
+  merge also writes the coefficients of :func:`gn_bwd_dx`,
+  ``dx = scale*dz + P*x + Q`` (the group means folded into ``P``, ``Q``).
+
+Either way ``dbeta = sum_n t1`` and ``dgamma = sum_n t2`` are one small
+reduction of the kernel's fp32 ``[N, 2, C]``.
 
 :class:`GroupNormSiLUFunction` ties them together for autograd. It saves
 ``x``, ``gamma`` and the forward's ``[N, C]``/``[N, G]`` fp32 statistics
@@ -63,21 +74,27 @@ __all__ = [
     "gn_map_spec",
     "gn_silu_apply",
     "gn_silu_apply_reference",
+    "gn_silu_bwd_fused",
+    "gn_silu_bwd_fused_reference",
     "gn_silu_fused",
     "gn_stats",
     "gn_stats_reference",
     "group_norm_silu",
     "group_norm_silu_reference",
     "plan_gn",
+    "plan_gn_bwd",
 ]
 
 _SOURCE = "groupnorm_silu.cu"
 _SM90_SOURCE = "groupnorm_silu_sm90.cu"
+_SM90_BWD_SOURCE = "groupnorm_silu_bwd_sm90.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_VECS = 256 * 3  # threads x vector columns per thread in the chunked kernels
 _ENCODE_FAILED = 100000  # the C side's code for a tensor map the driver refused (+ its CUresult)
 
-# the fused kernel's limits, as csrc/groupnorm_silu_sm90.cu states them
+# the fused kernels' limits, as csrc/groupnorm_silu_sm90.cu and
+# csrc/groupnorm_silu_bwd_sm90.cu state them (the backward's tile is x's and
+# dy's together)
 MAX_BOX_ROWS = 256  # a TMA box dim holds at most 256 elements
 MAX_BOXES = 64  # boxes (and mbarriers) of one block
 MAX_SLAB = 256  # channels of a slab: one box's inner dim
@@ -95,16 +112,19 @@ def _kernel(name):
     if fn is None:
         from uwudiff_tpu_torch.ops._build import library
 
-        fn = getattr(library(_SM90_SOURCE if name == "uwu_gn_silu_fused" else _SOURCE), name)
+        source = {"uwu_gn_silu_fused": _SM90_SOURCE, "uwu_gn_silu_bwd_fused": _SM90_BWD_SOURCE}.get(name, _SOURCE)
+        fn = getattr(library(source), name)
         fn.restype = ctypes.c_int
         if name == "uwu_gn_silu_fused":
             fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        elif name == "uwu_gn_silu_bwd_fused":
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
         elif name == "uwu_gn_stats":
             fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                            + [ctypes.c_float, ctypes.c_void_p])
         elif name == "uwu_gn_bwd_partials":
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         else:  # uwu_gn_apply, uwu_gn_bwd_dx
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         _fns[name] = fn
@@ -112,11 +132,14 @@ def _kernel(name):
 
 
 class GnPlan(NamedTuple):
-    """The route of one GroupNorm shape. ``route`` is ``"fused"`` (K2, one
-    launch) or ``"chunked"`` (K3 + the apply); for ``"fused"``: ``slab``
-    channels (whole groups, a 16-byte multiple) per work unit, ``cluster``
-    blocks per (sample, slab), each holding ``rows_per_cta`` rows in
-    ``rows_per_cta // box_rows`` TMA boxes of ``box_rows`` rows."""
+    """The route of one GroupNorm shape. ``route`` is ``"fused"`` (one
+    launch: K2 forward, :func:`gn_silu_bwd_fused` backward), ``"chunked"``
+    (the forward's K3 + the apply) or ``"pair"`` (the backward's K7 + K8);
+    for ``"fused"``: ``slab`` channels (whole groups, a 16-byte multiple)
+    per work unit, ``cluster`` blocks per (sample, slab), each holding
+    ``rows_per_cta`` rows in ``rows_per_cta // box_rows`` TMA boxes of
+    ``box_rows`` rows, ``tile_bytes`` of shared memory for them (x's, and
+    the gradient's in the backward)."""
 
     route: str
     slab: int = 0
@@ -127,6 +150,7 @@ class GnPlan(NamedTuple):
 
 
 _CHUNKED = GnPlan("chunked")
+_PAIR = GnPlan("pair")
 
 
 def _cta_rows(hw, cluster):
@@ -138,6 +162,40 @@ def _cta_rows(hw, cluster):
     box = -(-want // boxes)
     box = -(-box // 8) * 8
     return boxes * box, box
+
+
+def _plan(n, hw, c, groups, dtype, tiles, other):
+    """The fused route's plan for ``tiles`` tiles a block (1: the forward's
+    x; 2: the backward's x and dy), or ``other``; see :func:`plan_gn`."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"group_norm_silu takes fp32 or bf16, got {dtype}")
+    if c % groups:
+        raise ValueError(f"group_norm_silu: C={c} not divisible by groups={groups}")
+    es = 2 if dtype == torch.bfloat16 else 4
+    cg = c // groups
+    gps = next((k for k in range(1, MAX_SLAB_GROUPS + 1) if groups % k == 0 and k * cg * es % 16 == 0), None)
+    if gps is None or gps * cg > MAX_SLAB or n * hw == 0:
+        return other
+    slab = gps * cg
+    fits = []
+    for cluster in (1, 2, 4, 8, MAX_CLUSTER):
+        rows, box = _cta_rows(hw, cluster)
+        tile = tiles * rows * slab * es
+        if tile <= TILE_MAX and rows // box <= MAX_BOXES:
+            fits.append(GnPlan("fused", slab, cluster, rows, box, tile))
+    if not fits:
+        return other
+    units = n * (groups // gps)
+    if units * fits[0].cluster > SMS:
+        # several waves: only tiles that let two blocks share an SM; with one
+        # block an SM nothing overlaps its load, statistics and store, and the
+        # chunked pair is faster (PERF.md, §6)
+        return next((p for p in fits if p.tile_bytes <= TILE_TWO_PER_SM), other)
+    plan = fits[0]
+    for p in fits[1:]:
+        if units * plan.cluster < SMS // 2 and -(-hw // p.cluster) >= MIN_ROWS:
+            plan = p
+    return plan
 
 
 @functools.lru_cache(maxsize=4096)
@@ -156,35 +214,18 @@ def plan_gn(n: int, hw: int, c: int, groups: int, dtype: torch.dtype) -> GnPlan:
     the smallest that fits (doubled while the grid fills fewer than half
     the SMS and each block keeps MIN_ROWS rows), else the smallest whose
     tiles fit TILE_TWO_PER_SM."""
-    if dtype not in _DTYPES:
-        raise TypeError(f"group_norm_silu takes fp32 or bf16, got {dtype}")
-    if c % groups:
-        raise ValueError(f"group_norm_silu: C={c} not divisible by groups={groups}")
-    es = 2 if dtype == torch.bfloat16 else 4
-    cg = c // groups
-    gps = next((k for k in range(1, MAX_SLAB_GROUPS + 1) if groups % k == 0 and k * cg * es % 16 == 0), None)
-    if gps is None or gps * cg > MAX_SLAB or n * hw == 0:
-        return _CHUNKED
-    slab = gps * cg
-    fits = []
-    for cluster in (1, 2, 4, 8, MAX_CLUSTER):
-        rows, box = _cta_rows(hw, cluster)
-        tile = rows * slab * es
-        if tile <= TILE_MAX and rows // box <= MAX_BOXES:
-            fits.append(GnPlan("fused", slab, cluster, rows, box, tile))
-    if not fits:
-        return _CHUNKED
-    units = n * (groups // gps)
-    if units * fits[0].cluster > SMS:
-        # several waves: only tiles that let two blocks share an SM; with one
-        # block an SM nothing overlaps its load, statistics and store, and the
-        # chunked pair is faster (PERF.md, §6)
-        return next((p for p in fits if p.tile_bytes <= TILE_TWO_PER_SM), _CHUNKED)
-    plan = fits[0]
-    for p in fits[1:]:
-        if units * plan.cluster < SMS // 2 and -(-hw // p.cluster) >= MIN_ROWS:
-            plan = p
-    return plan
+    return _plan(n, hw, c, groups, dtype, 1, _CHUNKED)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_gn_bwd(n: int, hw: int, c: int, groups: int, dtype: torch.dtype) -> GnPlan:
+    """The backward's route for ``[n, hw, c]``: :func:`plan_gn`'s slab,
+    cluster and wave rules applied to a block's x and dy tiles together
+    (``tile_bytes`` is both), giving ``"fused"`` (:func:`gn_silu_bwd_fused`,
+    one launch) or ``"pair"`` (:func:`gn_bwd_partials`, then
+    :func:`gn_bwd_dx`). A pure function of the shape; neither route falls
+    back to the other."""
+    return _plan(n, hw, c, groups, dtype, 2, _PAIR)
 
 
 def gn_map_spec(n, hw, c, plan, dtype):
@@ -238,13 +279,45 @@ def _silu_dz(x, g, scale, shift):
     return g * sig * (1.0 + z * (1.0 - sig))
 
 
-def gn_bwd_partials_reference(x3, g3, coef, silu: bool = True):
-    """Plain version of :func:`gn_bwd_partials`: ``coef`` [N, 4, C] holds
-    (scale, shift, inv, -mean*inv); returns fp32 [N, 2, C] (t1, t2)."""
+def _bwd_reference(x3, g3, gamma, scale, shift, mean, inv, silu):
+    """The backward's arithmetic in fp32 from the forward's statistics:
+    (dz, xhat, inv per channel [N, 1, C], t = (sum dz, sum dz*xhat)
+    [N, 2, C], the group means (a, b) of gamma*dz and gamma*dz*xhat per
+    channel [N, 2, C])."""
+    n, hw, c = x3.shape
+    groups = mean.shape[1]
+    gs = c // groups
     x, g = x3.float(), g3.float()
-    sc, sh, iv, nm = (coef[:, i, None, :] for i in range(4))
-    dz = _silu_dz(x, g, sc, sh) if silu else g
-    return torch.stack([dz.sum(1), (dz * (x * iv + nm)).sum(1)], dim=1)
+    inv_c = inv.float().repeat_interleave(gs, dim=1)[:, None]
+    xhat = (x - mean.float().repeat_interleave(gs, dim=1)[:, None]) * inv_c
+    dz = _silu_dz(x, g, scale[:, None], shift[:, None]) if silu else g
+    t = torch.stack([dz.sum(1), (dz * xhat).sum(1)], dim=1)
+    ab = (gamma.float() * t).view(n, 2, groups, gs).sum(-1) / (hw * gs)
+    return dz, xhat, inv_c, t, ab.repeat_interleave(gs, dim=2)
+
+
+def gn_silu_bwd_fused_reference(x3, g3, gamma, scale, shift, mean, inv, silu: bool = True):
+    """Plain version of :func:`gn_silu_bwd_fused` (and of the whole
+    backward): from the forward's fp32 scale/shift [N, C] and mean/inv
+    [N, G], returns ``dx = inv*(gamma*dz - a - xhat*b)`` in x's dtype and
+    fp32 ``t`` [N, 2, C] = (t1 = sum_hw dz, t2 = sum_hw dz*xhat)."""
+    dz, xhat, inv_c, t, ab = _bwd_reference(x3, g3, gamma, scale, shift, mean, inv, silu)
+    dx = inv_c * (gamma.float() * dz - ab[:, :1] - xhat * ab[:, 1:])
+    return dx.to(x3.dtype), t
+
+
+def gn_bwd_partials_reference(x3, g3, gamma, scale, shift, mean, inv, silu: bool = True):
+    """Plain version of :func:`gn_bwd_partials`: fp32 ``t`` [N, 2, C] as
+    :func:`gn_silu_bwd_fused_reference` gives it, and ``coef`` [N, 4, C] =
+    (scale, shift, P, Q) with ``dx = scale*dz + P*x + Q``, the two group
+    means folded into ``P = -inv^2 b`` and ``Q = -inv (a - b mean inv)``."""
+    _, _, _, t, ab = _bwd_reference(x3, g3, gamma, scale, shift, mean, inv, silu)
+    gs = x3.shape[-1] // mean.shape[1]
+    inv_c = inv.float().repeat_interleave(gs, dim=1)
+    nmi_c = -mean.float().repeat_interleave(gs, dim=1) * inv_c
+    p = -inv_c * inv_c * ab[:, 1]
+    q = -inv_c * (ab[:, 0] + ab[:, 1] * nmi_c)
+    return t, torch.stack([scale, shift, p, q], dim=1)
 
 
 def gn_bwd_dx_reference(x3, g3, coef, silu: bool = True):
@@ -283,8 +356,8 @@ def _affine_arg(who, gamma, beta, x3):
     return _DTYPES[gamma.dtype]
 
 
-_MERGE_SET = 64  # chunks whose partials one block of gn_stats merges (csrc/groupnorm_silu.cu::MERGE_SET)
-_counters: dict = {}  # (device, stream) -> int32 zeros that gn_stats's last blocks leave zero
+_MERGE_SET = 64  # chunks whose partials one block of gn_stats / gn_bwd_partials merges (csrc/groupnorm_silu.cu::MERGE_SET)
+_counters: dict = {}  # (device, stream) -> int32 zeros that gn_stats's (and K7's) last blocks leave zero
 
 
 def _counter(x3, size):
@@ -343,8 +416,7 @@ def gn_silu_apply(x3, scale, shift, silu: bool = True):
         if (t.dtype != torch.float32 or t.shape != (n, c) or not t.is_contiguous()
                 or t.device != x3.device or t.data_ptr() % 16):
             raise ValueError(f"gn_silu_apply: {name} must be contiguous, aligned fp32 [N, C] on x's device")
-    if hw * c // (16 // x3.element_size()) >= 2**31:
-        raise ValueError(f"gn_silu_apply: a sample of {hw}x{c} is past the kernel's 32-bit offsets")
+    _check_offsets(x3, "gn_silu_apply")
     y = torch.empty_like(x3)
     rc = _kernel("uwu_gn_apply")(
         x3.data_ptr(), scale.data_ptr(), shift.data_ptr(), y.data_ptr(),
@@ -420,28 +492,102 @@ def _check_g3(g3, x3, who):
                          f"{tuple(x3.shape)} {x3.dtype}")
 
 
-def gn_bwd_partials(x3, g3, coef, silu: bool = True):
-    """Launch the backward partials kernels (K7) on ``x3``, ``g3`` [N, HW, C]
-    with ``coef`` [N, 4, C] = (scale, shift, inv, -mean*inv). Returns fp32
-    [N, 2, C]: ``t1 = sum_hw dz``, ``t2 = sum_hw dz*xhat``."""
-    _check_x3(x3, "gn_bwd_partials")
-    _check_g3(g3, x3, "gn_bwd_partials")
-    _check_coef(coef, x3, "gn_bwd_partials")
+def _check_saved(who, x3, g3, gamma, scale, shift, mean, inv):
+    """Checks what a backward kernel reads; returns (gamma's dtype code,
+    the row stride of mean/inv [N, G], which may be views of the forward's
+    [N, 2, G])."""
+    _check_x3(x3, who)
+    _check_g3(g3, x3, who)
+    n, _, c = x3.shape
+    dev = x3.device
+    affine_bf16 = _affine_arg(who, gamma, gamma, x3)
+    for name, t in (("scale", scale), ("shift", shift)):
+        if (t.dtype != torch.float32 or t.shape != (n, c) or not t.is_contiguous()
+                or t.device != dev or t.data_ptr() % 16):
+            raise ValueError(f"{who}: {name} must be contiguous, aligned fp32 [N, C] on x's device")
+    groups = mean.shape[-1]
+    stride = mean.stride()
+    if (mean.dtype != torch.float32 or inv.dtype != torch.float32 or mean.shape != (n, groups)
+            or inv.shape != (n, groups) or stride[-1] != 1 or inv.stride() != stride or mean.device != dev
+            or inv.device != dev or c % groups):
+        raise ValueError(f"{who}: mean/inv must be fp32 [N, G] rows of one stride on x's device, G dividing C")
+    return affine_bf16, stride[0]
+
+
+def _check_offsets(x3, who):
     n, hw, c = x3.shape
-    # >= 8 rows per chunk keeps the partials a fraction of x's and g's bytes;
-    # ~512 (n, chunk) blocks fill the SMs at N = 8 and HW = 256 (32 chunks)
-    n_chunks = max(1, min(math.ceil(hw / 8), math.ceil(512 / n)))
-    partial = torch.empty((n, n_chunks, 2, c), dtype=torch.float32, device=x3.device)
-    out = torch.empty((n, 2, c), dtype=torch.float32, device=x3.device)
-    rc = _kernel("uwu_gn_bwd_partials")(
-        x3.data_ptr(), g3.data_ptr(), coef.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        _DTYPES[x3.dtype], n, hw, c, n_chunks, int(silu),
+    if hw * c // (16 // x3.element_size()) >= 2**31:
+        raise ValueError(f"{who}: a sample of {hw}x{c} is past the kernel's 32-bit offsets")
+
+
+@functools.lru_cache(maxsize=4096)
+def _fused_bwd_plan(n, hw, c, groups, dtype):
+    """(plan, the map spec as a ctypes array) of a fused backward shape, checked once."""
+    plan = plan_gn_bwd(n, hw, c, groups, dtype)
+    if plan.route != "fused":
+        raise ValueError(f"gn_silu_bwd_fused: [{n}, {hw}, {c}] {dtype} does not fit a cluster's shared memory;"
+                         " plan_gn_bwd routes it to gn_bwd_partials + gn_bwd_dx")
+    words = gn_map_spec(n, hw, c, plan, dtype)
+    return plan, (ctypes.c_ulonglong * len(words))(*words)
+
+
+def gn_silu_bwd_fused(x3, g3, gamma, scale, shift, mean, inv, silu: bool = True):
+    """Launch the single-pass backward on ``x3`` and the incoming gradient
+    ``g3`` [N, HW, C], from the forward's fp32 scale/shift [N, C] and
+    mean/inv [N, G]. Returns (dx in x's dtype, fp32 ``t`` [N, 2, C] = (t1 =
+    sum_hw dz, t2 = sum_hw dz*xhat)): dbeta and dgamma are ``t.sum(0)``.
+    Raises for a shape that :func:`plan_gn_bwd` routes to the pair."""
+    affine_bf16, stat_stride = _check_saved("gn_silu_bwd_fused", x3, g3, gamma, scale, shift, mean, inv)
+    n, hw, c = x3.shape
+    groups = mean.shape[1]
+    plan, spec = _fused_bwd_plan(n, hw, c, groups, x3.dtype)
+    dx = torch.empty_like(x3)
+    t = torch.empty((n, 2, c), dtype=torch.float32, device=x3.device)
+    rc = _kernel("uwu_gn_silu_bwd_fused")(
+        x3.data_ptr(), g3.data_ptr(), dx.data_ptr(), gamma.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+        mean.data_ptr(), inv.data_ptr(), t.data_ptr(), spec, _DTYPES[x3.dtype], affine_bf16, n, hw, c, groups,
+        stat_stride, plan.slab, plan.cluster, plan.rows_per_cta, plan.box_rows, int(silu),
         torch.cuda.current_stream(x3.device).cuda_stream,
+    )
+    if rc >= _ENCODE_FAILED:
+        raise RuntimeError(f"gn_silu_bwd_fused: the driver refused a tensor map (CUresult {rc - _ENCODE_FAILED},"
+                           f" {_ENCODE_FAILED} if cuTensorMapEncodeTiled was not found): {list(spec)}")
+    if rc != 0:
+        raise RuntimeError(f"gn_silu_bwd_fused launch failed: cudaError {rc} ({plan})")
+    gn_silu_bwd_fused.launches += 1
+    return dx, t
+
+
+gn_silu_bwd_fused.launches = 0
+
+
+def gn_bwd_partials(x3, g3, gamma, scale, shift, mean, inv, silu: bool = True):
+    """Launch the backward's sums (K7, one launch) on ``x3``, ``g3``
+    [N, HW, C] from the forward's fp32 scale/shift [N, C] and mean/inv
+    [N, G]. Returns fp32 ``t`` [N, 2, C] (t1 = sum_hw dz, t2 = sum_hw
+    dz*xhat) and ``coef`` [N, 4, C] = (scale, shift, P, Q) for
+    :func:`gn_bwd_dx`, the group means of the GN backward folded in."""
+    affine_bf16, stat_stride = _check_saved("gn_bwd_partials", x3, g3, gamma, scale, shift, mean, inv)
+    _check_offsets(x3, "gn_bwd_partials")
+    n, hw, c = x3.shape
+    groups = mean.shape[1]
+    # >= 64 rows a chunk, ~2 blocks an SM over the grid: longer chunks where HW is large
+    n_chunks = max(1, min(math.ceil(hw / 64), math.ceil(2 * SMS / n)))
+    n_sets = -(-n_chunks // _MERGE_SET)
+    partial = torch.empty((n, n_chunks, 2, c), dtype=torch.float32, device=x3.device)
+    merged = torch.empty((n, n_sets, 2, c), dtype=torch.float64, device=x3.device)
+    t = torch.empty((n, 2, c), dtype=torch.float32, device=x3.device)
+    coef = torch.empty((n, 4, c), dtype=torch.float32, device=x3.device)
+    counter, stream = _counter(x3, n * (n_sets + 1))
+    rc = _kernel("uwu_gn_bwd_partials")(
+        x3.data_ptr(), g3.data_ptr(), gamma.data_ptr(), scale.data_ptr(), shift.data_ptr(), mean.data_ptr(),
+        inv.data_ptr(), partial.data_ptr(), merged.data_ptr(), counter.data_ptr(), t.data_ptr(), coef.data_ptr(),
+        _DTYPES[x3.dtype], affine_bf16, stat_stride, n, hw, c, groups, n_chunks, int(silu), stream,
     )
     if rc != 0:
         raise RuntimeError(f"gn_bwd_partials launch failed: cudaError {rc}")
     gn_bwd_partials.launches += 1
-    return out
+    return t, coef
 
 
 gn_bwd_partials.launches = 0
@@ -453,6 +599,7 @@ def gn_bwd_dx(x3, g3, coef, silu: bool = True):
     _check_x3(x3, "gn_bwd_dx")
     _check_g3(g3, x3, "gn_bwd_dx")
     _check_coef(coef, x3, "gn_bwd_dx")
+    _check_offsets(x3, "gn_bwd_dx")
     n, hw, c = x3.shape
     dx = torch.empty_like(x3)
     rc = _kernel("uwu_gn_bwd_dx")(
@@ -470,26 +617,20 @@ gn_bwd_dx.launches = 0
 
 
 def _gn_backward(x3, g3, gamma, scale, shift, mean, inv, silu):
-    """dx, dgamma, dbeta of GroupNorm(+SiLU) from the forward's statistics:
-    K7, the group means of the GN backward on [N, C] tensors, K8."""
-    n, hw, c = x3.shape
-    groups = mean.shape[1]
-    gs = c // groups
-    inv_c = inv.repeat_interleave(gs, dim=1)
-    nmi_c = (-mean * inv).repeat_interleave(gs, dim=1)  # xhat = x*inv_c + nmi_c
-    coef = torch.stack([scale, shift, inv_c, nmi_c], dim=1)
-    t = gn_bwd_partials(x3, g3, coef, silu) if x3.is_cuda else gn_bwd_partials_reference(x3, g3, coef, silu)
-    t1, t2 = t[:, 0], t[:, 1]
-    # the two group means of the GN backward, a = mean(gamma*dz), b = mean(gamma*dz*xhat):
-    # dx = inv*(gamma*dz - a - xhat*b) = scale*dz + P*x + Q
-    g32 = gamma.float()
-    a_c = (g32 * t1).view(n, groups, gs).sum(-1).repeat_interleave(gs, dim=1) / (hw * gs)
-    b_c = (g32 * t2).view(n, groups, gs).sum(-1).repeat_interleave(gs, dim=1) / (hw * gs)
-    p = -inv_c * inv_c * b_c
-    q = -inv_c * (a_c + b_c * nmi_c)
-    coef = torch.stack([scale, shift, p, q], dim=1)
-    dx = gn_bwd_dx(x3, g3, coef, silu) if x3.is_cuda else gn_bwd_dx_reference(x3, g3, coef, silu)
-    return dx, t2.sum(0), t1.sum(0)
+    """dx, dgamma, dbeta (fp32) of GroupNorm(+SiLU) from the forward's
+    statistics: for a CUDA ``x3`` the route :func:`plan_gn_bwd` picks (the
+    fused kernel, or K7 then K8), for a CPU one the plain version; then
+    one reduction of the per-sample sums."""
+    saved = (gamma, scale, shift, mean, inv)
+    if not x3.is_cuda:
+        dx, t = gn_silu_bwd_fused_reference(x3, g3, *saved, silu)
+    elif plan_gn_bwd(*x3.shape, mean.shape[1], x3.dtype).route == "fused":
+        dx, t = gn_silu_bwd_fused(x3, g3, *saved, silu)
+    else:
+        t, coef = gn_bwd_partials(x3, g3, *saved, silu)
+        dx = gn_bwd_dx(x3, g3, coef, silu)
+    sums = t.sum(0)
+    return dx, sums[1], sums[0]
 
 
 def _forward(x, gamma, beta, groups, eps, silu, with_group_stats):

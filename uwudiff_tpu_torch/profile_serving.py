@@ -32,7 +32,7 @@ _FAMILIES = (
     ("flash_fwd (K1)", ("flash_fwd_sm90_kernel", "flash_fwd_kernel")),
     ("flash_bwd_dq (K4)", ("flash_bwd_dq_sm90_kernel", "flash_bwd_dq_kernel")),
     ("flash_bwd_dkv (K6)", ("flash_bwd_dkv_sm90_kernel", "flash_bwd_dkv_kernel")),
-    ("groupnorm bwd (K7/K8)", ("gn_bwd_partial_kernel", "gn_bwd_merge_kernel", "gn_bwd_dx_kernel")),
+    ("groupnorm bwd (K7/K8)", ("gn_silu_bwd_fused_kernel", "gn_bwd_partial_kernel", "gn_bwd_dx_kernel")),
     ("groupnorm (K2/K3)", ("gn_silu_fused_kernel", "gn_stats_kernel", "gn_apply_kernel")),
     ("attention einsum/softmax", ("softmax",)),
     ("convolution", ("conv", "implicit", "dgrad", "wgrad", "fprop", "nchw", "nhwc")),
