@@ -21,7 +21,11 @@ Phases, each fatal on failure:
                take; the Hopper backward reading CLIP's broadcast bias in
                place; median ms of the kernel, the plain version and one
                library call, the profiler's device time, the card's lower
-               bound for the same work and the exp2 floor. Then
+               bound for the same work and the exp2 floor. The fused
+               parameter update (adamw_factored, csrc/adamw_factored.cu)
+               against its plain version at SDXL leaf shapes, three steps
+               with and without the global-norm clip, the weight EMA on,
+               drawn and given rounding bits, two runs bitwise. Then
                small SDXL- and SD3-shaped models, bf16 on the card through
                the kernels, against the same weights in fp32 on the CPU:
                forwards, one SDXL training step's loss and gradients, and
@@ -42,7 +46,12 @@ Phases, each fatal on failure:
                each step launched every kernel exactly as often as the
                UNet's plan says (each GroupNorm's forward and backward on
                the routes plan_gn and plan_gn_bwd give its shape), every
-               flash forward, dQ and dK/dV on the Hopper kernels.
+               flash forward, dQ and dK/dV on the Hopper kernels, and
+               the parameter update's kernels as plan_optimizer says (4 a
+               step, whatever the leaf count). Then, over the step's
+               1,680 leaves, each update kernel's time against its byte
+               bound, the plain update's and torch.optim.AdamW(fused=True)'s
+               (another function, for scale).
   5. ti      - SD3-medium textual inversion at full width
                (training/bench_setup.py: MMDiT + CLIP-L + CLIP-bigG +
                T5-XXL at 256 tokens, batch 8, 64x64x16 latents, bf16
@@ -69,6 +78,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -108,13 +118,16 @@ def time_ms(fn, reps=20, warmup=2, runs=3):
     return times[len(times) // 2]
 
 
-def profiled_ms(fn, family=None, reps=10, tries=3):
+def profiled_ms(fn, family=None, reps=10, tries=3, per_launch=False):
     """Device time of one call from torch.profiler over ``reps`` calls:
     (the kernels of ``family``, as profile_serving names them; every other
     kernel or copy the call puts on the device), or with no ``family`` the
-    sum of every kernel and copy. A trace that caught no device activity
-    (it happens) is taken again; after ``tries`` empty traces the sum is
-    None, and a family the profiler never saw raises."""
+    sum of every kernel and copy. With ``per_launch`` the family's time is
+    the mean of the launches the trace caught (for a call that launches
+    one kernel: a trace may miss some of a run's launches). A trace that
+    caught no device activity (it happens) is taken again; after ``tries``
+    empty traces the sum is None, and a family the profiler never saw
+    raises."""
     from torch.profiler import ProfilerActivity, profile
 
     from uwudiff_tpu_torch.profile_serving import _family
@@ -127,10 +140,12 @@ def profiled_ms(fn, family=None, reps=10, tries=3):
                 fn()
             torch.cuda.synchronize()
         mine = other = 0.0
+        caught = 0
         for ev in prof.events():
             if ev.device_type == torch.autograd.DeviceType.CUDA:
                 if family is not None and _family(ev.name) == family:
                     mine += ev.time_range.elapsed_us() / 1e3
+                    caught += 1
                 else:
                     other += ev.time_range.elapsed_us() / 1e3
         if mine + other > 0:
@@ -139,7 +154,7 @@ def profiled_ms(fn, family=None, reps=10, tries=3):
         return other / reps if other > 0 else None
     if mine == 0.0:
         raise RuntimeError(f"the profiler saw no {family} kernel")
-    return mine / reps, other / reps
+    return mine / (caught if per_launch else reps), other / reps
 
 
 def _ms(t):
@@ -857,6 +872,236 @@ def check_gn_bwd(results, failures):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ optimizer
+
+# SDXL leaves of every kind the update walks: the largest 3x3 conv
+# (channels_last; columns contiguous), a GEGLU projection (its contiguous
+# axis is the factored rows), an attention projection, a mid-size conv, a
+# bias and a norm weight (dense)
+OPT_SHAPES = ((1280, 2560, 3, 3), (10240, 1280), (1280, 1280), (640, 640, 3, 3), (320,), (1280,))
+OPT_STEPS = 3
+OPT_EMA = 0.999
+
+
+def opt_leaves(gen, scale, like=None):
+    """bf16 tensors of OPT_SHAPES (4-D ones channels_last), N(0, scale^2),
+    or in the layouts of ``like``."""
+    dev = torch.device("cuda")
+    shapes = OPT_SHAPES if like is None else [p.shape for p in like]
+    out = []
+    for i, shape in enumerate(shapes):
+        x = (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+        if like is not None:
+            out.append(torch.empty_like(like[i]).copy_(x))
+        else:
+            out.append(x.contiguous(memory_format=torch.channels_last) if len(shape) == 4 else x)
+    return out
+
+
+def opt_view(plan, i, field, state, axis=None):
+    """Leaf i's slice of one of the plan's fp32 buffers ([K, R] row factors,
+    [K, C] column factors or [K] row means, K over the leaf's other axes
+    merged in order), viewed in the logical layout of its v_row (``axis``
+    d1), its v_col (d0) or, with no ``axis``, its row means (v_row's shape
+    with the row axis of size 1)."""
+    from uwudiff_tpu_torch.ops.fused_optim import LEAF_FIELDS
+
+    buf = getattr(plan, field)
+    shape = state.leaves[i]["mu"].shape
+    d1, d0 = state.dims[i]
+    rest = [a for a in range(len(shape)) if a not in (d1, d0)]
+    inner = [shape[axis]] if axis is not None else [1]
+    off = (int(plan.geometry[i, LEAF_FIELDS.index(field)]) - buf.data_ptr()) // 4
+    t = buf[off:off + math.prod(shape[a] for a in rest) * inner[0]].view([shape[a] for a in rest] + inner)
+    return t.movedim(-1, sum(a < (d1 if axis is None else axis) for a in rest))
+
+
+def opt_step_and_compare(tx, params, ema, state, grads, kw):
+    """One bf16 step of ``params`` (EMA ``ema``) through the kernels
+    (``tx.step_`` with ``kw``) and, from clones of the same state, through
+    the plain version (apply_update_), then held to each other. The
+    elementwise stage is checked exactly, the reductions within the
+    rounding of a sum taken in another order:
+
+    - elementwise: the kernels' momentum, parameters and EMA bitwise the
+      plain version's elementwise stage (AdamWFactored.scaled and
+      momentum_step, stochastic_round_add, ema_update_, the same bits)
+      applied to the kernels' own norm, factors and RMS denominators;
+    - the kernels' factors bitwise 1/sqrt of their own statistics (over
+      their own row means for the row factors), rounded; their row means
+      within one bf16 step (2^-7 relative) of torch's mean of their v_row,
+      their RMS denominators within 1e-5 relative of torch's RMS of their
+      u (fp32 sums of up to 29.5 M terms in another order; a tile of the
+      largest leaf left out would move it by 5e-4);
+    - against the plain version: the global norm within 1e-6 relative;
+      every statistic within two steps of the larger of its two values
+      and its new term (1 - b2) * mean, which is a one-step flip of the
+      rounded mean after the EMA plus the rounding of either side;
+      >= 99.9 % of the statistics and >= 99.9 % of the momentum bitwise
+      (a statistic a step apart moves a row or column of the momentum);
+      the parameters and the EMA bitwise at every element whose momentum
+      is.
+
+    Returns (ok, the worst numbers, (kernel norm, plain norm))."""
+    import copy
+
+    from uwudiff_tpu_torch.training.optimizers import (EMA_STREAM, PARAM_STREAM, apply_update_, draw_sr_bits,
+                                                       ema_update_, stochastic_round_add)
+
+    clip, seed, step = kw.get("grad_clip"), kw.get("seed", 0), kw.get("step", 0)
+    count = state.count
+    p_ref, e_ref, s_ref = [p.clone() for p in params], [e.clone() for e in ema], copy.deepcopy(state)
+    p_old, e_old = [p.clone() for p in params], [e.clone() for e in ema]
+    mu_old = [st["mu"].clone() for st in state.leaves]
+    stat_old = [{k: v.clone() for k, v in st.items() if k != "mu"} for st in state.leaves]
+    n_k = tx.step_(params, grads, state, ema_params=ema, **kw)
+    n_p = apply_update_(tx, p_ref, grads, s_ref, ema_params=e_ref, **kw)
+    plan = state.fused
+    b2, lr = tx.scalars(count)
+    w = dict(elementwise_mismatch=0, factor_mismatch=0, row_mean_beyond=0, stats_beyond=0, p_ema_mismatch=0,
+             denom_max_rel=0.0, stats_max_steps=0.0, max_abs_err=0.0)
+    shares = {"mu": [0, 0], "stats": [0, 0]}
+    norms = (n_k.item(), n_p.item())
+    ok = abs(norms[0] - norms[1]) <= 1e-6 * abs(norms[1])
+    for i, g in enumerate(grads):
+        st_k, st_p, dims, dtype = state.leaves[i], s_ref.leaves[i], state.dims[i], g.dtype
+        # the statistics against the plain version's
+        for key, old in stat_old[i].items():
+            a, b = st_k[key].float(), st_p[key].float()
+            scale = torch.maximum(torch.maximum(a.abs(), b.abs()), (b - b2 * old.float()).abs())
+            ratio = torch.nan_to_num((a - b).abs() / (2.0**-7 * scale))
+            w["stats_beyond"] += int((ratio > 2.0).sum())
+            w["stats_max_steps"] = max(w["stats_max_steps"], ratio.max().item())
+            shares["stats"][0] += int((st_k[key].view(torch.int16) == st_p[key].view(torch.int16)).sum())
+            shares["stats"][1] += a.numel()
+        # the kernels' factors from their own statistics
+        if dims is None:
+            factors = (1.0 / st_k["v"].float().sqrt(),)
+        else:
+            d1, d0 = dims
+            vr, vc = st_k["v_row"].float(), st_k["v_col"].float()
+            rm = opt_view(plan, i, "row_mean", state)
+            rm_t = vr.mean(dim=d1 - (d1 > d0), keepdim=True).to(dtype).float()
+            w["row_mean_beyond"] += int(((rm - rm_t).abs() > 2.0**-7 * torch.maximum(rm.abs(), rm_t.abs())).sum())
+            rf, cf = opt_view(plan, i, "rf", state, d1), opt_view(plan, i, "cf", state, d0)
+            w["factor_mismatch"] += int((rf != (1.0 / (vr / rm).sqrt()).to(dtype).float()).sum())
+            w["factor_mismatch"] += int((cf != (1.0 / vc.sqrt()).to(dtype).float()).sum())
+            factors = (rf.unsqueeze(d0), cf.unsqueeze(d1))
+        # the elementwise stage, exactly, from the kernels' own norm, factors
+        # and RMS denominator, the latter against the RMS of their own u
+        gc = torch.where(n_k < clip, g, g / n_k.to(dtype) * clip) if clip else g
+        u = tx.scaled(gc, factors, dtype)
+        denom = None
+        if tx.clipping_threshold is not None:
+            denom = plan.leaf_denom[i]
+            ref = torch.clamp(u.float().square().mean().sqrt() / tx.clipping_threshold, min=1.0)
+            w["denom_max_rel"] = max(w["denom_max_rel"], ((denom - ref).abs() / ref).item())
+        mu = {"mu": mu_old[i].clone()}
+        d = tx.momentum_step(u, denom, mu, p_old[i], lr)
+        given = kw.get("sr_bits")
+        bits = given[i] if given is not None else draw_sr_bits(p_old[i], seed, step, i, PARAM_STREAM)
+        p_new = stochastic_round_add(p_old[i], d, bits)
+        e_new = e_old[i].clone()
+        given = kw.get("ema_bits")
+        bits = given[i] if given is not None else draw_sr_bits(e_new, seed, step, i, EMA_STREAM)
+        ema_update_([e_new], [p_new], kw["ema_decay"], bits=[bits])
+        for got, want in ((st_k["mu"], mu["mu"]), (params[i], p_new), (ema[i], e_new)):
+            w["elementwise_mismatch"] += int((got.view(torch.int16) != want.view(torch.int16)).sum())
+        # the momentum, parameters and EMA against the plain version's
+        same = st_k["mu"].view(torch.int16) == st_p["mu"].view(torch.int16)
+        shares["mu"][0] += int(same.sum())
+        shares["mu"][1] += same.numel()
+        for t_k, t_p in ((params[i], p_ref[i]), (ema[i], e_ref[i])):
+            w["max_abs_err"] = max(w["max_abs_err"], (t_k.float() - t_p.float()).abs().max().item())
+            w["p_ema_mismatch"] += int(((t_k.view(torch.int16) != t_p.view(torch.int16)) & same).sum())
+    for kind, (n_same, n) in shares.items():
+        w[f"{kind}_bitwise_share"] = n_same / n
+        ok &= n_same >= 0.999 * n
+    ok &= w["denom_max_rel"] <= 1e-5
+    ok &= not any(w[k] for k in ("elementwise_mismatch", "factor_mismatch", "row_mean_beyond", "stats_beyond",
+                                 "p_ema_mismatch"))
+    return bool(ok), w, norms
+
+
+def opt_summary(w) -> str:
+    return ", ".join(f"{k} {v:.7g}" if isinstance(v, float) else f"{k} {v}" for k, v in w.items())
+
+
+def check_optimizer(results, failures):
+    """The fused update (ops/fused_optim.py, the kernels of
+    csrc/adamw_factored.cu) against its plain version
+    (training/optimizers.py::apply_update_) on the card, bf16, at SDXL leaf
+    shapes: OPT_STEPS steps with and without the global-norm clip, the
+    weight EMA on, with drawn and with given rounding bits; each step from
+    the same state on both sides (opt_step_and_compare's bounds); two runs of the
+    kernels bitwise equal; the wall time of one update beside the plain
+    version's."""
+    from uwudiff_tpu_torch.training.optimizers import apply_update_
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    params0 = opt_leaves(gen, 0.02)
+    params0[-1] = torch.ones_like(params0[-1])  # the norm weight, at its initial value
+    grads = [opt_leaves(gen, 1e-3, like=params0) for _ in range(OPT_STEPS)]  # global norm ~7
+    runs = {}
+    for clip in (None, 1.0):
+        for given in (False, True):
+            tx = adamw_factored_tx()
+            params = [p.clone() for p in params0]
+            ema = [p.clone() for p in params0]
+            state = tx.init(params)
+            ok_all, worst_all, norms_all = True, [], []
+            for step in range(OPT_STEPS):
+                d_w = float(min(np.float32(1 + step) / np.float32(10 + step), np.float32(OPT_EMA)))
+                bits = ([torch.randint(0, 1 << 16, p.shape, generator=gen, device="cuda", dtype=torch.int32)
+                         for p in params] if given else None)
+                ebits = [b.flip(0) for b in bits] if given else None
+                kw = dict(grad_clip=clip, seed=SEED, step=step, sr_bits=bits, ema_decay=d_w, ema_bits=ebits)
+                ok, worst, norms = opt_step_and_compare(tx, params, ema, state, grads[step], kw)
+                ok_all &= ok
+                worst_all.append(worst)
+                norms_all.append(norms)
+            runs[(clip, given)] = (params, ema, state)
+            case = f"clip={clip} bits={'given' if given else 'drawn'}"
+            log(f"  optimizer {case}: {'ok' if ok_all else 'FAIL'}; per step "
+                + "; ".join(f"norm {k:.6f}/{p:.6f} {opt_summary(w)}" for (k, p), w in zip(norms_all, worst_all)))
+            results.append(dict(kernel="adamw_factored", case=case, ok=ok_all, steps=worst_all, norms=norms_all,
+                                max_abs_err=max(w["max_abs_err"] for w in worst_all)))
+            if not ok_all:
+                failures.append(f"optimizer {case}: {worst_all} norms {norms_all}")
+    # two runs of the kernels from the same state are bitwise equal
+    tx = adamw_factored_tx()
+    params = [p.clone() for p in params0]
+    ema = [p.clone() for p in params0]
+    state = tx.init(params)
+    for step in range(OPT_STEPS):
+        d_w = float(min(np.float32(1 + step) / np.float32(10 + step), np.float32(OPT_EMA)))
+        tx.step_(params, grads[step], state, grad_clip=1.0, seed=SEED, step=step, ema_params=ema, ema_decay=d_w)
+    first_p, first_e, first_s = runs[(1.0, False)]
+    bitwise = (all(map(torch.equal, params + ema, first_p + first_e))
+               and all(torch.equal(st[k], fst[k]) for st, fst in zip(state.leaves, first_s.leaves) for k in st))
+    log(f"  optimizer: two runs bitwise {bitwise}")
+    if not bitwise:
+        failures.append("optimizer: two runs of the kernels differ")
+    # one update of these leaves (no clip, no EMA: the bench's), kernels and plain
+    state = tx.init(params)
+    kernel_ms = time_ms(lambda: tx.step_(params, grads[0], state, seed=SEED))
+    plain_ms = time_ms(lambda: apply_update_(tx, params, grads[0], state, seed=SEED), reps=3)
+    log(f"  optimizer over {len(params)} SDXL leaves ({sum(p.numel() for p in params) / 1e6:.1f} M params):"
+        f" fused {kernel_ms:.3f} ms, plain {plain_ms:.2f} ms")
+    results.append(dict(kernel="adamw_factored", case="6 SDXL leaves", ms=kernel_ms, plain_ms=plain_ms,
+                        bitwise_two_runs=bitwise, shapes=[list(s) for s in OPT_SHAPES]))
+    del runs, grads, params, ema, state
+    torch.cuda.empty_cache()
+
+
+def adamw_factored_tx():
+    """The bench's optimizer (training/bench_setup.py) at a constant lr of
+    1e-4: wd 0.01, update-RMS clip 1.0."""
+    from uwudiff_tpu_torch.training.optimizers import adamw_factored
+
+    return adamw_factored(1e-4, weight_decay=0.01, clipping_threshold=1.0)
+
+
 def small_unet(device, dtype):
     """A small SDXL-shaped UNet with head dim 64 (the tiny presets' 16 and
     32 are not among the flash kernels' head dims)."""
@@ -1177,6 +1422,100 @@ def plan_launches(unet, gn_calls) -> dict:
             "gn_bwd_partials": bwd.count("pair"), "gn_bwd_dx": bwd.count("pair")}
 
 
+def plan_optimizer(trainer) -> dict:
+    """The update's launches per step (ops/fused_optim.py): the statistics,
+    their merge and the apply, the global norm first with a global-norm
+    clip, the update-RMS pass with adamw_factored's clipping_threshold."""
+    return {"adamw_norm": int(bool(trainer.grad_clip)), "adamw_stats": 1, "adamw_finish": 1,
+            "adamw_rms": int(trainer.tx.clipping_threshold is not None), "adamw_apply": 1}
+
+
+def check_full_update(trainer, grads, failures) -> list:
+    """One update of the SDXL step's own leaves through the kernels
+    (tx.step_ on the trainer's parameters and state, whose plan the main
+    path built) against the plain version from the same state
+    (opt_step_and_compare), with drawn rounding bits and the weight EMA on,
+    once with the global-norm clip and once without. The gradients' norm
+    is ~50.7 (std 1e-3 over 2.567 G params): a clip of 25 halves them, and
+    both steps' gradients outweigh the main path's in the statistics, so
+    that a sum's rounding shows there. Returns each case's numbers."""
+    tx, state = trainer.tx, trainer.opt_state
+    params = [p for _, p in trainer.params]
+    d_w = float(min(np.float32(1 + trainer.step) / np.float32(10 + trainer.step), np.float32(OPT_EMA)))
+    out = []
+    for clip in (25.0, None):
+        kw = dict(grad_clip=clip, seed=SEED, step=trainer.step, ema_decay=d_w)
+        ok, worst, norms = opt_step_and_compare(tx, params, [p.clone() for p in params], state, grads, kw)
+        case = f"{len(params)} SDXL leaves, clip={clip}"
+        log(f"  optimizer {case}: {'ok' if ok else 'FAIL'}; norm {norms[0]:.7f}/{norms[1]:.7f} {opt_summary(worst)}")
+        out.append(dict(case=case, ok=ok, norms=norms, **worst))
+        if not ok:
+            failures.append(f"optimizer {case}: {worst} norms {norms}")
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_optimizer(trainer, failures) -> dict:
+    """The update over the SDXL step's leaves, after the main path's run
+    (it overwrites the trained parameters): check_full_update first, then
+    each kernel's wall ms (CUDA events over back-to-back launches of its
+    wrapper) and device ms (the profiler), its byte bound, the whole
+    update's wall time (host work included), the plain version's over the
+    same leaves and, for scale only, torch.optim.AdamW(fused=True) over the
+    same bf16 leaves (another function: a full second moment, no
+    rounding), each with random gradients (std 1e-3) in the parameters'
+    layouts."""
+    from uwudiff_tpu_torch.ops import OPTIMIZER_KERNELS
+    from uwudiff_tpu_torch.ops import fused_optim as fo
+    from uwudiff_tpu_torch.training.optimizers import apply_update_
+
+    tx, state = trainer.tx, trainer.opt_state
+    params = [p for _, p in trainer.params]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    grads = [torch.empty_like(p).normal_(0.0, 1e-3, generator=gen) for p in params]
+    checks = check_full_update(trainer, grads, failures)
+    plan = state.fused
+    plan.prepare(tx, grads, state.count, seed=SEED, step=trainer.step)  # the bench's: no clip, no EMA
+    wrappers = [getattr(fo, name) for name in OPTIMIZER_KERNELS]
+    wall = {w.__name__: time_ms(lambda w=w: w(plan), reps=10) for w in wrappers}
+    device = {w.__name__: profiled_ms(lambda w=w: w(plan), "optimizer (O1)", per_launch=True)[0] for w in wrappers}
+    update_ms = time_ms(lambda: tx.step_(params, grads, state, seed=SEED, step=trainer.step), reps=5)
+    plain_ms = time_ms(lambda: apply_update_(tx, params, grads, state, seed=SEED, step=trainer.step),
+                       reps=1, warmup=1, runs=2)
+    for p, g in zip(params, grads):
+        p.grad = g
+    adamw = torch.optim.AdamW(params, lr=1e-5, weight_decay=0.01, fused=True)
+    adamw_ms = time_ms(adamw.step, reps=5)
+    for p in params:
+        p.grad = None
+    del adamw
+    # bytes each kernel must move (bf16 leaves; fp32 partials, factors and tile sums)
+    g = plan.geometry
+    col = {k: i for i, k in enumerate(fo.LEAF_FIELDS)}
+    fact = g[:, col["factored"]] == 1
+    n = int(g[:, col["numel"]].sum())
+    dense = int(g[~fact, col["numel"]].sum())
+    stats = int((g[fact, col["K"]] * (g[fact, col["R"]] + g[fact, col["C"]])).sum())
+    parts = plan.sizes["part_f"] + plan.sizes["part_s"]
+    tiles = plan.n_tiles
+    nbytes = {"adamw_norm": 2 * n + 4 * tiles, "adamw_stats": 2 * n + 4 * parts + 4 * dense + 4 * tiles,
+              "adamw_finish": 4 * parts + 8 * stats + 4 * tiles, "adamw_rms": 2 * n + 2 * dense + 4 * stats,
+              "adamw_apply": 10 * n + 2 * dense + 4 * stats}
+    bounds = {k: bound(v, 0.0, PEAK_FP32)[0] for k, v in nbytes.items()}
+    whole = sum(bounds[k] for k in ("adamw_stats", "adamw_finish", "adamw_rms", "adamw_apply"))
+    out = dict(leaves=len(params), params=n, dense_params=dense, tiles=tiles, stat_tiles=plan.n_stat_tiles,
+               full_checks=checks, max_abs_err=max(c["max_abs_err"] for c in checks),
+               kernel_ms=wall, kernel_device_ms=device, bound_ms=bounds,
+               update_bound_ms=whole, update_ms=update_ms, plain_ms=plain_ms, adamw_fused_ms=adamw_ms,
+               adamw_fused_computes="torch.optim.AdamW(fused=True): full second moment, no rounding, no clip")
+    log(f"  optimizer over {len(params)} leaves ({n / 1e9:.3f} G params, {tiles} tiles): "
+        + ", ".join(f"{k} {wall[k]:.3f} ms (device {device[k]:.3f}, bound {bounds[k]:.3f})" for k in wall)
+        + f"; update {update_ms:.2f} ms (bound {whole:.2f}), plain {plain_ms:.1f} ms,"
+        f" AdamW(fused) {adamw_ms:.2f} ms (another function)")
+    del grads
+    return out
+
+
 def record_gn_calls(modules, calls):
     """Forward pre-hooks that append (n, hw, c, groups) of every GroupNorm
     call under ``modules`` to ``calls``; returns the hooks."""
@@ -1233,6 +1572,7 @@ def train(report, failures):
     copies = GroupNormSiLUFunction.grad_layout_copies
 
     plan = plan_launches(trainer.unet, gn_calls)
+    plan.update(plan_optimizer(trainer))
     for name, per_step in plan.items():
         if counts[name] != per_step * TRAIN_STEPS:
             failures.append(f"{name}: {counts[name]} launches in {TRAIN_STEPS} steps, plan {per_step} a step")
@@ -1256,6 +1596,7 @@ def train(report, failures):
     if moved_wrongly:
         failures.append(f"{len(moved_wrongly)} parameter leaves unchanged after {TRAIN_STEPS + 1} steps:"
                         f" {moved_wrongly[:8]}")
+    opt = time_optimizer(trainer, failures)
     step_s = sorted(s["step_s"] for s in steps)[TRAIN_STEPS // 2]
     fb_ms = sorted(s["forward_backward_ms"] for s in steps)[TRAIN_STEPS // 2]
     opt_ms = sorted(s["optimizer_ms"] for s in steps)[TRAIN_STEPS // 2]
@@ -1264,7 +1605,7 @@ def train(report, failures):
         steps=steps, median_step_s=step_s, imgs_per_s=8 / step_s, median_forward_backward_ms=fb_ms,
         median_optimizer_ms=opt_ms, peak_memory_gib=peak_gib, launches=counts, plan_per_step=plan,
         gn_shapes=sorted(set(gn_calls)),
-        gn_grad_layout_copies=copies, unchanged_leaves=unchanged, losses=losses, grad_norms=norms)
+        gn_grad_layout_copies=copies, unchanged_leaves=unchanged, losses=losses, grad_norms=norms, optimizer=opt)
     log(f"  train: step {step_s:.3f} s ({8 / step_s:.2f} imgs/s), forward+backward {fb_ms:.1f} ms,"
         f" optimizer {opt_ms:.1f} ms, peak {peak_gib:.1f} GiB; losses {[round(v, 4) for v in losses]},"
         f" grad norms {[round(v, 3) for v in norms]}; launches/step {plan}; GN grad copies {copies};"
@@ -1378,6 +1719,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     import uwudiff_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from uwudiff_tpu_torch.ops import OPTIMIZER_KERNELS
     from uwudiff_tpu_torch.ops._build import build_all
     from uwudiff_tpu_torch.utils import resolve_device
 
@@ -1412,6 +1754,7 @@ def main() -> int:
     check_flash_bwd(results, failures)
     check_flash_dbias(results, failures)
     check_gn_bwd(results, failures)
+    check_optimizer(results, failures)
     report["kernel_checks"] = results
     report["models_vs_cpu_rel_err"] = check_models_vs_cpu(failures)
     report["train_step_vs_cpu"] = check_train_vs_cpu(failures)
@@ -1473,6 +1816,21 @@ def main() -> int:
             shape=row["shape"],
             serving_launches=serve_counts[name],
             train_launches=counts[name], ti_launches=ti_counts[name],
+        ))
+    # the update's kernels (no Pallas kernel stood there: optax through XLA),
+    # checked and timed over the SDXL step's leaves; their plain version is
+    # the whole plain update of those leaves, no PyTorch call computes the
+    # function
+    opt = report["train"]["optimizer"]
+    for name in OPTIMIZER_KERNELS:
+        kernels.append(dict(
+            name=name, route="cuda", source=csrc + "adamw_factored.cu",
+            replaces="uwudiff_tpu/training/optimizers.py:48",
+            launches=counts[name], max_abs_err=opt["max_abs_err"], ms=opt["kernel_ms"][name], plain_ms=opt["plain_ms"],
+            bound_ms=opt["bound_ms"][name], bound_by="bytes", library_ms=None,
+            device_ms=opt["kernel_device_ms"][name], shape=f"{opt['leaves']} SDXL leaves, {opt['params']} params",
+            plain_is="the whole plain update of the leaves (training/optimizers.py::apply_update_)",
+            serving_launches=serve_counts[name], train_launches=counts[name], ti_launches=ti_counts[name],
         ))
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start

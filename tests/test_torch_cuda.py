@@ -742,6 +742,7 @@ def test_tiny_unet_trains_through_every_kernel(dev):
     # the fused backward reads the fused forward's statistics
     assert counts.pop("gn_stats") == counts.pop("gn_silu_apply") == 0, counts
     assert counts.pop("gn_bwd_partials") == counts.pop("gn_bwd_dx") == 0, counts
+    assert counts.pop("adamw_norm") == 0, counts  # no global-norm clip: the norm comes with the statistics
     assert all(v > 0 for v in counts.values()), counts
     assert counts["flash_fwd"] == counts["flash_bwd_dq"] == counts["flash_bwd_dkv"]
     assert counts["gn_silu_fused"] == counts["gn_silu_bwd_fused"]
@@ -882,3 +883,162 @@ def test_flash_dbias_raises_for_a_head_dim_it_was_not_built_for(dev):
     out, lse = flash_fwd(q, q, q, bias)
     with pytest.raises(ValueError, match="head dim"):
         flash_bwd(q, q, q, bias, out, lse, torch.ones_like(out), bias_grad=True)
+
+
+# ------------------------------------------------- the fused optimizer update
+
+# leaves of every kind the update walks: factored with the columns
+# contiguous (a Linear weight, a channels_last 3x3 conv), with the rows
+# contiguous (a GEGLU-like projection), and dense (a narrow Linear, a bias)
+_OPT_SHAPES = ((256, 384), (384, 256, 3, 3), (1024, 128), (64, 104), (320,))
+
+
+def _opt_case(dev, dtype, seed=0):
+    from uwudiff_tpu_torch.training.optimizers import adamw_factored
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def leaves(scale, like=None):
+        out = []
+        for i, shape in enumerate(_OPT_SHAPES):
+            x = (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+            out.append(torch.empty_like(like[i]).copy_(x) if like is not None else
+                       x.contiguous(memory_format=torch.channels_last) if len(shape) == 4 else x)
+        return out
+
+    params = leaves(0.02)
+    grads = [leaves(1e-2, params) for _ in range(3)]  # global norm ~11
+    tx = adamw_factored(1e-3, weight_decay=0.01, clipping_threshold=1.0)
+    return tx, params, grads
+
+
+def _opt_steps(tx, params, grads, clip, given):
+    """Three steps with the weight EMA (decay 0.99) through the kernels;
+    before each, a copy of the state takes the same step through the plain
+    version. Yields (kernel, plain) after each step: dicts of the
+    parameters, the EMA, the state's tensors and the momentum before it."""
+    import copy
+
+    import numpy as np
+
+    from uwudiff_tpu_torch.training.optimizers import apply_update_
+
+    params = [p.clone() for p in params]
+    ema = [p.clone() for p in params]
+    state = tx.init(params)
+    for step, g in enumerate(grads):
+        d_w = float(min(np.float32(1 + step) / np.float32(10 + step), np.float32(0.99)))
+        bits = ([(torch.arange(p.numel(), device=p.device).reshape(p.shape) * 7919 + step) % 65536 for p in params]
+                if given else None)
+        kw = dict(grad_clip=clip, seed=3, step=step, sr_bits=bits, ema_decay=d_w,
+                  ema_bits=None if bits is None else [b.flip(0) for b in bits])
+        pp, pe, ps = [p.clone() for p in params], [e.clone() for e in ema], copy.deepcopy(state)
+        mu_old = [st["mu"].clone() for st in state.leaves]
+        nk = tx.step_(params, g, state, ema_params=ema, **kw)
+        np_ = apply_update_(tx, pp, g, ps, ema_params=pe, **kw)
+        assert state.fused is not None and ps.fused is None and state.count == ps.count == step + 1
+        torch.testing.assert_close(nk, np_, rtol=1e-6, atol=0)
+        yield (dict(p=params, ema=ema, leaves=state.leaves, mu_old=mu_old),
+               dict(p=pp, ema=pe, leaves=ps.leaves))
+
+
+@pytest.mark.parametrize("clip", [None, 1.0])
+@pytest.mark.parametrize("given", [False, True])
+def test_fused_optimizer_matches_plain_bf16(dev, clip, given):
+    """Three bf16 steps, each from the same state on both sides, EMA on:
+    the momentum and the statistics within one bf16 step (the momentum's
+    taken at the larger of its values and its new term (1 - b1) * u) and
+    >= 99.9 % bitwise (the sums run in another order); the parameters and
+    the EMA bitwise wherever the momentum is (the same rounding bits, drawn
+    or given); the global norm within 1e-6."""
+    tx, params, grads = _opt_case(dev, torch.bfloat16)
+    for k, p in _opt_steps(tx, params, grads, clip, given):
+        for i in range(len(params)):
+            for key, a in k["leaves"][i].items():
+                b = p["leaves"][i][key]
+                scale = torch.maximum(a.float().abs(), b.float().abs())
+                if key == "mu":
+                    scale = torch.maximum(scale, (b.float() - 0.8984375 * k["mu_old"][i].float()).abs())
+                assert ((a.float() - b.float()).abs() <= 2.0**-7 * scale).all(), (i, key)
+                assert (a == b).float().mean().item() >= 0.999, (i, key)
+            same = k["leaves"][i]["mu"] == p["leaves"][i]["mu"]
+            assert torch.equal(k["p"][i][same], p["p"][i][same]), i
+            assert torch.equal(k["ema"][i][same], p["ema"][i][same]), i
+    assert all(not torch.equal(a, b) for a, b in zip(k["p"], params))
+
+
+def test_fused_optimizer_matches_plain_fp32(dev):
+    """fp32 parameters (bf16 momentum): p + u in fp32, and the EMA, within
+    2^-16 of the largest update plus one fp32 step of the value (where that
+    difference moves the rounding of p + u); the momentum >= 99.9 % bitwise."""
+    tx, params, grads = _opt_case(dev, torch.float32)
+    before = [p.clone() for p in params]
+    for k, p in _opt_steps(tx, params, grads, 1.0, False):
+        for i in range(len(params)):
+            moved = (p["p"][i] - before[i]).abs().max().item()
+            assert moved > 0
+            torch.testing.assert_close(k["p"][i], p["p"][i], rtol=2.0**-23, atol=2.0**-16 * moved)
+            torch.testing.assert_close(k["ema"][i], p["ema"][i], rtol=2.0**-23, atol=2.0**-16 * moved)
+            assert (k["leaves"][i]["mu"] == p["leaves"][i]["mu"]).float().mean().item() >= 0.999
+        before = [t.clone() for t in k["p"]]
+
+
+def _opt_run(tx, params, grads, clip):
+    """Three kernel steps with the EMA; the final parameters, EMA and state."""
+    params = [p.clone() for p in params]
+    ema = [p.clone() for p in params]
+    state = tx.init(params)
+    for step, g in enumerate(grads):
+        tx.step_(params, g, state, grad_clip=clip, seed=3, step=step, ema_params=ema, ema_decay=0.5)
+    return params, ema, state
+
+
+def test_fused_optimizer_is_bitwise_reproducible_and_counts_its_launches(dev):
+    tx, params, grads = _opt_case(dev, torch.bfloat16, seed=1)
+    reset_launch_counts()
+    first = _opt_run(tx, params, grads, 1.0)
+    counts = launch_counts()
+    assert {k: counts[k] for k in ("adamw_norm", "adamw_stats", "adamw_finish", "adamw_rms", "adamw_apply")} == {
+        "adamw_norm": 3, "adamw_stats": 3, "adamw_finish": 3, "adamw_rms": 3, "adamw_apply": 3}
+    second = _opt_run(tx, params, grads, 1.0)
+    for a, b in zip(first[0] + first[1], second[0] + second[1]):
+        assert torch.equal(a, b)
+    for sa, sb in zip(first[2].leaves, second[2].leaves):
+        assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    reset_launch_counts()
+    tx.clipping_threshold = None
+    _opt_run(tx, params, grads[:1], None)
+    assert launch_counts()["adamw_rms"] == launch_counts()["adamw_norm"] == 0
+
+
+def test_fused_optimizer_raises_on_what_the_kernels_do_not_take(dev):
+    from uwudiff_tpu_torch.training.optimizers import adamw_factored
+
+    tx = adamw_factored(1e-3)
+    half = [torch.zeros((256, 256), device=dev, dtype=torch.float16)]
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        tx.step_(half, half, tx.init(half))
+    cube = [torch.zeros((128, 128, 4), device=dev, dtype=torch.bfloat16)]  # neither factored axis contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        tx.step_(cube, cube, tx.init(cube))
+    p = [torch.zeros((256, 384), device=dev, dtype=torch.bfloat16)]
+    g = [torch.zeros((384, 256), device=dev, dtype=torch.bfloat16).t()]  # another layout than its parameter
+    with pytest.raises(ValueError, match="strides"):
+        tx.step_(p, g, tx.init(p))
+
+
+def test_fused_optimizer_rebuilds_its_plan_for_a_replaced_state_tensor(dev):
+    """The plan holds the state's addresses: a state tensor replaced (as a
+    checkpoint restore would) makes a new plan, which updates the new one."""
+    tx, params, grads = _opt_case(dev, torch.bfloat16, seed=2)
+    params = [p.clone() for p in params]
+    state = tx.init(params)
+    tx.step_(params, grads[0], state, seed=3)
+    plan = state.fused
+    tx.step_(params, grads[1], state, seed=3, step=1)
+    assert state.fused is plan
+    state.leaves[0]["mu"] = restored = state.leaves[0]["mu"].clone()
+    before = restored.clone()
+    tx.step_(params, grads[2], state, seed=3, step=2)
+    assert state.fused is not plan and state.leaves[0]["mu"] is restored
+    assert not torch.equal(restored, before)

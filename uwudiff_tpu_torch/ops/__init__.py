@@ -18,6 +18,7 @@ from uwudiff_tpu_torch.ops.flash_attention import (
     flash_fwd_mma,
     flash_fwd_sm90,
 )
+from uwudiff_tpu_torch.ops.fused_optim import adamw_apply, adamw_finish, adamw_norm, adamw_rms, adamw_stats
 from uwudiff_tpu_torch.ops.groupnorm_silu import (
     gn_bwd_dx,
     gn_bwd_partials,
@@ -33,6 +34,7 @@ from uwudiff_tpu_torch.ops.groupnorm_silu import (
 __all__ = [
     "FORWARD_KERNELS",
     "KERNELS",
+    "OPTIMIZER_KERNELS",
     "attention_bias_from_mask",
     "attention_reference",
     "dot_product_attention",
@@ -67,11 +69,19 @@ KERNELS = {
     "gn_silu_bwd_fused": gn_silu_bwd_fused,
     "gn_bwd_partials": gn_bwd_partials,
     "gn_bwd_dx": gn_bwd_dx,
+    "adamw_norm": adamw_norm,
+    "adamw_stats": adamw_stats,
+    "adamw_finish": adamw_finish,
+    "adamw_rms": adamw_rms,
+    "adamw_apply": adamw_apply,
 }
 # what serving launches: every GroupNorm of the served UNet but one shape
 # (and of the VAE decoder's 128^2 level) on the fused kernel, the rest on
 # the chunked pair (ops/groupnorm_silu.py::plan_gn)
 FORWARD_KERNELS = ("flash_fwd_sm90", "gn_silu_fused", "gn_stats", "gn_silu_apply")
+# the training step's parameter update (ops/fused_optim.py): adamw_norm with a
+# global-norm clip only, adamw_rms with adamw_factored's clipping_threshold only
+OPTIMIZER_KERNELS = ("adamw_norm", "adamw_stats", "adamw_finish", "adamw_rms", "adamw_apply")
 
 
 def launch_counts() -> dict[str, int]:

@@ -25,7 +25,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = _CSRC / "build"
 SOURCES = (
     "flash_fwd_sm90.cu", "flash_bwd_sm90.cu", "flash_fwd.cu", "flash_bwd.cu", "groupnorm_silu_sm90.cu",
-    "groupnorm_silu_bwd_sm90.cu", "groupnorm_silu.cu",
+    "groupnorm_silu_bwd_sm90.cu", "groupnorm_silu.cu", "adamw_factored.cu",
 )
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

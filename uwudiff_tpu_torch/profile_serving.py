@@ -34,6 +34,8 @@ _FAMILIES = (
     ("flash_bwd_dkv (K6)", ("flash_bwd_dkv_sm90_kernel", "flash_bwd_dkv_kernel")),
     ("groupnorm bwd (K7/K8)", ("gn_silu_bwd_fused_kernel", "gn_bwd_partial_kernel", "gn_bwd_dx_kernel")),
     ("groupnorm (K2/K3)", ("gn_silu_fused_kernel", "gn_stats_kernel", "gn_apply_kernel")),
+    ("optimizer (O1)", ("adamw_norm_kernel", "adamw_stats_kernel", "adamw_finish_kernel", "adamw_rms_kernel",
+                        "adamw_apply_kernel")),
     ("attention einsum/softmax", ("softmax",)),
     ("convolution", ("conv", "implicit", "dgrad", "wgrad", "fprop", "nchw", "nhwc")),
     ("matmul", ("gemm", "nvjet", "cutlass", "matmul", "gemv")),

@@ -2,10 +2,13 @@
 
 One ``train_step(batch)``: the diffusion loss over the UNet (its timesteps
 and noise drawn from the trainer's ``torch.Generator`` or passed in), the
-backward pass through the hand-written kernels' autograd functions, the
-global gradient norm, optional global-norm clipping, the optimizer, and
-for bf16 parameters a stochastic-rounding update whose noise bits come
-from a generator seeded by (seed, step, leaf index), or are passed in.
+backward pass through the hand-written kernels' autograd functions, then
+the whole parameter update in the optimizer's ``step_``: the global
+gradient norm, optional global-norm clipping, the optimizer, for bf16
+parameters a stochastic-rounding update whose noise bits are a pure
+function of (seed, step, leaf index, element) or are passed in, and the
+optional weight EMA (``ema_weights_decay``). With ``adamw_factored`` on
+the card that update is a fixed handful of fused kernel launches.
 
 Parity with the JAX ``DMTrainer``: the batch carries precached latents
 (``sample`` or ``latent``; no VAE) and text conditioning (``ctx``,
@@ -15,35 +18,22 @@ and its tokenizers are held for subclasses (``TextualInversionTrainer``
 encodes inside its loss); the subclass hooks are the JAX trainer's
 ``_select_trainable_params`` and ``_loss_for_batch``. Meshes, the frozen
 TE/VAE encodes of ``DMTrainer`` itself, caption dropout, adapters, MoE,
-pipeline parallelism, weight EMA, gradient accumulation, ``fit`` and
+pipeline parallelism, gradient accumulation, ``fit``, export and
 validation are not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from uwudiff_tpu_torch.diffusion import DiffusionLoss, NoiseSchedule
 from uwudiff_tpu_torch.models.tokenizers import SimpleTokenizer
 from uwudiff_tpu_torch.training.lr_schedules import warmup_cosine_schedule
-from uwudiff_tpu_torch.training.optimizers import build_optimizer, stochastic_round_add
+from uwudiff_tpu_torch.training.optimizers import build_optimizer
 from uwudiff_tpu_torch.utils import resolve_device
 
 __all__ = ["DMTrainer"]
-
-_MASK64 = (1 << 64) - 1
-
-
-def _sr_seed(seed: int, step: int, index: int) -> int:
-    """A 64-bit generator seed for (seed, step, leaf index): splitmix64 of
-    the three, so neighbouring leaves and steps draw unrelated bits."""
-    z = 0
-    for v in (seed, step, index):
-        z = (z ^ (v & _MASK64)) * 0x9E3779B97F4A7C15 & _MASK64
-        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-        z ^= z >> 31
-    return z
 
 
 class DMTrainer:
@@ -54,7 +44,10 @@ class DMTrainer:
     text model gets a ``SimpleTokenizer()``, as in the JAX trainer.
     ``param_dtype="bfloat16"`` stores the parameters in bf16 and applies
     updates with stochastic rounding; ``None`` keeps the module's dtype.
-    Runs on ``device`` (default CUDA, which raises without a GPU)."""
+    ``ema_weights_decay`` (e.g. 0.9999) keeps an EMA of the trainable
+    parameters in their dtype (:meth:`ema_weights`), as the JAX trainer's
+    ``ema_params``; None turns it off. Runs on ``device`` (default CUDA,
+    which raises without a GPU)."""
 
     def __init__(
         self,
@@ -70,6 +63,7 @@ class DMTrainer:
         ema_decay: float = 0.99,
         seed: int = 42,
         param_dtype: str | None = None,
+        ema_weights_decay: float | None = None,
         log_grad_norm: bool = True,
         device="cuda",
     ):
@@ -94,12 +88,14 @@ class DMTrainer:
         self.param_dtype = None if param_dtype is None else getattr(torch, param_dtype)
         if self.param_dtype not in (None, torch.bfloat16):
             raise NotImplementedError(f"param_dtype {param_dtype!r}: only None and 'bfloat16'")
+        self.ema_weights_decay = ema_weights_decay
         self.log_grad_norm = log_grad_norm
         self.step = 0
         self.ema_loss = None
         self.params: list[tuple[str, torch.nn.Parameter]] = []
+        self.ema_params: list[torch.Tensor] | None = None
         self.opt_state = None
-        self._gen = self._sr_gen = None
+        self._gen = None
         self._events = None
 
     def setup(self):
@@ -109,8 +105,9 @@ class DMTrainer:
             return
         self.params = self._select_trainable_params()
         self.opt_state = self.tx.init([p for _, p in self.params])
+        if self.ema_weights_decay is not None:
+            self.ema_params = [p.detach().clone() for _, p in self.params]
         self._gen = torch.Generator(device=self.device).manual_seed(self.seed)  # timesteps, noise
-        self._sr_gen = torch.Generator(device=self.device)  # reseeded for each leaf and step
         self.ema_loss = torch.zeros((), dtype=torch.float32, device=self.device)
 
     def _select_trainable_params(self) -> list[tuple[str, torch.nn.Parameter]]:
@@ -181,30 +178,39 @@ class DMTrainer:
         loss.backward()
         return loss.detach(), aux
 
+    def ema_weights(self) -> dict[str, torch.Tensor]:
+        """The weight EMA, ``{name: tensor}`` in the trainable parameters'
+        names, dtypes and layouts (for export and sampling); raises when
+        ``ema_weights_decay`` is None."""
+        if self.ema_weights_decay is None:
+            raise ValueError("EMA weights not enabled (set ema_weights_decay)")
+        self.setup()
+        return {name: e for (name, _), e in zip(self.params, self.ema_params)}
+
+    def _ema_step_decay(self) -> float | None:
+        """This step's EMA decay, warm-up-aware as the JAX trainer's, in
+        fp32: ``min((1 + step) / (10 + step), ema_weights_decay)``."""
+        if self.ema_weights_decay is None:
+            return None
+        step = np.float32(self.step)
+        return float(np.minimum((np.float32(1.0) + step) / (np.float32(10.0) + step),
+                                np.float32(self.ema_weights_decay)))
+
     @torch.no_grad()
-    def apply_updates(self, sr_bits: dict | None = None):
-        """Global grad norm, optional clipping, the optimizer, and the
-        parameter update (stochastically rounded for bf16 parameters, with
-        ``sr_bits[name]`` where given). Returns the grad norm (or None)."""
-        grads = [p.grad for _, p in self.params]
-        norm = None
-        if self.log_grad_norm or self.grad_clip:
-            norm = torch.linalg.vector_norm(
-                torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
-        if self.grad_clip:  # optax.clip_by_global_norm
-            keep = norm < self.grad_clip
-            grads = [torch.where(keep, g, g / norm.to(g.dtype) * self.grad_clip) for g in grads]
-        updates, self.opt_state = self.tx.update(grads, self.opt_state, [p for _, p in self.params])
-        for i, ((name, p), u) in enumerate(zip(self.params, updates)):
-            if p.dtype == torch.bfloat16:
-                bits = None if sr_bits is None else sr_bits.get(name)
-                if bits is None:
-                    self._sr_gen.manual_seed(_sr_seed(self.seed, self.step, i))
-                    bits = torch.randint(0, 1 << 16, p.shape, generator=self._sr_gen, device=p.device,
-                                         dtype=torch.int32)
-                p.copy_(stochastic_round_add(p, u, bits))
-            else:
-                p.copy_((p + u).to(p.dtype))
+    def apply_updates(self, sr_bits: dict | None = None, ema_bits: dict | None = None):
+        """The whole parameter update (the optimizer's ``step_``): global
+        grad norm, optional clipping, the optimizer, the parameter update
+        (stochastically rounded for bf16 parameters, with ``sr_bits[name]``
+        where given) and the weight EMA (``ema_bits[name]``). Returns the
+        grad norm."""
+        names = [n for n, _ in self.params]
+        params = [p for _, p in self.params]
+        norm = self.tx.step_(
+            params, [p.grad for p in params], self.opt_state, grad_clip=self.grad_clip, seed=self.seed,
+            step=self.step, sr_bits=None if sr_bits is None else [sr_bits.get(n) for n in names],
+            ema_params=self.ema_params, ema_decay=self._ema_step_decay(),
+            ema_bits=None if ema_bits is None else [ema_bits.get(n) for n in names])
+        for p in params:
             p.grad = None
         return norm
 
