@@ -8,8 +8,10 @@ Phases, each fatal on failure:
   2. kernels - each kernel against its plain PyTorch version on the card,
                in bf16: the forward and backward kernels at the serving,
                training and textual-inversion paths' shapes (CLIP-L/bigG,
-               T5-XXL, the MMDiT's joint attention), each twice for bitwise
-               reproducibility, the dQ + dBias kernel at T5-XXL's; every
+               T5-XXL, the MMDiT's joint attention) and at every attention
+               shape of the SD1.5 step (batch 16; head dims 40/80/160 on the
+               mma.sync kernels), each twice for bitwise reproducibility,
+               the dQ + dBias kernel at T5-XXL's and at D = 160; every
                GroupNorm shape on the route plan_gn gives it (the fused
                single-pass kernel or the chunked stats + apply pair), with
                wall and device ms beside F.group_norm+F.silu, and the
@@ -26,10 +28,12 @@ Phases, each fatal on failure:
                against its plain version at SDXL leaf shapes, three steps
                with and without the global-norm clip, the weight EMA on,
                drawn and given rounding bits, two runs bitwise. Then
-               small SDXL- and SD3-shaped models, bf16 on the card through
-               the kernels, against the same weights in fp32 on the CPU:
-               forwards, one SDXL training step's loss and gradients, and
-               one textual-inversion step's loss and row gradients
+               small SDXL-, SD1.5- and SD3-shaped models, bf16 on the card
+               through the kernels, against the same weights in fp32 on the
+               CPU: forwards, one SDXL training step's loss and gradients,
+               one SD1.5-recipe step's (fp32 masters under bf16 compute,
+               head dims 40/80/160, adamw_fp16) and one textual-inversion
+               step's loss and row gradients
   3. serve   - SDXL at full width (random weights from a fixed seed, bf16):
                BatchingServer -> clip_l + clip_bigg -> CFG 5.0
                Euler-ancestral UNet -> VAE decode, 1024x1024 requests: a
@@ -52,7 +56,19 @@ Phases, each fatal on failure:
                1,680 leaves, each update kernel's time against its byte
                bound, the plain update's and torch.optim.AdamW(fused=True)'s
                (another function, for scale).
-  5. ti      - SD3-medium textual inversion at full width
+  5. sd15    - the SD1.5 full fine-tune step at full width
+               (training/bench_setup.py, model="sd15": batch 16, 64x64
+               latents, fp32 masters under bf16 compute, adamw_fp16, global
+               clip 1.0): one warm-up step and 5 timed steps. Checks finite
+               and moving losses, that every master moved and the module
+               holds their bf16 rounding, each step's launches against the
+               UNet's plan (every flash forward, dQ and dK/dV on the mma.sync
+               kernels, split by head dim as the modules say: 12 of each at
+               D = 160; the update as adamw_norm + adamw_fp16_apply). Then
+               the update over the step's 686 leaves against its plain
+               version, bitwise, with and without the clip, and each O2
+               kernel's time against its byte bound.
+  6. ti      - SD3-medium textual inversion at full width
                (training/bench_setup.py: MMDiT + CLIP-L + CLIP-bigG +
                T5-XXL at 256 tokens, batch 8, 64x64x16 latents, bf16
                frozen weights, two placeholder vectors per encoder): one
@@ -202,10 +218,16 @@ def flash_cases():
         ("t5_xxl", 8, 256, 256, 64, 64, "t5", 1.0),
         ("mmdit_joint", 8, 1357, 1357, 24, 64, "joint", None),
         ("ragged_keymask", 2, 200, 200, 4, 64, "key", None),
-        ("sd15_d40", 4, 4096, 4096, 8, 40, "none", None),
-        ("sd15_d80", 4, 1024, 1024, 8, 80, "none", None),
-        ("sd15_d160", 4, 256, 256, 8, 160, "none", None),
-    ]
+    ] + SD15_ATTENTION
+
+
+# the SD1.5 training step's attentions at batch 16 and 64x64 latents, on the
+# mma.sync kernels: each level's self- and cross-attention (8 heads)
+SD15_ATTENTION = [
+    (f"sd15_{level}_{kind}", 16, s, s if kind == "self" else 77, 8, d, "none", None)
+    for level, s, d in (("l0", 4096, 40), ("l1", 1024, 80), ("l2", 256, 160), ("mid", 64, 160))
+    for kind in ("self", "cross")
+]
 
 
 def make_bias(kind, b, h, sq, sk, dev, gen):
@@ -339,17 +361,47 @@ def gn_cases():
     return cases + vae
 
 
+def gn_fwd_check(x, gamma, beta, groups, eps, silu=True):
+    """The forward on the route plan_gn gives x's shape, the fused kernel
+    (K2) or the chunked pair (K3 + the apply), against the plain version: y
+    within one bf16 step of the largest output + 1e-3, the saved statistics
+    within 1e-4 relative, bitwise over two runs. Returns (plan, y, stats,
+    err, tol, stats_err, bitwise, ok)."""
+    from uwudiff_tpu_torch.ops import gn_silu_apply, gn_silu_fused, gn_stats, plan_gn
+    from uwudiff_tpu_torch.ops.groupnorm_silu import gn_stats_reference, group_norm_silu_reference
+
+    plan = plan_gn(*x.shape, groups, x.dtype)
+    if plan.route == "fused":
+        y, stats = gn_silu_fused(x, gamma, beta, groups, eps, silu, with_stats=True)
+        bitwise = torch.equal(y, gn_silu_fused(x, gamma, beta, groups, eps, silu))
+    else:
+        stats = gn_stats(x, gamma, beta, groups, eps, with_group_stats=True)
+        y = gn_silu_apply(x, stats[0], stats[1], silu)
+        again = gn_stats(x, gamma, beta, groups, eps, with_group_stats=True)
+        bitwise = all(torch.equal(a, b) for a, b in zip(stats, again)) and torch.equal(
+            y, gn_silu_apply(x, again[0], again[1], silu))
+    torch.cuda.synchronize()
+    # scale, mean and inv relative; shift = beta - mean*scale, which cancels, absolute
+    ref_stats = gn_stats_reference(x, gamma, beta, groups, eps, with_group_stats=True)
+    stats_err = max([((a - r).abs() / r.abs().clamp_min(1e-3)).max().item()
+                     for i, (a, r) in enumerate(zip(stats, ref_stats)) if i != 1]
+                    + [(stats[1] - ref_stats[1]).abs().max().item()])
+    yr = group_norm_silu_reference(x, gamma, beta, groups, eps, silu)
+    err = (y.float() - yr.float()).abs().max().item()
+    # one bf16 ulp at the largest output, plus fp32 stats noise
+    tol = yr.float().abs().max().item() * 2.0**-7 + 1e-3
+    ok = bool(torch.isfinite(y).all()) and err <= tol and stats_err <= 1e-4 and bitwise
+    return plan, y, stats, err, tol, stats_err, bitwise, ok
+
+
 def check_gn(results, failures):
-    """Every gn_cases() shape on the route plan_gn gives it: the fused
-    kernel (K2) or the chunked pair (K3 + the apply), against the plain
-    version (y within one bf16 step of the largest output + 1e-3, the saved
-    statistics within 1e-4 relative, bitwise over two runs); wall ms (CUDA
-    events) and the profiler's device ms beside F.group_norm+F.silu (and
-    torch.var_mean for K3) and the route's bound: 2 passes over x fused, 3
-    chunked."""
+    """Every gn_cases() shape on the route plan_gn gives it, held against
+    the plain version by gn_fwd_check; wall ms (CUDA events) and the
+    profiler's device ms beside F.group_norm+F.silu (and torch.var_mean for
+    K3) and the route's bound: 2 passes over x fused, 3 chunked."""
     import torch.nn.functional as F
 
-    from uwudiff_tpu_torch.ops import gn_silu_apply, gn_silu_fused, gn_stats, plan_gn
+    from uwudiff_tpu_torch.ops import gn_silu_apply, gn_silu_fused, gn_stats
     from uwudiff_tpu_torch.ops.groupnorm_silu import (
         gn_silu_apply_reference,
         gn_stats_reference,
@@ -365,28 +417,8 @@ def check_gn(results, failures):
         # the models' affine dtype: the kernels read gamma/beta as bf16
         gamma = (torch.randn(c, generator=gen, device=dev) * 0.2 + 1.0).bfloat16()
         beta = (torch.randn(c, generator=gen, device=dev) * 0.1).bfloat16()
-        plan = plan_gn(n, hw, c, groups, torch.bfloat16)
+        plan, y, stats, err, tol, stats_err, bitwise, ok = gn_fwd_check(x, gamma, beta, groups, eps)
         fused = plan.route == "fused"
-        if fused:
-            y, stats = gn_silu_fused(x, gamma, beta, groups, eps, with_stats=True)
-            bitwise = torch.equal(y, gn_silu_fused(x, gamma, beta, groups, eps))
-        else:
-            stats = gn_stats(x, gamma, beta, groups, eps, with_group_stats=True)
-            y = gn_silu_apply(x, stats[0], stats[1])
-            again = gn_stats(x, gamma, beta, groups, eps, with_group_stats=True)
-            bitwise = all(torch.equal(a, b) for a, b in zip(stats, again)) and torch.equal(
-                y, gn_silu_apply(x, again[0], again[1]))
-        torch.cuda.synchronize()
-        # scale, mean and inv relative; shift = beta - mean*scale, which cancels, absolute
-        ref_stats = gn_stats_reference(x, gamma, beta, groups, eps, with_group_stats=True)
-        stats_err = max([((a - r).abs() / r.abs().clamp_min(1e-3)).max().item()
-                         for i, (a, r) in enumerate(zip(stats, ref_stats)) if i != 1]
-                        + [(stats[1] - ref_stats[1]).abs().max().item()])
-        yr = group_norm_silu_reference(x, gamma, beta, groups, eps)
-        err = (y.float() - yr.float()).abs().max().item()
-        # one bf16 ulp at the largest output, plus fp32 stats noise
-        tol = yr.float().abs().max().item() * 2.0**-7 + 1e-3
-        ok = bool(torch.isfinite(y).all()) and err <= tol and stats_err <= 1e-4 and bitwise
         # the library on the layout a user would hand it: contiguous NCHW (its
         # native one; the copy is made outside the timing)
         side = int(round(hw**0.5))
@@ -446,7 +478,7 @@ def check_gn(results, failures):
             del x_g
         if not ok:
             failures.append(f"gn {n}x{hw}x{c} {plan.route}: err {err} stats {stats_err} bitwise {bitwise}")
-        del x, y, yr
+        del x, y
         torch.cuda.empty_cache()
 
 
@@ -476,10 +508,7 @@ def flash_bwd_cases():
         ("clip_l_causal", 8, 77, 77, 12, 64, "full", None),
         ("t5_xxl", 8, 256, 256, 64, 64, "t5", 1.0),
         ("mmdit_joint", 8, 1357, 1357, 24, 64, "joint", None),
-        # SD1.5's head dims, on the mma.sync kernels (on no path yet)
-        ("sd15_d40", 4, 1024, 1024, 8, 40, "none", None),
-        ("sd15_d80", 4, 256, 256, 8, 80, "none", None),
-    ]
+    ] + SD15_ATTENTION  # SD1.5's head dims 40/80/160, on the mma.sync kernels
 
 
 def check_flash_bwd(results, failures):
@@ -496,7 +525,7 @@ def check_flash_bwd(results, failures):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     for name, b, sq, sk, h, d, kind, scale in flash_bwd_cases():
-        bwd_dq, bwd_dkv = backward_kernels(d)  # the _sm90 pair at D = 64, the _mma pair at 40/80
+        bwd_dq, bwd_dkv = backward_kernels(d)  # the _sm90 pair at D = 64, the _mma pair at 40/80/160
         q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
                    for s in (sq, sk, sk))
         bias = make_bias(kind, b, h, sq, sk, dev, gen)
@@ -619,8 +648,10 @@ def check_flash_bwd_views(failures):
 
 def flash_dbias_cases():
     # (name, B, S, H, D, scale): T5-XXL's attention at 256 tokens (no
-    # 1/sqrt(d) scale), a ragged case and another head dim
-    return [("t5_xxl", 8, 256, 64, 64, 1.0), ("ragged", 2, 200, 4, 64, 1.0), ("d80", 2, 256, 8, 80, None)]
+    # 1/sqrt(d) scale), a ragged case and other head dims (160 at the SD1.5
+    # step's level-2 shape; no path trains an attention bias there)
+    return [("t5_xxl", 8, 256, 64, 64, 1.0), ("ragged", 2, 200, 4, 64, 1.0), ("d80", 2, 256, 8, 80, None),
+            ("d160", 16, 256, 8, 160, None)]
 
 
 def t5_bias(b, h, s, dev, gen):
@@ -728,6 +759,49 @@ def gn_saved_stats(x, gamma, beta, groups, eps):
     return gn_stats(x, gamma, beta, groups, eps, with_group_stats=True)
 
 
+def check_gn_calls(gn_calls, failures, backward) -> list:
+    """Each distinct GroupNorm call of a path's run (N, HW, C, groups, SiLU,
+    eps) that phase 2 did not hold at those values: on random inputs of its
+    shape, the forward by gn_fwd_check and, with ``backward``, the backward
+    by gn_bwd_check, on the routes the plans give it, with phase 2's bounds
+    and bitwise check. Returns each call's numbers."""
+    held_fwd = {(n, hw, c, 32, True, 1e-5) for n, hw, c in gn_cases()}
+    held_bwd = {(n, hw, c, 32, silu, 1e-5) for n, hw, c, silu in gn_bwd_cases()}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    out = []
+    for call in sorted(set(gn_calls)):
+        if call in held_fwd and (not backward or call in held_bwd):
+            continue
+        n, hw, c, groups, silu, eps = call
+        x = (torch.randn((n, hw, c), generator=gen, device=dev) * 2.0 + 0.5).to(torch.bfloat16)
+        gamma = (torch.randn(c, generator=gen, device=dev) * 0.2 + 1.0).bfloat16()
+        beta = (torch.randn(c, generator=gen, device=dev) * 0.1).bfloat16()
+        plan, y, stats, err, tol, stats_err, bitwise, ok = gn_fwd_check(x, gamma, beta, groups, eps, silu)
+        row = dict(shape=[n, hw, c], groups=groups, silu=silu, eps=eps, route=plan.route, max_abs_err=err, tol=tol,
+                   stats_rel_err=stats_err, bitwise=bitwise)
+        line = (f"  gn [{n},{hw},{c}]/{groups} silu={silu} eps={eps:g} {plan.route} err {err:.1e}/{tol:.1e}"
+                f" stats {stats_err:.1e}")
+        del y
+        if backward:
+            g = torch.randn((n, hw, c), generator=gen, device=dev).to(torch.bfloat16)
+            bplan, checks, b_bitwise, b_out = gn_bwd_check(x, g, (gamma, *stats), silu, groups)
+            ok = ok and b_bitwise and all(v[0] for v in checks.values())
+            row.update(bwd_route=bplan.route, bwd_errs={o: v[1] for o, v in checks.items()},
+                       bwd_tol={o: v[3] for o, v in checks.items()}, bwd_bitwise=b_bitwise)
+            line += (f"; bwd {bplan.route} " + " ".join(f"{o} {v[1]:.1e}/{v[3]:.1e}" for o, v in checks.items())
+                     + f" bitwise {b_bitwise}")
+            del g, b_out
+        row["ok"] = ok
+        out.append(row)
+        log(line + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"gn call {call}: {row}")
+        del x, stats
+    torch.cuda.empty_cache()
+    return out
+
+
 def device_ops(fn, tries=3):
     """The names of the device kernels and copies of one call of ``fn``,
     from torch.profiler (a trace that caught nothing is taken again)."""
@@ -746,20 +820,52 @@ def device_ops(fn, tries=3):
     return names
 
 
-def check_gn_bwd(results, failures):
-    """Every gn_bwd_cases() shape on the route plan_gn_bwd gives it: the
-    fused kernel (one launch) or the pair (K7, then K8), from the forward's
-    saved statistics, against the plain versions (close_enough per output:
+def gn_bwd_check(x, g, saved, silu, groups):
+    """The backward's kernels on the route plan_gn_bwd gives x's shape, from
+    the forward's saved statistics: the fused kernel (one launch) or the
+    pair (K7, then K8), against the plain versions (close_enough per output:
     dx, t = (t1, t2) and, for the pair, K8's coefficients; bitwise over two
-    runs), and the whole backward through autograd against autograd of the
-    fp32 plain forward (dx, dgamma, dbeta), whose device work is the route's
-    kernels, the sum over samples and the two casts to the bf16 parameters'
-    dtype, nothing else (no glue). Wall ms (CUDA events) and the profiler's
-    device ms beside F.group_norm+F.silu's backward and the route's bound;
-    on the fused route the pair is timed beside it."""
+    runs). Returns (plan, checks, bitwise, outputs of the first run)."""
+    from uwudiff_tpu_torch.ops import gn_bwd_dx, gn_bwd_partials, gn_silu_bwd_fused, plan_gn_bwd
+    from uwudiff_tpu_torch.ops.groupnorm_silu import (
+        gn_bwd_dx_reference,
+        gn_bwd_partials_reference,
+        gn_silu_bwd_fused_reference,
+    )
+
+    plan = plan_gn_bwd(*x.shape, groups, x.dtype)
+    dx_ref, t_ref = gn_silu_bwd_fused_reference(x, g, *saved, silu)
+
+    def pair():
+        t, coef = gn_bwd_partials(x, g, *saved, silu)
+        return gn_bwd_dx(x, g, coef, silu), t, coef
+
+    if plan.route == "fused":
+        out = gn_silu_bwd_fused(x, g, *saved, silu)
+        again = gn_silu_bwd_fused(x, g, *saved, silu)
+        checks = {"dx_kernel": close_enough(out[0], dx_ref), "t": close_enough(out[1], t_ref)}
+    else:
+        out, again = pair(), pair()
+        t_pair, coef_ref = gn_bwd_partials_reference(x, g, *saved, silu)
+        checks = {"t": close_enough(out[1], t_pair), "coef": close_enough(out[2], coef_ref),
+                  "dx_kernel": close_enough(out[0], gn_bwd_dx_reference(x, g, out[2], silu)),
+                  "dx_plain": close_enough(out[0], dx_ref)}
+    bitwise = all(torch.equal(a, b) for a, b in zip(out, again))
+    torch.cuda.synchronize()
+    return plan, checks, bitwise, out
+
+
+def check_gn_bwd(results, failures):
+    """Every gn_bwd_cases() shape held against the plain versions by
+    gn_bwd_check, and the whole backward through autograd against autograd
+    of the fp32 plain forward (dx, dgamma, dbeta), whose device work is the
+    route's kernels, the sum over samples and the two casts to the bf16
+    parameters' dtype, nothing else (no glue). Wall ms (CUDA events) and the
+    profiler's device ms beside F.group_norm+F.silu's backward and the
+    route's bound; on the fused route the pair is timed beside it."""
     import torch.nn.functional as F
 
-    from uwudiff_tpu_torch.ops import gn_bwd_dx, gn_bwd_partials, gn_silu_bwd_fused, group_norm_silu, plan_gn_bwd
+    from uwudiff_tpu_torch.ops import gn_bwd_dx, gn_bwd_partials, gn_silu_bwd_fused, group_norm_silu
     from uwudiff_tpu_torch.ops.groupnorm_silu import (
         gn_bwd_dx_reference,
         gn_bwd_partials_reference,
@@ -778,28 +884,8 @@ def check_gn_bwd(results, failures):
         gamma = (torch.randn(c, generator=gen, device=dev) * 0.2 + 1.0).bfloat16()
         beta = (torch.randn(c, generator=gen, device=dev) * 0.1).bfloat16()
         saved = (gamma, *gn_saved_stats(x, gamma, beta, groups, eps))
-        plan = plan_gn_bwd(n, hw, c, groups, torch.bfloat16)
+        plan, checks, bitwise, out = gn_bwd_check(x, g, saved, silu, groups)
         fused = plan.route == "fused"
-        dx_ref, t_ref = gn_silu_bwd_fused_reference(x, g, *saved, silu)
-
-        def pair():
-            t, coef = gn_bwd_partials(x, g, *saved, silu)
-            return gn_bwd_dx(x, g, coef, silu), t, coef
-
-        if fused:
-            dx, t = gn_silu_bwd_fused(x, g, *saved, silu)
-            again = gn_silu_bwd_fused(x, g, *saved, silu)
-            bitwise = torch.equal(dx, again[0]) and torch.equal(t, again[1])
-            checks = {"dx_kernel": close_enough(dx, dx_ref), "t": close_enough(t, t_ref)}
-        else:
-            dx, t, coef = pair()
-            again = pair()
-            bitwise = all(torch.equal(a, b) for a, b in zip((dx, t, coef), again))
-            t_pair, coef_ref = gn_bwd_partials_reference(x, g, *saved, silu)
-            checks = {"t": close_enough(t, t_pair), "coef": close_enough(coef, coef_ref),
-                      "dx_kernel": close_enough(dx, gn_bwd_dx_reference(x, g, coef, silu)),
-                      "dx_plain": close_enough(dx, dx_ref)}
-        torch.cuda.synchronize()
         # the whole backward through autograd against autograd of the fp32 plain forward
         gamma_p = gamma.float().requires_grad_()
         beta_p = beta.float().requires_grad_()
@@ -868,7 +954,7 @@ def check_gn_bwd(results, failures):
         log(line + f" vs F.group_norm+silu bwd {library_ms:.4f}; plain {plain_t + plain_dx:.2f}")
         if not ok:
             failures.append(f"gn_bwd {case}: {checks} bitwise {bitwise} device ops {ops}")
-        del x, g, dx, t, coef, again, saved
+        del x, g, out, coef, saved
         torch.cuda.empty_cache()
 
 
@@ -1148,6 +1234,68 @@ def check_train_vs_cpu(failures):
     return {"loss_rel_err": loss_err, "grad_rel_err": grad_err, "tol": tol}
 
 
+def small_sd15_unet(device):
+    """A small SD1.5-layout UNet (four levels, 1x1-conv projections, no
+    addition embedding) whose head dims are SD1.5's 40/80/160: 80/160/320
+    channels over 2 heads. fp32 weights."""
+    from uwudiff_tpu_torch.models import UNet2DConditionModel
+
+    return UNet2DConditionModel.from_config("sd15", device=device, block_out_channels=(80, 160, 320, 320),
+                                            num_attention_heads=2, cross_attention_dim=64, norm_num_groups=16)
+
+
+def check_sd15_train_vs_cpu(failures):
+    """One SD1.5-recipe step of the small SD1.5-layout UNet: on the card the
+    fp32 masters under bf16 compute through the mma.sync flash kernels at
+    D = 40/80/160 and adamw_fp16's kernels (O2), against the same weights
+    in fp32 on the CPU through the plain versions, the same noise and
+    timesteps: the loss and the gradients within the bf16 bound of
+    check_train_vs_cpu; then the card's update moves every master and
+    leaves the module's weights their bf16 rounding."""
+    import copy
+
+    from uwudiff_tpu_torch.diffusion import DiffusionLoss, NoiseSchedule
+    from uwudiff_tpu_torch.ops import launch_counts, mma_launches_by_head_dim, reset_launch_counts
+    from uwudiff_tpu_torch.training import DMTrainer
+
+    torch.manual_seed(SEED + 13)
+    cpu = small_sd15_unet("cpu")
+    gpu = copy.deepcopy(cpu).to("cuda")
+    gen = torch.Generator().manual_seed(SEED + 14)
+    batch = {"sample": torch.randn((2, 32, 32, 4), generator=gen), "ctx": torch.randn((2, 77, 64), generator=gen)}
+    noise = torch.randn((2, 32, 32, 4), generator=gen)
+    timesteps = torch.tensor([37, 712])
+    losses, grads, trainers = {}, {}, {}
+    for dev, unet, compute in (("cpu", cpu, None), ("cuda", gpu, "bfloat16")):
+        tr = DMTrainer({"unet": unet}, optimizer="adamw_fp16", use_warm_up=False, grad_clip=1.0,
+                       loss_config=DiffusionLoss(schedule=NoiseSchedule.sd15()), compute_dtype=compute, device=dev)
+        reset_launch_counts()
+        loss, _ = tr.forward_backward(batch, noise, timesteps)
+        losses[dev] = loss.float().cpu()
+        grads[dev] = torch.cat([p.grad.float().cpu().flatten() for _, p in tr.params])
+        trainers[dev] = tr
+    by_dim = mma_launches_by_head_dim()
+    loss_err = ((losses["cuda"] - losses["cpu"]).abs() / losses["cpu"].abs()).item()
+    grad_err = ((grads["cuda"] - grads["cpu"]).norm() / grads["cpu"].norm()).item()
+    tr = trainers["cuda"]
+    before = [m.clone() for m in tr.masters]
+    tr.apply_updates()
+    torch.cuda.synchronize()
+    o2 = launch_counts()["adamw_fp16_apply"]
+    moved = all(not torch.equal(a, b) for a, b in zip(before, tr.masters))
+    rounded = all(torch.equal(p.detach(), m.to(torch.bfloat16)) for (_, p), m in zip(tr.params, tr.masters))
+    tol = 5e-2  # bf16 weights, activations and gradients through a few dozen layers
+    dims_ok = all(set(v) == {40, 80, 160} for v in by_dim.values())
+    log(f"  SD1.5-layout step, card (fp32 masters, bf16 compute) vs CPU fp32 plain: loss rel err {loss_err:.2e},"
+        f" grad |d|/|ref| {grad_err:.2e} (tol {tol}); mma launches by head dim {by_dim}; O2 launches {o2};"
+        f" masters moved {moved}, module = bf16(masters) {rounded}")
+    if not (loss_err <= tol and grad_err <= tol and dims_ok and o2 == 1 and moved and rounded):
+        failures.append(f"SD1.5-layout step card vs CPU: loss {loss_err} grad {grad_err} (tol {tol}), head dims"
+                        f" {by_dim}, O2 launches {o2}, masters moved {moved}, module rounded {rounded}")
+    return {"loss_rel_err": loss_err, "grad_rel_err": grad_err, "tol": tol,
+            "mma_launches_by_head_dim": {k: {str(d): n for d, n in v.items()} for k, v in by_dim.items()}}
+
+
 def small_ti_trainer(device, dtype):
     """A small SD3-shaped textual-inversion stack, head dim 64 everywhere:
     two 128-wide CLIPs (bucket 0, pooled), a 128-wide T5 at 256 tokens
@@ -1256,21 +1404,26 @@ def check_models_vs_cpu(failures):
     return errs
 
 
-def check_forward_route(counts, phase, failures):
-    """Every flash forward of a path ran the Hopper kernel (all its
-    attentions have head dim 64) and none the mma.sync one."""
-    if counts["flash_fwd_mma"] != 0 or counts["flash_fwd_sm90"] != counts["flash_fwd"] or counts["flash_fwd"] == 0:
+def check_forward_route(counts, phase, failures, route="sm90"):
+    """Every flash forward of a path ran one kernel: the Hopper one where
+    all its attentions have head dim 64, the mma.sync one (``route`` "mma")
+    where all have SD1.5's 40/80/160."""
+    other = "mma" if route == "sm90" else "sm90"
+    if (counts[f"flash_fwd_{other}"] != 0 or counts[f"flash_fwd_{route}"] != counts["flash_fwd"]
+            or counts["flash_fwd"] == 0):
         failures.append(f"{phase}: flash forward launches sm90 {counts['flash_fwd_sm90']},"
-                        f" mma {counts['flash_fwd_mma']}; every one should be on flash_fwd_sm90")
+                        f" mma {counts['flash_fwd_mma']}; every one should be on flash_fwd_{route}")
 
 
-def check_backward_route(counts, phase, failures):
+def check_backward_route(counts, phase, failures, route="sm90"):
     """Every dQ (but K5's) and every dK/dV launch of a training path ran
-    the Hopper kernels and none the mma.sync ones."""
+    the Hopper kernels (``route`` "sm90") or the mma.sync ones ("mma") and
+    none the other."""
+    other = "mma" if route == "sm90" else "sm90"
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        if counts[name + "_mma"] != 0 or counts[name + "_sm90"] != counts[name] or counts[name] == 0:
+        if counts[f"{name}_{other}"] != 0 or counts[f"{name}_{route}"] != counts[name] or counts[name] == 0:
             failures.append(f"{phase}: {name} launches sm90 {counts[name + '_sm90']}, mma {counts[name + '_mma']};"
-                            f" every one should be on {name}_sm90")
+                            f" every one should be on {name}_{route}")
 
 
 # ------------------------------------------------------------------ serve
@@ -1358,7 +1511,7 @@ def serve(report, failures):
         if counts[name] == 0:
             failures.append(f"kernel {name} was not launched on the serving path")
     check_forward_route(counts, "serve", failures)
-    routes = [plan_gn(*shape, torch.bfloat16).route for shape in gn_calls]
+    routes = [plan_gn(*call[:4], torch.bfloat16).route for call in gn_calls]
     gn_plan = {"gn_silu_fused": routes.count("fused"), "gn_stats": routes.count("chunked"),
                "gn_silu_apply": routes.count("chunked")}
     if any(counts[k] != v for k, v in gn_plan.items()):
@@ -1382,12 +1535,13 @@ def serve(report, failures):
     if not d_same < 0.05 * d_other:
         failures.append(f"seed lane not isolated: same-seed diff {d_same} vs other-seed {d_other}")
 
+    gn_checks = check_gn_calls(gn_calls, failures, backward=False)
     report["serve"] = dict(
         steps=STEPS, cfg=CFG, resolution=RES, batch_of_4_s=batch_s, imgs_per_s_batch=4 / batch_s,
         lone_request_latency_s=lone_s, peak_memory_gib=peak_gb, launches=counts, groupnorm_plan=gn_plan,
         lone_vs_lane_mean_abs_pixel_diff=img_diff, latents_same_seed_max_diff=d_same,
         latents_other_seed_max_diff=d_other, latents_same_seed_rms_diff=rms_same,
-        latents_std=lat_b.float().std().item(),
+        latents_std=lat_b.float().std().item(), gn_call_checks=gn_checks,
     )
     log(f"  batch of 4: {batch_s:.2f} s ({4 / batch_s:.3f} imgs/s); lone request {lone_s:.2f} s;"
         f" peak {peak_gb:.1f} GiB; launches {counts}; GroupNorm routes by plan_gn {gn_plan}")
@@ -1414,8 +1568,8 @@ def plan_launches(unet, gn_calls) -> dict:
     from uwudiff_tpu_torch.ops import plan_gn, plan_gn_bwd
 
     attn = sum(2 if m.has_cross else 1 for m in unet.modules() if isinstance(m, BasicTransformerBlock))
-    fwd = [plan_gn(*shape, torch.bfloat16).route for shape in gn_calls]
-    bwd = [plan_gn_bwd(*shape, torch.bfloat16).route for shape in gn_calls]
+    fwd = [plan_gn(*call[:4], torch.bfloat16).route for call in gn_calls]
+    bwd = [plan_gn_bwd(*call[:4], torch.bfloat16).route for call in gn_calls]
     return {"flash_fwd": attn, "flash_bwd_dq": attn, "flash_bwd_dkv": attn,
             "gn_silu_fused": fwd.count("fused"), "gn_stats": fwd.count("chunked"),
             "gn_silu_apply": fwd.count("chunked"), "gn_silu_bwd_fused": bwd.count("fused"),
@@ -1517,14 +1671,15 @@ def time_optimizer(trainer, failures) -> dict:
 
 
 def record_gn_calls(modules, calls):
-    """Forward pre-hooks that append (n, hw, c, groups) of every GroupNorm
-    call under ``modules`` to ``calls``; returns the hooks."""
+    """Forward pre-hooks that append (n, hw, c, groups, silu, eps) of every
+    GroupNorm call under ``modules`` to ``calls`` (its first four are what
+    plan_gn and plan_gn_bwd take); returns the hooks."""
     from uwudiff_tpu_torch.models.layers import GroupNorm
 
     def record(module, args):
         x = args[0]
         c = module.weight.shape[0]
-        calls.append((x.shape[0], x.numel() // (x.shape[0] * c), c, module.groups))
+        calls.append((x.shape[0], x.numel() // (x.shape[0] * c), c, module.groups, module.silu, module.eps))
 
     return [m.register_forward_pre_hook(record) for part in modules for m in part.modules()
             if isinstance(m, GroupNorm)]
@@ -1597,6 +1752,7 @@ def train(report, failures):
         failures.append(f"{len(moved_wrongly)} parameter leaves unchanged after {TRAIN_STEPS + 1} steps:"
                         f" {moved_wrongly[:8]}")
     opt = time_optimizer(trainer, failures)
+    gn_checks = check_gn_calls(gn_calls, failures, backward=True)
     step_s = sorted(s["step_s"] for s in steps)[TRAIN_STEPS // 2]
     fb_ms = sorted(s["forward_backward_ms"] for s in steps)[TRAIN_STEPS // 2]
     opt_ms = sorted(s["optimizer_ms"] for s in steps)[TRAIN_STEPS // 2]
@@ -1604,7 +1760,7 @@ def train(report, failures):
         batch=8, latent=64, params=n_params, leaves=len(start), build_s=build_s, warmup_step_s=warmup_s,
         steps=steps, median_step_s=step_s, imgs_per_s=8 / step_s, median_forward_backward_ms=fb_ms,
         median_optimizer_ms=opt_ms, peak_memory_gib=peak_gib, launches=counts, plan_per_step=plan,
-        gn_shapes=sorted(set(gn_calls)),
+        gn_shapes=sorted({call[:4] for call in gn_calls}), gn_call_checks=gn_checks,
         gn_grad_layout_copies=copies, unchanged_leaves=unchanged, losses=losses, grad_norms=norms, optimizer=opt)
     log(f"  train: step {step_s:.3f} s ({8 / step_s:.2f} imgs/s), forward+backward {fb_ms:.1f} ms,"
         f" optimizer {opt_ms:.1f} ms, peak {peak_gib:.1f} GiB; losses {[round(v, 4) for v in losses]},"
@@ -1612,6 +1768,223 @@ def train(report, failures):
         f" leaves unchanged {len(unchanged)} of {len(start)}, all unit-initialised norm weights:"
         f" {not moved_wrongly}")
     return counts
+
+
+# -------------------------------------------------------------- train SD1.5
+
+SD15_STEPS = 5
+
+
+def plan_fp16_optimizer() -> dict:
+    """adamw_fp16's launches per step (ops/fused_optim.py, O2): the global
+    norm, then the elementwise pass; none of O1's."""
+    from uwudiff_tpu_torch.ops import OPTIMIZER_KERNELS
+
+    return {**{name: 0 for name in OPTIMIZER_KERNELS}, "adamw_norm": 1, "adamw_fp16_apply": 1}
+
+
+def sd15_head_dim_plan(unet) -> dict:
+    """Attention calls per step by head dim, from the modules: a block's
+    self-attention, and its cross-attention."""
+    from uwudiff_tpu_torch.models.transformer import BasicTransformerBlock
+
+    plan: dict = {}
+    for m in unet.modules():
+        if isinstance(m, BasicTransformerBlock):
+            d = m.attn1.head_dim
+            plan[d] = plan.get(d, 0) + (2 if m.has_cross else 1)
+    return dict(sorted(plan.items()))
+
+
+def check_fp16_update(trainer, grads, failures) -> list:
+    """One update of the SD1.5 step's own leaves through O2 (tx.step_ on
+    clones of the trainer's masters, working copies and state) against the
+    plain version (apply_update_) from the same state, fed the gradients O2
+    clipped with its own norm (g / norm * clip in fp32, as the kernel does):
+    the masters, the working copies and both moments bitwise, the decay
+    accumulators equal, and O2's norm within 1e-6 of torch's norm of the
+    same gradients. With the recipe's clip at 1.0 (these gradients' norm is
+    ~4-6, so they are clipped) and without. Returns each case's numbers."""
+    import copy
+
+    from uwudiff_tpu_torch.training.optimizers import apply_update_
+
+    tx = trainer.tx
+    out = []
+    ref_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
+                                                     for g in grads])).item()
+    for clip in (1.0, None):
+        p_k, w_k = [m.clone() for m in trainer.masters], [p.detach().clone() for _, p in trainer.params]
+        st_k = copy.deepcopy(trainer.opt_state)
+        n_k = tx.step_(p_k, grads, st_k, grad_clip=clip, working=w_k)
+        p_r, w_r = [m.clone() for m in trainer.masters], [p.detach().clone() for _, p in trainer.params]
+        st_r = copy.deepcopy(trainer.opt_state)
+        g_r = [g.float() for g in grads]
+        if clip:
+            g_r = [torch.where(n_k < clip, g, g / n_k * clip) for g in g_r]
+        apply_update_(tx, p_r, g_r, st_r, working=w_r)
+        del g_r
+        mism = {name: sum(int((a.view(torch.int16 if a.element_size() == 2 else torch.int32)
+                               != b.view(torch.int16 if b.element_size() == 2 else torch.int32)).sum())
+                          for a, b in pairs)
+                for name, pairs in (("master", zip(p_k, p_r)), ("working", zip(w_k, w_r)),
+                                    ("exp_avg", ((a["exp_avg"], b["exp_avg"])
+                                                 for a, b in zip(st_k.leaves, st_r.leaves))),
+                                    ("exp_avg_sq", ((a["exp_avg_sq"], b["exp_avg_sq"])
+                                                    for a, b in zip(st_k.leaves, st_r.leaves))))}
+        max_abs = max((a - b).abs().max().item() for a, b in zip(p_k, p_r))
+        norm_rel = abs(n_k.item() - ref_norm) / ref_norm
+        decay_eq = bool(np.array_equal(st_k.decay, st_r.decay))
+        ok = not any(mism.values()) and decay_eq and norm_rel <= 1e-6
+        case = f"{len(p_k)} SD1.5 leaves, clip={clip}"
+        log(f"  adamw_fp16 {case}: {'ok' if ok else 'FAIL'}; norm {n_k.item():.7f} vs torch {ref_norm:.7f}"
+            f" (rel {norm_rel:.1e}); elements differing {mism}; decays equal {decay_eq}")
+        out.append(dict(case=case, ok=ok, norm=n_k.item(), torch_norm=ref_norm, norm_rel_err=norm_rel,
+                        mismatches=mism, decay_equal=decay_eq, max_abs_err=max_abs))
+        if not ok:
+            failures.append(f"adamw_fp16 {case}: mismatches {mism}, decay equal {decay_eq}, norm rel {norm_rel}")
+        del p_k, w_k, st_k, p_r, w_r, st_r
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_fp16_optimizer(trainer, grads, failures) -> dict:
+    """O2 over the SD1.5 step's leaves, after the main path's run:
+    check_fp16_update first, then each kernel's wall ms (CUDA events over
+    back-to-back launches of its wrapper on the prepared step) and device
+    ms (the profiler), its byte bound (norm: the bf16 gradients read; apply:
+    20 bytes a parameter), the whole update through step_, the plain
+    version's and, for scale only, torch.optim.AdamW(fused=True) over the
+    fp32 masters (another function: fp32 moments, no decay accumulator)."""
+    from uwudiff_tpu_torch.ops import FP16_OPTIMIZER_KERNELS
+    from uwudiff_tpu_torch.ops import fused_optim as fo
+    from uwudiff_tpu_torch.training.optimizers import apply_update_
+
+    checks = check_fp16_update(trainer, grads, failures)
+    tx, state = trainer.tx, trainer.opt_state
+    masters, working = trainer.masters, [p for _, p in trainer.params]
+    plan = state.fused
+    plan.prepare(tx, grads, state, grad_clip=trainer.grad_clip)
+    wrappers = [getattr(fo, name) for name in FP16_OPTIMIZER_KERNELS]
+    wall = {w.__name__: time_ms(lambda w=w: w(plan), reps=10) for w in wrappers}
+    device = {w.__name__: profiled_ms(lambda w=w: w(plan), fam, per_launch=True)[0]
+              for w, fam in zip(wrappers, ("optimizer (O1)", "optimizer (O2)"))}
+    update_ms = time_ms(lambda: tx.step_(masters, grads, state, grad_clip=trainer.grad_clip, working=working),
+                        reps=5)
+    plain_ms = time_ms(lambda: apply_update_(tx, masters, grads, state, grad_clip=trainer.grad_clip,
+                                             working=working), reps=1, warmup=1, runs=2)
+    for m, g in zip(masters, grads):
+        m.grad = g.float()
+    adamw = torch.optim.AdamW(masters, lr=1e-5, weight_decay=0.01, fused=True)
+    adamw_ms = time_ms(adamw.step, reps=5)
+    for m in masters:
+        m.grad = None
+    del adamw
+    n = sum(m.numel() for m in masters)
+    nbytes = {"adamw_norm": 2 * n + 4 * plan.n_tiles, "adamw_fp16_apply": 20 * n + 4 * len(masters)}
+    bounds = {k: bound(v, 0.0, PEAK_FP32)[0] for k, v in nbytes.items()}
+    out = dict(leaves=len(masters), params=n, tiles=plan.n_tiles, full_checks=checks,
+               max_abs_err=max(c["max_abs_err"] for c in checks), kernel_ms=wall, kernel_device_ms=device,
+               bound_ms=bounds, update_bound_ms=sum(bounds.values()), update_ms=update_ms, plain_ms=plain_ms,
+               adamw_fused_ms=adamw_ms,
+               adamw_fused_computes="torch.optim.AdamW(fused=True) over the fp32 masters: fp32 moments, no decay"
+                                    " accumulator, no working copy")
+    log(f"  adamw_fp16 over {len(masters)} leaves ({n / 1e9:.3f} G params, {plan.n_tiles} tiles): "
+        + ", ".join(f"{k} {wall[k]:.3f} ms (device {device[k]:.3f}, bound {bounds[k]:.3f})" for k in wall)
+        + f"; update {update_ms:.2f} ms (bound {out['update_bound_ms']:.2f}), plain {plain_ms:.1f} ms,"
+        f" AdamW(fused) {adamw_ms:.2f} ms (another function)")
+    return out
+
+
+def train_sd15(report, failures):
+    """The SD1.5 full fine-tune step at full width (training/bench_setup.py,
+    model="sd15": batch 16, 64x64 latents, fp32 masters under bf16 compute,
+    adamw_fp16, global-norm clip 1.0): one warm-up step, SD15_STEPS timed."""
+    from uwudiff_tpu_torch.ops import launch_counts, mma_launches_by_head_dim, plan_gn, plan_gn_bwd, reset_launch_counts
+    from uwudiff_tpu_torch.training.bench_setup import build_trainer_and_batch
+
+    t0 = time.perf_counter()
+    trainer, data = build_trainer_and_batch(model="sd15", latent=64, seed=SEED)
+    trainer.setup()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    bsz = len(data["sample"])
+    dev = trainer.device
+    batch = {"sample": torch.as_tensor(data["sample"], device=dev), "ctx": torch.as_tensor(data["ctx"], device=dev)}
+    n_params = sum(m.numel() for m in trainer.masters)
+    start = [m.cpu() for m in trainer.masters]  # in host memory: the peak below is the step's own
+    log(f"  built the sd15 trainer ({n_params / 1e9:.3f} G fp32 masters under bf16 compute, {len(start)} leaves)"
+        f" in {build_s:.1f} s")
+    gn_calls: list = []
+    hooks = record_gn_calls([trainer.unet], gn_calls)
+    t0 = time.perf_counter()
+    warm, _ = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()  # the main path's run starts here
+    steps = []
+    for _ in range(SD15_STEPS):
+        t0 = time.perf_counter()
+        metrics, _ = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        phases = trainer.step_phase_ms()
+        steps.append(dict(step_s=time.perf_counter() - t0, loss=metrics["train/loss"].item(),
+                          grad_norm=metrics["train/grad_norm"].item(), lr=metrics["train/lr"], **phases))
+    counts = launch_counts()  # the main path's run ends here
+    by_dim = mma_launches_by_head_dim()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    plan = plan_launches(trainer.unet, gn_calls)
+    plan.update(plan_fp16_optimizer())
+    for name, per_step in plan.items():
+        if counts[name] != per_step * SD15_STEPS:
+            failures.append(f"sd15 {name}: {counts[name]} launches in {SD15_STEPS} steps, plan {per_step} a step")
+    check_forward_route(counts, "sd15", failures, route="mma")
+    check_backward_route(counts, "sd15", failures, route="mma")
+    dims = sd15_head_dim_plan(trainer.unet)
+    for name, got in by_dim.items():
+        if got != {d: n * SD15_STEPS for d, n in dims.items()}:
+            failures.append(f"sd15 {name} launches by head dim {got}, plan {dims} a step")
+    losses = [warm["train/loss"].item()] + [s["loss"] for s in steps]
+    norms = [warm["train/grad_norm"].item()] + [s["grad_norm"] for s in steps]
+    if not all(map(math.isfinite, losses + norms)) or len(set(losses)) < 2:
+        failures.append(f"sd15 metrics: losses {losses} grad norms {norms} (finite, the loss moving)")
+    unmoved = [name for (name, _), m, m0 in zip(trainer.params, trainer.masters, start)
+               if torch.equal(m, m0.to(m.device))]
+    rounded = all(torch.equal(p.detach(), m.to(torch.bfloat16)) for (_, p), m in zip(trainer.params, trainer.masters))
+    if unmoved or not rounded:
+        failures.append(f"sd15: {len(unmoved)} masters unchanged ({unmoved[:8]}), module = bf16(masters) {rounded}")
+    del start
+    # the update over the step's own leaves, with one more batch's gradients
+    trainer.forward_backward(batch)
+    grads = [p.grad for _, p in trainer.params]
+    for _, p in trainer.params:
+        p.grad = None
+    opt = time_fp16_optimizer(trainer, grads, failures)
+    del grads
+    gn_checks = check_gn_calls(gn_calls, failures, backward=True)
+    med = lambda key: sorted(s[key] for s in steps)[SD15_STEPS // 2]  # noqa: E731
+    step_s, fb_ms, opt_ms = med("step_s"), med("forward_backward_ms"), med("optimizer_ms")
+    gn_routes = {f"{n}x{hw}x{c}/{g}": [plan_gn(n, hw, c, g, torch.bfloat16).route,
+                                       plan_gn_bwd(n, hw, c, g, torch.bfloat16).route]
+                 for n, hw, c, g in sorted({call[:4] for call in gn_calls})}
+    report["train_sd15"] = dict(
+        batch=bsz, latent=64, params=n_params, leaves=len(trainer.masters), build_s=build_s, warmup_step_s=warmup_s,
+        steps=steps, median_step_s=step_s, imgs_per_s=bsz / step_s, median_forward_backward_ms=fb_ms,
+        median_optimizer_ms=opt_ms, peak_memory_gib=peak_gib, launches=counts, plan_per_step=plan,
+        mma_launches_by_head_dim={k: {str(d): n for d, n in v.items()} for k, v in by_dim.items()},
+        attention_head_dims_per_step={str(d): n for d, n in dims.items()}, gn_routes=gn_routes,
+        gn_call_checks=gn_checks, losses=losses,
+        grad_norms=norms, masters_unchanged=unmoved, module_is_bf16_of_masters=rounded, optimizer=opt)
+    log(f"  sd15: step {step_s:.3f} s ({bsz / step_s:.2f} imgs/s), forward+backward {fb_ms:.1f} ms,"
+        f" optimizer {opt_ms:.1f} ms, peak {peak_gib:.1f} GiB; losses {[round(v, 4) for v in losses]},"
+        f" grad norms {[round(v, 3) for v in norms]}; launches/step {plan}; attention calls by head dim a step"
+        f" {dims}, mma launches by head dim {by_dim}; GroupNorm shapes [fwd, bwd route] {gn_routes};"
+        f" masters unchanged {len(unmoved)} of {len(trainer.masters)}")
+    return counts, by_dim
 
 
 # --------------------------------------------------------------------- ti
@@ -1719,7 +2092,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     import uwudiff_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
-    from uwudiff_tpu_torch.ops import OPTIMIZER_KERNELS
+    from uwudiff_tpu_torch.ops import FP16_OPTIMIZER_KERNELS, OPTIMIZER_KERNELS
     from uwudiff_tpu_torch.ops._build import build_all
     from uwudiff_tpu_torch.utils import resolve_device
 
@@ -1738,7 +2111,7 @@ def main() -> int:
     report = {"card": smi, "sm_clock_max_mhz": float(clock), "torch": torch.__version__, "cuda": torch.version.cuda}
     failures: list[str] = []
 
-    log("[1/5] build")
+    log("[1/6] build")
     built = build_all()
     report["build_s"] = built["seconds"]
     log(f"  built in {built['seconds']:.1f} s")
@@ -1747,38 +2120,51 @@ def main() -> int:
             if "registers" in line or "spill" in line or "(C75" in line:  # C75xx: wgmma serialised
                 log(f"  {src}: {line.strip()}")
 
-    log("[2/5] kernels vs plain (bf16)")
-    results: list[dict] = []
-    check_flash(results, failures)
-    check_gn(results, failures)
-    check_flash_bwd(results, failures)
-    check_flash_dbias(results, failures)
-    check_gn_bwd(results, failures)
-    check_optimizer(results, failures)
-    report["kernel_checks"] = results
-    report["models_vs_cpu_rel_err"] = check_models_vs_cpu(failures)
-    report["train_step_vs_cpu"] = check_train_vs_cpu(failures)
-    report["ti_step_vs_cpu"] = check_ti_vs_cpu(failures)
+    seconds = report["seconds"] = {"build": time.perf_counter() - t_start}
 
-    log("[3/5] serve SDXL 1024x1024")
-    serve_counts = serve(report, failures)
+    def timed(key, fn, *args):  # the wall seconds of one part of the run, into report["seconds"]
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[key] = time.perf_counter() - t0
+        return out
+
+    log("[2/6] kernels vs plain (bf16)")
+    results: list[dict] = []
+    for check in (check_flash, check_gn, check_flash_bwd, check_flash_dbias, check_gn_bwd, check_optimizer):
+        timed(check.__name__, check, results, failures)
+    report["kernel_checks"] = results
+    report["models_vs_cpu_rel_err"] = timed("check_models_vs_cpu", check_models_vs_cpu, failures)
+    report["train_step_vs_cpu"] = timed("check_train_vs_cpu", check_train_vs_cpu, failures)
+    report["sd15_train_step_vs_cpu"] = timed("check_sd15_train_vs_cpu", check_sd15_train_vs_cpu, failures)
+    report["ti_step_vs_cpu"] = timed("check_ti_vs_cpu", check_ti_vs_cpu, failures)
+
+    log("[3/6] serve SDXL 1024x1024")
+    serve_counts = timed("serve", serve, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # the serving stack is gone before the trainer is built
 
-    log("[4/5] train SDXL (full fine-tune, batch 8, 64x64 latents)")
-    counts = train(report, failures)
+    log("[4/6] train SDXL (full fine-tune, batch 8, 64x64 latents)")
+    counts = timed("train", train, report, failures)
     gc.collect()
-    torch.cuda.empty_cache()  # and the SDXL trainer before the SD3 one
+    torch.cuda.empty_cache()  # and the SDXL trainer before the SD1.5 one
 
-    log("[5/5] textual inversion SD3-medium + CLIP-L + CLIP-bigG + T5-XXL (batch 8, 64x64x16 latents)")
-    ti_counts = ti(report, failures)
+    log("[5/6] train SD1.5 (full fine-tune, batch 16, 64x64 latents)")
+    sd15_counts, sd15_by_dim = timed("train_sd15", train_sd15, report, failures)
+    gc.collect()
+    torch.cuda.empty_cache()  # and the SD1.5 trainer before the SD3 one
 
-    main_case = {"flash_fwd_sm90": "sdxl_l1_self", "flash_fwd_mma": "sd15_d40",
-                 "flash_bwd_dq_sm90": "train_l1_self", "flash_bwd_dkv_sm90": "train_l1_self",
-                 "flash_bwd_dq_mma": "sd15_d40", "flash_bwd_dkv_mma": "sd15_d40",
-                 "flash_bwd_dq_dbias": "t5_xxl", "gn_silu_fused": "8x4096x320", "gn_stats": "8x16384x960",
-                 "gn_silu_apply": "8x16384x960", "gn_silu_bwd_fused": "8x4096x320", "gn_bwd_partials": "8x4096x960",
-                 "gn_bwd_dx": "8x4096x960"}
+    log("[6/6] textual inversion SD3-medium + CLIP-L + CLIP-bigG + T5-XXL (batch 8, 64x64x16 latents)")
+    ti_counts = timed("ti", ti, report, failures)
+
+    # (kernel, the case of its row's numbers); the mma.sync kernels at D = 40
+    # and at D = 160, each at the SD1.5 step's level-0 / level-2 self-attention
+    main_case = [("flash_fwd_sm90", "sdxl_l1_self"), ("flash_fwd_mma", "sd15_l0_self"),
+                 ("flash_fwd_mma", "sd15_l2_self"), ("flash_bwd_dq_sm90", "train_l1_self"),
+                 ("flash_bwd_dkv_sm90", "train_l1_self"), ("flash_bwd_dq_mma", "sd15_l0_self"),
+                 ("flash_bwd_dkv_mma", "sd15_l0_self"), ("flash_bwd_dq_mma", "sd15_l2_self"),
+                 ("flash_bwd_dkv_mma", "sd15_l2_self"), ("flash_bwd_dq_dbias", "t5_xxl"),
+                 ("gn_silu_fused", "8x4096x320"), ("gn_stats", "8x16384x960"), ("gn_silu_apply", "8x16384x960"),
+                 ("gn_silu_bwd_fused", "8x4096x320"), ("gn_bwd_partials", "8x4096x960"), ("gn_bwd_dx", "8x4096x960")]
     csrc = "uwudiff_tpu_torch/csrc/"
     source = {"flash_fwd_sm90": csrc + "flash_fwd_sm90.cu", "flash_fwd_mma": csrc + "flash_fwd.cu",
               "flash_bwd_dq_sm90": csrc + "flash_bwd_sm90.cu", "flash_bwd_dkv_sm90": csrc + "flash_bwd_sm90.cu",
@@ -1798,40 +2184,48 @@ def main() -> int:
                 "gn_silu_bwd_fused": "uwudiff_tpu/ops/groupnorm_silu.py:321,349",
                 "gn_bwd_partials": "uwudiff_tpu/ops/groupnorm_silu.py:321",
                 "gn_bwd_dx": "uwudiff_tpu/ops/groupnorm_silu.py:349"}
+    # the count of the run whose path the row's shape is from: K5's is the
+    # textual-inversion step's (0: no path trains an attention bias), the
+    # chunked GroupNorm pair's the served batch's, the mma.sync kernels' the
+    # SD1.5 step's at the row's head dim, the others' the SDXL training step's
     path_counts = {"flash_bwd_dq_dbias": ti_counts, "gn_stats": serve_counts, "gn_silu_apply": serve_counts}
     kernels = []
-    for name, case in main_case.items():
+    for name, case in main_case:
         row = next(r for r in results if r["kernel"] == name and r["case"] == case)
+        mma = name in sd15_by_dim
+        d = row["shape"][-1]
         kernels.append(dict(
             name=name, route="cuda", source=source.get(name, csrc + "groupnorm_silu.cu"),
             replaces=replaces[name],
-            # the count of the run whose path this row's shape is from: K5's is
-            # the textual-inversion step's (0: no path trains an attention bias),
-            # the chunked GroupNorm pair's the served batch's, the others' the
-            # SDXL training step's
-            launches=path_counts.get(name, counts)[name],
-            max_abs_err=max(r["max_abs_err"] for r in results if r["kernel"] == name),
+            launches=sd15_by_dim[name].get(d, 0) if mma else path_counts.get(name, counts)[name],
+            max_abs_err=max(r["max_abs_err"] for r in results if r["kernel"] == name
+                            and (not mma or r["shape"][-1] == d)),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], device_ms=row.get("device_ms", row.get("kernel_device_ms")),
-            shape=row["shape"],
-            serving_launches=serve_counts[name],
-            train_launches=counts[name], ti_launches=ti_counts[name],
+            shape=row["shape"], case=case,
+            serving_launches=serve_counts[name], train_launches=counts[name], sd15_launches=sd15_counts[name],
+            ti_launches=ti_counts[name],
         ))
     # the update's kernels (no Pallas kernel stood there: optax through XLA),
-    # checked and timed over the SDXL step's leaves; their plain version is
-    # the whole plain update of those leaves, no PyTorch call computes the
-    # function
-    opt = report["train"]["optimizer"]
-    for name in OPTIMIZER_KERNELS:
-        kernels.append(dict(
-            name=name, route="cuda", source=csrc + "adamw_factored.cu",
-            replaces="uwudiff_tpu/training/optimizers.py:48",
-            launches=counts[name], max_abs_err=opt["max_abs_err"], ms=opt["kernel_ms"][name], plain_ms=opt["plain_ms"],
-            bound_ms=opt["bound_ms"][name], bound_by="bytes", library_ms=None,
-            device_ms=opt["kernel_device_ms"][name], shape=f"{opt['leaves']} SDXL leaves, {opt['params']} params",
-            plain_is="the whole plain update of the leaves (training/optimizers.py::apply_update_)",
-            serving_launches=serve_counts[name], train_launches=counts[name], ti_launches=ti_counts[name],
-        ))
+    # checked and timed over the SDXL step's leaves (O1) and the SD1.5 step's
+    # (O2); their plain version is the whole plain update of those leaves, no
+    # PyTorch call computes the function
+    for opt_key, names, replaced, run_counts, what in (
+        ("train", OPTIMIZER_KERNELS, "uwudiff_tpu/training/optimizers.py:48", counts, "SDXL"),
+        ("train_sd15", FP16_OPTIMIZER_KERNELS, "uwudiff_tpu/training/optimizers.py:136", sd15_counts, "SD1.5"),
+    ):
+        opt = report[opt_key]["optimizer"]
+        for name in names:
+            kernels.append(dict(
+                name=name, route="cuda", source=csrc + "adamw_factored.cu", replaces=replaced,
+                launches=run_counts[name], max_abs_err=opt["max_abs_err"], ms=opt["kernel_ms"][name],
+                plain_ms=opt["plain_ms"], bound_ms=opt["bound_ms"][name], bound_by="bytes", library_ms=None,
+                device_ms=opt["kernel_device_ms"][name],
+                shape=f"{opt['leaves']} {what} leaves, {opt['params']} params",
+                plain_is="the whole plain update of the leaves (training/optimizers.py::apply_update_)",
+                serving_launches=serve_counts[name], train_launches=counts[name], sd15_launches=sd15_counts[name],
+                ti_launches=ti_counts[name],
+            ))
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -1841,7 +2235,7 @@ def main() -> int:
         for msg in failures:
             log(f"FAIL: {msg}")
         return 1
-    log(f"total {report['total_s']:.1f} s")
+    log(f"total {report['total_s']:.1f} s: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

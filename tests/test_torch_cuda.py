@@ -386,6 +386,13 @@ def test_tiny_pipeline_runs_through_the_kernels(dev):
         (2, 77, 77, 4, 64, "full"),
         (1, 130, 300, 2, 40, "key"),
         (1, 64, 129, 2, 80, "none"),
+        # SD1.5's D = 160 (level 2 and the mid block, self- and
+        # cross-attention; batch cut to 2), and a ragged key-masked one
+        (2, 256, 256, 8, 160, "none"),
+        (2, 256, 77, 8, 160, "none"),
+        (2, 64, 64, 8, 160, "none"),
+        (2, 64, 77, 8, 160, "none"),
+        (1, 130, 300, 2, 160, "key"),
     ],
 )
 def test_flash_bwd_kernels_match_plain(dev, b, sq, sk, h, d, kind):
@@ -456,13 +463,16 @@ def test_flash_autograd_runs_the_kernel_pair_on_strided_heads(dev):
 
 
 def test_flash_bwd_raises_for_a_head_dim_it_was_not_built_for(dev):
-    """D = 160 runs forward (SD1.5's level 3) but has no backward build."""
+    """D = 96 passes the JAX kernels' d % 8 == 0, d <= 256 but no kernel of
+    the port was built for it: the backward raises, it does not fall back."""
     from uwudiff_tpu_torch.ops.flash_attention import flash_bwd
 
-    q = torch.randn((1, 64, 2, 160), device=dev, dtype=torch.bfloat16)
-    out, lse = flash_fwd(q, q, q)
+    q = torch.randn((1, 64, 2, 96), device=dev, dtype=torch.bfloat16)
+    out, lse = flash_attention_reference(q, q, q)
+    reset_launch_counts()
     with pytest.raises(ValueError, match="head dim"):
         flash_bwd(q, q, q, None, out, lse, torch.ones_like(out))
+    assert launch_counts()["flash_bwd_dq"] == launch_counts()["flash_bwd_dkv"] == 0
 
 
 # every D = 64 backward shape of the train and textual-inversion paths (B,
@@ -580,7 +590,7 @@ def test_hopper_backward_reads_clips_bias_in_place(dev, which):
         _assert_flash_close(g, r)
 
 
-@pytest.mark.parametrize("d,suffix", [(64, "_sm90"), (40, "_mma"), (80, "_mma")])
+@pytest.mark.parametrize("d,suffix", [(64, "_sm90"), (40, "_mma"), (80, "_mma"), (160, "_mma")])
 def test_backward_dispatches_on_the_head_dim(dev, d, suffix):
     from uwudiff_tpu_torch.ops.flash_attention import (
         flash_attention_backward_reference,
@@ -743,6 +753,7 @@ def test_tiny_unet_trains_through_every_kernel(dev):
     assert counts.pop("gn_stats") == counts.pop("gn_silu_apply") == 0, counts
     assert counts.pop("gn_bwd_partials") == counts.pop("gn_bwd_dx") == 0, counts
     assert counts.pop("adamw_norm") == 0, counts  # no global-norm clip: the norm comes with the statistics
+    assert counts.pop("adamw_fp16_apply") == 0, counts  # adamw_factored's update, not adamw_fp16's
     assert all(v > 0 for v in counts.values()), counts
     assert counts["flash_fwd"] == counts["flash_bwd_dq"] == counts["flash_bwd_dkv"]
     assert counts["gn_silu_fused"] == counts["gn_silu_bwd_fused"]
@@ -778,6 +789,7 @@ def _assert_dbias_close(got, ref):
         (2, 256, 8, 80, None),
         (1, 130, 2, 40, None),
         (1, 77, 2, 80, None),  # odd Sk: 4-byte dBias stores
+        (2, 256, 8, 160, None),  # SD1.5's level-2 shape (no path trains a bias there)
     ],
 )
 def test_flash_dbias_kernel_matches_plain(dev, b, s, h, d, scale):
@@ -801,7 +813,7 @@ def test_flash_dbias_kernel_matches_plain(dev, b, s, h, d, scale):
     assert dbias.shape == (b, h, s, s) and dbias.dtype == torch.float32
     _assert_dbias_close(dbias, rds)
     # both outputs bitwise reproducible; dQ is the mma.sync K4's, bitwise,
-    # where K4 is that kernel (D = 40/80) and within the flash bound of the
+    # where K4 is that kernel (D = 40/80/160) and within the flash bound of the
     # Hopper K4 at D = 64 (other products, summed in another order)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     dq2, db2 = flash_bwd_dq_dbias(q, k, v, dout, lse, delta, bias, scale)
@@ -876,11 +888,12 @@ def test_flash_lse_is_differentiable_on_the_card(dev):
 
 
 def test_flash_dbias_raises_for_a_head_dim_it_was_not_built_for(dev):
+    """K5 at D = 96 (see the test above) raises."""
     from uwudiff_tpu_torch.ops.flash_attention import flash_bwd
 
-    q = torch.randn((1, 64, 2, 160), device=dev, dtype=torch.bfloat16)
+    q = torch.randn((1, 64, 2, 96), device=dev, dtype=torch.bfloat16)
     bias = torch.zeros((1, 2, 64, 64), device=dev)
-    out, lse = flash_fwd(q, q, q, bias)
+    out, lse = flash_attention_reference(q, q, q, bias)
     with pytest.raises(ValueError, match="head dim"):
         flash_bwd(q, q, q, bias, out, lse, torch.ones_like(out), bias_grad=True)
 
@@ -1042,3 +1055,125 @@ def test_fused_optimizer_rebuilds_its_plan_for_a_replaced_state_tensor(dev):
     tx.step_(params, grads[2], state, seed=3, step=2)
     assert state.fused is not plan and state.leaves[0]["mu"] is restored
     assert not torch.equal(restored, before)
+
+
+# ------------------------------------------------------- adamw_fp16 (O2)
+
+# fp32 masters of every layout the SD1.5 step has: a channels_last 3x3 conv,
+# a 1x1 conv, a Linear weight, biases and norm weights of odd lengths (a
+# last partial vector)
+_FP16_SHAPES = ((320, 4, 3, 3), (640, 320, 1, 1), (1280, 768), (77,), (4,), (5, 3), (1280,))
+
+
+def _fp16_case(dev, seed=0):
+    from uwudiff_tpu_torch.training.optimizers import adamw_fp16_state
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    masters = []
+    for shape in _FP16_SHAPES:
+        x = torch.randn(shape, generator=gen, device=dev) * 0.05
+        masters.append(x.contiguous(memory_format=torch.channels_last) if len(shape) == 4 else x)
+    grads = [[torch.empty_like(m, dtype=torch.bfloat16).copy_(torch.randn(m.shape, generator=gen, device=dev) * 0.3)
+              for m in masters] for _ in range(3)]  # global norm ~300
+    # wd * lr above the threshold: some leaves' decay fires at every step
+    tx = adamw_fp16_state(1e-3, weight_decay=0.5, decay_threshold=1e-3)
+    return tx, masters, grads
+
+
+@pytest.mark.parametrize("clip", [None, 1.0, 1e4])
+def test_fused_adamw_fp16_matches_plain_bitwise(dev, clip):
+    """Three steps of O2 (adamw_norm + adamw_fp16_apply), each from the same
+    state as the plain version (apply_update_), which is fed the gradients
+    O2 clips with its own norm: masters, working copies and both moments
+    bitwise, the decay accumulators equal, the norm within 1e-6 of the
+    plain version's; the working copy is the masters' bf16 rounding."""
+    import copy
+
+    from uwudiff_tpu_torch.training.optimizers import apply_update_
+
+    tx, masters, grads = _fp16_case(dev)
+    p_k = [m.clone() for m in masters]
+    w_k = [m.to(torch.bfloat16) for m in p_k]
+    st_k = tx.init(p_k)
+    fired = 0
+    for g in grads:
+        p_r, w_r, st_r = [p.clone() for p in p_k], [w.clone() for w in w_k], copy.deepcopy(st_k)
+        reset_launch_counts()
+        n_k = tx.step_(p_k, g, st_k, grad_clip=clip, working=w_k)
+        assert launch_counts()["adamw_norm"] == launch_counts()["adamw_fp16_apply"] == 1
+        fired += int((st_r.decay + 0.5 * 1e-3 > 1e-3).sum())
+        g_r = [x.float() for x in g]
+        if clip:
+            g_r = [torch.where(n_k < clip, x, x / n_k * clip) for x in g_r]
+        apply_update_(tx, p_r, g_r, st_r, working=w_r)
+        n_r = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(x.float()) for x in g]))
+        torch.testing.assert_close(n_k, n_r, rtol=1e-6, atol=0)
+        for a, b in zip(p_k + w_k, p_r + w_r):
+            assert torch.equal(a, b)
+        for a, b in zip(st_k.leaves, st_r.leaves):
+            assert torch.equal(a["exp_avg"], b["exp_avg"]) and torch.equal(a["exp_avg_sq"], b["exp_avg_sq"])
+        assert (st_k.decay == st_r.decay).all() and st_k.count == st_r.count
+        assert all(torch.equal(w, p.to(torch.bfloat16)) for w, p in zip(w_k, p_k))
+    assert fired > 0
+    assert all(not torch.equal(a, b) for a, b in zip(p_k, masters))
+
+
+def test_fused_adamw_fp16_raises_on_what_the_kernel_does_not_take(dev):
+    tx, masters, grads = _fp16_case(dev, seed=1)
+    working = [m.to(torch.bfloat16) for m in masters]
+    with pytest.raises(ValueError, match="working copy"):
+        tx.step_(masters, grads[0], tx.init(masters))
+    bf16 = [m.to(torch.bfloat16) for m in masters]
+    with pytest.raises(TypeError, match="fp32"):
+        tx.step_(bf16, grads[0], tx.init(bf16), working=working)
+    fp32_grads = [g.float() for g in grads[0]]
+    with pytest.raises(ValueError, match="strides"):
+        tx.step_(masters, fp32_grads, tx.init(masters), working=working)
+    with pytest.raises(NotImplementedError, match="EMA"):
+        tx.step_(masters, grads[0], tx.init(masters), working=working, ema_params=masters, ema_decay=0.5)
+
+
+def test_tiny_sd15_step_on_the_card_matches_the_cpu(dev):
+    """An SD1.5-layout UNet whose head dims are SD1.5's 40/80/160, trained
+    by the SD1.5 recipe (fp32 masters under bf16 compute, adamw_fp16, clip
+    1.0) on the card and in fp32 on the CPU from the same weights, noise
+    and timesteps: the loss and the gradients within 5e-2 (bf16 through a
+    few dozen layers); every attention on the mma.sync kernels at its head
+    dim; the update in two launches, every master moved, the module's
+    weights their bf16 rounding."""
+    import copy
+
+    from uwudiff_tpu_torch.diffusion import DiffusionLoss, NoiseSchedule
+    from uwudiff_tpu_torch.models import UNet2DConditionModel
+    from uwudiff_tpu_torch.ops import mma_launches_by_head_dim
+    from uwudiff_tpu_torch.training import DMTrainer
+
+    torch.manual_seed(0)
+    cpu = UNet2DConditionModel.from_config("sd15", device="cpu", block_out_channels=(80, 160, 320, 320),
+                                           num_attention_heads=2, cross_attention_dim=64, norm_num_groups=16)
+    gpu = copy.deepcopy(cpu).to(dev)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"sample": torch.randn((2, 32, 32, 4), generator=gen), "ctx": torch.randn((2, 77, 64), generator=gen)}
+    noise, timesteps = torch.randn((2, 32, 32, 4), generator=gen), torch.tensor([37, 712])
+    out = {}
+    for where, unet, compute in (("cpu", cpu, None), ("cuda", gpu, "bfloat16")):
+        tr = DMTrainer({"unet": unet}, optimizer="adamw_fp16", use_warm_up=False, grad_clip=1.0,
+                       loss_config=DiffusionLoss(schedule=NoiseSchedule.sd15()), compute_dtype=compute,
+                       device=where)
+        reset_launch_counts()
+        loss, _ = tr.forward_backward(batch, noise, timesteps)
+        out[where] = (tr, loss.float().cpu(), torch.cat([p.grad.float().cpu().flatten() for _, p in tr.params]))
+    by_dim = mma_launches_by_head_dim()
+    # five transformers at each of levels 0-2 (2 down, 3 up) and the mid block's, self- and cross-attention
+    assert by_dim["flash_bwd_dq_mma"] == by_dim["flash_bwd_dkv_mma"] == by_dim["flash_fwd_mma"] == {
+        40: 10, 80: 10, 160: 12}
+    (_, loss_c, grad_c), (tr, loss_g, grad_g) = out["cpu"], out["cuda"]
+    assert ((loss_g - loss_c).abs() / loss_c.abs()).item() <= 5e-2
+    assert ((grad_g - grad_c).norm() / grad_c.norm()).item() <= 5e-2
+    before = [m.clone() for m in tr.masters]
+    reset_launch_counts()
+    tr.apply_updates()
+    counts = launch_counts()
+    assert counts["adamw_norm"] == counts["adamw_fp16_apply"] == 1 and counts["adamw_stats"] == 0
+    assert all(m.dtype == torch.float32 and not torch.equal(m, b) for m, b in zip(tr.masters, before))
+    assert all(torch.equal(p.detach(), m.to(torch.bfloat16)) for (_, p), m in zip(tr.params, tr.masters))

@@ -36,13 +36,14 @@ CSRC = Path(__file__).resolve().parent.parent / "uwudiff_tpu_torch" / "csrc"
 
 @pytest.mark.parametrize("d,kernels", [(64, (flash_bwd_dq_sm90, flash_bwd_dkv_sm90)),
                                        (40, (flash_bwd_dq_mma, flash_bwd_dkv_mma)),
-                                       (80, (flash_bwd_dq_mma, flash_bwd_dkv_mma))])
+                                       (80, (flash_bwd_dq_mma, flash_bwd_dkv_mma)),
+                                       (160, (flash_bwd_dq_mma, flash_bwd_dkv_mma))])
 def test_head_dim_selects_the_backward(d, kernels):
     assert d in BWD_HEAD_DIMS
     assert backward_kernels(d) == kernels
 
 
-@pytest.mark.parametrize("d", [16, 32, 48, 96, 128, 160, 256])
+@pytest.mark.parametrize("d", [16, 32, 48, 96, 128, 152, 256])
 def test_other_head_dims_raise(d):
     with pytest.raises(ValueError, match="head dim"):
         backward_kernels(d)

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse: one torch thread in this module)
 from uwudiff_tpu_torch.ops.fused_optim import LEAF_FIELDS, TILE_SLOW, VEC, leaf_geometry, plan_leaves
 from uwudiff_tpu_torch.training import DMTrainer
 from uwudiff_tpu_torch.training.optimizers import (

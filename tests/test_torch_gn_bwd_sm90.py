@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse: one torch thread in this module)
 from uwudiff_tpu.ops.groupnorm_silu import _gn_silu
 from uwudiff_tpu_torch.ops.groupnorm_silu import (
     gn_bwd_dx_reference,

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse: one torch thread in this module)
 from test_torch_models import assert_close, compile_fast, random_params
 from uwudiff_tpu.models.mmdit import MMDiT as JaxMMDiT
 from uwudiff_tpu_torch.convert import load_jax_params

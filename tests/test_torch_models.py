@@ -31,7 +31,19 @@ from uwudiff_tpu_torch.models import (
     ConcatTextEncoders,
     UNet2DConditionModel,
 )
-from uwudiff_tpu_torch.models.layers import Upsample2D, get_timestep_embedding
+from uwudiff_tpu_torch.models.layers import LayerNorm, Upsample2D, get_timestep_embedding
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread while a module of the port's tests runs: the suite
+    runs several test processes at once, and more threads each only make
+    them contend for the cores. Every test_torch_*.py that computes on the
+    CPU imports it; the thread count is restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def random_params(module, *args, seed=0, method=None):
@@ -183,6 +195,26 @@ def test_convert_raises_on_mismatch():
                               "bias": np.zeros((5,), np.float32)}
     with pytest.raises(ValueError, match="shape"):
         load_jax_params(vae, bad)
+
+
+def test_layer_norm_computes_a_bf16_input_in_fp32_on_the_cpu():
+    """As flax's LayerNorm: the output and the weight and bias gradients
+    are the fp32 computation's, rounded once to bf16 (torch's CPU kernel
+    sums a bf16 input's parameter gradients in bf16)."""
+    rng = np.random.default_rng(0)
+    x, dy = (torch.from_numpy(rng.standard_normal((2, 256, 32)).astype(np.float32)).bfloat16() for _ in range(2))
+    ln = LayerNorm(32, eps=1e-5)
+    with torch.no_grad():
+        ln.weight.normal_(1.0, 0.2)
+        ln.bias.normal_(0.0, 0.1)
+    w, b = (t.detach().clone().requires_grad_() for t in (ln.weight, ln.bias))
+    ln.to(torch.bfloat16)
+    y = ln(x)
+    y.backward(dy)
+    ref = torch.nn.functional.layer_norm(x.float(), (32,), w.bfloat16().float(), b.bfloat16().float(), 1e-5)
+    ref.backward(dy.float())
+    assert y.dtype == torch.bfloat16 and torch.equal(y, ref.bfloat16())
+    assert torch.equal(ln.weight.grad, w.grad.bfloat16()) and torch.equal(ln.bias.grad, b.grad.bfloat16())
 
 
 def test_upsample_nearest_matches_jax_resize():

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse: one torch thread in this module)
 from uwudiff_tpu.ops.attention import _xla_attention
 from uwudiff_tpu.ops.attention import attention_bias_from_mask as jax_bias_from_mask
 from uwudiff_tpu.ops.flash_attention import flash_attention as jax_flash

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse: one torch thread in this module)
 from test_torch_models import random_params
 from uwudiff_tpu.diffusion.schedules import NoiseSchedule as JaxSchedule
 from uwudiff_tpu.models.text_encoders import ConcatTextEncoders as JaxConcat

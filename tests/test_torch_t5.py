@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse: one torch thread in this module)
 from test_torch_models import assert_close, compile_fast, random_params
 from uwudiff_tpu.models.t5 import T5EncoderModel as JaxT5
 from uwudiff_tpu.models.t5 import relative_position_bucket as jax_bucket

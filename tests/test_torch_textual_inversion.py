@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse: one torch thread in this module)
 from test_torch_models import assert_close, compile_fast, random_params
 from uwudiff_tpu.diffusion import NoiseSchedule as JaxSchedule
 from uwudiff_tpu.diffusion import RectifiedFlowLoss as JaxRFLoss

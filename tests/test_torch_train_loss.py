@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse: one torch thread in this module)
 from uwudiff_tpu.diffusion import DiffusionLoss as JaxLoss
 from uwudiff_tpu.diffusion import NoiseSchedule as JaxSchedule
 from uwudiff_tpu.training.lr_schedules import warmup_cosine_schedule as jax_warmup_cosine

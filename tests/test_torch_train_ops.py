@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse: one torch thread in this module)
 from uwudiff_tpu.ops.flash_attention import flash_attention as jax_flash
 from uwudiff_tpu.ops.groupnorm_silu import _gn_silu
 from uwudiff_tpu_torch.ops.flash_attention import (
@@ -60,6 +61,8 @@ def _bias(kind, b, h, sq, sk, rng):
         (2, 128, 77, 2, 40, "key"),
         (1, 128, 128, 2, 40, "full"),
         (1, 200, 77, 2, 64, "none"),  # ragged Sq
+        (1, 128, 128, 2, 160, "none"),  # SD1.5's level-2 head dim
+        (2, 128, 77, 2, 160, "key"),
     ],
 )
 def test_flash_grads_match_jax_kernel(b, sq, sk, h, d, kind):

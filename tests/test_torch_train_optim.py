@@ -29,11 +29,18 @@ import optax
 import pytest
 import torch
 
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse: one torch thread in this module)
 from uwudiff_tpu.training.lr_schedules import warmup_cosine_schedule as jax_schedule
 from uwudiff_tpu.training.optimizers import adamw_factored as jax_adamw_factored
 from uwudiff_tpu.training.optimizers import stochastic_round_add as jax_sr
 from uwudiff_tpu_torch.training.lr_schedules import warmup_cosine_schedule
-from uwudiff_tpu_torch.training.optimizers import adamw, adamw_factored, build_optimizer, stochastic_round_add
+from uwudiff_tpu_torch.training.optimizers import (
+    AdamWFP16,
+    adamw,
+    adamw_factored,
+    build_optimizer,
+    stochastic_round_add,
+)
 
 LEAVES = {  # name: (flax shape, axes taking the flax layout to PyTorch's)
     "square": ((256, 256), (1, 0)),
@@ -154,8 +161,11 @@ def test_adamw_matches_optax():
 def test_build_optimizer_names():
     assert isinstance(build_optimizer("torch.optim.AdamW"), type(adamw(1e-3)))
     assert isinstance(build_optimizer("adamw_factored", clipping_threshold=1.0), type(adamw_factored(1e-3)))
+    tx = build_optimizer("duwu.trainer.optimizers.AdamWFP16", moment_dtype=torch.float16, decay_threshold=0.5)
+    assert isinstance(tx, AdamWFP16) and tx.moment_dtype == torch.float16 and tx.decay_threshold == 0.5
+    assert isinstance(build_optimizer("adamw_fp16"), AdamWFP16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_optimizer("adamw_fp16")
+        build_optimizer("lion_pytorch.Lion")
     with pytest.raises(ValueError):
         build_optimizer("no_such_optimizer")
 

@@ -39,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse: one torch thread in this module)
 from test_torch_models import random_params
 from uwudiff_tpu.diffusion import DiffusionLoss as JaxLoss
 from uwudiff_tpu.diffusion import NoiseSchedule as JaxSchedule

@@ -2,13 +2,16 @@
 // gradient norm and clip, adamw_factored (Adafactor's factored second moment,
 // the per-leaf update-RMS clip, the bf16 momentum, lr-scaled weight decay),
 // the stochastically rounded bf16 parameter update and the weight EMA, over
-// every leaf of the model at once, in a fixed handful of launches.
+// every leaf of the model at once, in a fixed handful of launches (O1); and
+// adamw_fp16 (O2: bf16 moments, fp32 master parameters and their bf16
+// working copy), the global norm's kernel followed by one elementwise pass.
 //
 // Replaces no Pallas kernel: the JAX step (uwudiff_tpu/training/trainer.py
 // _train_step_impl) runs optax's chain (uwudiff_tpu/training/optimizers.py:48,
-// adamw_factored) inside one jit, where XLA fuses it. The plain version is
-// uwudiff_tpu_torch/training/optimizers.py::apply_update_ (AdamWFactored._leaf
-// leaf by leaf); this file repeats its arithmetic stage for stage, each fp32
+// adamw_factored; :136, adamw_fp16_state) inside one jit, where XLA fuses it.
+// The plain version is uwudiff_tpu_torch/training/optimizers.py::apply_update_
+// (AdamWFactored._leaf or AdamWFP16.update leaf by leaf); this file repeats
+// its arithmetic stage for stage, each fp32
 // operation correctly rounded and never contracted into an fma (__fmul_rn,
 // __fadd_rn, __fdiv_rn, __fsqrt_rn), each stage rounded to the parameter
 // dtype where the plain version rounds it. Only the order of the sums differs.
@@ -45,6 +48,11 @@
 //                tile of a leaf takes max(rms / threshold, 1).
 //   adamw_apply  u, its clip, lr, the momentum, weight decay, p + u rounded
 //                stochastically (bf16) and the EMA, element by element.
+//   adamw_fp16_apply (O2, after adamw_norm; every leaf dense) the clip, both
+//                moments through fp32 (stored bf16, rounded to nearest),
+//                -lr * sqrt(1 - b2^t) * m / (sqrt(v) + eps), the leaf's
+//                accumulated weight decay, p + u into the fp32 master and its
+//                bf16 working copy, element by element: 20 bytes a parameter.
 // No float atomics: every sum is per-tile partials merged in a fixed order,
 // and the "last block" of a leaf is found with an integer counter that the
 // same block resets, so two runs are bitwise equal.
@@ -100,10 +108,13 @@ struct Args {
   float* leaf_denom;
   unsigned int* counters;  // [n_leaves + 1], zeros; every pass leaves them zero
   float* out;              // [1]: the global gradient norm
+  const float* decay;      // [n_leaves]: adamw_fp16's weight decay this step (0 where it does not fire)
   long long n_leaves;
   long long flags;
   unsigned long long seed, step;
-  float eps, b2, omb2, lr, c_u, c_m, lrwd, thr, clip, ema_dw, ema_c, pad;
+  // adamw_fp16 reads eps, b2, omb2, c_u (1 - b1), c_m (b1), clip and step_size
+  // (-lr * sqrt(1 - b2^t)), all fp32 as optax's update computes them
+  float eps, b2, omb2, lr, c_u, c_m, lrwd, thr, clip, ema_dw, ema_c, step_size;
 };
 
 template <typename T>
@@ -684,6 +695,66 @@ __global__ void __launch_bounds__(THREADS) adamw_apply_kernel(const Args a) {
   update_tile<T, true>(a);
 }
 
+// ------------------------------------------------------- adamw_fp16_apply
+
+// one element of adamw_fp16_state's update and optax.apply_updates, in the
+// plain version's order: returns the new fp32 parameter, updates m and v
+__device__ __forceinline__ float fp16_elem(const Args& a, float g, float* m, float* v, float p, float d, bool clip,
+                                           float norm) {
+  if (clip) g = __fmul_rn(__fdiv_rn(g, norm), a.clip);
+  *m = __fadd_rn(__fmul_rn(*m, a.c_m), __fmul_rn(g, a.c_u));
+  *v = __fadd_rn(__fmul_rn(*v, a.b2), __fmul_rn(__fmul_rn(g, g), a.omb2));
+  float u = __fdiv_rn(__fmul_rn(a.step_size, *m), __fadd_rn(__fsqrt_rn(*v), a.eps));
+  u = __fsub_rn(u, __fmul_rn(d, p));
+  return __fadd_rn(p, u);
+}
+
+// A dense tile of 8192 elements a block, 4 a thread at a time (8-byte bf16
+// and 16-byte fp32 vectors), the leaf's last partial vector element by
+// element. Leaf.p is the fp32 master, mu and v_a the bf16 moments, v_b the
+// bf16 working copy; the bf16 gradient is ptrs[4 * leaf].
+__global__ void __launch_bounds__(THREADS) adamw_fp16_apply_kernel(const Args a) {
+  __shared__ Leaf L;
+  const int tile = blockIdx.x;
+  const int li = a.tile_leaf[tile];
+  load_leaf(a, li, &L);
+  const __nv_bfloat16* g = reinterpret_cast<const __nv_bfloat16*>(a.ptrs[4 * li]);
+  float* p = reinterpret_cast<float*>(L.p);
+  __nv_bfloat16* mp = reinterpret_cast<__nv_bfloat16*>(L.mu);
+  __nv_bfloat16* vp = reinterpret_cast<__nv_bfloat16*>(L.v_a);
+  __nv_bfloat16* wp = reinterpret_cast<__nv_bfloat16*>(L.v_b);
+  const float d = a.decay[li];
+  const float norm = (a.flags & CLIP) ? a.out[0] : 1.f;
+  const bool clip = (a.flags & CLIP) && !(norm < a.clip);  // optax: select(norm < max_norm, g, g / norm * max_norm)
+  const long long base = (tile - L.tile0) * static_cast<long long>(DENSE_TILE);
+  for (int i = 0; i < DENSE_PER_THREAD / 4; ++i) {
+    const long long e0 = base + 4 * (threadIdx.x + static_cast<long long>(i) * THREADS);
+    if (e0 >= L.numel) break;
+    if (e0 + 4 <= L.numel) {
+      float gv[4], mv[4], vv[4], pv[4];
+      load(g, e0, gv);
+      load(mp, e0, mv);
+      load(vp, e0, vv);
+      load(p, e0, pv);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) pv[j] = fp16_elem(a, gv[j], &mv[j], &vv[j], pv[j], d, clip, norm);
+      store(p, e0, pv);
+      store(mp, e0, mv);
+      store(vp, e0, vv);
+      store(wp, e0, pv);
+    } else {
+      for (long long e = e0; e < L.numel; ++e) {
+        float m = __bfloat162float(mp[e]), v = __bfloat162float(vp[e]);
+        const float pn = fp16_elem(a, __bfloat162float(g[e]), &m, &v, p[e], d, clip, norm);
+        p[e] = pn;
+        mp[e] = __float2bfloat16_rn(m);
+        vp[e] = __float2bfloat16_rn(v);
+        wp[e] = __float2bfloat16_rn(pn);
+      }
+    }
+  }
+}
+
 template <typename K>
 int launch(K kernel, long long grid, const Args* a, void* stream) {
   if (grid < 1 || grid > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
@@ -725,4 +796,10 @@ extern "C" int uwu_adamw_apply(const void* args, long long grid, int bf16, void*
   const Args* a = static_cast<const Args*>(args);
   return bf16 ? launch(adamw_apply_kernel<__nv_bfloat16>, grid, a, stream)
               : launch(adamw_apply_kernel<float>, grid, a, stream);
+}
+
+// bf16 must be 1: bf16 gradients, moments and working copy over fp32 masters
+extern "C" int uwu_adamw_fp16_apply(const void* args, long long grid, int bf16, void* stream) {
+  if (!bf16) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(adamw_fp16_apply_kernel, grid, static_cast<const Args*>(args), stream);
 }

@@ -1,6 +1,7 @@
 // Flash-attention backward on mma.sync (sm_90a): dQ + dBias at head dims
-// 40/64/80, dQ and dK/dV at 40/80 (at 64 they are flash_bwd_sm90.cu's
-// Hopper kernels); bf16 q/k/v/dO, fp32 softmax recompute and accumulators.
+// 40/64/80/160, dQ and dK/dV at 40/80/160 (at 64 they are
+// flash_bwd_sm90.cu's Hopper kernels); bf16 q/k/v/dO, fp32 softmax
+// recompute and accumulators.
 //
 // Replaces the TPU kernels uwudiff_tpu/ops/flash_attention.py::_bwd_dq_kernel
 // (K4), ::_bwd_dq_dbias_kernel (K5) and ::_bwd_dkv_kernel (K6), the FA2
@@ -49,8 +50,22 @@
 // Ragged edges are zero-filled in shared memory and masked in registers:
 // keys >= Sk get p = 0, query rows >= Sq get p = 0 in the dK/dV kernel, and
 // no row past Sq or Sk is written. Head dims 40 and 80 are zero-padded to 48
-// and 80 in shared memory only; 160 is not built (its dK + dV accumulators
-// alone would take 160 registers a thread).
+// and 80 in shared memory only.
+//
+// D = 160 (SD1.5's third level, 1280 channels over 8 heads) does not fit the
+// registers of that design: a warp's dK and dV for its 16 keys would take
+// 160 fp32 registers a thread, and the K/V (dK/dV) or Q/dO (dQ) fragments
+// held beside them 80 more. So at D = 160
+//   - no operand fragment is held: each product reads its A fragments from
+//     the shared tile one k-step at a time (mma_abt_smem), which costs an
+//     ldmatrix per k-step and saves 80 registers;
+//   - dQ takes a 32-key tile (BN), so S and dP take 32 registers, not 64,
+//     beside its 80-register accumulator; shared memory 86 KB, two blocks
+//     an SM;
+//   - dK/dV runs 8 warps, two per 16 keys: both warps of a pair compute the
+//     same S^T and dP^T over the full depth (the repeated products are half
+//     again the work of the dK/dV sums), and each accumulates one half of
+//     dK's and dV's 160 columns (80 registers).
 // flash_bwd_sm90.cu redesigns dQ and dK/dV at D = 64 on TMA and wgmma.
 
 #include <math.h>
@@ -75,11 +90,36 @@ struct Cfg {
   static constexpr int STRIDE = DP + 8;          // smem row pitch; the skew spreads ldmatrix rows over banks
   static constexpr int CHUNKS = DP / 8;
   static constexpr int D_CHUNKS = D / 8;
-  static constexpr int BN = 64;                  // key tile of the dQ kernel
+  static constexpr bool HOLD = DP <= 96;         // A fragments held in registers across the loop (D <= 80)
+  static constexpr int SPLIT = HOLD ? 1 : 2;     // dK/dV: warps sharing 16 keys, each a slice of the columns
+  static constexpr int DKV_THREADS = NUM_THREADS * SPLIT;
+  static constexpr int DH = DP / SPLIT;          // dK/dV columns one warp accumulates
+  static constexpr int BN = HOLD ? 64 : 32;      // key tile of the dQ kernel (registers)
   static constexpr int BM = DP > 64 ? 32 : 64;   // query tile of the dK/dV kernel (registers)
   static constexpr int SMEM_DQ = (2 * BLOCK + 4 * BN) * STRIDE * 2;  // Q, dO + two stages of K and V
   static constexpr int SMEM_DKV = (2 * BLOCK + 4 * BM) * STRIDE * 2 + 4 * BM * 4;  // + lse, delta stages
 };
+
+// acc[NT][4] += A (16 x DP) . T^T as flash::mma_abt, with A read from the
+// row-major shared tile a_tile one k-step at a time instead of held in
+// registers: the same products in the same order
+template <int DP, int NT, int STRIDE>
+__device__ __forceinline__ void mma_abt_smem(float acc[][4], const __nv_bfloat16* a_tile, const __nv_bfloat16* t,
+                                             int lane) {
+  const int l8 = lane % 8, mi = lane / 8;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    uint32_t a[4];
+    load_a<STRIDE>(a, a_tile, kk, lane);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t bf[4];
+      ldmatrix_x4(bf, t + (np * 16 + l8 + (mi / 2) * 8) * STRIDE + kk * 16 + (mi % 2) * 8);
+      mma_16816(acc[2 * np], a, bf[0], bf[1]);
+      mma_16816(acc[2 * np + 1], a, bf[2], bf[3]);
+    }
+  }
+}
 
 template <int N>
 __device__ __forceinline__ void zero(float a[][4]) {
@@ -87,18 +127,19 @@ __device__ __forceinline__ void zero(float a[][4]) {
   for (int i = 0; i < N; ++i) a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0.f;
 }
 
-// rows of a [B, S, H, D] output tile, scaled, as bf16; rows >= S not written
-template <int D, int DP>
+// rows of a [B, S, H, D] output tile, scaled, as bf16: NC columns from col0;
+// rows >= S and columns >= D not written
+template <int D, int NC>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, float acc[][4], int row_a, int S, int H,
-                                           int b, int h, float mul, int lane) {
+                                           int b, int h, float mul, int lane, int col0 = 0) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row_a + r * 8;
     if (row >= S) continue;
     __nv_bfloat16* drow = dst + (((long long)b * S + row) * H + h) * D;
 #pragma unroll
-    for (int dt = 0; dt < DP / 8; ++dt) {
-      const int col = dt * 8 + (lane % 4) * 2;
+    for (int dt = 0; dt < NC / 8; ++dt) {
+      const int col = col0 + dt * 8 + (lane % 4) * 2;
       if (col < D)
         *reinterpret_cast<uint32_t*>(drow + col) = pack_bf16(acc[dt][2 * r] * mul, acc[dt][2 * r + 1] * mul);
     }
@@ -152,9 +193,11 @@ __global__ void __launch_bounds__(NUM_THREADS)
     lse2[r] = row < Sq ? lse[(long long)bh * Sq + row] * LOG2E : 0.f;
     dl[r] = row < Sq ? delta[(long long)bh * Sq + row] : 0.f;
   }
-  uint32_t qf[C::DP / 16][4], of[C::DP / 16][4];
+  uint32_t qf[C::HOLD ? C::DP / 16 : 1][4], of[C::HOLD ? C::DP / 16 : 1][4];  // held at D <= 80 only
   float acc[C::DP / 8][4];
   zero<C::DP / 8>(acc);
+  const __nv_bfloat16* wQ = sQ + warp * 16 * C::STRIDE;  // this warp's 16 rows of Q and dO
+  const __nv_bfloat16* wO = sO + warp * 16 * C::STRIDE;
 
   const int n_tiles = (Sk + BN - 1) / BN;
   for (int j = 0; j < n_tiles; ++j) {
@@ -163,11 +206,13 @@ __global__ void __launch_bounds__(NUM_THREADS)
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    if (j == 0) {
+    if constexpr (C::HOLD) {
+      if (j == 0) {
 #pragma unroll
-      for (int kk = 0; kk < C::DP / 16; ++kk) {
-        load_a<C::STRIDE>(qf[kk], sQ + warp * 16 * C::STRIDE, kk, lane);
-        load_a<C::STRIDE>(of[kk], sO + warp * 16 * C::STRIDE, kk, lane);
+        for (int kk = 0; kk < C::DP / 16; ++kk) {
+          load_a<C::STRIDE>(qf[kk], wQ, kk, lane);
+          load_a<C::STRIDE>(of[kk], wO, kk, lane);
+        }
       }
     }
     const __nv_bfloat16* tK = sK + stage * BN * C::STRIDE;
@@ -176,8 +221,13 @@ __global__ void __launch_bounds__(NUM_THREADS)
     float s[BN / 8][4], dp[BN / 8][4];
     zero<BN / 8>(s);
     zero<BN / 8>(dp);
-    mma_abt<C::DP, BN / 8, C::STRIDE>(s, qf, tK, lane);   // S = Q K^T
-    mma_abt<C::DP, BN / 8, C::STRIDE>(dp, of, tV, lane);  // dP = dO V^T
+    if constexpr (C::HOLD) {
+      mma_abt<C::DP, BN / 8, C::STRIDE>(s, qf, tK, lane);   // S = Q K^T
+      mma_abt<C::DP, BN / 8, C::STRIDE>(dp, of, tV, lane);  // dP = dO V^T
+    } else {
+      mma_abt_smem<C::DP, BN / 8, C::STRIDE>(s, wQ, tK, lane);
+      mma_abt_smem<C::DP, BN / 8, C::STRIDE>(dp, wO, tV, lane);
+    }
 
     const int n0 = j * BN;
 #pragma unroll
@@ -225,8 +275,10 @@ __global__ void __launch_bounds__(NUM_THREADS)
   store_rows<D, C::DP>(dq, acc, row_a, Sq, H, b, h, scale, lane);
 }
 
+// SPLIT warps share each 16 keys (two at D = 160): warp w takes keys
+// 16 * (w % 4) and columns [DH * (w / 4), DH * (w / 4 + 1)) of dK and dV
 template <int D, int BIAS>
-__global__ void __launch_bounds__(NUM_THREADS)
+__global__ void __launch_bounds__(Cfg<D>::DKV_THREADS)
     flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
@@ -235,6 +287,8 @@ __global__ void __launch_bounds__(NUM_THREADS)
                          float scale) {
   using C = Cfg<D>;
   constexpr int BM = C::BM;
+  constexpr int THREADS = C::DKV_THREADS;
+  constexpr int DH = C::DH;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sV = sK + BLOCK * C::STRIDE;
@@ -247,6 +301,8 @@ __global__ void __launch_bounds__(NUM_THREADS)
   const int b = bh / H, h = bh % H;
   const int n0 = blockIdx.x * BLOCK;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int kw = warp % NUM_WARPS;          // this warp's 16 keys
+  const int col0 = (warp / NUM_WARPS) * DH;  // and its dK/dV columns
   const __nv_bfloat16* qb = q + b * st.q[0] + h * st.q[2];
   const __nv_bfloat16* kb = k + b * st.k[0] + h * st.k[2];
   const __nv_bfloat16* vb = v + b * st.v[0] + h * st.v[2];
@@ -254,15 +310,15 @@ __global__ void __launch_bounds__(NUM_THREADS)
   const float* lse_bh = lse + (long long)bh * Sq;
   const float* delta_bh = delta + (long long)bh * Sq;
 
-  load_tile<BLOCK, C::CHUNKS, C::D_CHUNKS, C::STRIDE, NUM_THREADS>(sK, kb, st.k[1], n0, Sk, tid);
-  load_tile<BLOCK, C::CHUNKS, C::D_CHUNKS, C::STRIDE, NUM_THREADS>(sV, vb, st.v[1], n0, Sk, tid);
+  load_tile<BLOCK, C::CHUNKS, C::D_CHUNKS, C::STRIDE, THREADS>(sK, kb, st.k[1], n0, Sk, tid);
+  load_tile<BLOCK, C::CHUNKS, C::D_CHUNKS, C::STRIDE, THREADS>(sV, vb, st.v[1], n0, Sk, tid);
   auto load_q = [&](int stage, int m0) {
-    load_tile<BM, C::CHUNKS, C::D_CHUNKS, C::STRIDE, NUM_THREADS>(sQ + stage * BM * C::STRIDE, qb, st.q[1], m0,
-                                                                   Sq, tid);
-    load_tile<BM, C::CHUNKS, C::D_CHUNKS, C::STRIDE, NUM_THREADS>(sO + stage * BM * C::STRIDE, ob, st.o[1], m0,
-                                                                   Sq, tid);
+    load_tile<BM, C::CHUNKS, C::D_CHUNKS, C::STRIDE, THREADS>(sQ + stage * BM * C::STRIDE, qb, st.q[1], m0,
+                                                               Sq, tid);
+    load_tile<BM, C::CHUNKS, C::D_CHUNKS, C::STRIDE, THREADS>(sO + stage * BM * C::STRIDE, ob, st.o[1], m0,
+                                                               Sq, tid);
     // the previous readers of this stage passed the loop's closing barrier
-    for (int i = tid; i < BM; i += NUM_THREADS) {
+    for (int i = tid; i < BM; i += THREADS) {
       const bool ok = m0 + i < Sq;
       sL[stage * BM + i] = ok ? lse_bh[m0 + i] * LOG2E : 0.f;
       sD[stage * BM + i] = ok ? delta_bh[m0 + i] : 0.f;
@@ -271,7 +327,7 @@ __global__ void __launch_bounds__(NUM_THREADS)
   load_q(0, 0);
   cp_async_commit();
 
-  const int key_a = n0 + warp * 16 + lane / 4;  // this thread's keys: key_a and key_a + 8
+  const int key_a = n0 + kw * 16 + lane / 4;  // this thread's keys: key_a and key_a + 8
   float kbias[2] = {0.f, 0.f};
   if (BIAS == 1) {
 #pragma unroll
@@ -280,10 +336,12 @@ __global__ void __launch_bounds__(NUM_THREADS)
       if (key < Sk) kbias[r] = bias_at(bias + (long long)b * Sk + key);
     }
   }
-  uint32_t kf[C::DP / 16][4], vf[C::DP / 16][4];
-  float acc_k[C::DP / 8][4], acc_v[C::DP / 8][4];
-  zero<C::DP / 8>(acc_k);
-  zero<C::DP / 8>(acc_v);
+  uint32_t kf[C::HOLD ? C::DP / 16 : 1][4], vf[C::HOLD ? C::DP / 16 : 1][4];  // held at D <= 80 only
+  const __nv_bfloat16* wK = sK + kw * 16 * C::STRIDE;
+  const __nv_bfloat16* wV = sV + kw * 16 * C::STRIDE;
+  float acc_k[DH / 8][4], acc_v[DH / 8][4];
+  zero<DH / 8>(acc_k);
+  zero<DH / 8>(acc_v);
 
   const int m_tiles = (Sq + BM - 1) / BM;
   for (int j = 0; j < m_tiles; ++j) {
@@ -292,11 +350,13 @@ __global__ void __launch_bounds__(NUM_THREADS)
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    if (j == 0) {
+    if constexpr (C::HOLD) {
+      if (j == 0) {
 #pragma unroll
-      for (int kk = 0; kk < C::DP / 16; ++kk) {
-        load_a<C::STRIDE>(kf[kk], sK + warp * 16 * C::STRIDE, kk, lane);
-        load_a<C::STRIDE>(vf[kk], sV + warp * 16 * C::STRIDE, kk, lane);
+        for (int kk = 0; kk < C::DP / 16; ++kk) {
+          load_a<C::STRIDE>(kf[kk], wK, kk, lane);
+          load_a<C::STRIDE>(vf[kk], wV, kk, lane);
+        }
       }
     }
     const __nv_bfloat16* tQ = sQ + stage * BM * C::STRIDE;
@@ -307,8 +367,13 @@ __global__ void __launch_bounds__(NUM_THREADS)
     float s[BM / 8][4], dp[BM / 8][4];
     zero<BM / 8>(s);
     zero<BM / 8>(dp);
-    mma_abt<C::DP, BM / 8, C::STRIDE>(s, kf, tQ, lane);   // S^T = K Q^T
-    mma_abt<C::DP, BM / 8, C::STRIDE>(dp, vf, tO, lane);  // dP^T = V dO^T
+    if constexpr (C::HOLD) {
+      mma_abt<C::DP, BM / 8, C::STRIDE>(s, kf, tQ, lane);   // S^T = K Q^T
+      mma_abt<C::DP, BM / 8, C::STRIDE>(dp, vf, tO, lane);  // dP^T = V dO^T
+    } else {
+      mma_abt_smem<C::DP, BM / 8, C::STRIDE>(s, wK, tQ, lane);
+      mma_abt_smem<C::DP, BM / 8, C::STRIDE>(dp, wV, tO, lane);
+    }
 
     const int m0 = j * BM;
 #pragma unroll
@@ -331,12 +396,12 @@ __global__ void __launch_bounds__(NUM_THREADS)
         dp[nt][e] = p * (dp[nt][e] - tD[i]);  // dS^T
       }
     }
-    mma_ab<C::DP, BM, C::STRIDE>(acc_v, s, tO, lane);   // dV += P^T dO
-    mma_ab<C::DP, BM, C::STRIDE>(acc_k, dp, tQ, lane);  // dK += dS^T Q
+    mma_ab<DH, BM, C::STRIDE>(acc_v, s, tO + col0, lane);   // dV += P^T dO
+    mma_ab<DH, BM, C::STRIDE>(acc_k, dp, tQ + col0, lane);  // dK += dS^T Q
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
-  store_rows<D, C::DP>(dk, acc_k, key_a, Sk, H, b, h, scale, lane);
-  store_rows<D, C::DP>(dv, acc_v, key_a, Sk, H, b, h, 1.f, lane);
+  store_rows<D, DH>(dk, acc_k, key_a, Sk, H, b, h, scale, lane, col0);
+  store_rows<D, DH>(dv, acc_v, key_a, Sk, H, b, h, 1.f, lane, col0);
 }
 
 struct Args {
@@ -371,7 +436,7 @@ int launch_dkv(const Args& a) {
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_DKV);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.Sk + BLOCK - 1) / BLOCK, a.B * a.H);
-  kern<<<grid, NUM_THREADS, C::SMEM_DKV, a.stream>>>(
+  kern<<<grid, C::DKV_THREADS, C::SMEM_DKV, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v), static_cast<const float*>(a.bias),
       static_cast<const __nv_bfloat16*>(a.dout), static_cast<const float*>(a.lse),
@@ -411,6 +476,7 @@ int dispatch(int D, int bias_mode, const Args& a) {
       if constexpr (KIND == DQ_DBIAS) return dispatch_bias<KIND, 64>(bias_mode, a);
       return static_cast<int>(cudaErrorInvalidValue);
     case 80: return dispatch_bias<KIND, 80>(bias_mode, a);
+    case 160: return dispatch_bias<KIND, 160>(bias_mode, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -20,6 +20,7 @@ __all__ = [
     "get_timestep_embedding",
     "TimestepEmbedding",
     "GroupNorm",
+    "LayerNorm",
     "RMSNorm",
     "ResnetBlock2D",
     "Downsample2D",
@@ -85,6 +86,21 @@ class GroupNorm(nn.Module):
             x.permute(0, 2, 3, 1), self.weight, self.bias, self.groups, self.eps, self.silu
         )
         return y.permute(0, 3, 1, 2)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` computed as flax's ``LayerNorm`` computes it: the
+    statistics, the affine and, in the backward, the weight and bias
+    gradients in fp32, the output in the input's dtype. CUDA's kernel does
+    so for a bf16 input; the CPU's sums a bf16 input's weight and bias
+    gradients in bf16 (some 5 % off over 512 rows), so there a narrower
+    input is widened first."""
+
+    def forward(self, x):
+        if x.device.type != "cpu" or x.dtype == torch.float32:
+            return super().forward(x)
+        w, b = (None if t is None else t.float() for t in (self.weight, self.bias))
+        return F.layer_norm(x.float(), self.normalized_shape, w, b, self.eps).to(x.dtype)
 
 
 class RMSNorm(nn.Module):

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch.nn.functional as F
 from torch import nn
 
-from uwudiff_tpu_torch.models.layers import GroupNorm
+from uwudiff_tpu_torch.models.layers import GroupNorm, LayerNorm
 from uwudiff_tpu_torch.ops.attention import attention_bias_from_mask, dot_product_attention
 
 __all__ = ["Attention", "FeedForward", "BasicTransformerBlock", "Transformer2DModel"]
@@ -57,13 +57,13 @@ class FeedForward(nn.Module):
 class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, head_dim: int, cross_attention_dim: int | None = None):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=_LN_EPS)
+        self.norm1 = LayerNorm(dim, eps=_LN_EPS)
         self.attn1 = Attention(dim, num_heads, head_dim)
         self.has_cross = cross_attention_dim is not None
         if self.has_cross:
-            self.norm2 = nn.LayerNorm(dim, eps=_LN_EPS)
+            self.norm2 = LayerNorm(dim, eps=_LN_EPS)
             self.attn2 = Attention(dim, num_heads, head_dim, kv_dim=cross_attention_dim)
-        self.norm3 = nn.LayerNorm(dim, eps=_LN_EPS)
+        self.norm3 = LayerNorm(dim, eps=_LN_EPS)
         self.ff = FeedForward(dim)
 
     def forward(self, hidden_states, encoder_hidden_states=None, encoder_attention_mask=None):
@@ -78,7 +78,10 @@ class BasicTransformerBlock(nn.Module):
 class Transformer2DModel(nn.Module):
     """Spatial transformer: GN -> proj_in -> blocks over [B, HW, C] ->
     proj_out -> residual. ``use_linear_projection`` picks Linear (SDXL)
-    or 1x1-conv (SD1.5) projections."""
+    or 1x1-conv (SD1.5) projections. A 1x1 conv over a channels-last map is
+    a matrix product over its [B*HW, C] rows, so both forms run as one
+    over the NHWC view, in and out, with no layout copy; the conv keeps its
+    ``Conv2d`` weight (and its flax name and shape)."""
 
     def __init__(
         self,
@@ -93,9 +96,8 @@ class Transformer2DModel(nn.Module):
     ):
         super().__init__()
         inner = num_heads * head_dim
-        self.linear = use_linear_projection
         self.norm = GroupNorm(in_channels, norm_num_groups, norm_eps, silu=False)
-        if self.linear:
+        if use_linear_projection:
             self.proj_in = nn.Linear(in_channels, inner)
             self.proj_out = nn.Linear(inner, in_channels)
         else:
@@ -107,18 +109,17 @@ class Transformer2DModel(nn.Module):
                 name, BasicTransformerBlock(inner, num_heads, head_dim, cross_attention_dim)
             )
 
+    @staticmethod
+    def _project(proj, x):
+        if isinstance(proj, nn.Linear):
+            return proj(x)
+        return F.linear(x, proj.weight.flatten(1), proj.bias)  # the 1x1 conv's [out, in] matrix
+
     def forward(self, hidden_states, encoder_hidden_states=None, encoder_attention_mask=None):
         b, c, h, w = hidden_states.shape
         x = self.norm(hidden_states)
-        if self.linear:
-            x = self.proj_in(x.permute(0, 2, 3, 1).reshape(b, h * w, c))
-        else:
-            x = self.proj_in(x)
-            x = x.permute(0, 2, 3, 1).reshape(b, h * w, -1)
+        x = self._project(self.proj_in, x.permute(0, 2, 3, 1).reshape(b, h * w, c))
         for name in self.block_names:
             x = getattr(self, name)(x, encoder_hidden_states, encoder_attention_mask)
-        if self.linear:
-            x = self.proj_out(x).reshape(b, h, w, c).permute(0, 3, 1, 2)
-        else:
-            x = self.proj_out(x.reshape(b, h, w, -1).permute(0, 3, 1, 2))
+        x = self._project(self.proj_out, x).reshape(b, h, w, c).permute(0, 3, 1, 2)
         return x + hidden_states

@@ -70,6 +70,7 @@ class UNet2DConditionModel(nn.Module):
         self.flip_sin_to_cos, self.freq_shift = flip_sin_to_cos, freq_shift
         self.addition_embed_type = addition_embed_type
         self.addition_time_embed_dim = addition_time_embed_dim
+        self.cross_attention_dim = cross_attention_dim
         self.base_channels = boc[0]
         groups = norm_num_groups
         temb = boc[0] * 4
@@ -183,6 +184,24 @@ class UNet2DConditionModel(nn.Module):
 
 
 UNET_PRESETS: dict[str, dict] = {
+    # SD1.5-class UNet (768-dim CLIP context): head dims 40/80/160, 1x1-conv
+    # transformer projections, no addition embedding
+    "sd15": dict(
+        in_channels=4,
+        out_channels=4,
+        block_out_channels=(320, 640, 1280, 1280),
+        down_block_types=(
+            "CrossAttnDownBlock2D",
+            "CrossAttnDownBlock2D",
+            "CrossAttnDownBlock2D",
+            "DownBlock2D",
+        ),
+        layers_per_block=2,
+        transformer_layers_per_block=1,
+        num_attention_heads=8,
+        cross_attention_dim=768,
+        use_linear_projection=False,
+    ),
     # SDXL-base-class UNet (2048-dim dual-CLIP context + micro-conditioning)
     "sdxl": dict(
         in_channels=4,

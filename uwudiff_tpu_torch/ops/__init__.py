@@ -18,7 +18,14 @@ from uwudiff_tpu_torch.ops.flash_attention import (
     flash_fwd_mma,
     flash_fwd_sm90,
 )
-from uwudiff_tpu_torch.ops.fused_optim import adamw_apply, adamw_finish, adamw_norm, adamw_rms, adamw_stats
+from uwudiff_tpu_torch.ops.fused_optim import (
+    adamw_apply,
+    adamw_finish,
+    adamw_fp16_apply,
+    adamw_norm,
+    adamw_rms,
+    adamw_stats,
+)
 from uwudiff_tpu_torch.ops.groupnorm_silu import (
     gn_bwd_dx,
     gn_bwd_partials,
@@ -34,6 +41,7 @@ from uwudiff_tpu_torch.ops.groupnorm_silu import (
 __all__ = [
     "FORWARD_KERNELS",
     "KERNELS",
+    "FP16_OPTIMIZER_KERNELS",
     "OPTIMIZER_KERNELS",
     "attention_bias_from_mask",
     "attention_reference",
@@ -45,6 +53,7 @@ __all__ = [
     "gn_stats",
     "group_norm_silu",
     "launch_counts",
+    "mma_launches_by_head_dim",
     "plan_gn",
     "plan_gn_bwd",
     "reset_launch_counts",
@@ -74,6 +83,7 @@ KERNELS = {
     "adamw_finish": adamw_finish,
     "adamw_rms": adamw_rms,
     "adamw_apply": adamw_apply,
+    "adamw_fp16_apply": adamw_fp16_apply,
 }
 # what serving launches: every GroupNorm of the served UNet but one shape
 # (and of the VAE decoder's 128^2 level) on the fused kernel, the rest on
@@ -82,6 +92,8 @@ FORWARD_KERNELS = ("flash_fwd_sm90", "gn_silu_fused", "gn_stats", "gn_silu_apply
 # the training step's parameter update (ops/fused_optim.py): adamw_norm with a
 # global-norm clip only, adamw_rms with adamw_factored's clipping_threshold only
 OPTIMIZER_KERNELS = ("adamw_norm", "adamw_stats", "adamw_finish", "adamw_rms", "adamw_apply")
+# the SD1.5 step's adamw_fp16 update (O2): the global norm, then one elementwise pass
+FP16_OPTIMIZER_KERNELS = ("adamw_norm", "adamw_fp16_apply")
 
 
 def launch_counts() -> dict[str, int]:
@@ -91,6 +103,15 @@ def launch_counts() -> dict[str, int]:
     return counts
 
 
+def mma_launches_by_head_dim() -> dict[str, dict[int, int]]:
+    """The mma.sync flash kernels' launches split by head dim (SD1.5's
+    40/80/160 share each wrapper)."""
+    return {name: dict(sorted(KERNELS[name].head_dims.items()))
+            for name in ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma")}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "head_dims"):
+            fn.head_dims.clear()

@@ -8,11 +8,13 @@ MMDiT, runs the Hopper kernels: the forward ``csrc/flash_fwd_sm90.cu``
 and the dQ and dK/dV kernels ``csrc/flash_bwd_sm90.cu`` (TMA loads into
 an mbarrier ring, wgmma, a producer warpgroup and two consumer
 warpgroups), whose tensor maps are computed and checked here
-(:func:`tma_map`) and encoded by the C side. D = 40/80/160 run the
-mma.sync forward (``csrc/flash_fwd.cu``), D = 40/80 the mma.sync
-backward (``csrc/flash_bwd.cu``), which also holds the dQ + dBias kernel
-(K5) at every backward head dim. Each source note says what bounds the
-kernel on an H100 and how the design answers that.
+(:func:`tma_map`) and encoded by the C side. D = 40/80/160, SD1.5's head
+dims, run the mma.sync forward (``csrc/flash_fwd.cu``) and the mma.sync
+backward (``csrc/flash_bwd.cu``; at D = 160 its dK/dV kernel splits the
+columns of dK and dV across a warp pair), which also holds the dQ + dBias
+kernel (K5) at every backward head dim. Any other head dim raises on the
+card. Each source note says what bounds the kernel on an H100 and how the
+design answers that.
 
 Contract (the JAX function's): ``q`` ``[B, Sq, H, D]``, ``k``/``v``
 ``[B, Sk, H, D]``, out ``[B, Sq, H, D]`` in the input dtype and, on
@@ -77,8 +79,8 @@ NEG_INF = -1e30
 SM90_HEAD_DIMS = (64,)  # the Hopper forward and backward (SDXL, CLIP, T5, the SD3 MMDiT)
 MMA_HEAD_DIMS = (40, 80, 160)  # the mma.sync forward (SD1.5)
 HEAD_DIMS = (40, 64, 80, 160)  # every head dim a forward was built for
-MMA_BWD_HEAD_DIMS = (40, 80)  # the mma.sync dQ and dK/dV kernels
-BWD_HEAD_DIMS = (40, 64, 80)  # the backward's (and K5's); 160's dK+dV accumulators do not fit registers
+MMA_BWD_HEAD_DIMS = (40, 80, 160)  # the mma.sync dQ and dK/dV kernels (SD1.5)
+BWD_HEAD_DIMS = (40, 64, 80, 160)  # every head dim a backward (and K5) was built for
 
 _fns: dict = {}
 
@@ -360,15 +362,17 @@ def flash_fwd_mma(q, k, v, bias=None, scale=None):
     if rc != 0:
         raise RuntimeError(f"flash_fwd_mma launch failed: cudaError {rc}")
     flash_fwd_mma.launches += 1
+    flash_fwd_mma.head_dims[d] = flash_fwd_mma.head_dims.get(d, 0) + 1
     return out, lse
 
 
 flash_fwd_mma.launches = 0
+flash_fwd_mma.head_dims = {}  # launches by head dim
 
 
 def backward_kernels(d):
     """The backward's (dQ, dK/dV) wrappers for head dim ``d``: the Hopper
-    kernels at D = 64, the mma.sync kernels at D = 40/80; any other
+    kernels at D = 64, the mma.sync kernels at D = 40/80/160; any other
     raises. (K5, the dQ + dBias kernel, is mma.sync at every head dim.)"""
     if d in SM90_HEAD_DIMS:
         return flash_bwd_dq_sm90, flash_bwd_dkv_sm90
@@ -441,7 +445,7 @@ flash_bwd_dkv_sm90.launches = 0
 
 
 def flash_bwd_dq_mma(q, k, v, dout, lse, delta, bias=None, scale=None):
-    """Launch the mma.sync dQ kernel (K4, D = 40/80)."""
+    """Launch the mma.sync dQ kernel (K4, D = 40/80/160)."""
     _check("flash_bwd_dq_mma", MMA_BWD_HEAD_DIMS, ("q", q), ("k", k), ("v", v), ("dout", dout))
     b, sq, h, d = q.shape
     scale = scale if scale is not None else d**-0.5
@@ -459,10 +463,12 @@ def flash_bwd_dq_mma(q, k, v, dout, lse, delta, bias=None, scale=None):
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dq_mma launch failed: cudaError {rc}")
     flash_bwd_dq_mma.launches += 1
+    flash_bwd_dq_mma.head_dims[d] = flash_bwd_dq_mma.head_dims.get(d, 0) + 1
     return dq
 
 
 flash_bwd_dq_mma.launches = 0
+flash_bwd_dq_mma.head_dims = {}  # launches by head dim
 
 
 def flash_bwd_dq_dbias(q, k, v, dout, lse, delta, bias, scale=None):
@@ -495,7 +501,7 @@ flash_bwd_dq_dbias.launches = 0
 
 
 def flash_bwd_dkv_mma(q, k, v, dout, lse, delta, bias=None, scale=None):
-    """Launch the mma.sync dK/dV kernel (K6, D = 40/80). Returns (dk, dv)."""
+    """Launch the mma.sync dK/dV kernel (K6, D = 40/80/160). Returns (dk, dv)."""
     _check("flash_bwd_dkv_mma", MMA_BWD_HEAD_DIMS, ("q", q), ("k", k), ("v", v), ("dout", dout))
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -516,10 +522,12 @@ def flash_bwd_dkv_mma(q, k, v, dout, lse, delta, bias=None, scale=None):
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dkv_mma launch failed: cudaError {rc}")
     flash_bwd_dkv_mma.launches += 1
+    flash_bwd_dkv_mma.head_dims[d] = flash_bwd_dkv_mma.head_dims.get(d, 0) + 1
     return dk, dv
 
 
 flash_bwd_dkv_mma.launches = 0
+flash_bwd_dkv_mma.head_dims = {}  # launches by head dim
 
 
 def flash_bwd(q, k, v, bias, out, lse, dout, scale=None, bias_grad=False, dlse=None):

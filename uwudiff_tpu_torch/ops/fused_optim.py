@@ -1,5 +1,6 @@
 """The training step's parameter update as one multi-tensor pass: ``adamw_factored``
-with the global-norm clip, bf16 stochastic rounding and the weight EMA.
+with the global-norm clip, bf16 stochastic rounding and the weight EMA (O1);
+``adamw_fp16`` over fp32 masters and their bf16 working copy (O2).
 
 The JAX step runs optax's chain inside one ``jax.jit``
 (``uwudiff_tpu/training/trainer.py::_train_step_impl``), which XLA fuses;
@@ -13,17 +14,27 @@ launches a step whatever the leaf count.
 - :func:`leaf_geometry` and :func:`plan_leaves`: how each leaf is walked
   (pure functions of shapes, strides and the factored axes, tested on the
   CPU); :class:`AdamWFactoredPlan`: the leaf table and scratch buffers,
-  built once per optimizer state and resident on the device.
+  built once per optimizer state and resident on the device. It and O2's
+  plan share ``_LeafPlan``: the table's upload, the checks of the step's
+  gradients, the addresses the plan holds, the pinned per-step pointers.
 - The wrappers :func:`adamw_norm` (only with a global-norm clip),
   :func:`adamw_stats`, :func:`adamw_finish`, :func:`adamw_rms` (only with
   ``clipping_threshold``) and :func:`adamw_apply`, one launch each, each
   with its launch count; :func:`fused_adamw_factored_step_` runs them.
+- O2: :class:`AdamWFP16Plan` (every leaf dense, in memory order) and
+  :func:`fused_adamw_fp16_step_`, ``AdamWFP16.step_`` on the card:
+  :func:`adamw_norm` (the global norm, for the clip and the metric), then
+  :func:`adamw_fp16_apply`, which reads the bf16 gradient, updates the bf16
+  moments through fp32, applies the leaf's accumulated decay and writes the
+  fp32 master and its bf16 working copy: 20 bytes a parameter.
 
-bf16 parameters (stochastic rounding) and fp32 parameters (``p + u`` in
-fp32) with a bf16 momentum; anything else on CUDA raises, and so does a
-leaf whose layout the kernels do not walk (neither factored axis
-contiguous, a vector width that does not divide the contiguous axis). No
-per-leaf eager path and no fallback to the plain version.
+O1 takes bf16 parameters (stochastic rounding) and fp32 parameters (``p +
+u`` in fp32) with a bf16 momentum; O2 fp32 masters with bf16 gradients,
+moments and working copies, all of one dense layout; anything else on
+CUDA raises, and so does a leaf whose layout the kernels do not walk
+(neither factored axis contiguous, a vector width that does not divide
+the contiguous axis). No per-leaf eager path and no fallback to the plain
+version.
 """
 
 from __future__ import annotations
@@ -36,13 +47,16 @@ import torch
 
 __all__ = [
     "LEAF_FIELDS",
+    "AdamWFP16Plan",
     "AdamWFactoredPlan",
     "adamw_apply",
     "adamw_finish",
+    "adamw_fp16_apply",
     "adamw_norm",
     "adamw_rms",
     "adamw_stats",
     "fused_adamw_factored_step_",
+    "fused_adamw_fp16_step_",
     "leaf_geometry",
     "plan_leaves",
 ]
@@ -70,11 +84,11 @@ class _Args(ctypes.Structure):
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
             "leaves", "ptrs", "tile_leaf", "stat_leaf", "part_f", "part_s", "tile_sq", "tile_u2", "leaf_norm",
-            "leaf_denom", "counters", "out")]
+            "leaf_denom", "counters", "out", "decay")]
         + [("n_leaves", ctypes.c_longlong), ("flags", ctypes.c_longlong), ("seed", ctypes.c_ulonglong),
            ("step", ctypes.c_ulonglong)]
         + [(name, ctypes.c_float) for name in (
-            "eps", "b2", "omb2", "lr", "c_u", "c_m", "lrwd", "thr", "clip", "ema_dw", "ema_c", "pad")]
+            "eps", "b2", "omb2", "lr", "c_u", "c_m", "lrwd", "thr", "clip", "ema_dw", "ema_c", "step_size")]
     )
 
 
@@ -175,23 +189,121 @@ def _aligned(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0
 
 
-class AdamWFactoredPlan:
-    """The kernels' view of one optimizer state over one list of CUDA
-    parameters: the leaf table, the tile-to-leaf maps, the partial-sum and
-    factor buffers and the zeroed counters, resident on the device, and a
-    pinned buffer for the per-step pointers (gradients, given rounding
-    bits, EMA tensors). Checks every leaf once and raises for what the
-    kernels do not take."""
+def _layout(t: torch.Tensor) -> tuple:
+    """The shape and the strides of the axes longer than 1: two tensors with
+    the same layout hold each element at the same offset (a 1x1 conv's
+    gradient may come contiguous beside its channels_last weight)."""
+    return tuple(t.shape), tuple(st for st, n in zip(t.stride(), t.shape) if n != 1)
 
-    def __init__(self, tx, params, state):
+
+class _LeafPlan:
+    """What both optimizers' plans share: the kernels' ``_Args``, the leaf
+    table and the norm's buffers resident on the device, the zeroed
+    counters, the addresses the plan was built over, and the per-step upload
+    of the gradient pointers (rows of ``Args.ptrs``, the gradient first)
+    from a pinned buffer. A subclass names its optimizer (``name``), its
+    gradients' dtype (``dtype``) and the wrappers a step launches."""
+
+    name = ""
+    dtype = torch.bfloat16
+
+    def __init__(self, params, state, extra=()):
         from uwudiff_tpu_torch.training.optimizers import dense_layout
 
         if not params:
-            raise ValueError("fused adamw_factored: no parameters")
+            raise ValueError(f"{self.name}: no parameters")
         dev = params[0].device
-        dtype = params[0].dtype
         if dev.type != "cuda":
-            raise ValueError(f"fused adamw_factored runs on CUDA tensors, got {dev}")
+            raise ValueError(f"{self.name} runs on CUDA tensors, got {dev}")
+        for i, p in enumerate(params):
+            if p.device != dev or not dense_layout(p) or not _aligned(p):
+                raise ValueError(f"{self.name}: leaf {i} {tuple(p.shape)} is not dense and 16-byte aligned"
+                                 f" on {dev}")
+        n = len(params)
+        self.device, self.n_leaves = dev, n
+        self._layouts = [_layout(p) for p in params]
+        self._built_over = self._addresses(params, state, extra)
+        self._host = torch.zeros((n, 4), dtype=torch.int64, pin_memory=True)
+        self._ptrs = torch.zeros((n, 4), dtype=torch.int64, device=dev)
+        self._copied = torch.cuda.Event()
+        self.counters = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+        self.args = _Args()
+        self.args.ptrs, self.args.counters, self.args.n_leaves = self._ptrs.data_ptr(), self.counters.data_ptr(), n
+        self.norm = None
+
+    def _resident(self, plan: dict) -> None:
+        """Put ``plan_leaves``' table (pointers filled in) and tile-to-leaf
+        map on the device, with the norm's per-tile and per-leaf sums."""
+        f32 = dict(dtype=torch.float32, device=self.device)
+        self.n_tiles = len(plan["tile_leaf"])
+        self.table = torch.from_numpy(plan["table"]).to(self.device)
+        self.tile_leaf = torch.from_numpy(plan["tile_leaf"]).to(self.device)
+        self.tile_sq = torch.empty(self.n_tiles, **f32)
+        self.leaf_norm = torch.empty(self.n_leaves, **f32)
+        a = self.args
+        a.leaves, a.tile_leaf = self.table.data_ptr(), self.tile_leaf.data_ptr()
+        a.tile_sq, a.leaf_norm = self.tile_sq.data_ptr(), self.leaf_norm.data_ptr()
+
+    @staticmethod
+    def _addresses(params, state, extra) -> list:
+        return [t.data_ptr() for t in list(params) + list(extra)] + [
+            t.data_ptr() for st in state.leaves for t in st.values()]
+
+    def holds(self, params, state, extra=()) -> bool:
+        """Whether the plan was built over these tensors (a state tensor
+        replaced, not updated in place, makes a new plan)."""
+        return self._built_over == self._addresses(params, state, extra)
+
+    def _check_per_leaf(self, tensors, what: str) -> None:
+        if len(tensors) != self.n_leaves:
+            raise ValueError(f"{self.name}: {len(tensors)} {what}s for {self.n_leaves} leaves")
+        for i, (t, lay) in enumerate(zip(tensors, self._layouts)):
+            if t is None or t.dtype != self.dtype or _layout(t) != lay or t.data_ptr() % 16 or t.device != self.device:
+                raise ValueError(f"{self.name}: leaf {i}'s {what} must be a 16-byte aligned {self.dtype} tensor "
+                                 f"on {self.device} with its parameter's strides (axes longer than 1) {lay}")
+
+    def _host_rows(self, grads) -> np.ndarray:
+        """Wait until the previous step's copies have left the pinned
+        buffers; returns the pinned pointer rows with the gradients' in
+        column 0, for the caller to fill the rest before ``_upload``."""
+        self._copied.synchronize()
+        rows = self._host.numpy()
+        rows[:, 0] = [g.data_ptr() for g in grads]
+        return rows
+
+    def _upload(self, *pinned) -> None:
+        """Copy the pointer rows, and each (device, pinned) pair, to the
+        device behind the work queued so far; a new norm output."""
+        self._ptrs.copy_(self._host, non_blocking=True)
+        for dst, src in pinned:
+            dst.copy_(src, non_blocking=True)
+        self._copied.record()
+        self.norm = torch.empty((), dtype=torch.float32, device=self.device)
+        self.args.out = self.norm.data_ptr()
+
+    def launches(self) -> list:
+        """The wrappers a prepared step launches, in order."""
+        raise NotImplementedError
+
+    def run(self) -> torch.Tensor:
+        """Launch the prepared step; returns its fp32 global gradient norm."""
+        for wrapper in self.launches():
+            wrapper(self)
+        return self.norm
+
+
+class AdamWFactoredPlan(_LeafPlan):
+    """O1's view of one ``AdamWFactored`` state over one list of CUDA
+    parameters: beside what every plan holds, the partial-sum and factor
+    buffers, and per step the given rounding bits and EMA tensors. Checks
+    every leaf once and raises for what the kernels do not take."""
+
+    name = "fused adamw_factored"
+
+    def __init__(self, tx, params, state):
+        self.dtype = params[0].dtype if params else torch.bfloat16
+        super().__init__(params, state)
+        dtype, dev = self.dtype, self.device
         if dtype not in VEC:
             raise TypeError(f"fused adamw_factored: parameters must be bf16 or fp32, got {dtype}")
         if tx.moment_dtype != torch.bfloat16:
@@ -200,18 +312,15 @@ class AdamWFactoredPlan:
         if dims is None or len(dims) != len(params):
             raise ValueError("fused adamw_factored: the state has no factored axes (AdamWFactored.init)")
         for i, (p, st) in enumerate(zip(params, state.leaves)):
-            if p.device != dev or p.dtype != dtype:
-                raise TypeError(f"fused adamw_factored: leaf {i} is {p.dtype} on {p.device}, "
-                                f"the first {dtype} on {dev}")
-            if not dense_layout(p) or not _aligned(p):
-                raise ValueError(f"fused adamw_factored: leaf {i} {tuple(p.shape)} is not dense and 16-byte aligned")
+            if p.dtype != dtype:
+                raise TypeError(f"fused adamw_factored: leaf {i} is {p.dtype}, the first {dtype}")
             mu = st["mu"]
-            if mu.dtype != torch.bfloat16 or mu.stride() != p.stride() or not _aligned(mu):
+            if mu.dtype != torch.bfloat16 or _layout(mu) != _layout(p) or not _aligned(mu):
                 raise ValueError(f"fused adamw_factored: leaf {i}'s momentum must be bf16 in its layout")
             stats = [st["v"]] if dims[i] is None else [st["v_row"], st["v_col"]]
             if any(v.dtype != dtype or v.device != dev for v in stats):
                 raise TypeError(f"fused adamw_factored: leaf {i}'s statistics must be {dtype} on {dev}")
-            if dims[i] is None and st["v"].stride() != p.stride():
+            if dims[i] is None and _layout(st["v"]) != _layout(p):
                 raise ValueError(f"fused adamw_factored: leaf {i}'s v must take its layout")
             if dims[i] is not None:
                 d1, d0 = dims[i]
@@ -223,19 +332,14 @@ class AdamWFactoredPlan:
         plan = plan_leaves([tuple(p.shape) for p in params], [p.stride() for p in params], dims, dtype)
         sizes = plan["sizes"]
         f32 = dict(dtype=torch.float32, device=dev)
-        n = len(params)
-        self.device, self.dtype, self.n_leaves = dev, dtype, n
-        self.n_tiles, self.n_stat_tiles = len(plan["tile_leaf"]), len(plan["stat_leaf"])
+        self.n_stat_tiles = len(plan["stat_leaf"])
         self.rf = torch.empty(max(sizes["rf"], 4), **f32)
         self.cf = torch.empty(max(sizes["cf"], 4), **f32)
         self.row_mean = torch.empty(max(sizes["row_mean"], 4), **f32)
         self.part_f = torch.empty(max(sizes["part_f"], 1), **f32)
         self.part_s = torch.empty(max(sizes["part_s"], 1), **f32)
-        self.tile_sq = torch.empty(self.n_tiles, **f32)
-        self.tile_u2 = torch.empty(self.n_tiles, **f32)
-        self.leaf_norm = torch.empty(n, **f32)
-        self.leaf_denom = torch.empty(n, **f32)
-        self.counters = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+        self.tile_u2 = torch.empty(len(plan["tile_leaf"]), **f32)
+        self.leaf_denom = torch.empty(len(params), **f32)
         table = plan["table"]
         for i, (p, st, off) in enumerate(zip(params, state.leaves, plan["offsets"])):
             row = table[i]
@@ -246,37 +350,15 @@ class AdamWFactoredPlan:
                 row[_COL["v_a"]], row[_COL["v_b"]] = st["v_row"].data_ptr(), st["v_col"].data_ptr()
                 for name, buf in (("rf", self.rf), ("cf", self.cf), ("row_mean", self.row_mean)):
                     row[_COL[name]] = buf.data_ptr() + 4 * off[name]
-        self.table = torch.from_numpy(table).to(dev)
-        self.tile_leaf = torch.from_numpy(plan["tile_leaf"]).to(dev)
+        self._resident(plan)
         self.stat_leaf = torch.from_numpy(plan["stat_leaf"]).to(dev)
         self.geometry = table  # host copy, pointers included
         self.sizes = sizes
-        self._host = torch.zeros((n, 4), dtype=torch.int64, pin_memory=True)
-        self._host_np = self._host.numpy()
-        self._ptrs = torch.zeros((n, 4), dtype=torch.int64, device=dev)
-        self._copied = torch.cuda.Event()
-        self._ptrs_built = self._held(params, state)
-        self._strides = [p.stride() for p in params]
         self._keep: list = []  # the given bits of the prepared step, alive until it is queued
-        self.args = _Args()
         a = self.args
-        for name in ("table", "tile_leaf", "stat_leaf", "part_f", "part_s", "tile_sq", "tile_u2", "leaf_norm",
-                     "leaf_denom", "counters"):
-            setattr(a, "leaves" if name == "table" else name, getattr(self, name).data_ptr())
-        a.ptrs = self._ptrs.data_ptr()
-        a.n_leaves = n
+        for name in ("stat_leaf", "part_f", "part_s", "tile_u2", "leaf_denom"):
+            setattr(a, name, getattr(self, name).data_ptr())
         self.flags = 0
-        self.norm = None
-
-    @staticmethod
-    def _held(params, state) -> list:
-        """The addresses the leaf table holds: every parameter's and every state tensor's."""
-        return [p.data_ptr() for p in params] + [t.data_ptr() for st in state.leaves for t in st.values()]
-
-    def holds(self, params, state) -> bool:
-        """Whether the plan was built over these parameter and state tensors
-        (a state tensor replaced, not updated in place, makes a new plan)."""
-        return self._held(params, state) == self._ptrs_built
 
     def _bits(self, bits, i, p):
         b = None if bits is None else bits[i]
@@ -290,33 +372,21 @@ class AdamWFactoredPlan:
                 ema_decay=None, ema_bits=None) -> None:
         """Upload this step's pointers (one copy from pinned memory) and set
         its scalars: the optimizer's after ``count`` updates."""
-        n = self.n_leaves
-        if len(grads) != n:
-            raise ValueError(f"fused adamw_factored: {len(grads)} gradients for {n} leaves")
         dtype = self.dtype
-        for i, (g, s) in enumerate(zip(grads, self._strides)):
-            if g is None or g.dtype != dtype or g.stride() != s or g.data_ptr() % 16 or not g.is_cuda:
-                raise ValueError(f"fused adamw_factored: leaf {i}'s gradient must be a 16-byte aligned CUDA "
-                                 f"{dtype} tensor with its parameter's strides {s}")
+        self._check_per_leaf(grads, "gradient")
         if ema_params is not None:
-            if len(ema_params) != n or ema_decay is None:
+            if ema_decay is None:
                 raise ValueError("fused adamw_factored: one EMA tensor a leaf and the step's EMA decay")
-            for i, (e, s) in enumerate(zip(ema_params, self._strides)):
-                if e.dtype != dtype or e.stride() != s or e.data_ptr() % 16 or not e.is_cuda:
-                    raise ValueError(f"fused adamw_factored: leaf {i}'s EMA must be a 16-byte aligned CUDA "
-                                     f"{dtype} tensor with its parameter's strides {s}")
-        self._copied.synchronize()  # the previous step's copy has left the pinned buffer
-        self._keep = []
-        host = self._host_np
-        host[:, 0] = [g.data_ptr() for g in grads]
+            self._check_per_leaf(ema_params, "EMA")
         if (sr_bits is not None or ema_bits is not None) and dtype != torch.bfloat16:
             raise ValueError("fused adamw_factored: rounding bits apply to bf16 parameters only")
+        host = self._host_rows(grads)
+        self._keep = []
         # given bits, as int32 in the gradient's (the parameter's) layout
         host[:, 1] = 0 if sr_bits is None else [self._bits(sr_bits, i, g) for i, g in enumerate(grads)]
         host[:, 2] = 0 if ema_bits is None else [self._bits(ema_bits, i, g) for i, g in enumerate(grads)]
         host[:, 3] = [e.data_ptr() for e in ema_params] if ema_params is not None else 0
-        self._ptrs.copy_(self._host, non_blocking=True)
-        self._copied.record()
+        self._upload()
 
         from uwudiff_tpu_torch.training.optimizers import _rounded
 
@@ -334,21 +404,12 @@ class AdamWFactoredPlan:
         a.clip = grad_clip if grad_clip else 0.0
         a.ema_dw = ema_decay if ema_params is not None else 0.0
         a.ema_c = float(np.float32(1.0) - np.float32(ema_decay)) if ema_params is not None else 0.0
-        self.norm = torch.empty((), dtype=torch.float32, device=self.device)
-        a.out = self.norm.data_ptr()
 
     def launches(self) -> list:
-        """The wrappers a prepared step launches, in order."""
         seq = [adamw_norm] if self.flags & _CLIP else []
         seq += [adamw_stats, adamw_finish]
         seq += [adamw_rms] if self.flags & _RMS else []
         return seq + [adamw_apply]
-
-    def run(self) -> torch.Tensor:
-        """Launch the prepared step; returns its fp32 global gradient norm."""
-        for wrapper in self.launches():
-            wrapper(self)
-        return self.norm
 
 
 def _launch(name: str, plan: AdamWFactoredPlan, grid: int) -> None:
@@ -361,8 +422,9 @@ def _launch(name: str, plan: AdamWFactoredPlan, grid: int) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
-def adamw_norm(plan: AdamWFactoredPlan) -> None:
-    """Launch the global gradient norm (with a global-norm clip, before the statistics)."""
+def adamw_norm(plan) -> None:
+    """Launch the global gradient norm (O1: with a global-norm clip, before
+    the statistics; O2: every step, before the apply)."""
     _launch("uwu_adamw_norm", plan, plan.n_tiles)
     adamw_norm.launches += 1
 
@@ -391,7 +453,13 @@ def adamw_apply(plan: AdamWFactoredPlan) -> None:
     adamw_apply.launches += 1
 
 
-for _w in (adamw_norm, adamw_stats, adamw_finish, adamw_rms, adamw_apply):
+def adamw_fp16_apply(plan: AdamWFP16Plan) -> None:
+    """Launch O2's elementwise update of the moments, the masters and their working copies."""
+    _launch("uwu_adamw_fp16_apply", plan, plan.n_tiles)
+    adamw_fp16_apply.launches += 1
+
+
+for _w in (adamw_norm, adamw_stats, adamw_finish, adamw_rms, adamw_apply, adamw_fp16_apply):
     _w.launches = 0
 
 
@@ -405,6 +473,78 @@ def fused_adamw_factored_step_(tx, params, grads, state, *, grad_clip=None, seed
     plan = state.fused
     plan.prepare(tx, grads, state.count, grad_clip=grad_clip, seed=seed, step=step, sr_bits=sr_bits,
                  ema_params=ema_params, ema_decay=ema_decay, ema_bits=ema_bits)
+    norm = plan.run()
+    state.count += 1
+    return norm
+
+
+class AdamWFP16Plan(_LeafPlan):
+    """O2's view of one ``AdamWFP16`` state over fp32 master parameters and
+    the module's bf16 working copies: every leaf dense, walked in memory
+    order, so the master, its working copy, its moments and its bf16
+    gradient share one dense layout; beside what every plan holds, a pinned
+    buffer for the per-step leaf decays. Checks every leaf once and raises
+    for what the kernel does not take."""
+
+    name = "fused adamw_fp16"
+
+    def __init__(self, tx, params, state, working):
+        super().__init__(params, state, working or [])
+        n = self.n_leaves
+        if tx.moment_dtype != torch.bfloat16:
+            raise TypeError(f"fused adamw_fp16: the moments must be bf16, got {tx.moment_dtype}")
+        if working is None or len(working) != n:
+            raise ValueError("fused adamw_fp16: takes fp32 masters with one bf16 working copy a leaf")
+        for i, (p, st) in enumerate(zip(params, state.leaves)):
+            if p.dtype != torch.float32:
+                raise TypeError(f"fused adamw_fp16: master {i} is {p.dtype}, not fp32")
+        for name, tensors in (("working copy", working), ("exp_avg", [st["exp_avg"] for st in state.leaves]),
+                              ("exp_avg_sq", [st["exp_avg_sq"] for st in state.leaves])):
+            self._check_per_leaf(tensors, name)
+        plan = plan_leaves([tuple(p.shape) for p in params], [p.stride() for p in params], [None] * n,
+                           torch.bfloat16)
+        for row, p, w, st in zip(plan["table"], params, working, state.leaves):
+            row[_COL["p"]], row[_COL["mu"]] = p.data_ptr(), st["exp_avg"].data_ptr()
+            row[_COL["v_a"]], row[_COL["v_b"]] = st["exp_avg_sq"].data_ptr(), w.data_ptr()
+        self._resident(plan)
+        self._host_decay = torch.zeros(n, dtype=torch.float32, pin_memory=True)
+        self._decay = torch.zeros(n, dtype=torch.float32, device=self.device)
+        self.args.decay = self._decay.data_ptr()
+
+    def prepare(self, tx, grads, state, *, grad_clip=None) -> None:
+        """Upload this step's gradient pointers and leaf decays (two copies
+        from pinned memory) and set its scalars; moves ``state``'s decay
+        accumulators on (``AdamWFP16.advance``)."""
+        self._check_per_leaf(grads, "gradient")
+        step_size, decay_now = tx.advance(state)
+        self._host_rows(grads)
+        self._host_decay.numpy()[:] = decay_now
+        self._upload((self._decay, self._host_decay))
+        b1, omb1, b2, omb2, eps = tx.consts()
+        a = self.args
+        a.flags = _CLIP if grad_clip else 0
+        a.c_m, a.c_u, a.b2, a.omb2, a.eps = b1, omb1, b2, omb2, eps
+        a.step_size = step_size
+        a.clip = grad_clip if grad_clip else 0.0
+
+    def launches(self) -> list:
+        return [adamw_norm, adamw_fp16_apply]
+
+
+def fused_adamw_fp16_step_(tx, params, grads, state, *, grad_clip=None, seed=0, step=0, sr_bits=None,
+                           ema_params=None, ema_decay=None, ema_bits=None, working=None) -> torch.Tensor:
+    """``AdamWFP16.step_`` on CUDA tensors: fp32 masters ``params``, their
+    bf16 ``grads`` and ``working`` copies. The plan is built at the first
+    step over these tensors; each step then uploads its pointers and decays
+    and launches two kernels. Returns the fp32 global gradient norm. Raises
+    for a weight EMA and for rounding bits (no bf16 parameter takes them)."""
+    del seed, step
+    if ema_params is not None or sr_bits is not None or ema_bits is not None:
+        raise NotImplementedError("fused adamw_fp16: no weight EMA and no rounding bits")
+    if state.fused is None or not state.fused.holds(params, state, working or []):
+        state.fused = AdamWFP16Plan(tx, params, state, working)
+    plan = state.fused
+    plan.prepare(tx, grads, state, grad_clip=grad_clip)
     norm = plan.run()
     state.count += 1
     return norm

@@ -1,21 +1,23 @@
 """Device-time breakdown of SDXL serving, or of one training step, on one GPU.
 
     python -m uwudiff_tpu_torch.profile_serving [--batch 4] [--steps 4]
-    python -m uwudiff_tpu_torch.profile_serving --train [--batch 8]
+    python -m uwudiff_tpu_torch.profile_serving --train [--model sdxl|sd15] [--batch 8]
     python -m uwudiff_tpu_torch.profile_serving --ti [--batch 8]
 
 Serving: builds the SDXL serving stack at full width with random weights
 (``serving.sdxl_pipeline``), warms it up, then traces one request batch
 (1024x1024, CFG 5) with ``torch.profiler``. ``--train``: builds the SDXL
 full fine-tune step of ``training/bench_setup.py`` (64x64 latents, bf16
-params, ``adamw_factored``), runs two warm-up steps, then traces one
-step. ``--ti``: the same for the SD3-medium textual-inversion step
+params, ``adamw_factored``; ``--model sd15``: the SD1.5 step, batch 16,
+fp32 masters under bf16 compute, ``adamw_fp16``), runs two warm-up steps,
+then traces one step. ``--ti``: the same for the SD3-medium textual-inversion step
 (``build_ti_trainer_and_batch``). Each reports the device time by kernel
 family (the backward kernels as families of their own), the device's
 busy share of the traced window, and the slowest kernels. The profiler's
 host overhead lengthens the window, so the busy share is a lower bound.
 Writes the tables to ``chiprun_out/profile_serving.json``
-(``profile_train.json``, ``profile_ti.json``) beside the checkout's root.
+(``profile_train.json``, ``profile_train_sd15.json``, ``profile_ti.json``)
+beside the checkout's root.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ _FAMILIES = (
     ("flash_bwd_dkv (K6)", ("flash_bwd_dkv_sm90_kernel", "flash_bwd_dkv_kernel")),
     ("groupnorm bwd (K7/K8)", ("gn_silu_bwd_fused_kernel", "gn_bwd_partial_kernel", "gn_bwd_dx_kernel")),
     ("groupnorm (K2/K3)", ("gn_silu_fused_kernel", "gn_stats_kernel", "gn_apply_kernel")),
+    ("optimizer (O2)", ("adamw_fp16_apply_kernel",)),
     ("optimizer (O1)", ("adamw_norm_kernel", "adamw_stats_kernel", "adamw_finish_kernel", "adamw_rms_kernel",
                         "adamw_apply_kernel")),
     ("attention einsum/softmax", ("softmax",)),
@@ -59,7 +62,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=None, help="requests (serving, 4) or images (--train, 8)")
     ap.add_argument("--steps", type=int, default=4, help="sampler steps (serving)")
-    ap.add_argument("--train", action="store_true", help="trace one SDXL training step")
+    ap.add_argument("--train", action="store_true", help="trace one training step")
+    ap.add_argument("--model", default="sdxl", choices=("sdxl", "sd15"), help="the training step's model (--train)")
     ap.add_argument("--ti", action="store_true", help="trace one SD3-medium textual-inversion step")
     args = ap.parse_args()
 
@@ -76,10 +80,10 @@ def main() -> int:
     elif args.train:
         from uwudiff_tpu_torch.training.bench_setup import build_trainer_and_batch
 
-        batch = args.batch or 8
-        trainer, data = build_trainer_and_batch(batch=batch)
+        trainer, data = build_trainer_and_batch(batch=args.batch, model=args.model)
+        batch = len(data["sample"])
         run = lambda: trainer.train_step(data)  # noqa: E731
-        out_name = "profile_train.json"
+        out_name = "profile_train.json" if args.model == "sdxl" else f"profile_train_{args.model}.json"
     else:
         from uwudiff_tpu_torch.serving import sdxl_pipeline
 
@@ -113,7 +117,7 @@ def main() -> int:
         f[0] += t
         f[1] += n
     report = {
-        "card": torch.cuda.get_device_name(0), "mode": mode,
+        "card": torch.cuda.get_device_name(0), "mode": mode, "model": args.model if args.train else None,
         "batch": batch, "steps": args.steps if mode == "serve" else None, "window_ms": window_ms,
         "device_busy_ms": busy_ms, "device_busy_share": busy_ms / window_ms,
         "families": {f: {"ms": t, "launches": n, "share_of_busy": t / busy_ms}

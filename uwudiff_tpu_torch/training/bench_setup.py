@@ -1,15 +1,24 @@
 """Full-width training configurations of the port, on random weights.
 
-``build_trainer_and_batch()`` is the counterpart of the SDXL branch of
-``bench.py::build_trainer_and_batch`` (``BENCH_MODEL=sdxl`` defaults):
-the ``sdxl`` UNet, full fine-tune, no text encoder and no VAE, on
-precached inputs; ``DiffusionLoss(NoiseSchedule.sd15())`` (eps, MSE);
-``adamw_factored(lr=1e-5, weight_decay=0.01, b1=0.9,
-clipping_threshold=1.0)`` under the warm-up-free cosine schedule; bf16
-parameters with stochastic-rounding updates; no global-norm clipping;
-the grad-norm metric on. The weights are random, from
-``torch.manual_seed(seed)``; the batch comes from numpy with the same
-seed. Used by ``chip_smoke.py`` and ``profile_serving.py --train``.
+``build_trainer_and_batch()`` is the counterpart of
+``bench.py::build_trainer_and_batch``, a full fine-tune of a UNet with no
+text encoder and no VAE, on precached inputs, with
+``DiffusionLoss(NoiseSchedule.sd15())`` (eps, MSE) under the warm-up-free
+cosine schedule at lr 1e-5 and the grad-norm metric on:
+
+- ``model="sdxl"`` (the default; ``BENCH_MODEL=sdxl``'s settings): the
+  ``sdxl`` UNet, batch 8, ``adamw_factored(weight_decay=0.01, b1=0.9,
+  clipping_threshold=1.0)``, bf16 parameters with stochastic-rounding
+  updates, no global-norm clipping;
+- ``model="sd15"`` (``BENCH_MODEL=sd15``'s): the ``sd15`` UNet, batch 16,
+  ``adamw_fp16(weight_decay=0.01, betas=(0.9, 0.999))``, global-norm clip
+  1.0, fp32 master parameters under bf16 compute (the JAX
+  ``param_dtype=None`` over a ``dtype=bfloat16`` module; the weights
+  initialised in fp32), 77 tokens of 768-wide context.
+
+The weights are random, from ``torch.manual_seed(seed)``; the batch comes
+from numpy with the same seed, drawn in ``bench.py``'s order. Used by
+``chip_smoke.py`` and ``profile_serving.py --train``.
 
 ``build_ti_trainer_and_batch()`` is SD3-medium textual inversion through
 the full triple text encoder: model, data and loss from
@@ -37,7 +46,8 @@ from uwudiff_tpu_torch.models import ConcatTextEncoders, MMDiT, SimpleTokenizer,
 from uwudiff_tpu_torch.training.textual_inversion import TextualInversionTrainer
 from uwudiff_tpu_torch.training.trainer import DMTrainer
 
-__all__ = ["SD3_TEXT_ENCODERS", "build_ti_trainer_and_batch", "build_trainer_and_batch", "fill_zero_initialised"]
+__all__ = ["SD3_TEXT_ENCODERS", "TRAIN_RECIPES", "build_ti_trainer_and_batch", "build_trainer_and_batch",
+           "fill_zero_initialised"]
 
 SD3_TEXT_ENCODERS = [
     ({"model_type": "clip", "preset": "clip_l"}, {"use_pooled": True, "layer_idx": -2}),
@@ -48,33 +58,47 @@ SD3_TEXT_ENCODERS = [
 TI_CAPTION = "a photo of <concept>"
 
 
-def build_trainer_and_batch(batch: int = 8, latent: int = 64, seed: int = 0, device="cuda"):
-    """-> (trainer, batch dict of numpy arrays)."""
+# model -> the batch, the dtype the UNet is built in, and DMTrainer's settings
+TRAIN_RECIPES = {
+    "sdxl": dict(batch=8, unet_dtype=torch.bfloat16, trainer=dict(
+        optimizer="adamw_factored",
+        opt_config={"weight_decay": 0.01, "betas": (0.9, 0.999), "clipping_threshold": 1.0},
+        grad_clip=None, param_dtype="bfloat16")),
+    "sd15": dict(batch=16, unet_dtype=torch.float32, trainer=dict(
+        optimizer="adamw_fp16", opt_config={"weight_decay": 0.01, "betas": (0.9, 0.999)},
+        grad_clip=1.0, compute_dtype="bfloat16")),
+}
+
+
+def build_trainer_and_batch(batch: int | None = None, latent: int = 64, seed: int = 0, device="cuda",
+                            model: str = "sdxl"):
+    """-> (trainer, batch dict of numpy arrays); ``batch`` defaults to the
+    recipe's (8 for ``sdxl``, 16 for ``sd15``)."""
+    recipe = TRAIN_RECIPES[model]
+    batch = batch or recipe["batch"]
     torch.manual_seed(seed)
-    unet = UNet2DConditionModel.from_config("sdxl", device=device, dtype=torch.bfloat16)
+    unet = UNet2DConditionModel.from_config(model, device=device, dtype=recipe["unet_dtype"])
     trainer = DMTrainer(
         model_config={"unet": unet, "te": None, "vae": None},
         lr=1e-5,
-        optimizer="adamw_factored",
-        opt_config={"weight_decay": 0.01, "betas": (0.9, 0.999), "clipping_threshold": 1.0},
         use_warm_up=False,
         loss_config=DiffusionLoss(schedule=NoiseSchedule.sd15()),
-        grad_clip=None,
-        param_dtype="bfloat16",
         log_grad_norm=True,
         seed=seed,
         device=device,
+        **recipe["trainer"],
     )
     rng = np.random.default_rng(seed)
-    pooled_dim = unet.add_embedding.linear_1.in_features - 6 * unet.addition_time_embed_dim
     data = {
         "sample": rng.standard_normal((batch, latent, latent, 4), dtype=np.float32),
-        "ctx": rng.standard_normal((batch, 77, 2048), dtype=np.float32),
+        "ctx": rng.standard_normal((batch, 77, unet.cross_attention_dim), dtype=np.float32),
         "added_cond": {
             "time_ids": np.tile(np.asarray([[1024, 1024, 0, 0, 1024, 1024]], np.float32), (batch, 1)),
         },
-        "pooled": rng.standard_normal((batch, pooled_dim), dtype=np.float32),
     }
+    if unet.addition_embed_type == "text_time":
+        pooled_dim = unet.add_embedding.linear_1.in_features - 6 * unet.addition_time_embed_dim
+        data["pooled"] = rng.standard_normal((batch, pooled_dim), dtype=np.float32)
     return trainer, data
 
 

@@ -1,27 +1,34 @@
 """Optimizers (``uwudiff_tpu/training/optimizers.py``), written out in PyTorch.
 
 The JAX package builds its optimizers from optax; the port re-derives the
-two on its main path by hand, optax-style: an optimizer is ``init(params)
--> state`` and ``update(grads, state, params) -> (updates, state)`` over
-lists of tensors. The state keeps the dtypes and the step-count
-conventions of optax 0.2.6.
+three on its main paths by hand, optax-style: an optimizer is
+``init(params) -> state`` and ``update(grads, state, params) -> (updates,
+state)`` over lists of tensors. The state keeps the dtypes and the
+step-count conventions of optax 0.2.6.
 
 - :func:`adamw_factored`: optax's Adafactor chain (factored second moment
   -> per-leaf update-RMS clip -> learning rate -> bf16 momentum -> negate)
   followed by torch-AdamW lr-scaled weight decay (``p -= lr*wd*p``).
+- :func:`adamw_fp16_state`: AdamW with both moments stored in bf16 (or
+  fp16) and updated through fp32, bias correction of the denominator only,
+  and a per-leaf accumulated weight decay that fires once it crosses a
+  threshold (the JAX package's ``adamw_fp16_state``, SD1.5's optimizer).
 - :func:`adamw`: optax's ``adamw``.
 - :func:`stochastic_round_add`: ``param + update`` stochastically rounded
   to bf16, with the 16 noise bits per element passed in;
   :func:`draw_sr_bits` draws them from a counter-based generator.
 
-Both optimizers also have ``step_``, the whole parameter update of a
+Each optimizer also has ``step_``, the whole parameter update of a
 training step in place: the global gradient norm, optional global-norm
-clipping, the optimizer, the stochastically rounded parameter update and
-an optional weight EMA (:func:`apply_update_` is its plain version). On a
-CUDA device ``AdamWFactored.step_`` runs it as a handful of hand-written
-kernel launches over every leaf at once (``ops/fused_optim.py``; no TPU
-kernel stood here: optax went through XLA, which fused it); ``AdamW``
-(the textual-inversion trainer's, a few small leaves) runs it eagerly.
+clipping, the optimizer, the stochastically rounded parameter update, an
+optional weight EMA and, where the parameters are fp32 masters of a bf16
+module, the rewrite of the module's bf16 working copy
+(:func:`apply_update_` is its plain version). On a CUDA device
+``AdamWFactored.step_`` and ``AdamWFP16.step_`` run it as a fixed handful
+of hand-written kernel launches over every leaf at once
+(``ops/fused_optim.py``; no TPU kernel stood here: optax went through
+XLA, which fused it); ``AdamW`` (the textual-inversion trainer's, a few
+small leaves) runs it eagerly.
 """
 
 from __future__ import annotations
@@ -37,13 +44,17 @@ import torch
 __all__ = [
     "EMA_STREAM",
     "PARAM_STREAM",
+    "PHASE_STREAM",
     "AdamW",
+    "AdamWFP16",
     "AdamWFactored",
     "OptState",
     "adamw",
     "adamw_factored",
+    "adamw_fp16_state",
     "apply_update_",
     "build_optimizer",
+    "decay_phases",
     "ema_update_",
     "draw_sr_bits",
     "sr_key",
@@ -73,6 +84,7 @@ def stochastic_round_add(param: torch.Tensor, update: torch.Tensor, bits: torch.
 
 PARAM_STREAM = 0  # the parameters' rounding (the JAX step's fold_in(rng, 0x5757))
 EMA_STREAM = 1  # the weight EMA's rounding (fold_in(rng, 0x5858))
+PHASE_STREAM = 2  # adamw_fp16's per-leaf weight-decay phases (PRNGKey(0) split per leaf)
 _M64 = (1 << 64) - 1
 _GOLDEN = 0x9E3779B97F4A7C15
 _MIX1, _MIX2 = 0xBF58476D1CE4E5B9, 0x94D049BB133111EB
@@ -140,17 +152,21 @@ class OptState:
     """``count``: updates made (optax's counts, one for every stage of the
     chain, all equal). ``leaves``: one dict of tensors per parameter.
     ``dims``: ``AdamWFactored``'s factored axes (d1, d0) of each leaf, or
-    None for a dense one, fixed at ``init``. ``fused``: the CUDA kernels'
-    leaf table (``ops/fused_optim.py``), built at the first step on the
-    card and not copied with the state."""
+    None for a dense one, fixed at ``init``. ``decay``: ``AdamWFP16``'s
+    accumulated weight decay, one fp32 value a leaf (host memory: it does
+    not depend on the data). ``fused``: the CUDA kernels' leaf table
+    (``ops/fused_optim.py``), built at the first step on the card and not
+    copied with the state."""
 
     count: int
     leaves: list[dict]
     dims: list | None = None
+    decay: np.ndarray | None = None
     fused: object = dataclasses.field(default=None, repr=False, compare=False)
 
     def __deepcopy__(self, memo):
-        return OptState(self.count, copy.deepcopy(self.leaves, memo), copy.deepcopy(self.dims, memo))
+        return OptState(self.count, copy.deepcopy(self.leaves, memo), copy.deepcopy(self.dims, memo),
+                        copy.deepcopy(self.decay, memo))
 
 
 @functools.lru_cache(maxsize=64)
@@ -203,14 +219,18 @@ def ema_update_(ema_params, params, decay: float, *, seed: int = 0, step: int = 
 @torch.no_grad()
 def apply_update_(tx, params, grads, state: OptState, *, grad_clip: float | None = None, seed: int = 0,
                   step: int = 0, sr_bits=None, ema_params=None, ema_decay: float | None = None,
-                  ema_bits=None) -> torch.Tensor:
+                  ema_bits=None, working=None) -> torch.Tensor:
     """The plain whole-tree update of a training step, in place: the global
     gradient norm, optax's ``clip_by_global_norm(grad_clip)``, ``tx``'s
     update, then each parameter ``p + u``, stochastically rounded for bf16
     (bits ``sr_bits[i]``, else :func:`draw_sr_bits` on ``PARAM_STREAM``), then
     the weight EMA when ``ema_params`` are given (:func:`ema_update_` with
-    ``ema_decay`` and ``ema_bits``). Returns the fp32 global norm of the
-    unclipped gradients (0-dim)."""
+    ``ema_decay`` and ``ema_bits``). A gradient narrower than its parameter
+    (the bf16 gradient of a bf16 module's fp32 master) is widened first, as
+    flax's cast at use widens it; ``working``, the module's bf16 copies of
+    the parameters, are then rewritten from them (rounded to nearest).
+    Returns the fp32 global norm of the unclipped gradients (0-dim)."""
+    grads = [g if g.dtype == p.dtype else g.to(p.dtype) for g, p in zip(grads, params)]
     norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
     if grad_clip:
         keep = norm < grad_clip
@@ -225,6 +245,8 @@ def apply_update_(tx, params, grads, state: OptState, *, grad_clip: float | None
             p.copy_((p + u).to(p.dtype))
     if ema_params is not None:
         ema_update_(ema_params, params, ema_decay, seed=seed, step=step, bits=ema_bits)
+    for w, p in zip(working or (), params):
+        w.copy_(p)
     return norm
 
 
@@ -340,20 +362,23 @@ class AdamWFactored:
 
     def step_(self, params, grads, state: OptState, *, grad_clip: float | None = None, seed: int = 0,
               step: int = 0, sr_bits=None, ema_params=None, ema_decay: float | None = None,
-              ema_bits=None) -> torch.Tensor:
+              ema_bits=None, working=None) -> torch.Tensor:
         """The whole update of a training step, in place (see
         :func:`apply_update_`, its plain version, which runs for CPU
         tensors). CUDA tensors go through the fused kernels of
         ``ops/fused_optim.py``: a fixed handful of launches whatever the
         leaf count, no per-leaf eager work; they raise for what the kernels
-        do not take. Returns the fp32 global gradient norm (0-dim)."""
+        do not take (among it a bf16 working copy of fp32 masters). Returns
+        the fp32 global gradient norm (0-dim)."""
         kw = dict(grad_clip=grad_clip, seed=seed, step=step, sr_bits=sr_bits, ema_params=ema_params,
                   ema_decay=ema_decay, ema_bits=ema_bits)
         device = params[0].device
         if device.type == "cpu":
-            return apply_update_(self, params, grads, state, **kw)
+            return apply_update_(self, params, grads, state, working=working, **kw)
         if device.type != "cuda":
             raise ValueError(f"AdamWFactored.step_: unsupported device {device}")
+        if working is not None:
+            raise NotImplementedError("fused adamw_factored: fp32 masters with a bf16 working copy are not taken")
         from uwudiff_tpu_torch.ops.fused_optim import fused_adamw_factored_step_
 
         return fused_adamw_factored_step_(self, params, grads, state, **kw)
@@ -387,6 +412,106 @@ class AdamW:
         return updates, state
 
     step_ = apply_update_
+
+
+def decay_phases(n: int, threshold: float) -> np.ndarray:
+    """``AdamWFP16``'s ``n`` per-leaf phases in ``[0, threshold)``, fp32: a
+    24-bit uniform from leaf ``i``'s :func:`sr_key` (seed 0, step 0) on
+    ``PHASE_STREAM``, times the threshold. A pure function of the leaf
+    index, as the JAX package's threefry draws from ``PRNGKey(0)`` are,
+    which torch cannot reproduce; tests hand ``init`` the JAX draws."""
+    u = np.array([sr_key(0, 0, i, PHASE_STREAM) >> 40 for i in range(n)], dtype=np.float64) * 2.0**-24
+    return u.astype(np.float32) * np.float32(threshold)
+
+
+class AdamWFP16:
+    """The JAX package's ``adamw_fp16_state`` (``duwu``'s ``AdamWFP16``):
+    both moments stored in ``moment_dtype`` (bf16, or fp16) and updated in
+    fp32, ``u = -lr * sqrt(1 - b2^t) * m / (sqrt(v) + eps)`` (the
+    denominator's bias correction only), and lr-scaled weight decay
+    accumulated per leaf from a phase in ``[0, decay_threshold)``: once the
+    accumulator exceeds the threshold, ``p -= accum * p`` and it restarts.
+    Every stage is optax's: the moments from the fp32 values before their
+    rounding, ``lr`` at the step before the count, updates in the
+    parameter dtype. On the card ``step_`` is two launches over every leaf
+    (``ops/fused_optim.py``: the global norm, then ``adamw_fp16_apply``)."""
+
+    def __init__(self, learning_rate, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
+                 moment_dtype=torch.bfloat16, decay_threshold=1e-2):
+        self.lr_fn = _lr_fn(learning_rate)
+        self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
+        self.moment_dtype, self.decay_threshold = moment_dtype, decay_threshold
+
+    def init(self, params, phases=None) -> OptState:
+        """Zero moments in each parameter's layout; the accumulated decay
+        starts at ``phases`` (one a leaf), by default :func:`decay_phases`."""
+        phases = decay_phases(len(params), self.decay_threshold) if phases is None else phases
+        phases = np.array(phases, dtype=np.float32).reshape(-1)
+        if len(phases) != len(params):
+            raise ValueError(f"{len(phases)} phases for {len(params)} leaves")
+        leaves = [{"exp_avg": torch.zeros_like(p, dtype=self.moment_dtype),
+                   "exp_avg_sq": torch.zeros_like(p, dtype=self.moment_dtype)} for p in params]
+        return OptState(0, leaves, decay=phases)
+
+    def consts(self) -> tuple[float, float, float, float, float]:
+        """(b1, 1 - b1, b2, 1 - b2, eps) as the fp32 values optax multiplies by."""
+        f = lambda x: float(np.float32(x))  # noqa: E731
+        return f(self.b1), f(1 - self.b1), f(self.b2), f(1 - self.b2), f(self.eps)
+
+    def advance(self, state: OptState) -> tuple[float, np.ndarray]:
+        """The scalars of the update after ``state.count`` updates, in fp32:
+        the step size ``-lr * sqrt(1 - b2^t)`` and each leaf's decay this
+        step (its accumulator where it exceeds the threshold, else 0); the
+        accumulators move on (``state.decay``). The count does not."""
+        f32 = np.float32
+        lr = f32(self.lr_fn(state.count))
+        step_size = f32(-lr) * np.sqrt(f32(1.0) - f32(self.b2) ** f32(state.count + 1))
+        accum = state.decay + f32(self.weight_decay) * lr
+        now = np.where(accum > f32(self.decay_threshold), accum, f32(0.0)).astype(np.float32)
+        state.decay = (accum - now).astype(np.float32)
+        return float(step_size), now
+
+    def update(self, grads, state: OptState, params):
+        """-> (updates, new state); ``state`` is updated in place."""
+        step_size, decay_now = self.advance(state)
+        b1, omb1, b2, omb2, eps = self.consts()
+        updates = []
+        for g, st, p, d in zip(grads, state.leaves, params, decay_now):
+            g = g.float()
+            m = st["exp_avg"].float() * b1 + g * omb1
+            v = st["exp_avg_sq"].float() * b2 + (g * g) * omb2
+            u = (step_size * m) / (v.sqrt() + eps) - float(d) * p.float()
+            st["exp_avg"].copy_(m)
+            st["exp_avg_sq"].copy_(v)
+            updates.append(u.to(p.dtype))
+        state.count += 1
+        return updates, state
+
+    def step_(self, params, grads, state: OptState, *, grad_clip: float | None = None, seed: int = 0,
+              step: int = 0, sr_bits=None, ema_params=None, ema_decay: float | None = None,
+              ema_bits=None, working=None) -> torch.Tensor:
+        """The whole update of a training step, in place (:func:`apply_update_`,
+        its plain version, runs for CPU tensors). CUDA tensors go through
+        ``ops/fused_optim.py``: the global norm and ``adamw_fp16_apply``,
+        two launches whatever the leaf count, over fp32 masters, their bf16
+        gradients, bf16 moments and the bf16 ``working`` copies, which the
+        kernel rewrites; anything else on the card raises. Returns the fp32
+        global gradient norm (0-dim)."""
+        kw = dict(grad_clip=grad_clip, seed=seed, step=step, sr_bits=sr_bits, ema_params=ema_params,
+                  ema_decay=ema_decay, ema_bits=ema_bits, working=working)
+        device = params[0].device
+        if device.type == "cpu":
+            return apply_update_(self, params, grads, state, **kw)
+        if device.type != "cuda":
+            raise ValueError(f"AdamWFP16.step_: unsupported device {device}")
+        from uwudiff_tpu_torch.ops.fused_optim import fused_adamw_fp16_step_
+
+        return fused_adamw_fp16_step_(self, params, grads, state, **kw)
+
+
+def adamw_fp16_state(learning_rate, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0, moment_dtype=torch.bfloat16,
+                     decay_threshold=1e-2) -> AdamWFP16:
+    return AdamWFP16(learning_rate, b1, b2, eps, weight_decay, moment_dtype, decay_threshold)
 
 
 def adamw_factored(
@@ -441,6 +566,8 @@ def build_optimizer(
         return adamw(learning_rate, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, **kwargs)
     if name == "adamw_factored":
         return adamw_factored(learning_rate, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, **kwargs)
-    if name in ("adam", "adamw_fp16", "lion", "sgd", "adafactor"):
+    if name == "adamw_fp16":
+        return adamw_fp16_state(learning_rate, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, **kwargs)
+    if name in ("adam", "lion", "sgd", "adafactor"):
         raise NotImplementedError(f"optimizer {name!r} is not ported yet (ROADMAP.md, Queue 1)")
     raise ValueError(f"Unknown optimizer {name!r}")

@@ -7,8 +7,21 @@ the whole parameter update in the optimizer's ``step_``: the global
 gradient norm, optional global-norm clipping, the optimizer, for bf16
 parameters a stochastic-rounding update whose noise bits are a pure
 function of (seed, step, leaf index, element) or are passed in, and the
-optional weight EMA (``ema_weights_decay``). With ``adamw_factored`` on
-the card that update is a fixed handful of fused kernel launches.
+optional weight EMA (``ema_weights_decay``). With ``adamw_factored`` or
+``adamw_fp16`` on the card that update is a fixed handful of fused kernel
+launches.
+
+Precision, as flax's two dtypes: ``param_dtype`` is the trainable
+parameters' storage (None: the module's dtype, fp32 in the tests;
+``"bfloat16"``: bf16 with stochastic-rounding updates, the SDXL recipe),
+``compute_dtype`` the module's dtype in the forward and backward (None:
+the storage's). Where the two differ the trainer keeps fp32 masters:
+``compute_dtype="bfloat16"`` over an fp32 module is the JAX
+``param_dtype=None`` over a ``dtype=bfloat16`` module, the SD1.5 recipe.
+There the module holds a bf16 working copy that the forward and backward
+use; its bf16 gradients are read as fp32 by the norm, the clip and the
+update (flax's cast at use widens them the same way), and the update
+writes the masters and rewrites the working copy from them.
 
 Parity with the JAX ``DMTrainer``: the batch carries precached latents
 (``sample`` or ``latent``; no VAE) and text conditioning (``ctx``,
@@ -44,10 +57,13 @@ class DMTrainer:
     text model gets a ``SimpleTokenizer()``, as in the JAX trainer.
     ``param_dtype="bfloat16"`` stores the parameters in bf16 and applies
     updates with stochastic rounding; ``None`` keeps the module's dtype.
+    ``compute_dtype="bfloat16"`` runs the module in bf16; over fp32
+    storage the trainable parameters stay fp32 masters
+    (:meth:`master_weights`) and the module runs on their bf16 copy.
     ``ema_weights_decay`` (e.g. 0.9999) keeps an EMA of the trainable
-    parameters in their dtype (:meth:`ema_weights`), as the JAX trainer's
-    ``ema_params``; None turns it off. Runs on ``device`` (default CUDA,
-    which raises without a GPU)."""
+    (master) parameters in their dtype (:meth:`ema_weights`), as the JAX
+    trainer's ``ema_params``; None turns it off. Runs on ``device``
+    (default CUDA, which raises without a GPU)."""
 
     def __init__(
         self,
@@ -63,6 +79,7 @@ class DMTrainer:
         ema_decay: float = 0.99,
         seed: int = 42,
         param_dtype: str | None = None,
+        compute_dtype: str | None = None,
         ema_weights_decay: float | None = None,
         log_grad_norm: bool = True,
         device="cuda",
@@ -88,11 +105,15 @@ class DMTrainer:
         self.param_dtype = None if param_dtype is None else getattr(torch, param_dtype)
         if self.param_dtype not in (None, torch.bfloat16):
             raise NotImplementedError(f"param_dtype {param_dtype!r}: only None and 'bfloat16'")
+        self.compute_dtype = None if compute_dtype is None else getattr(torch, compute_dtype)
+        if self.compute_dtype not in (None, torch.bfloat16):
+            raise NotImplementedError(f"compute_dtype {compute_dtype!r}: only None and 'bfloat16'")
         self.ema_weights_decay = ema_weights_decay
         self.log_grad_norm = log_grad_norm
         self.step = 0
         self.ema_loss = None
         self.params: list[tuple[str, torch.nn.Parameter]] = []
+        self.masters: list[torch.Tensor] | None = None  # fp32 masters, where compute_dtype differs
         self.ema_params: list[torch.Tensor] | None = None
         self.opt_state = None
         self._gen = None
@@ -104,9 +125,17 @@ class DMTrainer:
         if self.opt_state is not None:
             return
         self.params = self._select_trainable_params()
-        self.opt_state = self.tx.init([p for _, p in self.params])
+        if self.compute_dtype is not None and any(p.dtype != self.compute_dtype for _, p in self.params):
+            # the masters keep the fp32 storage; the module's parameters become
+            # its bf16 rounding, in the same memory layout
+            self.masters = [p.detach() for _, p in self.params]
+            if any(m.dtype != torch.float32 for m in self.masters):
+                raise TypeError("compute_dtype other than the storage's needs fp32 trainable parameters")
+            self.unet.to(dtype=self.compute_dtype)
+        weights = self.masters or [p for _, p in self.params]
+        self.opt_state = self.tx.init(weights)
         if self.ema_weights_decay is not None:
-            self.ema_params = [p.detach().clone() for _, p in self.params]
+            self.ema_params = [w.clone() for w in weights]
         self._gen = torch.Generator(device=self.device).manual_seed(self.seed)  # timesteps, noise
         self.ema_loss = torch.zeros((), dtype=torch.float32, device=self.device)
 
@@ -178,6 +207,14 @@ class DMTrainer:
         loss.backward()
         return loss.detach(), aux
 
+    def master_weights(self) -> dict[str, torch.Tensor]:
+        """The trainable parameters as the optimizer holds them, ``{name:
+        tensor}``: the fp32 masters under a narrower ``compute_dtype``, else the
+        module's parameters themselves (for export and comparison)."""
+        self.setup()
+        weights = self.masters or [p for _, p in self.params]
+        return {name: w for (name, _), w in zip(self.params, weights)}
+
     def ema_weights(self) -> dict[str, torch.Tensor]:
         """The weight EMA, ``{name: tensor}`` in the trainable parameters'
         names, dtypes and layouts (for export and sampling); raises when
@@ -201,15 +238,17 @@ class DMTrainer:
         """The whole parameter update (the optimizer's ``step_``): global
         grad norm, optional clipping, the optimizer, the parameter update
         (stochastically rounded for bf16 parameters, with ``sr_bits[name]``
-        where given) and the weight EMA (``ema_bits[name]``). Returns the
-        grad norm."""
+        where given; into the fp32 masters and the module's bf16 copy where
+        ``compute_dtype`` differs from the storage) and the weight EMA
+        (``ema_bits[name]``). Returns the grad norm."""
         names = [n for n, _ in self.params]
         params = [p for _, p in self.params]
         norm = self.tx.step_(
-            params, [p.grad for p in params], self.opt_state, grad_clip=self.grad_clip, seed=self.seed,
-            step=self.step, sr_bits=None if sr_bits is None else [sr_bits.get(n) for n in names],
+            self.masters or params, [p.grad for p in params], self.opt_state, grad_clip=self.grad_clip,
+            seed=self.seed, step=self.step, sr_bits=None if sr_bits is None else [sr_bits.get(n) for n in names],
             ema_params=self.ema_params, ema_decay=self._ema_step_decay(),
-            ema_bits=None if ema_bits is None else [ema_bits.get(n) for n in names])
+            ema_bits=None if ema_bits is None else [ema_bits.get(n) for n in names],
+            working=None if self.masters is None else params)
         for p in params:
             p.grad = None
         return norm
