@@ -221,8 +221,10 @@ def flash_cases():
     ] + SD15_ATTENTION
 
 
-# the SD1.5 training step's attentions at batch 16 and 64x64 latents, on the
-# mma.sync kernels: each level's self- and cross-attention (8 heads)
+# the SD1.5 training step's attentions at batch 16 and 64x64 latents: each
+# level's self- and cross-attention (8 heads). The forward is the mma.sync
+# kernel at every one; dQ and dK/dV are the Hopper kernels at D = 40/80, the
+# mma.sync ones at D = 160
 SD15_ATTENTION = [
     (f"sd15_{level}_{kind}", 16, s, s if kind == "self" else 77, 8, d, "none", None)
     for level, s, d in (("l0", 4096, 40), ("l1", 1024, 80), ("l2", 256, 160), ("mid", 64, 160))
@@ -508,7 +510,11 @@ def flash_bwd_cases():
         ("clip_l_causal", 8, 77, 77, 12, 64, "full", None),
         ("t5_xxl", 8, 256, 256, 64, 64, "t5", 1.0),
         ("mmdit_joint", 8, 1357, 1357, 24, 64, "joint", None),
-    ] + SD15_ATTENTION  # SD1.5's head dims 40/80/160, on the mma.sync kernels
+        # the Hopper kernels at SD1.5's D = 40: ragged with a key bias, and a
+        # full bias read in place
+        ("ragged_key_d40", 2, 130, 300, 2, 40, "key", None),
+        ("full_bias_d40", 8, 77, 77, 8, 40, "full", None),
+    ] + SD15_ATTENTION  # SD1.5's head dims 40/80/160
 
 
 def check_flash_bwd(results, failures):
@@ -525,7 +531,7 @@ def check_flash_bwd(results, failures):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     for name, b, sq, sk, h, d, kind, scale in flash_bwd_cases():
-        bwd_dq, bwd_dkv = backward_kernels(d)  # the _sm90 pair at D = 64, the _mma pair at 40/80/160
+        bwd_dq, bwd_dkv = backward_kernels(d)  # the _sm90 pair at D = 40/64/80, the _mma pair at 160
         q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
                    for s in (sq, sk, sk))
         bias = make_bias(kind, b, h, sq, sk, dev, gen)
@@ -589,9 +595,10 @@ def check_flash_bwd(results, failures):
 
 def check_flash_bwd_views(failures):
     """The Hopper backward on q/k/v/dO cut as strided head views (taken
-    uncopied by TMA), refusing a stride-0 view (it raises, it does not
-    copy), and reading CLIP's [B, 1, Sq, Sk] bias in place: the kernels
-    allocate their outputs and nothing else, no [B*H, Sq, Sk] copy."""
+    uncopied by TMA) at D = 64 and at SD1.5's D = 40, refusing a stride-0
+    view (it raises, it does not copy), and reading CLIP's [B, 1, Sq, Sk]
+    bias in place: the kernels allocate their outputs and nothing else, no
+    [B*H, Sq, Sk] copy."""
     from uwudiff_tpu_torch.ops import launch_counts, reset_launch_counts
     from uwudiff_tpu_torch.ops.flash_attention import (
         flash_attention_backward_reference,
@@ -601,17 +608,19 @@ def check_flash_bwd_views(failures):
     )
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
-    qkv = torch.randn((8, 1024, 4, 10, 64), generator=gen, device="cuda", dtype=torch.bfloat16)
-    q, k, v, dout = qkv.unbind(2)  # dO as a head view too
-    out, lse = flash_fwd(q, k, v)
-    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    got = (flash_bwd_dq_sm90(q, k, v, dout, lse, delta),) + flash_bwd_dkv_sm90(q, k, v, dout, lse, delta)
-    refs = flash_attention_backward_reference(q, k, v, None, out, lse, dout)[:3]
-    for o, g, r in zip(("dq", "dk", "dv"), got, refs):
-        ok, err, rms_err, tol = close_enough(g, r)
-        log(f"  flash_bwd_sm90 fused-qkv views {o}: err {err:.2e} (tol {tol:.1e}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(f"flash_bwd_sm90 on fused-qkv views: {o} err {err} rms {rms_err} (tol {tol})")
+    for b, s, h, d in ((2, 1024, 8, 40), (8, 1024, 10, 64)):
+        qkv = torch.randn((b, s, 4, h, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+        q, k, v, dout = qkv.unbind(2)  # dO as a head view too
+        out, lse = flash_fwd(q, k, v)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        got = (flash_bwd_dq_sm90(q, k, v, dout, lse, delta),) + flash_bwd_dkv_sm90(q, k, v, dout, lse, delta)
+        refs = flash_attention_backward_reference(q, k, v, None, out, lse, dout)[:3]
+        for o, g, r in zip(("dq", "dk", "dv"), got, refs):
+            ok, err, rms_err, tol = close_enough(g, r)
+            log(f"  flash_bwd_sm90 fused-qkv views D={d} {o} {tuple(q.stride())}: err {err:.2e} (tol {tol:.1e})"
+                f" {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"flash_bwd_sm90 on fused-qkv views, D={d}: {o} err {err} rms {rms_err} (tol {tol})")
     k_shared = k[:, :, :1].expand(k.shape)
     reset_launch_counts()
     for fn in (flash_bwd_dq_sm90, flash_bwd_dkv_sm90):
@@ -1246,8 +1255,9 @@ def small_sd15_unet(device):
 
 def check_sd15_train_vs_cpu(failures):
     """One SD1.5-recipe step of the small SD1.5-layout UNet: on the card the
-    fp32 masters under bf16 compute through the mma.sync flash kernels at
-    D = 40/80/160 and adamw_fp16's kernels (O2), against the same weights
+    fp32 masters under bf16 compute through the flash kernels at D =
+    40/80/160 (the forward mma.sync; dQ and dK/dV Hopper at 40/80, mma.sync
+    at 160) and adamw_fp16's kernels (O2), against the same weights
     in fp32 on the CPU through the plain versions, the same noise and
     timesteps: the loss and the gradients within the bf16 bound of
     check_train_vs_cpu; then the card's update moves every master and
@@ -1255,7 +1265,7 @@ def check_sd15_train_vs_cpu(failures):
     import copy
 
     from uwudiff_tpu_torch.diffusion import DiffusionLoss, NoiseSchedule
-    from uwudiff_tpu_torch.ops import launch_counts, mma_launches_by_head_dim, reset_launch_counts
+    from uwudiff_tpu_torch.ops import launch_counts, launches_by_head_dim, reset_launch_counts
     from uwudiff_tpu_torch.training import DMTrainer
 
     torch.manual_seed(SEED + 13)
@@ -1274,7 +1284,7 @@ def check_sd15_train_vs_cpu(failures):
         losses[dev] = loss.float().cpu()
         grads[dev] = torch.cat([p.grad.float().cpu().flatten() for _, p in tr.params])
         trainers[dev] = tr
-    by_dim = mma_launches_by_head_dim()
+    by_dim = launches_by_head_dim()
     loss_err = ((losses["cuda"] - losses["cpu"]).abs() / losses["cpu"].abs()).item()
     grad_err = ((grads["cuda"] - grads["cpu"]).norm() / grads["cpu"].norm()).item()
     tr = trainers["cuda"]
@@ -1285,15 +1295,15 @@ def check_sd15_train_vs_cpu(failures):
     moved = all(not torch.equal(a, b) for a, b in zip(before, tr.masters))
     rounded = all(torch.equal(p.detach(), m.to(torch.bfloat16)) for (_, p), m in zip(tr.params, tr.masters))
     tol = 5e-2  # bf16 weights, activations and gradients through a few dozen layers
-    dims_ok = all(set(v) == {40, 80, 160} for v in by_dim.values())
+    dims_ok = all(set(by_dim[name]) == set(dims) for name, dims in SD15_ROUTES.items())
     log(f"  SD1.5-layout step, card (fp32 masters, bf16 compute) vs CPU fp32 plain: loss rel err {loss_err:.2e},"
-        f" grad |d|/|ref| {grad_err:.2e} (tol {tol}); mma launches by head dim {by_dim}; O2 launches {o2};"
+        f" grad |d|/|ref| {grad_err:.2e} (tol {tol}); launches by head dim {by_dim}; O2 launches {o2};"
         f" masters moved {moved}, module = bf16(masters) {rounded}")
     if not (loss_err <= tol and grad_err <= tol and dims_ok and o2 == 1 and moved and rounded):
         failures.append(f"SD1.5-layout step card vs CPU: loss {loss_err} grad {grad_err} (tol {tol}), head dims"
                         f" {by_dim}, O2 launches {o2}, masters moved {moved}, module rounded {rounded}")
     return {"loss_rel_err": loss_err, "grad_rel_err": grad_err, "tol": tol,
-            "mma_launches_by_head_dim": {k: {str(d): n for d, n in v.items()} for k, v in by_dim.items()}}
+            "launches_by_head_dim": {k: {str(d): n for d, n in v.items()} for k, v in by_dim.items()}}
 
 
 def small_ti_trainer(device, dtype):
@@ -1783,6 +1793,13 @@ def plan_fp16_optimizer() -> dict:
     return {**{name: 0 for name in OPTIMIZER_KERNELS}, "adamw_norm": 1, "adamw_fp16_apply": 1}
 
 
+# the head dims each flash kernel serves on the SD1.5 step: the forward is
+# mma.sync throughout; dQ and dK/dV are the Hopper kernels at 40/80, the
+# mma.sync ones at 160
+SD15_ROUTES = {"flash_fwd_mma": (40, 80, 160), "flash_bwd_dq_sm90": (40, 80), "flash_bwd_dkv_sm90": (40, 80),
+               "flash_bwd_dq_mma": (160,), "flash_bwd_dkv_mma": (160,)}
+
+
 def sd15_head_dim_plan(unet) -> dict:
     """Attention calls per step by head dim, from the modules: a block's
     self-attention, and its cross-attention."""
@@ -1900,7 +1917,7 @@ def train_sd15(report, failures):
     """The SD1.5 full fine-tune step at full width (training/bench_setup.py,
     model="sd15": batch 16, 64x64 latents, fp32 masters under bf16 compute,
     adamw_fp16, global-norm clip 1.0): one warm-up step, SD15_STEPS timed."""
-    from uwudiff_tpu_torch.ops import launch_counts, mma_launches_by_head_dim, plan_gn, plan_gn_bwd, reset_launch_counts
+    from uwudiff_tpu_torch.ops import launch_counts, launches_by_head_dim, plan_gn, plan_gn_bwd, reset_launch_counts
     from uwudiff_tpu_torch.training.bench_setup import build_trainer_and_batch
 
     t0 = time.perf_counter()
@@ -1934,7 +1951,7 @@ def train_sd15(report, failures):
         steps.append(dict(step_s=time.perf_counter() - t0, loss=metrics["train/loss"].item(),
                           grad_norm=metrics["train/grad_norm"].item(), lr=metrics["train/lr"], **phases))
     counts = launch_counts()  # the main path's run ends here
-    by_dim = mma_launches_by_head_dim()
+    by_dim = launches_by_head_dim()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     plan = plan_launches(trainer.unet, gn_calls)
@@ -1943,11 +1960,12 @@ def train_sd15(report, failures):
         if counts[name] != per_step * SD15_STEPS:
             failures.append(f"sd15 {name}: {counts[name]} launches in {SD15_STEPS} steps, plan {per_step} a step")
     check_forward_route(counts, "sd15", failures, route="mma")
-    check_backward_route(counts, "sd15", failures, route="mma")
     dims = sd15_head_dim_plan(trainer.unet)
-    for name, got in by_dim.items():
-        if got != {d: n * SD15_STEPS for d, n in dims.items()}:
-            failures.append(f"sd15 {name} launches by head dim {got}, plan {dims} a step")
+    for name, routed in SD15_ROUTES.items():  # each kernel at its head dims, as many times as the modules plan
+        want = {d: n * SD15_STEPS for d, n in dims.items() if d in routed}
+        if by_dim[name] != want or counts[name] != sum(want.values()):
+            failures.append(f"sd15 {name}: {counts[name]} launches, by head dim {by_dim[name]}; plan {want}"
+                            f" ({dims} attention calls a step)")
     losses = [warm["train/loss"].item()] + [s["loss"] for s in steps]
     norms = [warm["train/grad_norm"].item()] + [s["grad_norm"] for s in steps]
     if not all(map(math.isfinite, losses + norms)) or len(set(losses)) < 2:
@@ -1975,14 +1993,14 @@ def train_sd15(report, failures):
         batch=bsz, latent=64, params=n_params, leaves=len(trainer.masters), build_s=build_s, warmup_step_s=warmup_s,
         steps=steps, median_step_s=step_s, imgs_per_s=bsz / step_s, median_forward_backward_ms=fb_ms,
         median_optimizer_ms=opt_ms, peak_memory_gib=peak_gib, launches=counts, plan_per_step=plan,
-        mma_launches_by_head_dim={k: {str(d): n for d, n in v.items()} for k, v in by_dim.items()},
+        launches_by_head_dim={k: {str(d): n for d, n in v.items()} for k, v in by_dim.items()},
         attention_head_dims_per_step={str(d): n for d, n in dims.items()}, gn_routes=gn_routes,
         gn_call_checks=gn_checks, losses=losses,
         grad_norms=norms, masters_unchanged=unmoved, module_is_bf16_of_masters=rounded, optimizer=opt)
     log(f"  sd15: step {step_s:.3f} s ({bsz / step_s:.2f} imgs/s), forward+backward {fb_ms:.1f} ms,"
         f" optimizer {opt_ms:.1f} ms, peak {peak_gib:.1f} GiB; losses {[round(v, 4) for v in losses]},"
         f" grad norms {[round(v, 3) for v in norms]}; launches/step {plan}; attention calls by head dim a step"
-        f" {dims}, mma launches by head dim {by_dim}; GroupNorm shapes [fwd, bwd route] {gn_routes};"
+        f" {dims}, launches by head dim {by_dim}; GroupNorm shapes [fwd, bwd route] {gn_routes};"
         f" masters unchanged {len(unmoved)} of {len(trainer.masters)}")
     return counts, by_dim
 
@@ -2156,12 +2174,14 @@ def main() -> int:
     log("[6/6] textual inversion SD3-medium + CLIP-L + CLIP-bigG + T5-XXL (batch 8, 64x64x16 latents)")
     ti_counts = timed("ti", ti, report, failures)
 
-    # (kernel, the case of its row's numbers); the mma.sync kernels at D = 40
-    # and at D = 160, each at the SD1.5 step's level-0 / level-2 self-attention
+    # (kernel, the case of its row's numbers): the kernels serving SD1.5 at
+    # its level-0 self-attention (D = 40: the mma.sync forward, the Hopper dQ
+    # and dK/dV) and at level 2 (D = 160: the mma.sync kernels), the Hopper
+    # kernels also at D = 64
     main_case = [("flash_fwd_sm90", "sdxl_l1_self"), ("flash_fwd_mma", "sd15_l0_self"),
                  ("flash_fwd_mma", "sd15_l2_self"), ("flash_bwd_dq_sm90", "train_l1_self"),
-                 ("flash_bwd_dkv_sm90", "train_l1_self"), ("flash_bwd_dq_mma", "sd15_l0_self"),
-                 ("flash_bwd_dkv_mma", "sd15_l0_self"), ("flash_bwd_dq_mma", "sd15_l2_self"),
+                 ("flash_bwd_dkv_sm90", "train_l1_self"), ("flash_bwd_dq_sm90", "sd15_l0_self"),
+                 ("flash_bwd_dkv_sm90", "sd15_l0_self"), ("flash_bwd_dq_mma", "sd15_l2_self"),
                  ("flash_bwd_dkv_mma", "sd15_l2_self"), ("flash_bwd_dq_dbias", "t5_xxl"),
                  ("gn_silu_fused", "8x4096x320"), ("gn_stats", "8x16384x960"), ("gn_silu_apply", "8x16384x960"),
                  ("gn_silu_bwd_fused", "8x4096x320"), ("gn_bwd_partials", "8x4096x960"), ("gn_bwd_dx", "8x4096x960")]
@@ -2186,20 +2206,22 @@ def main() -> int:
                 "gn_bwd_dx": "uwudiff_tpu/ops/groupnorm_silu.py:349"}
     # the count of the run whose path the row's shape is from: K5's is the
     # textual-inversion step's (0: no path trains an attention bias), the
-    # chunked GroupNorm pair's the served batch's, the mma.sync kernels' the
-    # SD1.5 step's at the row's head dim, the others' the SDXL training step's
+    # chunked GroupNorm pair's the served batch's, a flash kernel's at
+    # SD1.5's head dims the SD1.5 step's at the row's head dim, the others'
+    # the SDXL training step's
     path_counts = {"flash_bwd_dq_dbias": ti_counts, "gn_stats": serve_counts, "gn_silu_apply": serve_counts}
     kernels = []
     for name, case in main_case:
         row = next(r for r in results if r["kernel"] == name and r["case"] == case)
-        mma = name in sd15_by_dim
+        by_dim = name in sd15_by_dim
         d = row["shape"][-1]
+        sd15 = by_dim and d in (40, 80, 160)
         kernels.append(dict(
             name=name, route="cuda", source=source.get(name, csrc + "groupnorm_silu.cu"),
             replaces=replaces[name],
-            launches=sd15_by_dim[name].get(d, 0) if mma else path_counts.get(name, counts)[name],
+            launches=sd15_by_dim[name].get(d, 0) if sd15 else path_counts.get(name, counts)[name],
             max_abs_err=max(r["max_abs_err"] for r in results if r["kernel"] == name
-                            and (not mma or r["shape"][-1] == d)),
+                            and (not by_dim or r["shape"][-1] == d)),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], device_ms=row.get("device_ms", row.get("kernel_device_ms")),
             shape=row["shape"], case=case,

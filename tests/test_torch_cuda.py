@@ -590,7 +590,7 @@ def test_hopper_backward_reads_clips_bias_in_place(dev, which):
         _assert_flash_close(g, r)
 
 
-@pytest.mark.parametrize("d,suffix", [(64, "_sm90"), (40, "_mma"), (80, "_mma"), (160, "_mma")])
+@pytest.mark.parametrize("d,suffix", [(64, "_sm90"), (40, "_sm90"), (80, "_sm90"), (160, "_mma")])
 def test_backward_dispatches_on_the_head_dim(dev, d, suffix):
     from uwudiff_tpu_torch.ops.flash_attention import (
         flash_attention_backward_reference,
@@ -1138,14 +1138,15 @@ def test_tiny_sd15_step_on_the_card_matches_the_cpu(dev):
     by the SD1.5 recipe (fp32 masters under bf16 compute, adamw_fp16, clip
     1.0) on the card and in fp32 on the CPU from the same weights, noise
     and timesteps: the loss and the gradients within 5e-2 (bf16 through a
-    few dozen layers); every attention on the mma.sync kernels at its head
-    dim; the update in two launches, every master moved, the module's
-    weights their bf16 rounding."""
+    few dozen layers); every attention on its head dim's kernels
+    (the forward mma.sync at 40/80/160, dQ and dK/dV Hopper at 40/80
+    and mma.sync at 160); the update in two launches, every master moved,
+    the module's weights their bf16 rounding."""
     import copy
 
     from uwudiff_tpu_torch.diffusion import DiffusionLoss, NoiseSchedule
     from uwudiff_tpu_torch.models import UNet2DConditionModel
-    from uwudiff_tpu_torch.ops import mma_launches_by_head_dim
+    from uwudiff_tpu_torch.ops import launches_by_head_dim
     from uwudiff_tpu_torch.training import DMTrainer
 
     torch.manual_seed(0)
@@ -1163,10 +1164,11 @@ def test_tiny_sd15_step_on_the_card_matches_the_cpu(dev):
         reset_launch_counts()
         loss, _ = tr.forward_backward(batch, noise, timesteps)
         out[where] = (tr, loss.float().cpu(), torch.cat([p.grad.float().cpu().flatten() for _, p in tr.params]))
-    by_dim = mma_launches_by_head_dim()
+    by_dim = launches_by_head_dim()
     # five transformers at each of levels 0-2 (2 down, 3 up) and the mid block's, self- and cross-attention
-    assert by_dim["flash_bwd_dq_mma"] == by_dim["flash_bwd_dkv_mma"] == by_dim["flash_fwd_mma"] == {
-        40: 10, 80: 10, 160: 12}
+    assert by_dim["flash_fwd_mma"] == {40: 10, 80: 10, 160: 12}
+    assert by_dim["flash_bwd_dq_sm90"] == by_dim["flash_bwd_dkv_sm90"] == {40: 10, 80: 10}
+    assert by_dim["flash_bwd_dq_mma"] == by_dim["flash_bwd_dkv_mma"] == {160: 12}
     (_, loss_c, grad_c), (tr, loss_g, grad_g) = out["cpu"], out["cuda"]
     assert ((loss_g - loss_c).abs() / loss_c.abs()).item() <= 5e-2
     assert ((grad_g - grad_c).norm() / grad_c.norm()).item() <= 5e-2

@@ -1,5 +1,5 @@
-// Flash-attention backward on mma.sync (sm_90a): dQ + dBias at head dims
-// 40/64/80/160, dQ and dK/dV at 40/80/160 (at 64 they are
+// Flash-attention backward on mma.sync (sm_90a): dQ + dBias (K5) at head
+// dims 40/64/80/160, dQ and dK/dV at 160 only (at 40/64/80 they are
 // flash_bwd_sm90.cu's Hopper kernels); bf16 q/k/v/dO, fp32 softmax
 // recompute and accumulators.
 //
@@ -49,8 +49,8 @@
 // registers (re-packed in place as the A operand of the next mma.sync).
 // Ragged edges are zero-filled in shared memory and masked in registers:
 // keys >= Sk get p = 0, query rows >= Sq get p = 0 in the dK/dV kernel, and
-// no row past Sq or Sk is written. Head dims 40 and 80 are zero-padded to 48
-// and 80 in shared memory only.
+// no row past Sq or Sk is written. Head dims 40 and 80 (K5's) are
+// zero-padded to 48 and 80 in shared memory only.
 //
 // D = 160 (SD1.5's third level, 1280 channels over 8 heads) does not fit the
 // registers of that design: a warp's dK and dV for its 16 keys would take
@@ -66,7 +66,7 @@
 //     same S^T and dP^T over the full depth (the repeated products are half
 //     again the work of the dK/dV sums), and each accumulates one half of
 //     dK's and dV's 160 columns (80 registers).
-// flash_bwd_sm90.cu redesigns dQ and dK/dV at D = 64 on TMA and wgmma.
+// flash_bwd_sm90.cu redesigns dQ and dK/dV at D = 40/64/80 on TMA and wgmma.
 
 #include <math.h>
 
@@ -275,8 +275,10 @@ __global__ void __launch_bounds__(NUM_THREADS)
   store_rows<D, C::DP>(dq, acc, row_a, Sq, H, b, h, scale, lane);
 }
 
-// SPLIT warps share each 16 keys (two at D = 160): warp w takes keys
-// 16 * (w % 4) and columns [DH * (w / 4), DH * (w / 4 + 1)) of dK and dV
+// Built at D = 160 only (at 40/64/80 dK/dV is flash_bwd_sm90.cu's): SPLIT
+// = 2 warps share each 16 keys, warp w takes keys 16 * (w % 4) and columns
+// [DH * (w / 4), DH * (w / 4 + 1)) of dK and dV, and no K/V fragment is
+// held (mma_abt_smem)
 template <int D, int BIAS>
 __global__ void __launch_bounds__(Cfg<D>::DKV_THREADS)
     flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -336,7 +338,6 @@ __global__ void __launch_bounds__(Cfg<D>::DKV_THREADS)
       if (key < Sk) kbias[r] = bias_at(bias + (long long)b * Sk + key);
     }
   }
-  uint32_t kf[C::HOLD ? C::DP / 16 : 1][4], vf[C::HOLD ? C::DP / 16 : 1][4];  // held at D <= 80 only
   const __nv_bfloat16* wK = sK + kw * 16 * C::STRIDE;
   const __nv_bfloat16* wV = sV + kw * 16 * C::STRIDE;
   float acc_k[DH / 8][4], acc_v[DH / 8][4];
@@ -350,15 +351,6 @@ __global__ void __launch_bounds__(Cfg<D>::DKV_THREADS)
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    if constexpr (C::HOLD) {
-      if (j == 0) {
-#pragma unroll
-        for (int kk = 0; kk < C::DP / 16; ++kk) {
-          load_a<C::STRIDE>(kf[kk], wK, kk, lane);
-          load_a<C::STRIDE>(vf[kk], wV, kk, lane);
-        }
-      }
-    }
     const __nv_bfloat16* tQ = sQ + stage * BM * C::STRIDE;
     const __nv_bfloat16* tO = sO + stage * BM * C::STRIDE;
     const float* tL = sL + stage * BM;
@@ -367,13 +359,8 @@ __global__ void __launch_bounds__(Cfg<D>::DKV_THREADS)
     float s[BM / 8][4], dp[BM / 8][4];
     zero<BM / 8>(s);
     zero<BM / 8>(dp);
-    if constexpr (C::HOLD) {
-      mma_abt<C::DP, BM / 8, C::STRIDE>(s, kf, tQ, lane);   // S^T = K Q^T
-      mma_abt<C::DP, BM / 8, C::STRIDE>(dp, vf, tO, lane);  // dP^T = V dO^T
-    } else {
-      mma_abt_smem<C::DP, BM / 8, C::STRIDE>(s, wK, tQ, lane);
-      mma_abt_smem<C::DP, BM / 8, C::STRIDE>(dp, wV, tO, lane);
-    }
+    mma_abt_smem<C::DP, BM / 8, C::STRIDE>(s, wK, tQ, lane);   // S^T = K Q^T
+    mma_abt_smem<C::DP, BM / 8, C::STRIDE>(dp, wV, tO, lane);  // dP^T = V dO^T
 
     const int m0 = j * BM;
 #pragma unroll
@@ -467,17 +454,20 @@ int dispatch_bias(int bias_mode, const Args& a) {
   }
 }
 
-// D = 64 is built for K5 only: its dQ and dK/dV are flash_bwd_sm90.cu's
+// K5 is built at every head dim; dQ and dK/dV at D = 160 only (at 40, 64
+// and 80 they are flash_bwd_sm90.cu's)
 template <int KIND>
 int dispatch(int D, int bias_mode, const Args& a) {
-  switch (D) {
-    case 40: return dispatch_bias<KIND, 40>(bias_mode, a);
-    case 64:
-      if constexpr (KIND == DQ_DBIAS) return dispatch_bias<KIND, 64>(bias_mode, a);
-      return static_cast<int>(cudaErrorInvalidValue);
-    case 80: return dispatch_bias<KIND, 80>(bias_mode, a);
-    case 160: return dispatch_bias<KIND, 160>(bias_mode, a);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (KIND == DQ_DBIAS) {
+    switch (D) {
+      case 40: return dispatch_bias<KIND, 40>(bias_mode, a);
+      case 64: return dispatch_bias<KIND, 64>(bias_mode, a);
+      case 80: return dispatch_bias<KIND, 80>(bias_mode, a);
+      case 160: return dispatch_bias<KIND, 160>(bias_mode, a);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    return D == 160 ? dispatch_bias<KIND, 160>(bias_mode, a) : static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

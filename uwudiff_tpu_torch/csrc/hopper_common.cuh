@@ -10,6 +10,9 @@
 // rows of 64 bf16 (128 bytes) at a 128-byte pitch, the eight 16-byte chunks
 // of row r stored at chunk ^ (r % 8). The swizzle is a function of the
 // address bits, so every tile starts on a 1024-byte boundary (eight rows).
+// A head dim that is not 64 (40, 80: flash_bwd_sm90.cu) is loaded the same
+// way in boxes of 64 columns, one per 64-column block, the columns past the
+// head dim zero-filled by TMA.
 //
 // wgmma operands read from such a tile (descriptor fields in 16-byte units):
 //   K-major (Q, K: the reduction dim is the contiguous one): SBO = 1024 B
@@ -19,6 +22,7 @@
 //   MN-major (V: keys are rows, the reduction runs over rows): SBO = 1024 B
 //     between 8-key groups, LBO unused for N = 64 (one 128-byte row spans
 //     the whole N); the k16 slice kk starts 16 * 128 * kk bytes in.
+//     With N > 64 (two column blocks), LBO = the blocks' stride.
 // The fp32 accumulator of wgmma.m64nN (thread t of the warpgroup, w = t/32,
 // l = t%32): d[4i + e] is row 16w + l/4 + 8(e/2), column 8i + 2(l%4) + e%2,
 // the mma.sync m16n8 C layout per warp; the register A operand of the RS
@@ -261,6 +265,22 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, both K-major in shared memory
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // d[64 x 64] (+)= A[64 x 16] (registers, bf16 pairs) . B[64 x 16]^T, B
 // K-major in shared memory
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
@@ -291,6 +311,38 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d[64 x 40] += A[64 x 16] (registers, bf16 pairs) . B[16 x 40], B
+// MN-major in shared memory (the transpose bit set)
+__device__ __forceinline__ void wgmma_m64n40k16_rs_tb(float (&d)[20], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %25, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, "
+      "{%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d[64 x 80] += A[64 x 16] (registers, bf16 pairs) . B[16 x 80], B
+// MN-major in shared memory (the transpose bit set)
+__device__ __forceinline__ void wgmma_m64n80k16_rs_tb(float (&d)[40], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %45, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
@@ -337,13 +389,15 @@ inline int bind_context() {
 
 // spec: dims[4] (elements, innermost first), strides[3] (bytes, of dims
 // 1..3), box[4] (elements), as the wrapper computed and checked them
-// (ops/flash_attention.py::tma_map)
+// (ops/flash_attention.py::tma_map); the box is 64 columns (one 128-byte
+// swizzle row)
 constexpr int MAP_WORDS = 11;
 constexpr int ENCODE_FAILED = 100000;  // + the CUresult
 
 inline int encode(CUtensorMap* map, const void* ptr, const unsigned long long* spec) {
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return ENCODE_FAILED;
+  if (spec[7] != 64) return static_cast<int>(cudaErrorInvalidValue);
   if (const int err = bind_context()) return err;
   cuuint64_t dims[4], strides[3];
   cuuint32_t box[4], elem_strides[4] = {1, 1, 1, 1};
@@ -359,6 +413,10 @@ inline int encode(CUtensorMap* map, const void* ptr, const unsigned long long* s
 // the box rows (S) of a spec: the kernel's tile, which its transaction
 // byte counts assume
 inline unsigned long long box_rows(const unsigned long long* spec) { return spec[9]; }
+
+// the box columns (D) of a spec: the kernel's swizzle row, which its shared
+// layout assumes
+inline unsigned long long box_cols(const unsigned long long* spec) { return spec[7]; }
 
 // a rank-3 map with no swizzle (tiles land in shared memory row-major,
 // rows at the box's own pitch). spec: dims[3] (elements, innermost first),

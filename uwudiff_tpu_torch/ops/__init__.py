@@ -53,7 +53,7 @@ __all__ = [
     "gn_stats",
     "group_norm_silu",
     "launch_counts",
-    "mma_launches_by_head_dim",
+    "launches_by_head_dim",
     "plan_gn",
     "plan_gn_bwd",
     "reset_launch_counts",
@@ -61,9 +61,9 @@ __all__ = [
 
 # every wrapper that launches a hand-written kernel; each keeps a plain
 # integer ``launches`` that it raises by one per launch. The forward, dQ and
-# dK/dV have two each (the Hopper kernel at D = 64, the mma.sync one at the
-# other head dims); launch_counts() also gives each pair's sum under the
-# dispatcher's name ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv").
+# dK/dV have two each (the Hopper kernel and the mma.sync one, by head dim:
+# ops/flash_attention.py); launch_counts() also gives each pair's sum under
+# the dispatcher's name ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv").
 KERNELS = {
     "flash_fwd_sm90": flash_fwd_sm90,
     "flash_fwd_mma": flash_fwd_mma,
@@ -103,11 +103,11 @@ def launch_counts() -> dict[str, int]:
     return counts
 
 
-def mma_launches_by_head_dim() -> dict[str, dict[int, int]]:
-    """The mma.sync flash kernels' launches split by head dim (SD1.5's
-    40/80/160 share each wrapper)."""
-    return {name: dict(sorted(KERNELS[name].head_dims.items()))
-            for name in ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma")}
+def launches_by_head_dim() -> dict[str, dict[int, int]]:
+    """The launches split by head dim of every kernel that counts them so:
+    the mma.sync forward (SD1.5's 40/80/160), the Hopper dQ and dK/dV
+    (40/64/80) and the mma.sync ones (160)."""
+    return {name: dict(sorted(fn.head_dims.items())) for name, fn in KERNELS.items() if hasattr(fn, "head_dims")}
 
 
 def reset_launch_counts() -> None:

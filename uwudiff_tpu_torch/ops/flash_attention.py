@@ -3,18 +3,24 @@
 Replaces ``uwudiff_tpu/ops/flash_attention.py``: the TPU's online-softmax
 forward ``_fwd_kernel`` and its backward kernels ``_bwd_dq_kernel`` /
 ``_bwd_dq_dbias_kernel`` / ``_bwd_dkv_kernel``. Both sides dispatch on
-the head dim. D = 64, the only head dim of SDXL, CLIP, T5 and the SD3
-MMDiT, runs the Hopper kernels: the forward ``csrc/flash_fwd_sm90.cu``
-and the dQ and dK/dV kernels ``csrc/flash_bwd_sm90.cu`` (TMA loads into
-an mbarrier ring, wgmma, a producer warpgroup and two consumer
-warpgroups), whose tensor maps are computed and checked here
-(:func:`tma_map`) and encoded by the C side. D = 40/80/160, SD1.5's head
-dims, run the mma.sync forward (``csrc/flash_fwd.cu``) and the mma.sync
-backward (``csrc/flash_bwd.cu``; at D = 160 its dK/dV kernel splits the
-columns of dK and dV across a warp pair), which also holds the dQ + dBias
-kernel (K5) at every backward head dim. Any other head dim raises on the
-card. Each source note says what bounds the kernel on an H100 and how the
-design answers that.
+the head dim, and every kernel is a Hopper one (TMA loads into an
+mbarrier ring, wgmma, a producer warpgroup and two consumer warpgroups)
+or an mma.sync one:
+
+- the forward: ``csrc/flash_fwd_sm90.cu`` at D = 64, the only head dim
+  of SDXL, CLIP, T5 and the SD3 MMDiT; ``csrc/flash_fwd.cu`` (mma.sync)
+  at SD1.5's 40/80/160;
+- dQ and dK/dV: ``csrc/flash_bwd_sm90.cu`` at D = 40, 64 and 80, one
+  kernel template each (D = 64's 128-byte swizzled tiles at every head
+  dim, the columns past D zero-filled); ``csrc/flash_bwd.cu`` (mma.sync) at
+  D = 160, where its dK/dV kernel splits the columns of dK and dV across
+  a warp pair;
+- dQ + dBias (K5): ``csrc/flash_bwd.cu`` at every backward head dim.
+
+The Hopper kernels' tensor maps are computed and checked here
+(:func:`tma_map`) and encoded by the C side. Any other head dim raises on
+the card. Each source note says what bounds the kernel on an H100 and how
+the design answers that.
 
 Contract (the JAX function's): ``q`` ``[B, Sq, H, D]``, ``k``/``v``
 ``[B, Sk, H, D]``, out ``[B, Sq, H, D]`` in the input dtype and, on
@@ -76,10 +82,11 @@ __all__ = [
 ]
 
 NEG_INF = -1e30
-SM90_HEAD_DIMS = (64,)  # the Hopper forward and backward (SDXL, CLIP, T5, the SD3 MMDiT)
+SM90_HEAD_DIMS = (64,)  # the Hopper forward (SDXL, CLIP, T5, the SD3 MMDiT)
 MMA_HEAD_DIMS = (40, 80, 160)  # the mma.sync forward (SD1.5)
 HEAD_DIMS = (40, 64, 80, 160)  # every head dim a forward was built for
-MMA_BWD_HEAD_DIMS = (40, 80, 160)  # the mma.sync dQ and dK/dV kernels (SD1.5)
+SM90_BWD_HEAD_DIMS = (40, 64, 80)  # the Hopper dQ and dK/dV kernels (SD1.5's 40/80 beside 64)
+MMA_BWD_HEAD_DIMS = (160,)  # the mma.sync dQ and dK/dV kernels (SD1.5's D = 160)
 BWD_HEAD_DIMS = (40, 64, 80, 160)  # every head dim a backward (and K5) was built for
 
 _fns: dict = {}
@@ -215,7 +222,9 @@ _TMA_ENCODE_FAILED = 100000  # the C side's code for a tensor map the driver ref
 class TmaMap(NamedTuple):
     """A rank-4 TMA tensor map over a bf16 ``[B, S, H, D]`` view, innermost
     first: ``dims`` (D, H, S, B) in elements, ``strides`` of H, S and B in
-    bytes, ``box`` (D, 1, rows, 1) in elements."""
+    bytes, ``box`` (64, 1, rows, 1) in elements: one 128-byte swizzle row
+    of 64 columns, loaded once per 64-column block of D (twice at
+    D = 80), the columns past D zero-filled."""
 
     dims: tuple
     strides: tuple
@@ -225,42 +234,43 @@ class TmaMap(NamedTuple):
         return self.dims + self.strides + self.box
 
 
-_tma_maps: dict = {}  # (shape, strides, rows) -> TmaMap, for views already checked
+_tma_maps: dict = {}  # (shape, strides, rows, head dims) -> TmaMap, for views already checked
 
 
-def tma_map(t, who="flash_fwd_sm90", name="t", rows=TMA_BOX_ROWS):
+def tma_map(t, who="flash_fwd_sm90", name="t", rows=TMA_BOX_ROWS, head_dims=SM90_HEAD_DIMS):
     """The tensor map a Hopper kernel loads ``t`` with, in boxes of
     ``rows`` rows of S (the kernel's tile, which its C side checks),
-    checked against what TMA takes with a 128-byte swizzle: a 16-byte
-    aligned start, unit stride over a 64-wide bf16 head dim (one 128-byte
-    swizzle row), other strides positive multiples of 16 bytes below
-    2**40, dims below 2**32. Raises ValueError for any other view: the
-    kernel neither copies it nor takes it. A geometry seen before is
-    taken from a cache, and only the start is checked again: the
-    wrapper's host time is most of a call at CLIP's 77 tokens."""
+    checked against what TMA takes: a 16-byte aligned start, unit stride
+    over a bf16 head dim in ``head_dims`` (the forward's 64, or the
+    backward's :data:`SM90_BWD_HEAD_DIMS`), other strides positive
+    multiples of 16 bytes below 2**40, dims below 2**32. Raises ValueError
+    for any other view: the kernel neither copies it nor takes it. A
+    geometry seen before is taken from a cache, and only the start is
+    checked again: the wrapper's host time is most of a call at CLIP's 77
+    tokens."""
+    key = (t.shape, t.stride(), rows, head_dims)
     if t.dtype == torch.bfloat16:
-        key = (t.shape, t.stride(), rows)
         m = _tma_maps.get(key)
         if m is not None:
             if t.data_ptr() % 16:
                 raise ValueError(f"{who}: {name} starts at an address TMA cannot take (not 16-byte aligned)")
             return m
-    m = _tma_map_checked(t, who, name, rows)
+    m = _tma_map_checked(t, who, name, rows, head_dims)
     if len(_tma_maps) >= 4096:
         _tma_maps.clear()
-    _tma_maps[(t.shape, t.stride(), rows)] = m
+    _tma_maps[key] = m
     return m
 
 
-def _tma_map_checked(t, who, name, rows):
+def _tma_map_checked(t, who, name, rows, head_dims):
     if not 1 <= rows <= 256:
         raise ValueError(f"{who}: a TMA box holds 1 to 256 rows, not {rows}")
     if t.dtype != torch.bfloat16 or t.dim() != 4:
         raise ValueError(f"{who}: {name} must be a bf16 [B, S, H, D] view for TMA, got {t.dtype} {tuple(t.shape)}")
     b, s, h, d = t.shape
     sb, ss, sh, sd = t.stride()
-    if d != 64 or sd != 1:
-        raise ValueError(f"{who}: {name} needs a contiguous head dim of 128 bytes for TMA, got D={d} stride {sd}")
+    if d not in head_dims or sd != 1:
+        raise ValueError(f"{who}: {name} needs a contiguous head dim in {head_dims} for TMA, got D={d} stride {sd}")
     if t.data_ptr() % 16:
         raise ValueError(f"{who}: {name} starts at an address TMA cannot take (not 16-byte aligned)")
     strides = (2 * sh, 2 * ss, 2 * sb)
@@ -270,7 +280,7 @@ def _tma_map_checked(t, who, name, rows):
     dims = (d, h, s, b)
     if max(dims) >= 2**32:
         raise ValueError(f"{who}: {name} dims {dims} out of TMA's range")
-    return TmaMap(dims, strides, (d, 1, rows, 1))
+    return TmaMap(dims, strides, (64, 1, rows, 1))
 
 
 def forward_kernel(d):
@@ -372,9 +382,9 @@ flash_fwd_mma.head_dims = {}  # launches by head dim
 
 def backward_kernels(d):
     """The backward's (dQ, dK/dV) wrappers for head dim ``d``: the Hopper
-    kernels at D = 64, the mma.sync kernels at D = 40/80/160; any other
+    kernels at D = 40/64/80, the mma.sync kernels at D = 160; any other
     raises. (K5, the dQ + dBias kernel, is mma.sync at every head dim.)"""
-    if d in SM90_HEAD_DIMS:
+    if d in SM90_BWD_HEAD_DIMS:
         return flash_bwd_dq_sm90, flash_bwd_dkv_sm90
     if d in MMA_BWD_HEAD_DIMS:
         return flash_bwd_dq_mma, flash_bwd_dkv_mma
@@ -400,8 +410,8 @@ def _bwd_sm90(who, q, k, v, dout, lse, delta, bias, scale, q_rows, k_rows):
     in place, the C call's pointers before the outputs and its arguments
     after them. The C side reads the map specs from ``words``, which must
     outlive the call."""
-    _check(who, SM90_HEAD_DIMS, ("q", q), ("k", k), ("v", v), ("dout", dout))
-    maps = [tma_map(t, who=who, name=n, rows=r)
+    _check(who, SM90_BWD_HEAD_DIMS, ("q", q), ("k", k), ("v", v), ("dout", dout))
+    maps = [tma_map(t, who=who, name=n, rows=r, head_dims=SM90_BWD_HEAD_DIMS)
             for n, t, r in (("q", q, q_rows), ("k", k, k_rows), ("v", v, k_rows), ("dout", dout, q_rows))]
     b, sq, h, d = q.shape
     mode, bias_t, bias_sb, bias_sh = _bias_in_place(who, bias, q, k)
@@ -415,22 +425,24 @@ def _bwd_sm90(who, q, k, v, dout, lse, delta, bias, scale, q_rows, k_rows):
 
 
 def flash_bwd_dq_sm90(q, k, v, dout, lse, delta, bias=None, scale=None):
-    """Launch the Hopper dQ kernel (K4, D = 64): q/k/v/dout go in uncopied
-    through TMA tensor maps, a full bias is read in place."""
+    """Launch the Hopper dQ kernel (K4, D = 40/64/80): q/k/v/dout go in
+    uncopied through TMA tensor maps, a full bias is read in place."""
     maps, _words, ptrs, args = _bwd_sm90("flash_bwd_dq_sm90", q, k, v, dout, lse, delta, bias, scale,
                                          SM90_BWD_ITEM_ROWS, SM90_BWD_TILE_ROWS)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     rc = _kernel("flash_bwd_sm90.cu", "uwu_flash_bwd_dq_sm90", 8)(*ptrs, dq.data_ptr(), *args)
     _check_sm90_rc("flash_bwd_dq_sm90", rc, maps)
     flash_bwd_dq_sm90.launches += 1
+    flash_bwd_dq_sm90.head_dims[q.shape[-1]] = flash_bwd_dq_sm90.head_dims.get(q.shape[-1], 0) + 1
     return dq
 
 
 flash_bwd_dq_sm90.launches = 0
+flash_bwd_dq_sm90.head_dims = {}  # launches by head dim
 
 
 def flash_bwd_dkv_sm90(q, k, v, dout, lse, delta, bias=None, scale=None):
-    """Launch the Hopper dK/dV kernel (K6, D = 64). Returns (dk, dv)."""
+    """Launch the Hopper dK/dV kernel (K6, D = 40/64/80). Returns (dk, dv)."""
     maps, _words, ptrs, args = _bwd_sm90("flash_bwd_dkv_sm90", q, k, v, dout, lse, delta, bias, scale,
                                          SM90_BWD_TILE_ROWS, SM90_BWD_ITEM_ROWS)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
@@ -438,14 +450,16 @@ def flash_bwd_dkv_sm90(q, k, v, dout, lse, delta, bias=None, scale=None):
     rc = _kernel("flash_bwd_sm90.cu", "uwu_flash_bwd_dkv_sm90", 9)(*ptrs, dk.data_ptr(), dv.data_ptr(), *args)
     _check_sm90_rc("flash_bwd_dkv_sm90", rc, maps)
     flash_bwd_dkv_sm90.launches += 1
+    flash_bwd_dkv_sm90.head_dims[q.shape[-1]] = flash_bwd_dkv_sm90.head_dims.get(q.shape[-1], 0) + 1
     return dk, dv
 
 
 flash_bwd_dkv_sm90.launches = 0
+flash_bwd_dkv_sm90.head_dims = {}  # launches by head dim
 
 
 def flash_bwd_dq_mma(q, k, v, dout, lse, delta, bias=None, scale=None):
-    """Launch the mma.sync dQ kernel (K4, D = 40/80/160)."""
+    """Launch the mma.sync dQ kernel (K4, D = 160)."""
     _check("flash_bwd_dq_mma", MMA_BWD_HEAD_DIMS, ("q", q), ("k", k), ("v", v), ("dout", dout))
     b, sq, h, d = q.shape
     scale = scale if scale is not None else d**-0.5
@@ -501,7 +515,7 @@ flash_bwd_dq_dbias.launches = 0
 
 
 def flash_bwd_dkv_mma(q, k, v, dout, lse, delta, bias=None, scale=None):
-    """Launch the mma.sync dK/dV kernel (K6, D = 40/80/160). Returns (dk, dv)."""
+    """Launch the mma.sync dK/dV kernel (K6, D = 160). Returns (dk, dv)."""
     _check("flash_bwd_dkv_mma", MMA_BWD_HEAD_DIMS, ("q", q), ("k", k), ("v", v), ("dout", dout))
     b, sq, h, d = q.shape
     sk = k.shape[1]
