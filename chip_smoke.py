@@ -9,8 +9,9 @@ Phases, each fatal on failure:
                in bf16: the forward and backward kernels at the serving,
                training and textual-inversion paths' shapes (CLIP-L/bigG,
                T5-XXL, the MMDiT's joint attention) and at every attention
-               shape of the SD1.5 step (batch 16; head dims 40/80/160 on the
-               mma.sync kernels), each twice for bitwise reproducibility,
+               shape of the SD1.5 step (batch 16; head dims 40/80/160: the
+               Hopper forward, timed beside the mma.sync one it replaced on
+               the path), each twice for bitwise reproducibility,
                the dQ + dBias kernel at T5-XXL's and at D = 160; every
                GroupNorm shape on the route plan_gn gives it (the fused
                single-pass kernel or the chunked stats + apply pair), with
@@ -18,12 +19,14 @@ Phases, each fatal on failure:
                training path's GroupNorm backward (and a 1024^2 one) on the
                route plan_gn_bwd gives it (the fused single-pass kernel or
                K7 + K8), beside F.group_norm+F.silu's backward; the
-               Hopper forward and backward (D = 64) also on strided head
-               views of one fused tensor, and raising on a view TMA cannot
-               take; the Hopper backward reading CLIP's broadcast bias in
-               place; median ms of the kernel, the plain version and one
+               Hopper forward (D = 64 and 40) and backward (D = 64) also on
+               strided head views of one fused tensor, and raising on a view
+               TMA cannot take; the Hopper backward reading CLIP's broadcast
+               bias in place; median ms of the kernel, the plain version and one
                library call, the profiler's device time, the card's lower
-               bound for the same work and the exp2 floor. The fused
+               bound for the same work (the larger of the bytes, the tensor
+               operations and, for the forward, the softmax's exp2 on the
+               SFU and the FMA pipe; the SFU-only floor beside it). The fused
                parameter update (adamw_factored, csrc/adamw_factored.cu)
                against its plain version at SDXL leaf shapes, three steps
                with and without the global-norm clip, the weight EMA on,
@@ -62,9 +65,10 @@ Phases, each fatal on failure:
                clip 1.0): one warm-up step and 5 timed steps. Checks finite
                and moving losses, that every master moved and the module
                holds their bf16 rounding, each step's launches against the
-               UNet's plan (every flash forward, dQ and dK/dV on the mma.sync
-               kernels, split by head dim as the modules say: 12 of each at
-               D = 160; the update as adamw_norm + adamw_fp16_apply). Then
+               UNet's plan (every flash forward on the Hopper kernel, dQ and
+               dK/dV on the Hopper kernels at D = 40/80 and the mma.sync ones
+               at 160, split by head dim as the modules say: 10, 10 and 12
+               of each; the update as adamw_norm + adamw_fp16_apply). Then
                the update over the step's 686 leaves against its plain
                version, bitwise, with and without the clip, and each O2
                kernel's time against its byte bound.
@@ -90,6 +94,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -108,6 +113,8 @@ PEAK_BYTES = 3.35e12  # HBM3, bytes/s
 PEAK_BF16 = 989e12  # tensor cores, flop/s
 PEAK_FP32 = 67e12  # CUDA cores, flop/s
 EXP2_PER_CLOCK = 16  # SFU exp2 results a clock per SM
+EXP2_FMA_OPS = 6  # FP32-pipe operations of one exp2 off the SFU (exp2_fma: 3 FADD, 3 FFMA)
+SOFTMAX_FMA_OPS = 2  # the softmax's own a query-key pair: the exponent's FFMA, the row sum's FADD
 SM_CLOCK_HZ = None  # nvidia-smi's clocks.max.sm, read in main()
 
 
@@ -177,14 +184,39 @@ def _ms(t):
     return "n/a" if t is None else f"{t:.4f}"
 
 
-def exp_floor_ms(b, h, sq, sk):
-    """The SFU floor of the whole flash-forward function: one exp2 per
-    query-key pair, every one on the SFU, at its rate over every SM at the
-    card's maximum SM clock. Computed, not measured; flash_fwd_sm90 sends
-    one n8-tile in eight to the FMA pipe, so its own SFU work is 7/8 of
-    this."""
+def sfu_floor_ms(b, h, sq, sk):
+    """The time of one exp2 per query-key pair with every one on the SFU, at
+    its rate over every SM at the card's maximum SM clock: a diagnostic,
+    not a bound (exp2 can run on the FMA pipe too, as exp2_fma does)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return b * h * sq * sk / (EXP2_PER_CLOCK * sms * SM_CLOCK_HZ) * 1e3
+
+
+def exp_floor_ms(b, h, sq, sk):
+    """The least time of the flash forward's softmax: one exp2 per
+    query-key pair, a share x of them on the FMA pipe (EXP2_FMA_OPS each,
+    as exp2_fma) and the rest on the SFU, beside the softmax's own
+    SOFTMAX_FMA_OPS a pair on the FMA pipe (fp32 operations at PEAK_FP32 /
+    2 a second), with x chosen so that both pipes finish together.
+    Computed, not measured."""
+    sfu = EXP2_PER_CLOCK * torch.cuda.get_device_properties(0).multi_processor_count * SM_CLOCK_HZ
+    fma = PEAK_FP32 / 2
+    # (1 - x) / sfu = (SOFTMAX_FMA_OPS + EXP2_FMA_OPS * x) / fma
+    x = min(max((fma - SOFTMAX_FMA_OPS * sfu) / (fma + EXP2_FMA_OPS * sfu), 0.0), 1.0)
+    return b * h * sq * sk * max((1 - x) / sfu, (SOFTMAX_FMA_OPS + EXP2_FMA_OPS * x) / fma) * 1e3
+
+
+def kernel_instance(line):
+    """A kernel's name and template arguments from ptxas's "Compiling entry
+    function '<mangled name>'" line: flash_fwd_sm90_kernel<40,0,1> for
+    _ZN...21flash_fwd_sm90_kernelILi40ELi0ELb1EEEv... (the name is the
+    length-prefixed identifier that ends in _kernel)."""
+    for m in re.finditer(r"(\d+)[A-Za-z_]", line):
+        name = line[m.start() + len(m.group(1)):m.start() + len(m.group(1)) + int(m.group(1))]
+        if name.endswith("_kernel"):
+            args = re.match(r"I((?:L[a-z]\d+E)+)E", line[m.end() - 1 + len(name):])
+            return f"{name}<{','.join(re.findall(r'L[a-z](\d+)E', args.group(1)))}>" if args else name
+    return "?"
 
 
 def bound(nbytes, flops, peak_flops):
@@ -222,9 +254,9 @@ def flash_cases():
 
 
 # the SD1.5 training step's attentions at batch 16 and 64x64 latents: each
-# level's self- and cross-attention (8 heads). The forward is the mma.sync
-# kernel at every one; dQ and dK/dV are the Hopper kernels at D = 40/80, the
-# mma.sync ones at D = 160
+# level's self- and cross-attention (8 heads). The forward is the Hopper
+# kernel at every one (the mma.sync one is timed beside it); dQ and dK/dV
+# are the Hopper kernels at D = 40/80, the mma.sync ones at D = 160
 SD15_ATTENTION = [
     (f"sd15_{level}_{kind}", 16, s, s if kind == "self" else 77, 8, d, "none", None)
     for level, s, d in (("l0", 4096, 40), ("l1", 1024, 80), ("l2", 256, 160), ("mid", 64, 160))
@@ -264,26 +296,42 @@ def bias_bytes(bias):
 def check_flash(results, failures):
     import torch.nn.functional as F
 
-    from uwudiff_tpu_torch.ops.flash_attention import NEG_INF, flash_attention_reference, forward_kernel
+    from uwudiff_tpu_torch.ops.flash_attention import (
+        MMA_HEAD_DIMS,
+        NEG_INF,
+        flash_attention_reference,
+        flash_fwd_mma,
+        forward_kernel,
+    )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     for name, b, sq, sk, h, d, kind, scale in flash_cases():
-        fwd = forward_kernel(d)  # flash_fwd_sm90 at D = 64, flash_fwd_mma at 40/80/160
+        # the path's kernel (flash_fwd_sm90 at every head dim) and, at SD1.5's
+        # head dims, the mma.sync kernel it replaced there, on no path: the
+        # yardstick, held to the same checks
+        routed = forward_kernel(d)
+        kernels = [routed] + ([flash_fwd_mma] if d in MMA_HEAD_DIMS else [])
         q, k, v = (
             torch.randn((b, s, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
             for s in (sq, sk, sk)
         )
         bias = make_bias(kind, b, h, sq, sk, dev, gen)
-        out, lse = fwd(q, k, v, bias, scale)
-        torch.cuda.synchronize()
-        out2, lse2 = fwd(q, k, v, bias, scale)
-        bitwise = torch.equal(out, out2) and torch.equal(lse, lse2)
-        del out2, lse2
         ref, ref_lse = flash_attention_reference(q, k, v, bias, scale)
-        err = (out.float() - ref.float()).abs().max().item()
-        lse_err = (lse - ref_lse).abs().max().item()
-        finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(lse).all())
+        plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, bias, scale), reps=2, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = None if bias is None else bias.clamp_min(NEG_INF).to(torch.bfloat16)
+        library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale)  # noqa: E731
+        library_ms = time_ms(library)
+        library_device_ms = profiled_ms(library)
+        flops = 4.0 * b * h * sq * sk * d
+        nbytes = 2 * (2 * b * sq * h * d + 2 * b * sk * h * d) + 4 * b * h * sq + bias_bytes(bias)
+        ops_ms = flops / PEAK_BF16 * 1e3
+        exp_ms = exp_floor_ms(b, h, sq, sk)
+        sfu_ms = sfu_floor_ms(b, h, sq, sk)
+        bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16)
+        if exp_ms > bound_ms:  # the softmax's exp2, on the SFU and the FMA pipe, is the longer share of the operations
+            bound_ms, bound_by = exp_ms, "operations"
         # out and ref are both rounded to bf16 and may differ by one bf16 step
         # (2**-7 relative at most) per element: the largest error is held to
         # one step of the largest output plus 2**-10 for the P tile's bf16
@@ -291,57 +339,61 @@ def check_flash(results, failures):
         # tile, ~1/n_tiles of every row, exceeds that many times over)
         ref_max = ref.float().abs().max().item()
         ref_rms = ref.float().pow(2).mean().sqrt().item()
-        rms_err = (out.float() - ref.float()).pow(2).mean().sqrt().item()
         tol, rms_tol, lse_tol = 2.0**-7 * ref_max + 2.0**-10, 2.0**-7 * ref_rms, 1e-3
-        ok = finite and bitwise and err <= tol and rms_err <= rms_tol and lse_err <= lse_tol
-        ms = time_ms(lambda: fwd(q, k, v, bias, scale))
-        plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, bias, scale), reps=2, warmup=1)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        mask = None if bias is None else bias.clamp_min(NEG_INF).to(torch.bfloat16)
-        library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale)  # noqa: E731
-        library_ms = time_ms(library)
-        flops = 4.0 * b * h * sq * sk * d
-        nbytes = 2 * (2 * b * sq * h * d + 2 * b * sk * h * d) + 4 * b * h * sq + bias_bytes(bias)
-        bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16)
-        row = dict(kernel=fwd.__name__, case=name, shape=[b, sq, sk, h, d], bias=kind, scale=scale,
-                   max_abs_err=err, lse_max_abs_err=lse_err, tol=tol, ref_max_abs=ref_max,
-                   rms_err=rms_err, rms_tol=rms_tol, bitwise=bitwise, ok=ok, ms=ms,
-                   plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   exp_ms=exp_floor_ms(b, h, sq, sk), tflops=flops / ms / 1e9)
-        # device time alone, from the profiler (the wrapper's bias copy included
-        # where it makes one); at the small shapes the host time of a call is
-        # most of ms
-        row["kernel_device_ms"] = profiled_ms(lambda: fwd(q, k, v, bias, scale))
-        row["library_device_ms"] = profiled_ms(library)
-        results.append(row)
-        log(f"  {fwd.__name__} {name:18s} err {err:.2e} (tol {tol:.1e}) rms {rms_err:.1e} (tol {rms_tol:.1e})"
-            f" lse {lse_err:.1e} bitwise {bitwise} {'ok' if ok else 'FAIL'}"
-            f" | {ms:.4f} ms ({row['tflops']:.0f} TF/s) plain {plain_ms:.2f} sdpa {library_ms:.4f}"
-            f" bound {bound_ms:.3f} ({bound_by}) SFU floor {row['exp_ms']:.3f};"
-            f" device {_ms(row['kernel_device_ms'])} vs sdpa {_ms(row['library_device_ms'])}")
-        if not ok:
-            failures.append(f"{fwd.__name__} {name}: err {err} (tol {tol}) rms {rms_err} (tol {rms_tol})"
-                            f" lse_err {lse_err} finite {finite} bitwise {bitwise}")
-        del q, k, v, out, lse, ref, ref_lse, mask
+        for fwd in kernels:
+            out, lse = fwd(q, k, v, bias, scale)
+            torch.cuda.synchronize()
+            out2, lse2 = fwd(q, k, v, bias, scale)
+            bitwise = torch.equal(out, out2) and torch.equal(lse, lse2)
+            del out2, lse2
+            err = (out.float() - ref.float()).abs().max().item()
+            lse_err = (lse - ref_lse).abs().max().item()
+            finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(lse).all())
+            rms_err = (out.float() - ref.float()).pow(2).mean().sqrt().item()
+            ok = finite and bitwise and err <= tol and rms_err <= rms_tol and lse_err <= lse_tol
+            ms = time_ms(lambda: fwd(q, k, v, bias, scale))
+            row = dict(kernel=fwd.__name__, case=name, shape=[b, sq, sk, h, d], bias=kind, scale=scale,
+                       max_abs_err=err, lse_max_abs_err=lse_err, tol=tol, ref_max_abs=ref_max,
+                       rms_err=rms_err, rms_tol=rms_tol, bitwise=bitwise, ok=ok, ms=ms,
+                       plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       ops_ms=ops_ms, exp_ms=exp_ms, sfu_ms=sfu_ms, tflops=flops / ms / 1e9, on_path=fwd is routed)
+            # device time alone, from the profiler (the wrapper's bias copy
+            # included where it makes one); at the small shapes the host time
+            # of a call is most of ms
+            row["kernel_device_ms"] = profiled_ms(lambda: fwd(q, k, v, bias, scale))
+            row["library_device_ms"] = library_device_ms
+            results.append(row)
+            log(f"  {fwd.__name__} {name:18s} err {err:.2e} (tol {tol:.1e}) rms {rms_err:.1e} (tol {rms_tol:.1e})"
+                f" lse {lse_err:.1e} bitwise {bitwise} {'ok' if ok else 'FAIL'}"
+                f" | {ms:.4f} ms ({row['tflops']:.0f} TF/s) plain {plain_ms:.2f} sdpa {library_ms:.4f}"
+                f" bound {bound_ms:.3f} ({bound_by}: tensor {ops_ms:.3f}, exp2 {exp_ms:.3f}; SFU alone {sfu_ms:.3f});"
+                f" device {_ms(row['kernel_device_ms'])} vs sdpa {_ms(library_device_ms)}")
+            if not ok:
+                failures.append(f"{fwd.__name__} {name}: err {err} (tol {tol}) rms {rms_err} (tol {rms_tol})"
+                                f" lse_err {lse_err} finite {finite} bitwise {bitwise}")
+            del out, lse
+        del q, k, v, ref, ref_lse, mask
         torch.cuda.empty_cache()
     check_flash_views(failures)
 
 
 def check_flash_views(failures):
     """The Hopper forward on q/k/v cut as strided head views from one fused
-    [B, S, 3, H, D] projection (taken uncopied by TMA), and refusing a view
-    TMA cannot take (k expanded over heads, stride 0): it raises, it does
-    not copy."""
+    [B, S, 3, H, D] projection (taken uncopied by TMA; SDXL's level 2 at
+    D = 64, SD1.5's level 1 at D = 40), and refusing a view TMA cannot take
+    (k expanded over heads, stride 0): it raises, it does not copy."""
     from uwudiff_tpu_torch.ops import launch_counts, reset_launch_counts
     from uwudiff_tpu_torch.ops.flash_attention import flash_attention_reference, flash_fwd_sm90
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
-    qkv = torch.randn((8, 1024, 3, 10, 64), generator=gen, device="cuda", dtype=torch.bfloat16)
-    q, k, v = qkv.unbind(2)
-    ok, err, rms_err, tol = close_enough(flash_fwd_sm90(q, k, v)[0], flash_attention_reference(q, k, v)[0])
-    log(f"  flash_fwd_sm90 fused-qkv views {tuple(q.stride())}: err {err:.2e} (tol {tol:.1e}) {'ok' if ok else 'FAIL'}")
-    if not ok:
-        failures.append(f"flash_fwd_sm90 on fused-qkv views: err {err} rms {rms_err} (tol {tol})")
+    for shape in ((8, 1024, 3, 10, 64), (16, 1024, 3, 8, 40)):
+        qkv = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+        ok, err, rms_err, tol = close_enough(flash_fwd_sm90(q, k, v)[0], flash_attention_reference(q, k, v)[0])
+        log(f"  flash_fwd_sm90 fused-qkv views {tuple(q.shape)} {tuple(q.stride())}: err {err:.2e} (tol {tol:.1e})"
+            f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"flash_fwd_sm90 on fused-qkv views {tuple(q.shape)}: err {err} rms {rms_err} (tol {tol})")
     k_shared = k[:, :, :1].expand(k.shape)
     reset_launch_counts()
     try:
@@ -568,7 +620,7 @@ def check_flash_bwd(results, failures):
         # q, dO, k, v; lse, delta; the bias
         io = 2 * (2 * b * sq * h * d + 2 * b * sk * h * d) + 8 * b * h * sq + bias_bytes(bias)
         mm = b * h * sq * sk * d
-        exp_ms = exp_floor_ms(b, h, sq, sk)  # each kernel recomputes one exp2 per query-key pair
+        exp_ms = sfu_floor_ms(b, h, sq, sk)  # each kernel recomputes one exp2 per query-key pair
         for kernel, ms, dev_ms, flops, nbytes, outs in (
             (bwd_dq.__name__, ms_dq, dev_dq, 6.0 * mm, io + 2 * b * sq * h * d, ("dq",)),
             (bwd_dkv.__name__, ms_dkv, dev_dkv, 8.0 * mm, io + 4 * b * sk * h * d, ("dk", "dv")),
@@ -1256,7 +1308,7 @@ def small_sd15_unet(device):
 def check_sd15_train_vs_cpu(failures):
     """One SD1.5-recipe step of the small SD1.5-layout UNet: on the card the
     fp32 masters under bf16 compute through the flash kernels at D =
-    40/80/160 (the forward mma.sync; dQ and dK/dV Hopper at 40/80, mma.sync
+    40/80/160 (the forward Hopper; dQ and dK/dV Hopper at 40/80, mma.sync
     at 160) and adamw_fp16's kernels (O2), against the same weights
     in fp32 on the CPU through the plain versions, the same noise and
     timesteps: the loss and the gradients within the bf16 bound of
@@ -1414,15 +1466,12 @@ def check_models_vs_cpu(failures):
     return errs
 
 
-def check_forward_route(counts, phase, failures, route="sm90"):
-    """Every flash forward of a path ran one kernel: the Hopper one where
-    all its attentions have head dim 64, the mma.sync one (``route`` "mma")
-    where all have SD1.5's 40/80/160."""
-    other = "mma" if route == "sm90" else "sm90"
-    if (counts[f"flash_fwd_{other}"] != 0 or counts[f"flash_fwd_{route}"] != counts["flash_fwd"]
-            or counts["flash_fwd"] == 0):
+def check_forward_route(counts, phase, failures):
+    """Every flash forward of a path ran the Hopper kernel, at every head
+    dim; the mma.sync one ran on none."""
+    if counts["flash_fwd_mma"] != 0 or counts["flash_fwd_sm90"] != counts["flash_fwd"] or counts["flash_fwd"] == 0:
         failures.append(f"{phase}: flash forward launches sm90 {counts['flash_fwd_sm90']},"
-                        f" mma {counts['flash_fwd_mma']}; every one should be on flash_fwd_{route}")
+                        f" mma {counts['flash_fwd_mma']}; every one should be on flash_fwd_sm90")
 
 
 def check_backward_route(counts, phase, failures, route="sm90"):
@@ -1794,9 +1843,9 @@ def plan_fp16_optimizer() -> dict:
 
 
 # the head dims each flash kernel serves on the SD1.5 step: the forward is
-# mma.sync throughout; dQ and dK/dV are the Hopper kernels at 40/80, the
-# mma.sync ones at 160
-SD15_ROUTES = {"flash_fwd_mma": (40, 80, 160), "flash_bwd_dq_sm90": (40, 80), "flash_bwd_dkv_sm90": (40, 80),
+# the Hopper kernel throughout; dQ and dK/dV are the Hopper kernels at 40/80,
+# the mma.sync ones at 160
+SD15_ROUTES = {"flash_fwd_sm90": (40, 80, 160), "flash_bwd_dq_sm90": (40, 80), "flash_bwd_dkv_sm90": (40, 80),
                "flash_bwd_dq_mma": (160,), "flash_bwd_dkv_mma": (160,)}
 
 
@@ -1959,7 +2008,7 @@ def train_sd15(report, failures):
     for name, per_step in plan.items():
         if counts[name] != per_step * SD15_STEPS:
             failures.append(f"sd15 {name}: {counts[name]} launches in {SD15_STEPS} steps, plan {per_step} a step")
-    check_forward_route(counts, "sd15", failures, route="mma")
+    check_forward_route(counts, "sd15", failures)
     dims = sd15_head_dim_plan(trainer.unet)
     for name, routed in SD15_ROUTES.items():  # each kernel at its head dims, as many times as the modules plan
         want = {d: n * SD15_STEPS for d, n in dims.items() if d in routed}
@@ -2134,9 +2183,12 @@ def main() -> int:
     report["build_s"] = built["seconds"]
     log(f"  built in {built['seconds']:.1f} s")
     for src, text in built["logs"].items():
+        instance = ""
         for line in text.splitlines():
+            if "Compiling entry function" in line:
+                instance = kernel_instance(line)
             if "registers" in line or "spill" in line or "(C75" in line:  # C75xx: wgmma serialised
-                log(f"  {src}: {line.strip()}")
+                log(f"  {src} {instance}: {line.strip()}")
 
     seconds = report["seconds"] = {"build": time.perf_counter() - t_start}
 
@@ -2175,11 +2227,13 @@ def main() -> int:
     ti_counts = timed("ti", ti, report, failures)
 
     # (kernel, the case of its row's numbers): the kernels serving SD1.5 at
-    # its level-0 self-attention (D = 40: the mma.sync forward, the Hopper dQ
-    # and dK/dV) and at level 2 (D = 160: the mma.sync kernels), the Hopper
-    # kernels also at D = 64
-    main_case = [("flash_fwd_sm90", "sdxl_l1_self"), ("flash_fwd_mma", "sd15_l0_self"),
-                 ("flash_fwd_mma", "sd15_l2_self"), ("flash_bwd_dq_sm90", "train_l1_self"),
+    # its level-0 self-attention (D = 40: the Hopper forward, dQ and dK/dV)
+    # and at level 2 (D = 160: the Hopper forward, the mma.sync dQ and
+    # dK/dV), the Hopper kernels also at D = 64; and the mma.sync forward,
+    # on no path since the Hopper one took SD1.5's head dims, at level 0
+    main_case = [("flash_fwd_sm90", "sdxl_l1_self"), ("flash_fwd_sm90", "sd15_l0_self"),
+                 ("flash_fwd_sm90", "sd15_l2_self"), ("flash_fwd_mma", "sd15_l0_self"),
+                 ("flash_bwd_dq_sm90", "train_l1_self"),
                  ("flash_bwd_dkv_sm90", "train_l1_self"), ("flash_bwd_dq_sm90", "sd15_l0_self"),
                  ("flash_bwd_dkv_sm90", "sd15_l0_self"), ("flash_bwd_dq_mma", "sd15_l2_self"),
                  ("flash_bwd_dkv_mma", "sd15_l2_self"), ("flash_bwd_dq_dbias", "t5_xxl"),

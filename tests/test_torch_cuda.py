@@ -8,8 +8,8 @@ without JAX:
 
 Tolerances are bf16 ones: the kernels round their outputs (and flash
 attention its P and dS tiles) to bf16 once, the plain versions compute
-in fp32. The Hopper kernels (D = 64) and the backward kernels are also
-held to bitwise reproducibility.
+in fp32. The Hopper forward and the backward kernels are also held to
+bitwise reproducibility.
 """
 
 import pytest
@@ -108,28 +108,44 @@ def test_flash_kernel_takes_strided_heads(dev):
 
 
 # every D = 64 attention shape the serve, train and textual-inversion paths
-# run (B, Sq, Sk, H, bias kind, scale), and a ragged one with a key mask
+# run (B, Sq, Sk, H, D, bias kind, scale), and a ragged one with a key mask;
+# SD1.5's eight at D = 40/80/160 (each level's self- and cross-attention at
+# 64^2 latents, batch cut to 2), and a key and a full bias at each head dim
 _PATH_CASES = [
-    (8, 4096, 4096, 10, "none", None),  # SDXL level 1 self-attention, serving (128^2 latents)
-    (8, 1024, 1024, 20, "none", None),  # level 2, serving
-    (8, 4096, 77, 10, "none", None),  # cross-attention over the 77 text tokens
-    (8, 1024, 77, 20, "none", None),
-    (8, 1024, 1024, 10, "none", None),  # the training step at 64^2 latents
-    (8, 256, 256, 20, "none", None),
-    (8, 1024, 77, 10, "none", None),
-    (8, 256, 77, 20, "none", None),
-    (8, 77, 77, 20, "full", None),  # CLIP-bigG, causal + padding
-    (8, 77, 77, 12, "full", None),  # CLIP-L
-    (8, 256, 256, 64, "full", 1.0),  # T5-XXL: learned bias, no 1/sqrt(d)
-    (8, 1357, 1357, 24, "key", None),  # the SD3 MMDiT's joint attention with the text mask
-    (2, 200, 200, 4, "key", None),
+    (8, 4096, 4096, 10, 64, "none", None),  # SDXL level 1 self-attention, serving (128^2 latents)
+    (8, 1024, 1024, 20, 64, "none", None),  # level 2, serving
+    (8, 4096, 77, 10, 64, "none", None),  # cross-attention over the 77 text tokens
+    (8, 1024, 77, 20, 64, "none", None),
+    (8, 1024, 1024, 10, 64, "none", None),  # the training step at 64^2 latents
+    (8, 256, 256, 20, 64, "none", None),
+    (8, 1024, 77, 10, 64, "none", None),
+    (8, 256, 77, 20, 64, "none", None),
+    (8, 77, 77, 20, 64, "full", None),  # CLIP-bigG, causal + padding
+    (8, 77, 77, 12, 64, "full", None),  # CLIP-L
+    (8, 256, 256, 64, 64, "full", 1.0),  # T5-XXL: learned bias, no 1/sqrt(d)
+    (8, 1357, 1357, 24, 64, "key", None),  # the SD3 MMDiT's joint attention with the text mask
+    (2, 200, 200, 4, 64, "key", None),
+    (2, 4096, 4096, 8, 40, "none", None),  # SD1.5 level 0
+    (2, 4096, 77, 8, 40, "none", None),
+    (2, 1024, 1024, 8, 80, "none", None),  # level 1
+    (2, 1024, 77, 8, 80, "none", None),
+    (2, 256, 256, 8, 160, "none", None),  # level 2
+    (2, 256, 77, 8, 160, "none", None),
+    (2, 64, 64, 8, 160, "none", None),  # the mid block
+    (2, 64, 77, 8, 160, "none", None),
+    (2, 300, 200, 3, 40, "key", None),
+    (2, 130, 130, 3, 40, "full", None),
+    (2, 300, 200, 3, 80, "key", None),
+    (2, 130, 130, 3, 80, "full", None),
+    (2, 300, 200, 3, 160, "key", None),
+    (2, 130, 130, 3, 160, "full", None),
 ]
 
 
-@pytest.mark.parametrize("b,sq,sk,h,kind,scale", _PATH_CASES)
-def test_hopper_forward_matches_plain_at_the_path_shapes(dev, b, sq, sk, h, kind, scale):
+@pytest.mark.parametrize("b,sq,sk,h,d,kind,scale", _PATH_CASES)
+def test_hopper_forward_matches_plain_at_the_path_shapes(dev, b, sq, sk, h, d, kind, scale):
     gen = torch.Generator(device=dev).manual_seed(7)
-    q, k, v = (torch.randn((b, s, h, 64), generator=gen, device=dev, dtype=torch.bfloat16)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
                for s in (sq, sk, sk))
     bias = _bias(kind, b, h, sq, sk, dev, gen)
     reset_launch_counts()
@@ -144,11 +160,12 @@ def test_hopper_forward_matches_plain_at_the_path_shapes(dev, b, sq, sk, h, kind
     assert (lse - ref_lse).abs().max().item() < 1e-3
 
 
-def test_hopper_forward_takes_fused_qkv_head_views(dev):
+@pytest.mark.parametrize("d", [64, 40])
+def test_hopper_forward_takes_fused_qkv_head_views(dev, d):
     """q/k/v as [B, S, H, D] views of one [B, S, 3, H, D] projection go
     into the tensor maps with their own strides, uncopied."""
     gen = torch.Generator(device=dev).manual_seed(8)
-    qkv = torch.randn((2, 300, 3, 4, 64), generator=gen, device=dev, dtype=torch.bfloat16)
+    qkv = torch.randn((2, 300, 3, 4, d), generator=gen, device=dev, dtype=torch.bfloat16)
     q, k, v = qkv.unbind(2)
     out, lse = flash_fwd_sm90(q, k, v)
     ref, ref_lse = flash_attention_reference(q, k, v)
@@ -187,17 +204,44 @@ def test_hopper_forward_refuses_views_tma_cannot_take(dev):
     assert launch_counts()["flash_fwd"] == 0
 
 
-@pytest.mark.parametrize("d,kernel", [(64, "flash_fwd_sm90"), (40, "flash_fwd_mma"), (80, "flash_fwd_mma"),
-                                      (160, "flash_fwd_mma")])
+@pytest.mark.parametrize("d,kernel", [(64, "flash_fwd_sm90"), (40, "flash_fwd_sm90"), (80, "flash_fwd_sm90"),
+                                      (160, "flash_fwd_sm90")])
 def test_forward_dispatches_on_the_head_dim(dev, d, kernel):
+    """Every head dim on the Hopper forward; the mma.sync one, on no path,
+    refuses D = 64 and is right at SD1.5's head dims."""
     q = torch.randn((1, 130, 2, d), device=dev, dtype=torch.bfloat16)
     reset_launch_counts()
     out, _ = flash_fwd(q, q, q)
     counts = launch_counts()
     assert counts[kernel] == counts["flash_fwd"] == 1
-    _assert_flash_close(out, flash_attention_reference(q, q, q)[0])
-    with pytest.raises(ValueError, match="head dim"):
-        (flash_fwd_mma if kernel == "flash_fwd_sm90" else flash_fwd_sm90)(q, q, q)
+    ref = flash_attention_reference(q, q, q)[0]
+    _assert_flash_close(out, ref)
+    if d == 64:
+        with pytest.raises(ValueError, match="head dim"):
+            flash_fwd_mma(q, q, q)
+    else:
+        _assert_flash_close(flash_fwd_mma(q, q, q)[0], ref)
+
+
+@pytest.mark.parametrize(
+    "b,sq,sk,h,d,kind",
+    [(2, 4096, 4096, 2, 40, "none"), (2, 256, 77, 8, 40, "key"), (2, 1024, 1024, 2, 80, "none"),
+     (2, 130, 300, 2, 80, "full"), (2, 256, 256, 8, 160, "none"), (1, 100, 100, 2, 160, "full")],
+)
+def test_mma_forward_matches_plain(dev, b, sq, sk, h, d, kind):
+    """The mma.sync forward, the Hopper one's yardstick at SD1.5's head
+    dims, called directly: it stays right though no path launches it."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
+               for s in (sq, sk, sk))
+    bias = _bias(kind, b, h, sq, sk, dev, gen)
+    reset_launch_counts()
+    out, lse = flash_fwd_mma(q, k, v, bias)
+    assert launch_counts()["flash_fwd_mma"] == 1 and launch_counts()["flash_fwd_sm90"] == 0
+    ref, ref_lse = flash_attention_reference(q, k, v, bias)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    _assert_flash_close(out, ref)
+    assert (lse - ref_lse).abs().max().item() < 1e-3
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1139,7 +1183,7 @@ def test_tiny_sd15_step_on_the_card_matches_the_cpu(dev):
     1.0) on the card and in fp32 on the CPU from the same weights, noise
     and timesteps: the loss and the gradients within 5e-2 (bf16 through a
     few dozen layers); every attention on its head dim's kernels
-    (the forward mma.sync at 40/80/160, dQ and dK/dV Hopper at 40/80
+    (the forward Hopper at 40/80/160, dQ and dK/dV Hopper at 40/80
     and mma.sync at 160); the update in two launches, every master moved,
     the module's weights their bf16 rounding."""
     import copy
@@ -1166,7 +1210,7 @@ def test_tiny_sd15_step_on_the_card_matches_the_cpu(dev):
         out[where] = (tr, loss.float().cpu(), torch.cat([p.grad.float().cpu().flatten() for _, p in tr.params]))
     by_dim = launches_by_head_dim()
     # five transformers at each of levels 0-2 (2 down, 3 up) and the mid block's, self- and cross-attention
-    assert by_dim["flash_fwd_mma"] == {40: 10, 80: 10, 160: 12}
+    assert by_dim["flash_fwd_sm90"] == {40: 10, 80: 10, 160: 12} and by_dim["flash_fwd_mma"] == {}
     assert by_dim["flash_bwd_dq_sm90"] == by_dim["flash_bwd_dkv_sm90"] == {40: 10, 80: 10}
     assert by_dim["flash_bwd_dq_mma"] == by_dim["flash_bwd_dkv_mma"] == {160: 12}
     (_, loss_c, grad_c), (tr, loss_g, grad_g) = out["cpu"], out["cuda"]

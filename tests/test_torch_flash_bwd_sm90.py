@@ -169,15 +169,20 @@ def test_backward_views_tma_cannot_take_at_d40_are_refused(case):
 
 
 @pytest.mark.parametrize("d", [40, 80])
-def test_the_forwards_map_still_refuses_sd15s_head_dims(d):
-    # K1 at D = 40/80 is the mma.sync kernel: its Hopper map takes D = 64 only,
-    # also after the backward's map of the same view was made and cached
+def test_the_forwards_map_takes_sd15s_head_dims(d):
+    # K1 at D = 40/80 is the Hopper kernel too: the forward's map of a view
+    # whose backward map was made and cached first is the same geometry,
+    # checked against the forward's head dims and boxed as its tiles
+    from uwudiff_tpu_torch.ops.flash_attention import SM90_FWD_KEY_ROWS, SM90_FWD_Q_ROWS
+
     t = torch.zeros((2, 256, 8, d), dtype=BF16)
-    tma_map(t, rows=SM90_BWD_TILE_ROWS, head_dims=SM90_BWD_HEAD_DIMS)
-    with pytest.raises(ValueError, match="head dim"):
-        tma_map(t, rows=SM90_BWD_TILE_ROWS)
-    with pytest.raises(ValueError, match="head dim"):
-        tma_map(t)
+    bwd = tma_map(t, rows=SM90_BWD_TILE_ROWS, head_dims=SM90_BWD_HEAD_DIMS)
+    fwd_q = tma_map(t, rows=SM90_FWD_Q_ROWS[d])
+    fwd_k = tma_map(t, rows=SM90_FWD_KEY_ROWS[d])
+    assert fwd_q.dims == fwd_k.dims == bwd.dims == (d, 8, 256, 2)
+    assert fwd_q.strides == bwd.strides
+    assert (fwd_q.box, fwd_k.box, bwd.box) == ((64, 1, 192 if d == 40 else 128, 1), (64, 1, 128, 1),
+                                               (64, 1, SM90_BWD_TILE_ROWS, 1))
 
 
 @pytest.mark.parametrize("rows", [0, 257])

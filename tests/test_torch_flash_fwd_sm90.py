@@ -1,28 +1,45 @@
 """What surrounds the Hopper flash forward, on the CPU: the head-dim dispatch
-and the TMA tensor-map arithmetic for ``[B, S, H, D]`` views.
+(the Hopper kernel at D = 40/64/80/160) and the TMA tensor-map arithmetic
+for ``[B, S, H, D]`` views (64-column boxes at every head dim).
 
 The kernel itself (``csrc/flash_fwd_sm90.cu``) runs only on the card and is
 held against the plain version in ``tests/test_torch_cuda.py``; its C side
 only encodes the maps computed and checked here.
 """
 
+import importlib.util
+import inspect
+from pathlib import Path
+
 import pytest
 import torch
 
 from uwudiff_tpu_torch.ops.flash_attention import (
     HEAD_DIMS,
+    SM90_FWD_KEY_ROWS,
+    SM90_FWD_Q_ROWS,
     TMA_BOX_ROWS,
-    flash_fwd_mma,
     flash_fwd_sm90,
     forward_kernel,
     tma_map,
 )
 
 BF16 = torch.bfloat16
+ROOT = Path(__file__).resolve().parent.parent
 
 
-@pytest.mark.parametrize("d,kernel", [(64, flash_fwd_sm90), (40, flash_fwd_mma), (80, flash_fwd_mma),
-                                      (160, flash_fwd_mma)])
+def _variants_script():
+    spec = importlib.util.spec_from_file_location("flash_variants", ROOT / "flash_variants.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+VARIANTS = _variants_script().VARIANTS
+
+
+@pytest.mark.parametrize("d,kernel", [(64, flash_fwd_sm90), (40, flash_fwd_sm90), (80, flash_fwd_sm90),
+                                      (160, flash_fwd_sm90)])
 def test_head_dim_selects_the_forward(d, kernel):
     assert d in HEAD_DIMS
     assert forward_kernel(d) is kernel
@@ -35,10 +52,12 @@ def test_other_head_dims_raise(d):
 
 
 def test_the_two_forwards_split_the_head_dims_and_take_cuda_tensors_only():
-    from uwudiff_tpu_torch.ops.flash_attention import MMA_HEAD_DIMS, SM90_HEAD_DIMS
+    # the Hopper kernel was built for, and routed, every head dim; the
+    # mma.sync one, on no path, is the yardstick at SD1.5's
+    from uwudiff_tpu_torch.ops.flash_attention import MMA_HEAD_DIMS
 
-    assert set(SM90_HEAD_DIMS) | set(MMA_HEAD_DIMS) == set(HEAD_DIMS)
-    assert not set(SM90_HEAD_DIMS) & set(MMA_HEAD_DIMS)
+    assert set(MMA_HEAD_DIMS) < set(HEAD_DIMS)
+    assert set(SM90_FWD_Q_ROWS) == set(SM90_FWD_KEY_ROWS) == set(HEAD_DIMS)
     q = torch.zeros((1, 8, 1, 64), dtype=BF16)
     with pytest.raises(ValueError, match="CUDA"):
         flash_fwd_sm90(q, q, q)
@@ -62,6 +81,30 @@ def test_map_of_a_head_slice_of_a_fused_qkv(which):
     assert m.dims == (64, 4, 100, 2)
     assert m.strides == (128, 3 * 4 * 128, 100 * 3 * 4 * 128)
     assert t.data_ptr() - qkv.data_ptr() == which * 4 * 128  # the map starts at the view, uncopied
+
+
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_maps_at_sd15s_head_dims(d):
+    # one 64-column box per column block, the columns past D zero-filled by
+    # TMA: the map's own head dim stays D; q in boxes of a work item's rows
+    # (three consumer warpgroups' 192 at D = 40), k and v of the key tile
+    t = torch.zeros((2, 100, 3, d), dtype=BF16)
+    q_map = tma_map(t, rows=SM90_FWD_Q_ROWS[d])
+    k_map = tma_map(t, rows=SM90_FWD_KEY_ROWS[d])
+    assert q_map.dims == k_map.dims == (d, 3, 100, 2)
+    assert q_map.strides == (2 * d, 3 * 2 * d, 100 * 3 * 2 * d)
+    assert q_map.box == (64, 1, 192 if d == 40 else TMA_BOX_ROWS, 1)
+    assert k_map.box == (64, 1, 64 if d == 160 else 128, 1)
+
+
+@pytest.mark.parametrize("d", [40, 160])
+def test_map_of_a_head_slice_of_a_fused_qkv_at_sd15s_head_dims(d):
+    qkv = torch.zeros((2, 100, 3, 8, d), dtype=BF16)
+    t = qkv[:, :, 1]
+    m = tma_map(t)
+    assert m.dims == (d, 8, 100, 2)
+    assert m.strides == (2 * d, 3 * 8 * 2 * d, 100 * 3 * 8 * 2 * d)
+    assert t.data_ptr() - qkv.data_ptr() == 8 * 2 * d  # the map starts at the view, uncopied
 
 
 def test_map_of_a_heads_first_tensor_seen_as_b_s_h_d():
@@ -102,6 +145,24 @@ def test_views_tma_cannot_take_are_refused(case):
         tma_map(t)
 
 
+def _refused_at_40():
+    flat = torch.zeros(2 * 16 * 2 * 40 + 4, dtype=BF16)
+    base = torch.zeros((2, 16, 2, 40), dtype=BF16)
+    return {
+        "misaligned start": (flat[4:].view(2, 16, 2, 40), "aligned"),  # 8 bytes past an aligned address
+        "zero head stride": (base[:, :, :1].expand(2, 16, 2, 40), "strides"),
+        "head stride of 88 bytes": (torch.zeros((2, 16, 2, 44), dtype=BF16)[..., :40], "strides"),
+        "head dim 48": (torch.zeros((2, 16, 2, 48), dtype=BF16), "head dim"),
+    }
+
+
+@pytest.mark.parametrize("case", list(_refused_at_40()))
+def test_forward_views_tma_cannot_take_at_d40_are_refused(case):
+    t, match = _refused_at_40()[case]
+    with pytest.raises(ValueError, match=match):
+        tma_map(t)
+
+
 @pytest.mark.parametrize(
     "shape,mode,strides",
     [
@@ -129,3 +190,16 @@ def test_a_bias_with_strided_rows_is_copied_full():
     bias = torch.zeros((2, 4, 77, 80))[..., :77]  # rows of 80, not Sk
     mode, t, sb, sh = _bias_in_place("flash_fwd_sm90", bias, q, q)
     assert mode == 2 and t.shape == (8, 77, 77) and t.is_contiguous() and (sb, sh) == (4 * 77 * 77, 77 * 77)
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_each_variant_changes_one_line_of_the_kernel(name):
+    # flash_variants.py builds each variant by replacing one line of the
+    # kernel's Cfg and launches it through flash_fwd_sm90's library slot,
+    # with the variant's work-item rows: each must still find what it edits
+    (old, new), q_rows, shapes = VARIANTS[name]
+    src = (ROOT / "uwudiff_tpu_torch" / "csrc" / "flash_fwd_sm90.cu").read_text()
+    assert src.count(old) == 1 and old != new
+    assert set(q_rows) <= set(SM90_FWD_Q_ROWS) and all(r % 64 == 0 for r in q_rows.values())
+    assert {shape[-1] for shape in shapes} <= set(HEAD_DIMS)
+    assert '"uwu_flash_fwd_sm90"' in inspect.getsource(flash_fwd_sm90)

@@ -4,12 +4,13 @@ Replaces ``uwudiff_tpu/ops/flash_attention.py``: the TPU's online-softmax
 forward ``_fwd_kernel`` and its backward kernels ``_bwd_dq_kernel`` /
 ``_bwd_dq_dbias_kernel`` / ``_bwd_dkv_kernel``. Both sides dispatch on
 the head dim, and every kernel is a Hopper one (TMA loads into an
-mbarrier ring, wgmma, a producer warpgroup and two consumer warpgroups)
-or an mma.sync one:
+mbarrier ring, wgmma, a producer warpgroup and two or three consumer
+warpgroups) or an mma.sync one:
 
-- the forward: ``csrc/flash_fwd_sm90.cu`` at D = 64, the only head dim
-  of SDXL, CLIP, T5 and the SD3 MMDiT; ``csrc/flash_fwd.cu`` (mma.sync)
-  at SD1.5's 40/80/160;
+- the forward: ``csrc/flash_fwd_sm90.cu`` at D = 40, 64, 80 and 160, one
+  kernel template (64 is SDXL's, CLIP's, T5's and the SD3 MMDiT's; 40/80/
+  160 SD1.5's); ``csrc/flash_fwd.cu`` (mma.sync) computes the same function
+  at 40/80/160 and stays built and tested as the yardstick, on no path;
 - dQ and dK/dV: ``csrc/flash_bwd_sm90.cu`` at D = 40, 64 and 80, one
   kernel template each (D = 64's 128-byte swizzled tiles at every head
   dim, the columns past D zero-filled); ``csrc/flash_bwd.cu`` (mma.sync) at
@@ -39,7 +40,8 @@ its cotangent folds into the backward's delta (``delta - dlse``), as in
 the JAX package.
 
 :func:`flash_fwd` (through :func:`forward_kernel`: :func:`flash_fwd_sm90`
-or :func:`flash_fwd_mma`), :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`
+at every head dim; :func:`flash_fwd_mma` is called only by name),
+:func:`flash_bwd_dq` and :func:`flash_bwd_dkv`
 (through :func:`backward_kernels`: the ``_sm90`` or the ``_mma`` pair) and
 :func:`flash_bwd_dq_dbias` launch the kernels and take CUDA tensors only;
 :func:`flash_attention_reference` and
@@ -82,9 +84,8 @@ __all__ = [
 ]
 
 NEG_INF = -1e30
-SM90_HEAD_DIMS = (64,)  # the Hopper forward (SDXL, CLIP, T5, the SD3 MMDiT)
-MMA_HEAD_DIMS = (40, 80, 160)  # the mma.sync forward (SD1.5)
-HEAD_DIMS = (40, 64, 80, 160)  # every head dim a forward was built for
+HEAD_DIMS = (40, 64, 80, 160)  # the Hopper forward's (D = 64: SDXL, CLIP, T5, the SD3 MMDiT; SD1.5's 40/80/160)
+MMA_HEAD_DIMS = (40, 80, 160)  # the mma.sync forward (SD1.5's), built and tested, on no path
 SM90_BWD_HEAD_DIMS = (40, 64, 80)  # the Hopper dQ and dK/dV kernels (SD1.5's 40/80 beside 64)
 MMA_BWD_HEAD_DIMS = (160,)  # the mma.sync dQ and dK/dV kernels (SD1.5's D = 160)
 BWD_HEAD_DIMS = (40, 64, 80, 160)  # every head dim a backward (and K5) was built for
@@ -213,6 +214,12 @@ def _stats_arg(who, t, q):
 
 
 TMA_BOX_ROWS = 128  # rows of q (a work item's query tile) or k/v (a key tile) per TMA box, as the kernel tiles
+# the Hopper forward's tiles by head dim (csrc/flash_fwd_sm90.cu, Cfg): a work
+# item's query rows (BLOCK_M: three consumer warpgroups of 64 at D = 40, two
+# elsewhere) and its key tile (BLOCK_N: 64 at D = 160, where a stage of 128
+# keys leaves room for one stage only)
+SM90_FWD_Q_ROWS = {40: 192, 64: 128, 80: 128, 160: 128}
+SM90_FWD_KEY_ROWS = {40: 128, 64: 128, 80: 128, 160: 64}
 # the Hopper backward's boxes: an item's 128 rows (q and dout for dQ, k and v
 # for dK/dV) and the 64-row tiles streamed past them
 SM90_BWD_ITEM_ROWS, SM90_BWD_TILE_ROWS = 128, 64
@@ -224,7 +231,7 @@ class TmaMap(NamedTuple):
     first: ``dims`` (D, H, S, B) in elements, ``strides`` of H, S and B in
     bytes, ``box`` (64, 1, rows, 1) in elements: one 128-byte swizzle row
     of 64 columns, loaded once per 64-column block of D (twice at
-    D = 80), the columns past D zero-filled."""
+    D = 80, three times at 160), the columns past D zero-filled."""
 
     dims: tuple
     strides: tuple
@@ -237,17 +244,17 @@ class TmaMap(NamedTuple):
 _tma_maps: dict = {}  # (shape, strides, rows, head dims) -> TmaMap, for views already checked
 
 
-def tma_map(t, who="flash_fwd_sm90", name="t", rows=TMA_BOX_ROWS, head_dims=SM90_HEAD_DIMS):
+def tma_map(t, who="flash_fwd_sm90", name="t", rows=TMA_BOX_ROWS, head_dims=HEAD_DIMS):
     """The tensor map a Hopper kernel loads ``t`` with, in boxes of
     ``rows`` rows of S (the kernel's tile, which its C side checks),
     checked against what TMA takes: a 16-byte aligned start, unit stride
-    over a bf16 head dim in ``head_dims`` (the forward's 64, or the
-    backward's :data:`SM90_BWD_HEAD_DIMS`), other strides positive
-    multiples of 16 bytes below 2**40, dims below 2**32. Raises ValueError
-    for any other view: the kernel neither copies it nor takes it. A
-    geometry seen before is taken from a cache, and only the start is
-    checked again: the wrapper's host time is most of a call at CLIP's 77
-    tokens."""
+    over a bf16 head dim in ``head_dims`` (the forward's
+    :data:`HEAD_DIMS`, or the backward's :data:`SM90_BWD_HEAD_DIMS`),
+    other strides positive multiples of 16 bytes below 2**40, dims below
+    2**32. Raises ValueError for any other view: the kernel neither copies
+    it nor takes it. A geometry seen before is taken from a cache, and only
+    the start is checked again: the wrapper's host time is most of a call
+    at CLIP's 77 tokens."""
     key = (t.shape, t.stride(), rows, head_dims)
     if t.dtype == torch.bfloat16:
         m = _tma_maps.get(key)
@@ -285,12 +292,10 @@ def _tma_map_checked(t, who, name, rows, head_dims):
 
 def forward_kernel(d):
     """The forward kernel's wrapper for head dim ``d``: the Hopper kernel at
-    D = 64, the mma.sync kernel at D = 40/80/160; any other raises."""
-    if d in SM90_HEAD_DIMS:
-        return flash_fwd_sm90
-    if d in MMA_HEAD_DIMS:
-        return flash_fwd_mma
-    raise ValueError(f"flash_fwd: head dim {d} not in {HEAD_DIMS}")
+    every head dim in :data:`HEAD_DIMS`; any other raises."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_fwd: head dim {d} not in {HEAD_DIMS}")
+    return flash_fwd_sm90
 
 
 def flash_fwd(q, k, v, bias=None, scale=None):
@@ -331,11 +336,13 @@ def _check_sm90_rc(who, rc, maps):
 
 
 def flash_fwd_sm90(q, k, v, bias=None, scale=None):
-    """Launch the Hopper forward (D = 64): q/k/v go in uncopied through TMA
-    tensor maps (:func:`tma_map`). Returns (out, lse)."""
-    _check("flash_fwd_sm90", SM90_HEAD_DIMS, ("q", q), ("k", k), ("v", v))
-    maps = [tma_map(t, who="flash_fwd_sm90", name=n) for n, t in (("q", q), ("k", k), ("v", v))]
+    """Launch the Hopper forward (D = 40/64/80/160): q/k/v go in uncopied
+    through TMA tensor maps (:func:`tma_map`; q in boxes of a work item's
+    rows, k and v of the head dim's key tile). Returns (out, lse)."""
+    _check("flash_fwd_sm90", HEAD_DIMS, ("q", q), ("k", k), ("v", v))
     b, sq, h, d = q.shape
+    maps = [tma_map(t, who="flash_fwd_sm90", name=n, rows=r) for n, t, r in
+            (("q", q, SM90_FWD_Q_ROWS[d]), ("k", k, SM90_FWD_KEY_ROWS[d]), ("v", v, SM90_FWD_KEY_ROWS[d]))]
     scale, out, lse = _fwd_outputs(q, scale)
     mode, bias_t, bias_sb, bias_sh = _bias_in_place("flash_fwd_sm90", bias, q, k)
     words = array.array("Q", maps[0].words() + maps[1].words() + maps[2].words() + (bias_sb, bias_sh))
@@ -349,14 +356,17 @@ def flash_fwd_sm90(q, k, v, bias=None, scale=None):
     )
     _check_sm90_rc("flash_fwd_sm90", rc, maps)
     flash_fwd_sm90.launches += 1
+    flash_fwd_sm90.head_dims[d] = flash_fwd_sm90.head_dims.get(d, 0) + 1
     return out, lse
 
 
 flash_fwd_sm90.launches = 0
+flash_fwd_sm90.head_dims = {}  # launches by head dim
 
 
 def flash_fwd_mma(q, k, v, bias=None, scale=None):
-    """Launch the mma.sync forward (D = 40/80/160). Returns (out, lse)."""
+    """Launch the mma.sync forward (D = 40/80/160), the yardstick of the
+    Hopper one at SD1.5's head dims. Returns (out, lse)."""
     _check("flash_fwd_mma", MMA_HEAD_DIMS, ("q", q), ("k", k), ("v", v))
     b, sq, h, d = q.shape
     scale, out, lse = _fwd_outputs(q, scale)
