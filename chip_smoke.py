@@ -11,7 +11,9 @@ Phases, each fatal on failure:
                T5-XXL, the MMDiT's joint attention) and at every attention
                shape of the SD1.5 step (batch 16; head dims 40/80/160: the
                Hopper forward, timed beside the mma.sync one it replaced on
-               the path), each twice for bitwise reproducibility,
+               the path, and at 160 the Hopper dQ and dK/dV beside the
+               mma.sync pair they replaced), each twice for bitwise
+               reproducibility,
                the dQ + dBias kernel at T5-XXL's and at D = 160; every
                GroupNorm shape on the route plan_gn gives it (the fused
                single-pass kernel or the chunked stats + apply pair), with
@@ -19,7 +21,8 @@ Phases, each fatal on failure:
                training path's GroupNorm backward (and a 1024^2 one) on the
                route plan_gn_bwd gives it (the fused single-pass kernel or
                K7 + K8), beside F.group_norm+F.silu's backward; the
-               Hopper forward (D = 64 and 40) and backward (D = 64) also on
+               Hopper forward (D = 64 and 40) and backward (D = 64, 40 and
+               160) also on
                strided head views of one fused tensor, and raising on a view
                TMA cannot take; the Hopper backward reading CLIP's broadcast
                bias in place; median ms of the kernel, the plain version and one
@@ -65,10 +68,10 @@ Phases, each fatal on failure:
                clip 1.0): one warm-up step and 5 timed steps. Checks finite
                and moving losses, that every master moved and the module
                holds their bf16 rounding, each step's launches against the
-               UNet's plan (every flash forward on the Hopper kernel, dQ and
-               dK/dV on the Hopper kernels at D = 40/80 and the mma.sync ones
-               at 160, split by head dim as the modules say: 10, 10 and 12
-               of each; the update as adamw_norm + adamw_fp16_apply). Then
+               UNet's plan (every flash forward, dQ and dK/dV on the Hopper
+               kernels, none on the mma.sync ones, split by head dim as the
+               modules say: 10, 10 and 12 of each at D = 40, 80 and 160; the
+               update as adamw_norm + adamw_fp16_apply). Then
                the update over the step's 686 leaves against its plain
                version, bitwise, with and without the clip, and each O2
                kernel's time against its byte bound.
@@ -254,9 +257,9 @@ def flash_cases():
 
 
 # the SD1.5 training step's attentions at batch 16 and 64x64 latents: each
-# level's self- and cross-attention (8 heads). The forward is the Hopper
-# kernel at every one (the mma.sync one is timed beside it); dQ and dK/dV
-# are the Hopper kernels at D = 40/80, the mma.sync ones at D = 160
+# level's self- and cross-attention (8 heads). The forward, dQ and dK/dV are
+# the Hopper kernels at every one (the mma.sync ones are timed beside them,
+# the forward at D = 40/80/160, dQ and dK/dV at 160)
 SD15_ATTENTION = [
     (f"sd15_{level}_{kind}", 16, s, s if kind == "self" else 77, 8, d, "none", None)
     for level, s, d in (("l0", 4096, 40), ("l1", 1024, 80), ("l2", 256, 160), ("mid", 64, 160))
@@ -562,10 +565,12 @@ def flash_bwd_cases():
         ("clip_l_causal", 8, 77, 77, 12, 64, "full", None),
         ("t5_xxl", 8, 256, 256, 64, 64, "t5", 1.0),
         ("mmdit_joint", 8, 1357, 1357, 24, 64, "joint", None),
-        # the Hopper kernels at SD1.5's D = 40: ragged with a key bias, and a
-        # full bias read in place
+        # the Hopper kernels at SD1.5's D = 40 and 160: ragged with a key
+        # bias, and a full bias read in place
         ("ragged_key_d40", 2, 130, 300, 2, 40, "key", None),
         ("full_bias_d40", 8, 77, 77, 8, 40, "full", None),
+        ("ragged_key_d160", 2, 130, 300, 2, 160, "key", None),
+        ("full_bias_d160", 8, 77, 77, 8, 160, "full", None),
     ] + SD15_ATTENTION  # SD1.5's head dims 40/80/160
 
 
@@ -574,38 +579,30 @@ def check_flash_bwd(results, failures):
 
     from uwudiff_tpu_torch.ops import launch_counts, reset_launch_counts
     from uwudiff_tpu_torch.ops.flash_attention import (
+        MMA_BWD_HEAD_DIMS,
         NEG_INF,
         backward_kernels,
         flash_attention_backward_reference,
+        flash_bwd_dkv_mma,
+        flash_bwd_dq_mma,
         flash_fwd,
     )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     for name, b, sq, sk, h, d, kind, scale in flash_bwd_cases():
-        bwd_dq, bwd_dkv = backward_kernels(d)  # the _sm90 pair at D = 40/64/80, the _mma pair at 160
+        # the path's pair (the _sm90 one at every head dim) and, at D = 160,
+        # the mma.sync pair it replaced there, on no path: the yardstick, held
+        # to the same checks
+        routed = backward_kernels(d)
+        pairs = [routed] + ([(flash_bwd_dq_mma, flash_bwd_dkv_mma)] if d in MMA_BWD_HEAD_DIMS else [])
         q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
                    for s in (sq, sk, sk))
         bias = make_bias(kind, b, h, sq, sk, dev, gen)
         out, lse = flash_fwd(q, k, v, bias, scale)
         dout = torch.randn(out.shape, generator=gen, device=dev, dtype=torch.bfloat16)
         delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-        reset_launch_counts()
-        dq = bwd_dq(q, k, v, dout, lse, delta, bias, scale)
-        dk, dv = bwd_dkv(q, k, v, dout, lse, delta, bias, scale)
-        torch.cuda.synchronize()
-        counts = launch_counts()
-        routed = counts[bwd_dq.__name__] == counts[bwd_dkv.__name__] == 1
-        bitwise = (torch.equal(dq, bwd_dq(q, k, v, dout, lse, delta, bias, scale))
-                   and all(torch.equal(a, b_) for a, b_ in
-                           zip((dk, dv), bwd_dkv(q, k, v, dout, lse, delta, bias, scale))))
         refs = flash_attention_backward_reference(q, k, v, bias, out, lse, dout, scale)[:3]
-        checks = {o: close_enough(g, r) for o, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs)}
-        ok = routed and bitwise and all(c[0] for c in checks.values())
-        ms_dq = time_ms(lambda: bwd_dq(q, k, v, dout, lse, delta, bias, scale))
-        ms_dkv = time_ms(lambda: bwd_dkv(q, k, v, dout, lse, delta, bias, scale))
-        dev_dq = profiled_ms(lambda: bwd_dq(q, k, v, dout, lse, delta, bias, scale))
-        dev_dkv = profiled_ms(lambda: bwd_dkv(q, k, v, dout, lse, delta, bias, scale))
         plain_ms = time_ms(lambda: flash_attention_backward_reference(q, k, v, bias, out, lse, dout, scale),
                            reps=2, warmup=1)
         # the library: SDPA's backward alone (retain_graph), dq, dk and dv together
@@ -621,33 +618,52 @@ def check_flash_bwd(results, failures):
         io = 2 * (2 * b * sq * h * d + 2 * b * sk * h * d) + 8 * b * h * sq + bias_bytes(bias)
         mm = b * h * sq * sk * d
         exp_ms = sfu_floor_ms(b, h, sq, sk)  # each kernel recomputes one exp2 per query-key pair
-        for kernel, ms, dev_ms, flops, nbytes, outs in (
-            (bwd_dq.__name__, ms_dq, dev_dq, 6.0 * mm, io + 2 * b * sq * h * d, ("dq",)),
-            (bwd_dkv.__name__, ms_dkv, dev_dkv, 8.0 * mm, io + 4 * b * sk * h * d, ("dk", "dv")),
-        ):
-            bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16)
-            results.append(dict(
-                kernel=kernel, case=name, shape=[b, sq, sk, h, d], bias=kind, scale=scale, ok=ok, bitwise=bitwise,
-                routed=routed, max_abs_err=max(checks[o][1] for o in outs), rms_err={o: checks[o][2] for o in outs},
-                tol={o: checks[o][3] for o in outs}, ms=ms, kernel_device_ms=dev_ms, plain_ms=plain_ms,
-                library_ms=library_ms, library_device_ms=library_dev,
-                library_computes="dq, dk and dv (SDPA backward)", pair_ms=ms_dq + ms_dkv,
-                bound_ms=bound_ms, bound_by=bound_by, exp_ms=exp_ms, tflops=flops / ms / 1e9))
-        errs = " ".join(f"{o} {c[1]:.1e}/{c[3]:.1e}" for o, c in checks.items())
-        log(f"  flash_bwd {name:15s} {errs} bitwise {bitwise} {'ok' if ok else 'FAIL'}"
-            f" | {bwd_dq.__name__} {ms_dq:.4f} {bwd_dkv.__name__} {ms_dkv:.4f} ms (pair {ms_dq + ms_dkv:.4f})"
-            f" sdpa bwd {library_ms:.4f}; device {_ms(dev_dq)} + {_ms(dev_dkv)} vs sdpa {_ms(library_dev)};"
-            f" SFU floor {exp_ms:.4f} each; plain {plain_ms:.2f}")
-        if not ok:
-            failures.append(f"flash_bwd {name}: {checks} bitwise {bitwise} launches {counts}")
-        del q, k, v, out, lse, dout, dq, dk, dv, refs
+        for bwd_dq, bwd_dkv in pairs:
+            reset_launch_counts()
+            dq = bwd_dq(q, k, v, dout, lse, delta, bias, scale)
+            dk, dv = bwd_dkv(q, k, v, dout, lse, delta, bias, scale)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            launched = counts[bwd_dq.__name__] == counts[bwd_dkv.__name__] == 1
+            bitwise = (torch.equal(dq, bwd_dq(q, k, v, dout, lse, delta, bias, scale))
+                       and all(torch.equal(a, b_) for a, b_ in
+                               zip((dk, dv), bwd_dkv(q, k, v, dout, lse, delta, bias, scale))))
+            checks = {o: close_enough(g, r) for o, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs)}
+            ok = launched and bitwise and all(c[0] for c in checks.values())
+            ms_dq = time_ms(lambda: bwd_dq(q, k, v, dout, lse, delta, bias, scale))
+            ms_dkv = time_ms(lambda: bwd_dkv(q, k, v, dout, lse, delta, bias, scale))
+            dev_dq = profiled_ms(lambda: bwd_dq(q, k, v, dout, lse, delta, bias, scale))
+            dev_dkv = profiled_ms(lambda: bwd_dkv(q, k, v, dout, lse, delta, bias, scale))
+            for kernel, ms, dev_ms, flops, nbytes, outs in (
+                (bwd_dq.__name__, ms_dq, dev_dq, 6.0 * mm, io + 2 * b * sq * h * d, ("dq",)),
+                (bwd_dkv.__name__, ms_dkv, dev_dkv, 8.0 * mm, io + 4 * b * sk * h * d, ("dk", "dv")),
+            ):
+                bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16)
+                results.append(dict(
+                    kernel=kernel, case=name, shape=[b, sq, sk, h, d], bias=kind, scale=scale, ok=ok,
+                    bitwise=bitwise, routed=launched, max_abs_err=max(checks[o][1] for o in outs),
+                    rms_err={o: checks[o][2] for o in outs}, tol={o: checks[o][3] for o in outs}, ms=ms,
+                    kernel_device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
+                    library_device_ms=library_dev, library_computes="dq, dk and dv (SDPA backward)",
+                    pair_ms=ms_dq + ms_dkv, bound_ms=bound_ms, bound_by=bound_by, exp_ms=exp_ms, tflops=flops / ms / 1e9,
+                    on_path=(bwd_dq, bwd_dkv) == routed))
+            errs = " ".join(f"{o} {c[1]:.1e}/{c[3]:.1e}" for o, c in checks.items())
+            log(f"  flash_bwd {name:15s} {errs} bitwise {bitwise} {'ok' if ok else 'FAIL'}"
+                f" | {bwd_dq.__name__} {ms_dq:.4f} {bwd_dkv.__name__} {ms_dkv:.4f} ms (pair {ms_dq + ms_dkv:.4f})"
+                f" sdpa bwd {library_ms:.4f}; device {_ms(dev_dq)} + {_ms(dev_dkv)} vs sdpa {_ms(library_dev)};"
+                f" SFU floor {exp_ms:.4f} each; plain {plain_ms:.2f}")
+            if not ok:
+                failures.append(f"flash_bwd {name} {bwd_dq.__name__}/{bwd_dkv.__name__}: {checks} bitwise {bitwise}"
+                                f" launches {counts}")
+            del dq, dk, dv
+        del q, k, v, out, lse, dout, refs
         torch.cuda.empty_cache()
     check_flash_bwd_views(failures)
 
 
 def check_flash_bwd_views(failures):
     """The Hopper backward on q/k/v/dO cut as strided head views (taken
-    uncopied by TMA) at D = 64 and at SD1.5's D = 40, refusing a stride-0
+    uncopied by TMA) at D = 64 and at SD1.5's D = 40 and 160, refusing a stride-0
     view (it raises, it does not copy), and reading CLIP's [B, 1, Sq, Sk]
     bias in place: the kernels allocate their outputs and nothing else, no
     [B*H, Sq, Sk] copy."""
@@ -660,7 +676,7 @@ def check_flash_bwd_views(failures):
     )
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
-    for b, s, h, d in ((2, 1024, 8, 40), (8, 1024, 10, 64)):
+    for b, s, h, d in ((2, 1024, 8, 40), (2, 256, 8, 160), (8, 1024, 10, 64)):
         qkv = torch.randn((b, s, 4, h, d), generator=gen, device="cuda", dtype=torch.bfloat16)
         q, k, v, dout = qkv.unbind(2)  # dO as a head view too
         out, lse = flash_fwd(q, k, v)
@@ -1308,8 +1324,8 @@ def small_sd15_unet(device):
 def check_sd15_train_vs_cpu(failures):
     """One SD1.5-recipe step of the small SD1.5-layout UNet: on the card the
     fp32 masters under bf16 compute through the flash kernels at D =
-    40/80/160 (the forward Hopper; dQ and dK/dV Hopper at 40/80, mma.sync
-    at 160) and adamw_fp16's kernels (O2), against the same weights
+    40/80/160 (the forward, dQ and dK/dV Hopper at every one) and
+    adamw_fp16's kernels (O2), against the same weights
     in fp32 on the CPU through the plain versions, the same noise and
     timesteps: the loss and the gradients within the bf16 bound of
     check_train_vs_cpu; then the card's update moves every master and
@@ -1474,15 +1490,13 @@ def check_forward_route(counts, phase, failures):
                         f" mma {counts['flash_fwd_mma']}; every one should be on flash_fwd_sm90")
 
 
-def check_backward_route(counts, phase, failures, route="sm90"):
+def check_backward_route(counts, phase, failures):
     """Every dQ (but K5's) and every dK/dV launch of a training path ran
-    the Hopper kernels (``route`` "sm90") or the mma.sync ones ("mma") and
-    none the other."""
-    other = "mma" if route == "sm90" else "sm90"
+    the Hopper kernels, at every head dim; the mma.sync ones ran on none."""
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        if counts[f"{name}_{other}"] != 0 or counts[f"{name}_{route}"] != counts[name] or counts[name] == 0:
+        if counts[f"{name}_mma"] != 0 or counts[f"{name}_sm90"] != counts[name] or counts[name] == 0:
             failures.append(f"{phase}: {name} launches sm90 {counts[name + '_sm90']}, mma {counts[name + '_mma']};"
-                            f" every one should be on {name}_{route}")
+                            f" every one should be on {name}_sm90")
 
 
 # ------------------------------------------------------------------ serve
@@ -1842,11 +1856,11 @@ def plan_fp16_optimizer() -> dict:
     return {**{name: 0 for name in OPTIMIZER_KERNELS}, "adamw_norm": 1, "adamw_fp16_apply": 1}
 
 
-# the head dims each flash kernel serves on the SD1.5 step: the forward is
-# the Hopper kernel throughout; dQ and dK/dV are the Hopper kernels at 40/80,
-# the mma.sync ones at 160
-SD15_ROUTES = {"flash_fwd_sm90": (40, 80, 160), "flash_bwd_dq_sm90": (40, 80), "flash_bwd_dkv_sm90": (40, 80),
-               "flash_bwd_dq_mma": (160,), "flash_bwd_dkv_mma": (160,)}
+# the head dims each flash kernel serves on the SD1.5 step: the forward, dQ
+# and dK/dV are the Hopper kernels throughout; the mma.sync dQ and dK/dV
+# (D = 160) serve none
+SD15_ROUTES = {"flash_fwd_sm90": (40, 80, 160), "flash_bwd_dq_sm90": (40, 80, 160),
+               "flash_bwd_dkv_sm90": (40, 80, 160), "flash_bwd_dq_mma": (), "flash_bwd_dkv_mma": ()}
 
 
 def sd15_head_dim_plan(unet) -> dict:
@@ -2009,6 +2023,7 @@ def train_sd15(report, failures):
         if counts[name] != per_step * SD15_STEPS:
             failures.append(f"sd15 {name}: {counts[name]} launches in {SD15_STEPS} steps, plan {per_step} a step")
     check_forward_route(counts, "sd15", failures)
+    check_backward_route(counts, "sd15", failures)
     dims = sd15_head_dim_plan(trainer.unet)
     for name, routed in SD15_ROUTES.items():  # each kernel at its head dims, as many times as the modules plan
         want = {d: n * SD15_STEPS for d, n in dims.items() if d in routed}
@@ -2227,15 +2242,16 @@ def main() -> int:
     ti_counts = timed("ti", ti, report, failures)
 
     # (kernel, the case of its row's numbers): the kernels serving SD1.5 at
-    # its level-0 self-attention (D = 40: the Hopper forward, dQ and dK/dV)
-    # and at level 2 (D = 160: the Hopper forward, the mma.sync dQ and
-    # dK/dV), the Hopper kernels also at D = 64; and the mma.sync forward,
-    # on no path since the Hopper one took SD1.5's head dims, at level 0
+    # its level-0 self-attention (D = 40) and at level 2 (D = 160): the
+    # Hopper forward, dQ and dK/dV, also at D = 64; and the mma.sync
+    # forward, dQ and dK/dV, on no path since the Hopper ones took SD1.5's
+    # head dims, the forward at level 0, dQ and dK/dV at level 2
     main_case = [("flash_fwd_sm90", "sdxl_l1_self"), ("flash_fwd_sm90", "sd15_l0_self"),
                  ("flash_fwd_sm90", "sd15_l2_self"), ("flash_fwd_mma", "sd15_l0_self"),
                  ("flash_bwd_dq_sm90", "train_l1_self"),
                  ("flash_bwd_dkv_sm90", "train_l1_self"), ("flash_bwd_dq_sm90", "sd15_l0_self"),
-                 ("flash_bwd_dkv_sm90", "sd15_l0_self"), ("flash_bwd_dq_mma", "sd15_l2_self"),
+                 ("flash_bwd_dkv_sm90", "sd15_l0_self"), ("flash_bwd_dq_sm90", "sd15_l2_self"),
+                 ("flash_bwd_dkv_sm90", "sd15_l2_self"), ("flash_bwd_dq_mma", "sd15_l2_self"),
                  ("flash_bwd_dkv_mma", "sd15_l2_self"), ("flash_bwd_dq_dbias", "t5_xxl"),
                  ("gn_silu_fused", "8x4096x320"), ("gn_stats", "8x16384x960"), ("gn_silu_apply", "8x16384x960"),
                  ("gn_silu_bwd_fused", "8x4096x320"), ("gn_bwd_partials", "8x4096x960"), ("gn_bwd_dx", "8x4096x960")]

@@ -1,18 +1,23 @@
-"""Variants of the Hopper flash forward, timed against the kernel as built.
+"""Variants of the Hopper flash kernels, timed against the kernels as built.
 
     python flash_variants.py [name ...]
 
-Each variant is ``csrc/flash_fwd_sm90.cu`` with one choice of its ``Cfg``
-changed (a textual substitution): the consumer warpgroups, the share of
-exp2 on the FMA pipe, the Q buffers, the K/V stages. Each is built with
+Each forward variant (``VARIANTS``) is ``csrc/flash_fwd_sm90.cu`` with one
+choice of its ``Cfg`` changed (a textual substitution): the consumer
+warpgroups, the share of exp2 on the FMA pipe, the Q buffers, the K/V
+stages. Each backward variant (``BWD_VARIANTS``) is
+``csrc/flash_bwd_sm90.cu`` with one choice of the D = 160 design changed:
+dK/dV's item buffers. Each is built with
 ``nvcc`` into ``csrc/build/variants/``, its ptxas spills and serialised
 ``wgmma`` (C75xx) printed, held against the plain version in every bias
 mode at two ragged shapes (bitwise from run to run too), then timed in
-turns with the kernel as built and SDPA at the SD1.5 and SDXL shapes its
-change touches: CUDA events over 20 calls and the profiler's device time,
-two rounds in opposite orders. Needs one GPU; run from the checkout's
+turns with the kernel as built and SDPA (its backward, for a backward
+variant: dQ, dK and dV) at the SD1.5 and SDXL shapes its change touches:
+CUDA events over 20 calls and the profiler's device time, two rounds in
+opposite orders. Needs one GPU; run from the checkout's
 root, writes ``chiprun_out/flash_variants.json`` there.
-``tests/test_torch_flash_fwd_sm90.py`` checks, on the CPU, that each
+``tests/test_torch_flash_fwd_sm90.py`` and
+``tests/test_torch_flash_bwd_sm90.py`` check, on the CPU, that each
 substitution still finds its line once.
 """
 
@@ -26,6 +31,7 @@ import json
 import os
 import re
 import subprocess
+from pathlib import Path
 
 import torch
 
@@ -52,16 +58,23 @@ VARIANTS = {
     "four_stages": (("STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES", "STAGES = FIT < 4 ? FIT : 4"), {},
                     (L0, SDXL_L1)),
 }
+# name -> (what the committed line of flash_bwd_sm90.cu becomes, the shapes
+# to time): at D = 160, dK/dV with two item buffers and two ring stages in
+# place of one and three
+BWD_VARIANTS = {
+    "d160_dkv_two_item_buffers": (("ITEM_BUFS = D > 128 ? 1 : 2", "ITEM_BUFS = !DKV && D > 128 ? 1 : 2"),
+                                  (L2, L2_CROSS)),
+}
 
 
-def _build_variant(name, old, new):
+def _build_variant(name, old, new, source="flash_fwd_sm90.cu"):
     """Start nvcc on the substituted source; returns (process, library path)."""
-    src = (_build._CSRC / "flash_fwd_sm90.cu").read_text()
+    src = (_build._CSRC / source).read_text()
     if src.count(old) != 1:
-        raise RuntimeError(f"{name}: '{old}' is not in flash_fwd_sm90.cu once")
+        raise RuntimeError(f"{name}: '{old}' is not in {source} once")
     out = _build._BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
-    cu = out / f"flash_fwd_sm90_{name}.cu"
+    cu = out / f"{Path(source).stem}_{name}.cu"
     cu.write_text(src.replace(old, new))
     lib = cu.with_suffix(".so")
     cmd = [_build._nvcc(), *_build._FLAGS, "-I", str(_build._CSRC), "-o", str(lib), str(cu)]
@@ -86,6 +99,28 @@ def _as_the_kernel(lib, q_rows):
         fa.SM90_FWD_Q_ROWS.update(saved_rows)
 
 
+@contextlib.contextmanager
+def _as_the_backward(lib):
+    """flash_bwd_dq_sm90 and flash_bwd_dkv_sm90 launch the variant's library
+    inside the block."""
+    names = {"uwu_flash_bwd_dq_sm90": 8, "uwu_flash_bwd_dkv_sm90": 9}
+    saved = {name: fa._fns.get(name) for name in names}
+    for name, n_ptrs in names.items():
+        fn = getattr(ctypes.CDLL(str(lib)), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_float,
+                                                                         ctypes.c_void_p]
+        fa._fns[name] = fn
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            if fn is None:
+                fa._fns.pop(name, None)
+            else:
+                fa._fns[name] = fn
+
+
 def _inputs(b, sq, sk, h, d, seed=0):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     return [torch.randn((b, s, h, d), generator=gen, device="cuda", dtype=torch.bfloat16) for s in (sq, sk, sk)]
@@ -100,6 +135,14 @@ def _bias(kind, b, h, sq, sk):
     return torch.randn((b, h, sq, sk), device="cuda").tril() - 1e30 * torch.ones(sq, sk, device="cuda").triu(1)
 
 
+def _close(got, ref):
+    """chip_smoke.py's flash tolerances: max error <= 2^-7 max|ref| + 2^-10,
+    RMS error <= 2^-7 RMS(ref)."""
+    diff, ref = got.float() - ref.float(), ref.float()
+    return (diff.abs().max().item() <= 2.0**-7 * ref.abs().max().item() + 2.0**-10
+            and diff.pow(2).mean().sqrt().item() <= 2.0**-7 * ref.pow(2).mean().sqrt().item())
+
+
 def _check(b, sq, sk, h, d, kind):
     """The kernel as flash_fwd_sm90 now launches it against the plain version,
     with chip_smoke.py's tolerances; bitwise over two runs."""
@@ -108,11 +151,33 @@ def _check(b, sq, sk, h, d, kind):
     out, lse = fa.flash_fwd_sm90(q, k, v, bias)
     again = fa.flash_fwd_sm90(q, k, v, bias)
     ref, ref_lse = fa.flash_attention_reference(q, k, v, bias)
-    diff, ref = out.float() - ref.float(), ref.float()
-    return (torch.equal(out, again[0]) and torch.equal(lse, again[1])
-            and diff.abs().max().item() <= 2.0**-7 * ref.abs().max().item() + 2.0**-10
-            and diff.pow(2).mean().sqrt().item() <= 2.0**-7 * ref.pow(2).mean().sqrt().item()
+    return (torch.equal(out, again[0]) and torch.equal(lse, again[1]) and _close(out, ref)
             and (lse - ref_lse).abs().max().item() <= 1e-3)
+
+
+def _bwd_inputs(b, sq, sk, h, d, kind=None, seed=0):
+    """q, k, v, dO, the bias, the forward's out and lse, and delta."""
+    q, k, v = _inputs(b, sq, sk, h, d, seed)
+    bias = None if kind is None else _bias(kind, b, h, sq, sk)
+    out, lse = fa.flash_fwd_sm90(q, k, v, bias)
+    dout = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(seed + 1), device="cuda",
+                       dtype=torch.bfloat16)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, dout, bias, out, lse, delta
+
+
+def _bwd_pair(q, k, v, dout, lse, delta, bias=None):
+    return (fa.flash_bwd_dq_sm90(q, k, v, dout, lse, delta, bias),) + fa.flash_bwd_dkv_sm90(
+        q, k, v, dout, lse, delta, bias)
+
+
+def _check_bwd(b, sq, sk, h, d, kind):
+    """dQ, dK and dV as the Hopper backward now launches them against the
+    plain version; bitwise over two runs."""
+    q, k, v, dout, bias, out, lse, delta = _bwd_inputs(b, sq, sk, h, d, kind, seed=7)
+    got, again = _bwd_pair(q, k, v, dout, lse, delta, bias), _bwd_pair(q, k, v, dout, lse, delta, bias)
+    refs = fa.flash_attention_backward_reference(q, k, v, bias, out, lse, dout)[:3]
+    return all(torch.equal(a, b_) and _close(a, r) for a, b_, r in zip(got, again, refs))
 
 
 def _event_ms(fn, reps=20):
@@ -148,39 +213,56 @@ def _device_ms(fn, reps=10, tries=3):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("names", nargs="*", help=f"variants (default: all of {', '.join(VARIANTS)})")
+    ap.add_argument("names", nargs="*",
+                    help=f"variants (default: all of {', '.join(list(VARIANTS) + list(BWD_VARIANTS))})")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("flash_variants: needs a CUDA device")
-    names = args.names or list(VARIANTS)
+    names = args.names or list(VARIANTS) + list(BWD_VARIANTS)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    builds = {n: _build_variant(n, *VARIANTS[n][0]) for n in names}
+    builds = {n: _build_variant(n, *VARIANTS[n][0]) if n in VARIANTS
+              else _build_variant(n, *BWD_VARIANTS[n][0], source="flash_bwd_sm90.cu") for n in names}
     _build.build_all()
     report = {"card": card, "variants": {}}
     for name, (proc, lib) in builds.items():
         out, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{out}{err}")
-        (old, new), q_rows, shapes = VARIANTS[name]
+        backward = name in BWD_VARIANTS
+        if backward:
+            (old, new), shapes = BWD_VARIANTS[name]
+            as_variant, check = (lambda: _as_the_backward(lib)), _check_bwd  # noqa: E731
+        else:
+            (old, new), q_rows, shapes = VARIANTS[name]
+            as_variant, check = (lambda: _as_the_kernel(lib, q_rows)), _check  # noqa: E731
         warnings = [ln.strip() for ln in (out + err).splitlines()
                     if "(C75" in ln or re.search(r"[1-9]\d* bytes spill stores", ln)]
         dims = sorted({s[-1] for s in shapes})
-        with _as_the_kernel(lib, q_rows):
-            ok = all(_check(b, sq, sk, h, d, kind) for d in dims for kind in ("none", "key", "full")
+        with as_variant():
+            ok = all(check(b, sq, sk, h, d, kind) for d in dims for kind in ("none", "key", "full")
                      for b, sq, sk, h in ((2, 130, 300, 2), (2, 400, 129, 3)))
         rows = []
         for shape in shapes:
-            q, k, v = _inputs(*shape)
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            fns = {"built": lambda: fa.flash_fwd_sm90(q, k, v),
-                   "variant": lambda: fa.flash_fwd_sm90(q, k, v),
-                   "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)}
+            if backward:
+                q, k, v, dout, _, out_, lse, delta = _bwd_inputs(*shape)
+                qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+                lib_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
+                fns = {"built": lambda: _bwd_pair(q, k, v, dout, lse, delta),
+                       "variant": lambda: _bwd_pair(q, k, v, dout, lse, delta),
+                       "sdpa": lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dout.transpose(1, 2),
+                                                           retain_graph=True)}
+            else:
+                q, k, v = _inputs(*shape)
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                fns = {"built": lambda: fa.flash_fwd_sm90(q, k, v),
+                       "variant": lambda: fa.flash_fwd_sm90(q, k, v),
+                       "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)}
             for order in (list(fns), list(fns)[::-1]):
                 row = {"shape": list(shape)}
                 for key in order:
-                    with _as_the_kernel(lib, q_rows) if key == "variant" else contextlib.nullcontext():
+                    with as_variant() if key == "variant" else contextlib.nullcontext():
                         row[key] = {"ms": _event_ms(fns[key]), "device_ms": _device_ms(fns[key])}
                 rows.append(row)
                 print(f"  {name} {list(shape)}: " + "  ".join(

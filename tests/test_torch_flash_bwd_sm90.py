@@ -1,13 +1,16 @@
 """What surrounds the Hopper flash backward, on the CPU: the head-dim
-dispatch of dQ and dK/dV (Hopper at D = 40/64/80, mma.sync at 160), the
-launch counters, the TMA boxes (128-byte swizzle rows of 64 columns at
-every head dim) and the bias the kernels read in place.
+dispatch of dQ and dK/dV (Hopper at D = 40/64/80/160; the mma.sync pair at
+160 on no path), the launch counters, the TMA boxes (128-byte swizzle rows
+of 64 columns at every head dim, the item rows of each kernel), the
+kernels' shared-memory layouts and the bias the kernels read in place.
 
 The kernels themselves (``csrc/flash_bwd_sm90.cu``) run only on the card
 and are held against the plain version in ``tests/test_torch_cuda.py``;
 their C side only encodes the maps computed and checked here.
 """
 
+import importlib.util
+import inspect
 import re
 from pathlib import Path
 
@@ -18,6 +21,8 @@ from uwudiff_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
 from uwudiff_tpu_torch.ops._build import SOURCES
 from uwudiff_tpu_torch.ops.flash_attention import (
     BWD_HEAD_DIMS,
+    MMA_BWD_HEAD_DIMS,
+    SM90_BWD_DKV_ITEM_ROWS,
     SM90_BWD_HEAD_DIMS,
     SM90_BWD_ITEM_ROWS,
     SM90_BWD_TILE_ROWS,
@@ -29,20 +34,36 @@ from uwudiff_tpu_torch.ops.flash_attention import (
     flash_bwd_dq,
     flash_bwd_dq_mma,
     flash_bwd_dq_sm90,
+    sm90_bwd_box_rows,
     tma_map,
 )
 
 BF16 = torch.bfloat16
-CSRC = Path(__file__).resolve().parent.parent / "uwudiff_tpu_torch" / "csrc"
+ROOT = Path(__file__).resolve().parent.parent
+CSRC = ROOT / "uwudiff_tpu_torch" / "csrc"
+
+
+def _bwd_variants():
+    spec = importlib.util.spec_from_file_location("flash_variants", ROOT / "flash_variants.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.BWD_VARIANTS
+
+
+BWD_VARIANTS = _bwd_variants()
 
 
 @pytest.mark.parametrize("d,kernels", [(64, (flash_bwd_dq_sm90, flash_bwd_dkv_sm90)),
                                        (40, (flash_bwd_dq_sm90, flash_bwd_dkv_sm90)),
                                        (80, (flash_bwd_dq_sm90, flash_bwd_dkv_sm90)),
-                                       (160, (flash_bwd_dq_mma, flash_bwd_dkv_mma))])
+                                       (160, (flash_bwd_dq_sm90, flash_bwd_dkv_sm90))])
 def test_head_dim_selects_the_backward(d, kernels):
     assert d in BWD_HEAD_DIMS
     assert backward_kernels(d) == kernels
+    # the mma.sync pair (D = 160) is on no path: called by name only
+    assert all(flash_bwd_dq_mma not in backward_kernels(e) for e in BWD_HEAD_DIMS)
+    assert all(flash_bwd_dkv_mma not in backward_kernels(e) for e in BWD_HEAD_DIMS)
+    assert set(MMA_BWD_HEAD_DIMS) <= set(SM90_BWD_HEAD_DIMS)
 
 
 @pytest.mark.parametrize("d", [16, 32, 48, 96, 128, 152, 256])
@@ -87,9 +108,12 @@ def test_the_source_is_built_and_its_tiles_match_the_boxes():
     src = (CSRC / "flash_bwd_sm90.cu").read_text()
     assert int(re.search(r"constexpr int ITEM_ROWS = (\d+);", src)[1]) == SM90_BWD_ITEM_ROWS
     assert int(re.search(r"constexpr int TILE = (\d+);", src)[1]) == SM90_BWD_TILE_ROWS
+    # dK/dV's item at D = 160, the keys both consumers share, is the box of
+    # its k and v maps
+    assert int(re.search(r"ITEM = SPLIT \? (\d+) : ITEM_ROWS;", src)[1]) == SM90_BWD_DKV_ITEM_ROWS[160]
     # the C side's instances are the Python side's head dims, and its swizzle
     # row (64 columns at every head dim) is the maps' box
-    assert re.search(r"static_assert\(D == 40 \|\| D == 64 \|\| D == 80,", src)
+    assert re.search(r"static_assert\(D == 40 \|\| D == 64 \|\| D == 80 \|\| D == 160,", src)
     assert set(map(int, re.findall(r"case (\d+): return run<", src))) == set(SM90_BWD_HEAD_DIMS)
     assert int(re.search(r"constexpr int COLS = (\d+);", src)[1]) == 64
     common = (CSRC / "hopper_common.cuh").read_text()
@@ -127,20 +151,104 @@ def test_a_64_row_map_of_a_heads_first_gradient():
 
 
 @pytest.mark.parametrize("d,rows", [(40, SM90_BWD_TILE_ROWS), (40, SM90_BWD_ITEM_ROWS), (80, SM90_BWD_TILE_ROWS),
-                                    (80, SM90_BWD_ITEM_ROWS)])
+                                    (80, SM90_BWD_ITEM_ROWS), (160, SM90_BWD_TILE_ROWS),
+                                    (160, SM90_BWD_ITEM_ROWS)])
 def test_a_backward_map_at_sd15s_head_dims_is_64_column_boxes(d, rows):
-    # SD1.5's level-0 / level-1 self-attention, contiguous: the box is one
+    # SD1.5's level-0 / 1 / 2 self-attention, contiguous: the box is one
     # 64-column block (128 bytes, the 128-byte swizzle), the kernel loads
-    # ceil(D / 64) of them and TMA zero-fills the columns past D
-    t = torch.zeros((16, 4096, 8, d), dtype=BF16)
+    # ceil(D / 64) of them (1, 2, 3) and TMA zero-fills the columns past D
+    s = 4096 if d < 160 else 256
+    t = torch.zeros((16, s, 8, d), dtype=BF16)
     m = tma_map(t, who="flash_bwd_dq_sm90", name="q", rows=rows, head_dims=SM90_BWD_HEAD_DIMS)
-    assert m.dims == (d, 8, 4096, 16)
-    assert m.strides == (2 * d, 8 * 2 * d, 4096 * 8 * 2 * d)
+    assert m.dims == (d, 8, s, 16)
+    assert m.strides == (2 * d, 8 * 2 * d, s * 8 * 2 * d)
     assert m.box == (64, 1, rows, 1)
+    assert -(-d // m.box[0]) == {40: 1, 80: 2, 160: 3}[d]
     assert len(m.words()) == 11
 
 
-@pytest.mark.parametrize("d,which", [(40, 0), (40, 2), (80, 1)])
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+def test_each_backward_kernel_boxes_its_item_and_its_tiles(d):
+    # dQ: q and dout in boxes of an item's 128 query rows, k and v of a
+    # 64-key tile; dK/dV: k and v in boxes of an item's keys (128, or at
+    # D = 160 the 64 both consumers share), q and dout of a 64-row tile
+    assert sm90_bwd_box_rows(d, False) == (SM90_BWD_ITEM_ROWS, SM90_BWD_TILE_ROWS) == (128, 64)
+    assert sm90_bwd_box_rows(d, True) == (SM90_BWD_TILE_ROWS, 64 if d == 160 else 128)
+    t = torch.zeros((16, 256, 8, d), dtype=BF16)
+    for dkv in (False, True):
+        q_rows, k_rows = sm90_bwd_box_rows(d, dkv)
+        assert tma_map(t, rows=q_rows, head_dims=SM90_BWD_HEAD_DIMS).box == (64, 1, q_rows, 1)
+        assert tma_map(t, rows=k_rows, head_dims=SM90_BWD_HEAD_DIMS).box == (64, 1, k_rows, 1)
+        assert (k_rows if dkv else q_rows) == _bwd_layout(d, dkv)["item"]
+    assert '"uwu_flash_bwd_dkv_sm90"' in inspect.getsource(flash_bwd_dkv_sm90)
+    assert "sm90_bwd_box_rows" in inspect.getsource(inspect.getmodule(flash_bwd_dkv_sm90)._bwd_sm90)
+
+
+def _bwd_layout(d, dkv):
+    """The shared memory of the dQ (or, with ``dkv``, the dK/dV) kernel at
+    head dim ``d``, laid out as ``Cfg`` in csrc/flash_bwd_sm90.cu lays it
+    out, from the constants the source declares: the item's two inputs in
+    one or two buffers, then as many ring stages (two streamed tiles and
+    two fp32 vectors) as fit, at most MAX_STAGES, then the mbarriers."""
+    src = (CSRC / "flash_bwd_sm90.cu").read_text()
+    const = {n: int(re.search(rf"constexpr int {n} = (\d+);", src)[1])
+             for n in ("ITEM_ROWS", "TILE", "COLS", "SMEM_MAX", "MAX_STAGES")}
+    row_bytes, vec_bytes = 2 * const["COLS"], 4 * const["TILE"]
+    nblk = -(-d // const["COLS"])
+    item = 64 if dkv and d > 128 else const["ITEM_ROWS"]
+    bufs = 1 if d > 128 else 2
+    item_bytes, tile_bytes = nblk * item * row_bytes, nblk * const["TILE"] * row_bytes
+    stage_bytes = 2 * tile_bytes + 2 * vec_bytes
+    fit = (const["SMEM_MAX"] - 1024 - 16 * (bufs + const["MAX_STAGES"]) - 2 * bufs * item_bytes) // stage_bytes
+    stages = min(fit, const["MAX_STAGES"])
+    smem = 1024 + 2 * bufs * item_bytes + stages * stage_bytes + 16 * (bufs + stages)
+    return {"item": item, "bufs": bufs, "stages": stages, "smem": smem, "smem_max": const["SMEM_MAX"]}
+
+
+@pytest.mark.parametrize("dkv", [False, True])
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+def test_each_backward_layout_fits_shared_memory(d, dkv):
+    # the Python mirror above follows the source's Cfg lines ...
+    src = (CSRC / "flash_bwd_sm90.cu").read_text()
+    for line in ("SPLIT = DKV && D > 128;", "ITEM = SPLIT ? 64 : ITEM_ROWS;", "ITEM_BUFS = D > 128 ? 1 : 2;",
+                 "STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;", "SMEM_MAX = 232448;"):
+        assert line in src
+    # ... and every layout fits the 227 KB a block may have, with a ring of
+    # at least two stages: at D = 160 one item buffer, dQ's 96 KB of Q and
+    # dO beside two stages, dK/dV's 48 KB of K and V (64 keys) beside three;
+    # D = 40/64/80 keep the layouts they had before D = 160 joined
+    lay = _bwd_layout(d, dkv)
+    assert lay["smem"] <= lay["smem_max"] == 227 * 1024
+    assert lay["stages"] == {40: 5, 64: 5, 80: 3, 160: 3 if dkv else 2}[d]
+    assert lay["bufs"] == (1 if d == 160 else 2)
+    assert lay["smem"] == {40: 151152, 64: 151152, 80: 232016}.get(d, lay["smem"])
+    if d == 160:
+        assert lay["smem"] == (199232 if dkv else 198704)
+
+
+def test_the_d160_instances_are_in_the_source():
+    src = (CSRC / "flash_bwd_sm90.cu").read_text()
+    assert "case 160: return run<160, DKV>" in src
+    assert "else wgmma_m64n160k16_rs_tb(d, a, desc_b);" in src  # dQ, dK and dV at N = 160
+    assert "wgmma_m64n160k16_rs_tb" in (CSRC / "hopper_common.cuh").read_text()
+    # the split's two roles, each with its own register budget
+    for role, regs in (("DV_ONLY", 224), ("DK_ONLY", 240)):
+        assert re.search(rf"setmaxnreg_inc<{regs}>\(\);\s+consume\(std::integral_constant<Role, {role}>", src)
+
+
+@pytest.mark.parametrize("name", sorted(BWD_VARIANTS))
+def test_each_backward_variant_changes_one_line_of_the_kernel(name):
+    # flash_variants.py builds each backward variant by replacing one line of
+    # flash_bwd_sm90.cu and launches it through the two wrappers' library
+    # slots: each must still find what it edits
+    (old, new), shapes = BWD_VARIANTS[name]
+    src = (CSRC / "flash_bwd_sm90.cu").read_text()
+    assert src.count(old) == 1 and old != new
+    assert {shape[-1] for shape in shapes} <= set(SM90_BWD_HEAD_DIMS)
+    assert '"uwu_flash_bwd_dq_sm90"' in inspect.getsource(flash_bwd_dq_sm90)
+
+
+@pytest.mark.parametrize("d,which", [(40, 0), (40, 2), (80, 1), (160, 1), (160, 3)])
 def test_a_backward_map_of_a_head_slice_of_a_fused_tensor(d, which):
     qkv = torch.zeros((2, 1024, 4, 8, d), dtype=BF16)
     t = qkv[:, :, which]  # q, k, v or dO cut from one [B, S, 4, H, D] tensor, uncopied
@@ -168,9 +276,9 @@ def test_backward_views_tma_cannot_take_at_d40_are_refused(case):
         tma_map(t, who="flash_bwd_dkv_sm90", rows=SM90_BWD_TILE_ROWS, head_dims=SM90_BWD_HEAD_DIMS)
 
 
-@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("d", [40, 80, 160])
 def test_the_forwards_map_takes_sd15s_head_dims(d):
-    # K1 at D = 40/80 is the Hopper kernel too: the forward's map of a view
+    # K1 at D = 40/80/160 is the Hopper kernel too: the forward's map of a view
     # whose backward map was made and cached first is the same geometry,
     # checked against the forward's head dims and boxed as its tiles
     from uwudiff_tpu_torch.ops.flash_attention import SM90_FWD_KEY_ROWS, SM90_FWD_Q_ROWS
@@ -181,8 +289,9 @@ def test_the_forwards_map_takes_sd15s_head_dims(d):
     fwd_k = tma_map(t, rows=SM90_FWD_KEY_ROWS[d])
     assert fwd_q.dims == fwd_k.dims == bwd.dims == (d, 8, 256, 2)
     assert fwd_q.strides == bwd.strides
-    assert (fwd_q.box, fwd_k.box, bwd.box) == ((64, 1, 192 if d == 40 else 128, 1), (64, 1, 128, 1),
-                                               (64, 1, SM90_BWD_TILE_ROWS, 1))
+    assert (fwd_q.box, fwd_k.box, bwd.box) == ((64, 1, 192 if d == 40 else 128, 1),
+                                               (64, 1, SM90_FWD_KEY_ROWS[d], 1), (64, 1, SM90_BWD_TILE_ROWS, 1))
+    assert SM90_FWD_KEY_ROWS[d] == (64 if d == 160 else 128)
 
 
 @pytest.mark.parametrize("rows", [0, 257])

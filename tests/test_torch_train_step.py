@@ -32,6 +32,7 @@ and the bf16 forward and backward against fp32 on the card by
 """
 
 import copy
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -40,7 +41,7 @@ import pytest
 import torch
 
 from test_torch_models import one_torch_thread  # noqa: F401  (autouse: one torch thread in this module)
-from test_torch_models import random_params
+from test_torch_models import compile_fast, random_params
 from uwudiff_tpu.diffusion import DiffusionLoss as JaxLoss
 from uwudiff_tpu.diffusion import NoiseSchedule as JaxSchedule
 from uwudiff_tpu.models.unet import UNet2DConditionModel as JaxUNet
@@ -69,6 +70,21 @@ def _batch(b=2, hw=16, seed=0):
     }
 
 
+@functools.lru_cache(maxsize=None)
+def _tiny_sdxl_params():
+    """The tiny_sdxl param tree, drawn once for the module (its shapes are
+    the model's whatever the compute dtype and batch; the draws follow from
+    the shapes and the seed alone)."""
+    batch = _batch()
+    x, t = batch["sample"][:1], np.zeros((1,), np.float32)
+    added = {"time_ids": batch["added_cond"]["time_ids"][:1], "text_embeds": batch["pooled"][:1]}
+    return random_params(JaxUNet.from_config("tiny_sdxl"), x, t, batch["ctx"][:1], None, added)
+
+
+def _params():
+    return jax.tree_util.tree_map(np.copy, _tiny_sdxl_params())  # a copy per test: nothing shares its arrays
+
+
 def _pair(param_dtype):
     """(JAX trainer, port trainer, initial flax params) with equal weights."""
     batch = _batch()
@@ -79,9 +95,7 @@ def _pair(param_dtype):
     jtr = JaxTrainer(model_config={"unet": jmodel, "te": None, "vae": None},
                      opt_config=OPT,
                      loss_config=JaxLoss(schedule=JaxSchedule.sd15()), **kw)
-    x, t = batch["sample"][:1], np.zeros((1,), np.float32)
-    added = {"time_ids": batch["added_cond"]["time_ids"][:1], "text_embeds": batch["pooled"][:1]}
-    params = random_params(jmodel, x, t, batch["ctx"][:1], None, added)
+    params = _params()
     jparams = jax.tree_util.tree_map(lambda p: jnp.asarray(p, compute), params)
     # what DMTrainer.setup builds for a te/vae-free trainer, on one device
     jtr.mesh = make_mesh({"data": 1}, devices=jax.devices()[:1])
@@ -111,6 +125,10 @@ def _flat(tree, prefix=""):
 
 def test_train_steps_match_jax_fp32():
     jtr, tr, batch = _pair(None)
+    # the JAX step compiled with the suite's cheap LLVM settings (as the SD1.5
+    # step's test does): fp32 sums in another order, inside the tolerances
+    jtr._train_step = compile_fast(jtr._train_step_impl, jtr.state, jtr.frozen, jtr._put_batch(batch),
+                                   jax.random.PRNGKey(jtr.seed), donate_argnums=0)
     p0 = dict(_flat(to_jax_params(tr.unet)))
     for _ in range(3):
         jm, jaux = jtr.train_step(batch)
@@ -191,10 +209,7 @@ def test_bf16_step_with_jax_stochastic_rounding_bits():
 
 
 def test_to_jax_params_inverts_load_jax_params():
-    jmodel = JaxUNet.from_config("tiny_sdxl")
-    b = _batch()
-    added = {"time_ids": b["added_cond"]["time_ids"], "text_embeds": b["pooled"]}
-    params = random_params(jmodel, b["sample"], np.zeros(2, np.float32), b["ctx"], None, added)
+    params = _params()
     unet = load_jax_params(UNet2DConditionModel.from_config("tiny_sdxl", device="cpu"), params)
     back = dict(_flat(to_jax_params(unet)))
     src = dict(_flat(params))

@@ -1,13 +1,14 @@
-// Flash-attention backward for Hopper (sm_90a) at head dims 40, 64 and 80:
-// dQ and dK/dV, each a persistent, warp-specialised kernel on TMA, an
+// Flash-attention backward for Hopper (sm_90a) at head dims 40, 64, 80 and
+// 160: dQ and dK/dV, each a persistent, warp-specialised kernel on TMA, an
 // mbarrier ring and wgmma, one template over the head dim.
 //
 // Replaces the TPU kernels uwudiff_tpu/ops/flash_attention.py::_bwd_dq_kernel
 // (:271, K4: flash_bwd_dq_sm90) and ::_bwd_dkv_kernel (:365, K6:
 // flash_bwd_dkv_sm90). D = 64 is SDXL's, CLIP's, T5's and the SD3 MMDiT's;
-// 40 and 80 are SD1.5's first two levels. The dQ + dBias kernel (K5) and
-// D = 160 keep the mma.sync kernels of flash_bwd.cu; the wrappers dispatch
-// on the head dim.
+// 40, 80 and 160 are SD1.5's three levels. The dQ + dBias kernel (K5) is
+// flash_bwd.cu's at every head dim; flash_bwd.cu's mma.sync dQ and dK/dV
+// compute the same function at D = 160 and stay built as the yardstick, on
+// no path.
 //
 // The backward is split in two as in flash_bwd.cu, so that no output is
 // summed across blocks: no atomics, and dQ, dK and dV are the same bits from
@@ -16,16 +17,17 @@
 //   dQ  : an item is 128 query rows of one (batch, head); Q and dO come in
 //         once, the loop runs over key tiles of 64: S = Q.K^T and
 //         dP = dO.V^T, dS = P (dP - delta), dQ += dS.K; dQ *= scale.
-//   dK/dV: an item is 128 keys; K and V come in once, the loop runs over
-//         query tiles of 64: S^T = K.Q^T and dP^T = V.dO^T, so that each
-//         consumer's 64 keys are the rows of its fragments, dS^T = P^T
-//         (dP^T - delta), dV += P^T.dO and dK += dS^T.Q; dK *= scale.
+//   dK/dV: an item is 128 keys (64 at D = 160); K and V come in once, the
+//         loop runs over query tiles of 64: S^T = K.Q^T and dP^T = V.dO^T,
+//         so that each consumer's 64 keys are the rows of its fragments,
+//         dS^T = P^T (dP^T - delta), dV += P^T.dO and dK += dS^T.Q; dK *=
+//         scale.
 // The products over D (S, dP and their transposes) are wgmma.m64n64k16 with
 // A from registers: the item's own operand (Q and dO, or K and V), read from
 // shared memory into wgmma fragments once an item (ldmatrix through the
 // swizzle); B the streamed tile, K-major. The products into dQ, dV and dK
-// are wgmma.m64nDk16 (N = 40, 64, 80) with A the fp32 P and dS (P^T, dS^T)
-// re-packed to bf16, B the streamed tile MN-major (the transpose bit).
+// are wgmma.m64nDk16 (N = 40, 64, 80, 160) with A the fp32 P and dS (P^T,
+// dS^T) re-packed to bf16, B the streamed tile MN-major (the transpose bit).
 // P is the P the forward normalised (flash_fwd_sm90.cu, flash_fwd.cu): the
 // logit scale and the bias's LOG2E are applied to the fp32 S tile, never
 // folded into bf16 q; the bias is clamped at -1e30 as it is loaded;
@@ -42,34 +44,46 @@
 // group of wgmma costs ~400 clocks of latency beside its products (4
 // m64n64k16 a group run at 45 % of the tensor rate, 10 at 77 %;
 // m64n40k16 at 64 %), and a D = 40 tile's products are fewer to hide it
-// behind than D = 64's. The design:
+// behind than D = 64's. At SD1.5's D = 160 shapes (256 or 64 query rows,
+// 256, 77 or 64 keys) the bytes bound both kernels. The design:
 //   - a persistent grid of one 384-thread block per SM; warpgroup 0 is the
 //     producer (40 registers after setmaxnreg; its first warp loads),
-//     warpgroups 1 and 2 consume 64 rows of the item each (232);
+//     warpgroups 1 and 2 consume 64 rows of the item each (232; 224 and
+//     240 where dK/dV's consumers split by role, below);
 //   - shared tiles are D = 64's at every head dim: rows of 64 columns, 128
 //     bytes, 128B-swizzled, one TMA box per 64-column block (one at D = 40
-//     and 64, two at 80), TMA zero-filling the columns past D. The products
-//     over D read only up to the next multiple of 16 (3, 4, 5 k16 steps;
-//     columns 40-47 at D = 40 are those zeros), the products into dQ, dK,
-//     dV write N = D columns. Boxes of 16 columns under a 32-byte swizzle,
-//     the tile no wider than D, took 3-5 % longer at D = 40: three small
-//     TMA rows for each of D = 64's one;
+//     and 64, two at 80, three at 160), TMA zero-filling the columns past
+//     D. The products over D read only up to the next multiple of 16 (3, 4,
+//     5, 10 k16 steps; columns 40-47 at D = 40 are those zeros), the
+//     products into dQ, dK, dV write N = D columns. Boxes of 16 columns
+//     under a 32-byte swizzle, the tile no wider than D, took 3-5 % longer
+//     at D = 40: three small TMA rows for each of D = 64's one;
 //   - the item's own block (Q and dO, or K and V) goes by TMA into one of two
 //     buffers, freed as soon as both consumers hold it in registers, so the
 //     next item's loads early; the streamed tiles (K and V, or Q and dO) go
-//     through a ring of 5 stages (3 at D = 80, whose tiles are two blocks
-//     wide) that runs on across items, each with a full mbarrier (TMA
-//     transaction bytes plus the vectors' copies) and an empty one (one
-//     arrival per consumer warpgroup, made after wgmma.wait_group has retired
-//     every product that reads the stage). Tensor maps are rank 4 over (D,
-//     H, S, B) with the views' own strides: strided head views go in
-//     uncopied, and TMA zero-fills rows past Sq or Sk;
+//     through a ring of as many stages as fit, at most 5 (5 at D = 40 and
+//     64, 3 at 80, 2 or 3 at 160), that runs on across items, each with a full
+//     mbarrier (TMA transaction bytes plus the vectors' copies) and an empty
+//     one (one arrival per consumer warpgroup, made after wgmma.wait_group
+//     has retired every product that reads the stage). Tensor maps are rank
+//     4 over (D, H, S, B) with the views' own strides: strided head views go
+//     in uncopied, and TMA zero-fills rows past Sq or Sk;
 //   - A from registers halves the shared-memory reads of the products over
 //     D. Where the fragments do not fit beside the accumulators (dK/dV at
 //     D = 80: 40 registers beside 176; dK/dV with a full bias, whose loads
-//     need the room) K and V stay in the item's buffer and those products
-//     read A from shared memory too; the buffer is freed when the item's
-//     last product retires;
+//     need the room; both kernels at 160) the item's operands stay in its
+//     buffer and those products read A from shared memory too; the buffer
+//     is freed when the item's last product that reads it retires;
+//   - D = 160 (Cfg): dQ's 128-row item of Q and dO is 96 KB, so it has one
+//     buffer, not two, beside two stages, freed once the item's last S and
+//     dP are in, before its last dQ product; dK/dV's item (below) has one
+//     too, beside three. dK and dV at m64n160 are 80 fp32 registers each, and the two
+//     beside S^T and dP^T (32 + 32) would fill the consumers' 232: so a
+//     dK/dV item is 64 keys that both consumers share, split by role. One
+//     computes S^T, P^T and dV (128 accumulator and fragment registers),
+//     the other S^T, dP^T, dS^T and dK (160): S^T is computed twice, 5
+//     products a tile where one consumer would issue 4, but no P^T goes
+//     through shared memory and neither waits for the other;
 //   - the fp32 vectors beside a tile (the key bias for dQ; lse and delta for
 //     dK/dV) have rows of Sk or Sq entries, not multiples of 16 bytes, so TMA
 //     cannot take them: the producer warp's 32 lanes copy them with 4-byte
@@ -99,6 +113,8 @@
 
 #include <math.h>
 
+#include <type_traits>
+
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
 
@@ -116,36 +132,62 @@ constexpr int VEC_ARRIVALS = 1 + 32;  // expect_tx by lane 0, then every lane's 
 constexpr int COLS = 64;              // columns a tile's row: one 128-byte swizzle row
 constexpr int ROW_BYTES = 2 * COLS;
 constexpr uint32_t SBO = 8 * ROW_BYTES;  // bytes between 8-row groups
+constexpr int SMEM_MAX = 232448;         // dynamic shared memory a block may have (227 KB)
+constexpr int MAX_STAGES = 5;
 
-// The shared layout of head dim D (40, 64 or 80): at every D the 128-byte
+// The tiles of head dim D (40, 64, 80 or 160): at every D the 128-byte
 // swizzle of D = 64, a tile's row 64 columns. A tile is NBLK column blocks
 // of rows x 128 bytes, one TMA box each (one block at D = 40 and 64, two at
-// 80); TMA zero-fills the columns past D, which the products over D read
-// only up to the next multiple of 16 (KSTEPS k16 steps: 3, 4, 5; columns
-// 40-47 at D = 40 are zeros). The products into dQ, dK and dV run at N = D
-// (wgmma.m64n40k16 / m64n64k16 / m64n80k16). D = 80's two blocks leave room
-// for 3 stages of the ring, not 5.
+// 80, three at 160); TMA zero-fills the columns past D, which the products
+// over D read only up to the next multiple of 16 (KSTEPS k16 steps: 3, 4,
+// 5, 10; columns 40-47 at D = 40 are zeros). The products into dQ, dK and
+// dV run at N = D (wgmma.m64n40k16 / m64n64k16 / m64n80k16 / m64n160k16).
 template <int D>
 struct Geo {
-  static_assert(D == 40 || D == 64 || D == 80, "head dims 40, 64, 80");
+  static_assert(D == 40 || D == 64 || D == 80 || D == 160, "head dims 40, 64, 80, 160");
   static constexpr int NBLK = (D + COLS - 1) / COLS;
   static constexpr int KSTEPS = (D + 15) / 16;
-  static constexpr int STAGES = NBLK > 1 ? 3 : 5;
-  static constexpr int ITEM_BYTES = NBLK * ITEM_ROWS * ROW_BYTES;  // one of the item's two inputs
-  static constexpr int TILE_BYTES = NBLK * TILE * ROW_BYTES;       // one of a stage's two inputs
-  static constexpr int BAR_BYTES = 8 * 2 * (2 + STAGES);
-  static constexpr int SMEM = 1024 + 4 * ITEM_BYTES + STAGES * (2 * TILE_BYTES + 2 * VEC_BYTES) + BAR_BYTES;
+};
+
+// The shared memory of one kernel (dQ, or dK/dV with DKV) at head dim D.
+// SPLIT (dK/dV at D = 160): the two consumers share an item of 64 keys,
+// one accumulating dV and the other dK, where each would otherwise hold
+// both at m64n160 (160 registers beside S^T and dP^T). ITEM_BUFS buffers
+// of the item's two inputs: two, so the next item loads during this one,
+// but one at D = 160: dQ's 128-row Q + dO is 96 KB, and dK/dV's 48 KB of
+// K and V in one buffer leave room for a third stage, which the card
+// measured faster than a second buffer beside two (flash_variants.py). As
+// many ring stages as fit beside them, at most MAX_STAGES: 5 at D = 40 and
+// 64, 3 at 80, 2 (dQ) and 3 (dK/dV) at 160.
+template <int D, bool DKV>
+struct Cfg : Geo<D> {
+  static constexpr bool SPLIT = DKV && D > 128;
+  static constexpr int ITEM = SPLIT ? 64 : ITEM_ROWS;  // rows an item owns
+  static constexpr int ITEM_BUFS = D > 128 ? 1 : 2;
+  // K and V (dK/dV) or Q and dO (dQ) read by the products over D from the
+  // item's buffer, not from registers: where the fragments do not fit
+  // beside the accumulators (dK/dV at D = 80: 40 registers beside the 176
+  // of S^T, dP^T, P^T, dS^T and the accumulators; both kernels at 160: 80)
+  static constexpr bool A_SMEM = D > 64 && (DKV || D > 128);
+  static constexpr int ITEM_BYTES = Geo<D>::NBLK * ITEM * ROW_BYTES;  // one of the item's two inputs
+  static constexpr int TILE_BYTES = Geo<D>::NBLK * TILE * ROW_BYTES;  // one of a stage's two inputs
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES + 2 * VEC_BYTES;
+  static constexpr int FIT =
+      (SMEM_MAX - 1024 - 8 * 2 * (ITEM_BUFS + MAX_STAGES) - ITEM_BUFS * 2 * ITEM_BYTES) / STAGE_BYTES;
+  static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
+  static constexpr int BAR_BYTES = 8 * 2 * (ITEM_BUFS + STAGES);
+  static constexpr int SMEM = 1024 + ITEM_BUFS * 2 * ITEM_BYTES + STAGES * STAGE_BYTES + BAR_BYTES;
+  static_assert(STAGES >= 2 && SMEM <= SMEM_MAX, "the ring needs two stages");
 };
 
 // K-major B (the products over D, S = Q.K^T and dP = dO.V^T and their
 // transposes) of a streamed tile, and the step to its k16 slice kk in
 // 16-byte units: 32 bytes along the 128-byte row, the next column block
-// after four
+// after four (ROWS: the rows of the tile or buffer the operand lies in)
 __device__ __forceinline__ uint64_t kmajor_desc(const void* tile) { return desc_sw128(tile, 16, SBO); }
 
-template <int D, int ROWS = TILE>
+template <int ROWS>
 __host__ __device__ constexpr uint32_t kmajor_step(int kk) {
-  using G = Geo<D>;
   return ((kk * 16 / COLS) * ROWS * ROW_BYTES + (kk * 16 % COLS) * 2) >> 4;
 }
 
@@ -157,34 +199,32 @@ __device__ __forceinline__ uint64_t mnmajor_desc(const void* tile) {
   return desc_sw128(tile, Geo<D>::NBLK > 1 ? TILE * ROW_BYTES : 16, SBO);
 }
 
-template <int D>
+template <class C>
 struct Smem {
-  using G = Geo<D>;
   unsigned char* base;
   uint64_t *item_full, *item_empty, *full, *empty;
   __device__ explicit Smem(unsigned char* raw) : base(raw + ((1024 - (smem_u32(raw) & 1023)) & 1023)) {
-    item_full =
-        reinterpret_cast<uint64_t*>(base + 4 * G::ITEM_BYTES + G::STAGES * (2 * G::TILE_BYTES + 2 * VEC_BYTES));
-    item_empty = item_full + 2;
-    full = item_empty + 2;
-    empty = full + G::STAGES;
+    item_full = reinterpret_cast<uint64_t*>(base + C::ITEM_BUFS * 2 * C::ITEM_BYTES + C::STAGES * C::STAGE_BYTES);
+    item_empty = item_full + C::ITEM_BUFS;
+    full = item_empty + C::ITEM_BUFS;
+    empty = full + C::STAGES;
   }
-  __device__ unsigned char* item(int buf, int input) const { return base + (2 * buf + input) * G::ITEM_BYTES; }
+  __device__ unsigned char* item(int buf, int input) const { return base + (2 * buf + input) * C::ITEM_BYTES; }
   __device__ unsigned char* tile(int stage, int input) const {
-    return base + 4 * G::ITEM_BYTES + (2 * stage + input) * G::TILE_BYTES;
+    return base + C::ITEM_BUFS * 2 * C::ITEM_BYTES + (2 * stage + input) * C::TILE_BYTES;
   }
   __device__ float* vec(int stage, int which) const {
-    return reinterpret_cast<float*>(base + 4 * G::ITEM_BYTES + G::STAGES * 2 * G::TILE_BYTES +
+    return reinterpret_cast<float*>(base + C::ITEM_BUFS * 2 * C::ITEM_BYTES + C::STAGES * 2 * C::TILE_BYTES +
                                     (2 * stage + which) * VEC_BYTES);
   }
   // barriers: the item buffers' full (TMA bytes) and empty (one arrival per
   // consumer warpgroup), the ring's full (vec_arrivals) and empty
   __device__ void init(int vec_arrivals) const {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < C::ITEM_BUFS; ++i) {
       mbar_init(&item_full[i], 1);
       mbar_init(&item_empty[i], 2);
     }
-    for (int i = 0; i < G::STAGES; ++i) {
+    for (int i = 0; i < C::STAGES; ++i) {
       mbar_init(&full[i], vec_arrivals);
       mbar_init(&empty[i], 2);
     }
@@ -216,7 +256,8 @@ template <int D>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t desc_b) {
   if constexpr (D == 40) wgmma_m64n40k16_rs_tb(d, a, desc_b);
   else if constexpr (D == 64) wgmma_m64n64k16_rs_tb(d, a, desc_b);
-  else wgmma_m64n80k16_rs_tb(d, a, desc_b);
+  else if constexpr (D == 80) wgmma_m64n80k16_rs_tb(d, a, desc_b);
+  else wgmma_m64n160k16_rs_tb(d, a, desc_b);
 }
 
 // acc += A.B over the four k16 slices of a tile's 64 rows; A the bf16
@@ -231,15 +272,16 @@ __device__ __forceinline__ void issue_rs(float (&acc)[D / 2], uint32_t (&a)[TILE
 template <int D>
 __device__ __forceinline__ void issue_over_d(float (&acc)[32], uint32_t (&a)[Geo<D>::KSTEPS][4], uint64_t desc_b) {
 #pragma unroll
-  for (int kk = 0; kk < Geo<D>::KSTEPS; ++kk) wgmma_m64n64k16_rs(acc, a[kk], desc_b + kmajor_step<D>(kk), kk > 0);
+  for (int kk = 0; kk < Geo<D>::KSTEPS; ++kk) wgmma_m64n64k16_rs(acc, a[kk], desc_b + kmajor_step<TILE>(kk), kk > 0);
 }
 
-// the same with A, 64 rows of an item's buffer, K-major in shared memory too
-template <int D>
+// the same with A, 64 rows of an item's buffer of A_ROWS rows, K-major in
+// shared memory too
+template <int D, int A_ROWS>
 __device__ __forceinline__ void issue_over_d_ss(float (&acc)[32], uint64_t desc_a, uint64_t desc_b) {
 #pragma unroll
   for (int kk = 0; kk < Geo<D>::KSTEPS; ++kk)
-    wgmma_m64n64k16_ss(acc, desc_a + kmajor_step<D, ITEM_ROWS>(kk), desc_b + kmajor_step<D>(kk), kk > 0);
+    wgmma_m64n64k16_ss(acc, desc_a + kmajor_step<A_ROWS>(kk), desc_b + kmajor_step<TILE>(kk), kk > 0);
 }
 
 // the bf16 A fragments of an fp32 accumulator tile (k16 slice kk covers
@@ -255,17 +297,16 @@ __device__ __forceinline__ void pack_frag(uint32_t (&a)[TILE / 16][4], const flo
 }
 
 // the wgmma A fragments (the mma.sync m16n8k16 A layout of rows row0 + 16
-// warp .. + 15, KSTEPS k16 slices of D) of an item's buffer: ldmatrix.x4,
-// each lane addressing one row's 16-byte chunk where the swizzle put it
-// (chunk ^ row % 8)
+// warp .. + 15, KSTEPS k16 slices of D) of an item's buffer of ITEM_ROWS
+// rows: ldmatrix.x4, each lane addressing one row's 16-byte chunk where the
+// swizzle put it (chunk ^ row % 8)
 template <int D>
 __device__ __forceinline__ void load_frags(uint32_t (&f)[Geo<D>::KSTEPS][4], const unsigned char* item, int row0,
                                            int warp, int lane) {
-  using G = Geo<D>;
   const int mi = lane / 8, r = lane % 8;  // lane mi*8 + r addresses row r of 8x8 matrix mi
   const int row = row0 + 16 * warp + (mi % 2) * 8 + r;
 #pragma unroll
-  for (int kk = 0; kk < G::KSTEPS; ++kk) {
+  for (int kk = 0; kk < Geo<D>::KSTEPS; ++kk) {
     const int chunk = 2 * kk + mi / 2;  // 16-byte chunk along D: block chunk / 8, chunk % 8 in its row
     ldmatrix_x4(f[kk],
                 item + (chunk / 8) * ITEM_ROWS * ROW_BYTES + row * ROW_BYTES + (((chunk % 8) ^ (row % 8)) * 16));
@@ -347,9 +388,9 @@ __global__ void __launch_bounds__(THREADS, 1)
                              const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int H, int Sq,
                              int Sk, long long bias_sb, long long bias_sh, int n_items, float qk_scale,
                              float scale) {
-  using G = Geo<D>;
+  using C = Cfg<D, false>;
   extern __shared__ unsigned char smem_raw[];
-  const Smem<D> sm(smem_raw);
+  const Smem<C> sm(smem_raw);
   const int n_m = (Sq + ITEM_ROWS - 1) / ITEM_ROWS;
   const int n_tiles = (Sk + TILE - 1) / TILE;
   const int wg = threadIdx.x / 128;
@@ -370,18 +411,18 @@ __global__ void __launch_bounds__(THREADS, 1)
       int t = 0;  // tiles loaded so far, across items
       for (int item = blockIdx.x, it = 0; item < n_items; item += gridDim.x, ++it) {
         const int bh = item / n_m, b = bh / H, h = bh % H;
-        const int ib = it & 1;
-        mbar_wait(&sm.item_empty[ib], ((it >> 1) & 1) ^ 1);  // the first round passes at once
+        const int ib = it % C::ITEM_BUFS;
+        mbar_wait(&sm.item_empty[ib], ((it / C::ITEM_BUFS) & 1) ^ 1);  // the first round passes at once
         if (lane == 0) {
-          mbar_arrive_expect_tx(&sm.item_full[ib], 2 * G::ITEM_BYTES);
+          mbar_arrive_expect_tx(&sm.item_full[ib], 2 * C::ITEM_BYTES);
           load_rows<D, ITEM_ROWS>(sm.item(ib, 0), &tm_q, &sm.item_full[ib], h, (item % n_m) * ITEM_ROWS, b);
           load_rows<D, ITEM_ROWS>(sm.item(ib, 1), &tm_do, &sm.item_full[ib], h, (item % n_m) * ITEM_ROWS, b);
         }
         for (int j = 0; j < n_tiles; ++j, ++t) {
-          const int st = t % G::STAGES;
-          mbar_wait(&sm.empty[st], ((t / G::STAGES) & 1) ^ 1);
+          const int st = t % C::STAGES;
+          mbar_wait(&sm.empty[st], ((t / C::STAGES) & 1) ^ 1);
           if (lane == 0) {
-            mbar_arrive_expect_tx(&sm.full[st], 2 * G::TILE_BYTES);
+            mbar_arrive_expect_tx(&sm.full[st], 2 * C::TILE_BYTES);
             load_rows<D, TILE>(sm.tile(st, 0), &tm_k, &sm.full[st], h, j * TILE, b);
             load_rows<D, TILE>(sm.tile(st, 1), &tm_v, &sm.full[st], h, j * TILE, b);
           }
@@ -400,14 +441,16 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int my_bar = 1 + c, other_bar = 2 - c;  // ping-pong: issue on mine, then free the other's
 
     float s[32], dp[32], acc[D / 2];
-    uint32_t ds[TILE / 16][4], qf[G::KSTEPS][4], of[G::KSTEPS][4];
+    uint32_t ds[TILE / 16][4];
+    // Q and dO as A fragments, or (A_SMEM) read from the item's buffer
+    uint32_t qf[C::A_SMEM ? 1 : C::KSTEPS][4], of[C::A_SMEM ? 1 : C::KSTEPS][4];
 
     if (c == 1) named_arrive(1, CONSUMER_THREADS);  // consumer 0 issues first
     int t = 0;  // tiles consumed so far, across items
     for (int item = blockIdx.x, it = 0; item < n_items; item += gridDim.x, ++it) {
       const int bh = item / n_m, b = bh / H, h = bh % H;
       const int row_a = (item % n_m) * ITEM_ROWS + 64 * c + 16 * warp + lane / 4;  // rows row_a, row_a + 8
-      const int ib = it & 1;
+      const int ib = it % C::ITEM_BUFS;
       const bool last_item = item + gridDim.x >= n_items;
       float lse2[2], dl[2];
 #pragma unroll
@@ -418,9 +461,23 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       const float* brow = BIAS == 2 ? bias + b * bias_sb + h * bias_sh : nullptr;
       auto issue_s_dp = [&](int st) {  // two groups: S, then dP
-        issue_over_d<D>(s, qf, kmajor_desc(sm.tile(st, 0)));  // S = Q K^T
-        wgmma_commit();
-        issue_over_d<D>(dp, of, kmajor_desc(sm.tile(st, 1)));  // dP = dO V^T
+        if constexpr (C::A_SMEM) {
+          const int rows = 64 * c * ROW_BYTES;  // this consumer's 64 rows of the item
+          issue_over_d_ss<D, ITEM_ROWS>(s, kmajor_desc(sm.item(ib, 0) + rows), kmajor_desc(sm.tile(st, 0)));
+          wgmma_commit();
+          issue_over_d_ss<D, ITEM_ROWS>(dp, kmajor_desc(sm.item(ib, 1) + rows), kmajor_desc(sm.tile(st, 1)));
+        } else {
+          issue_over_d<D>(s, qf, kmajor_desc(sm.tile(st, 0)));  // S = Q K^T
+          wgmma_commit();
+          issue_over_d<D>(dp, of, kmajor_desc(sm.tile(st, 1)));  // dP = dO V^T
+        }
+      };
+      // with A_SMEM the item's buffer is free once its last S and dP are in
+      auto free_item = [&](int j) {
+        if (C::A_SMEM && j == n_tiles - 1) {
+          named_sync(3 + c, 128);  // every warp's products that read the item have retired
+          if (tid == 0) mbar_arrive(&sm.item_empty[ib]);
+        }
       };
       auto issue_dq = [&](int st) { issue_rs<D>(acc, ds, mnmajor_desc<D>(sm.tile(st, 0))); };  // dQ += dS K
       auto tile_p = [&](int j, int st) {
@@ -440,30 +497,33 @@ __global__ void __launch_bounds__(THREADS, 1)
 
       // Q and dO into registers once an item; their buffer is free for the
       // next item's as soon as every warp of both warpgroups has them
-      mbar_wait(&sm.item_full[ib], (it >> 1) & 1);
-      load_frags<D>(qf, sm.item(ib, 0), 64 * c, warp, lane);
-      load_frags<D>(of, sm.item(ib, 1), 64 * c, warp, lane);
-      named_sync(3 + c, 128);
-      if (tid == 0) mbar_arrive(&sm.item_empty[ib]);
+      mbar_wait(&sm.item_full[ib], (it / C::ITEM_BUFS) & 1);
+      if constexpr (!C::A_SMEM) {
+        load_frags<D>(qf, sm.item(ib, 0), 64 * c, warp, lane);
+        load_frags<D>(of, sm.item(ib, 1), 64 * c, warp, lane);
+        named_sync(3 + c, 128);
+        if (tid == 0) mbar_arrive(&sm.item_empty[ib]);
+      }
 
       // tile 0: S and dP alone
-      mbar_wait(&sm.full[t % G::STAGES], (t / G::STAGES) & 1);
+      mbar_wait(&sm.full[t % C::STAGES], (t / C::STAGES) & 1);
       named_sync(my_bar, CONSUMER_THREADS);
       wgmma_fence();
-      issue_s_dp(t % G::STAGES);
+      issue_s_dp(t % C::STAGES);
       wgmma_commit();
       hand_over(false);
       wgmma_wait<1>();  // S is in; dP runs on
       fence_regs(s);
-      tile_p(0, t % G::STAGES);
+      tile_p(0, t % C::STAGES);
       wgmma_wait<0>();
       fence_regs(dp);
+      free_item(0);
       dq_tile_ds(s, dp, dl);
       pack_frag(ds, s);
 
       for (int j = 1; j < n_tiles; ++j) {
-        const int cur = t + j, st = cur % G::STAGES, prev = (cur - 1) % G::STAGES;
-        mbar_wait(&sm.full[st], (cur / G::STAGES) & 1);
+        const int cur = t + j, st = cur % C::STAGES, prev = (cur - 1) % C::STAGES;
+        mbar_wait(&sm.full[st], (cur / C::STAGES) & 1);
         named_sync(my_bar, CONSUMER_THREADS);
         wgmma_fence();  // dS of tile j-1 is written before the product reads it
         issue_s_dp(st);
@@ -476,6 +536,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         tile_p(j, st);
         wgmma_wait<1>();  // dP of tile j is in; dQ += dS K of tile j-1 runs on
         fence_regs(dp);
+        free_item(j);
         dq_tile_ds(s, dp, dl);
         wgmma_wait<0>();  // tile j-1's product retired: its stage can be refilled, ds rewritten
         fence_regs(acc);
@@ -483,7 +544,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         if (tid == 0) mbar_arrive(&sm.empty[prev]);
         pack_frag(ds, s);
       }
-      const int last = (t + n_tiles - 1) % G::STAGES;
+      const int last = (t + n_tiles - 1) % C::STAGES;
       named_sync(my_bar, CONSUMER_THREADS);
       wgmma_fence();
       issue_dq(last);
@@ -548,7 +609,11 @@ __device__ __forceinline__ void dkv_tile_ds(const float (&sT)[32], float (&dpT)[
   }
 }
 
-// item = bh * ceil(Sk / 128) + kt; bias as in the dQ kernel
+// what a dK/dV consumer accumulates: both dK and dV over its own 64 keys,
+// or (Cfg::SPLIT) one of them over the 64 keys both consumers share
+enum Role { BOTH, DV_ONLY, DK_ONLY };
+
+// item = bh * ceil(Sk / Cfg::ITEM) + kt; bias as in the dQ kernel
 template <int D, int BIAS>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
@@ -557,16 +622,15 @@ __global__ void __launch_bounds__(THREADS, 1)
                               const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
                               __nv_bfloat16* __restrict__ dv, int H, int Sq, int Sk, long long bias_sb,
                               long long bias_sh, int n_items, float qk_scale, float scale) {
-  using G = Geo<D>;
+  using C = Cfg<D, true>;
   // S^T = K.Q^T and dP^T = V.dO^T take K and V from the item's buffer in
-  // shared memory, not from registers, where the fragments do not fit: at
-  // D = 80 (40 registers beside the 176 of S^T, dP^T, P^T, dS^T and the
-  // accumulators, in the consumers' 232), and with a full bias, whose loads
-  // in the tile math need the room
-  constexpr bool A_SMEM = D == 80 || BIAS == 2;
+  // shared memory, not from registers, where the fragments do not fit
+  // (Cfg::A_SMEM), and with a full bias, whose loads in the tile math need
+  // the room
+  constexpr bool A_SMEM = C::A_SMEM || BIAS == 2;
   extern __shared__ unsigned char smem_raw[];
-  const Smem<D> sm(smem_raw);
-  const int n_kt = (Sk + ITEM_ROWS - 1) / ITEM_ROWS;
+  const Smem<C> sm(smem_raw);
+  const int n_kt = (Sk + C::ITEM - 1) / C::ITEM;
   const int n_tiles = (Sq + TILE - 1) / TILE;
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) sm.init(VEC_ARRIVALS);
@@ -586,18 +650,18 @@ __global__ void __launch_bounds__(THREADS, 1)
       int t = 0;
       for (int item = blockIdx.x, it = 0; item < n_items; item += gridDim.x, ++it) {
         const int bh = item / n_kt, b = bh / H, h = bh % H;
-        const int ib = it & 1;
-        mbar_wait(&sm.item_empty[ib], ((it >> 1) & 1) ^ 1);
+        const int ib = it % C::ITEM_BUFS;
+        mbar_wait(&sm.item_empty[ib], ((it / C::ITEM_BUFS) & 1) ^ 1);
         if (lane == 0) {
-          mbar_arrive_expect_tx(&sm.item_full[ib], 2 * G::ITEM_BYTES);
-          load_rows<D, ITEM_ROWS>(sm.item(ib, 0), &tm_k, &sm.item_full[ib], h, (item % n_kt) * ITEM_ROWS, b);
-          load_rows<D, ITEM_ROWS>(sm.item(ib, 1), &tm_v, &sm.item_full[ib], h, (item % n_kt) * ITEM_ROWS, b);
+          mbar_arrive_expect_tx(&sm.item_full[ib], 2 * C::ITEM_BYTES);
+          load_rows<D, C::ITEM>(sm.item(ib, 0), &tm_k, &sm.item_full[ib], h, (item % n_kt) * C::ITEM, b);
+          load_rows<D, C::ITEM>(sm.item(ib, 1), &tm_v, &sm.item_full[ib], h, (item % n_kt) * C::ITEM, b);
         }
         for (int j = 0; j < n_tiles; ++j, ++t) {
-          const int st = t % G::STAGES;
-          mbar_wait(&sm.empty[st], ((t / G::STAGES) & 1) ^ 1);
+          const int st = t % C::STAGES;
+          mbar_wait(&sm.empty[st], ((t / C::STAGES) & 1) ^ 1);
           if (lane == 0) {
-            mbar_arrive_expect_tx(&sm.full[st], 2 * G::TILE_BYTES);
+            mbar_arrive_expect_tx(&sm.full[st], 2 * C::TILE_BYTES);
             load_rows<D, TILE>(sm.tile(st, 0), &tm_q, &sm.full[st], h, j * TILE, b);
             load_rows<D, TILE>(sm.tile(st, 1), &tm_do, &sm.full[st], h, j * TILE, b);
           }
@@ -609,116 +673,149 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   } else {
     // ---------------------------------------------------------- consumers
-    setmaxnreg_inc<232>();
     const int c = wg - 1;
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int row0 = C::SPLIT ? 0 : 64 * c;  // this consumer's first key of the item
 
-    float sT[32], dpT[32], acc_k[D / 2], acc_v[D / 2];
-    uint32_t pf[TILE / 16][4], dsf[TILE / 16][4], kf[G::KSTEPS][4], vf[G::KSTEPS][4];
+    auto consume = [&](auto role_tag) {
+      constexpr Role R = decltype(role_tag)::value;
+      constexpr bool WITH_DV = R != DK_ONLY, WITH_DK = R != DV_ONLY;
+      float sT[32], dpT[32], acc_k[D / 2], acc_v[D / 2];
+      uint32_t pf[TILE / 16][4], dsf[TILE / 16][4];
+      uint32_t kf[A_SMEM ? 1 : C::KSTEPS][4], vf[A_SMEM ? 1 : C::KSTEPS][4];
 
-    int t = 0;
-    for (int item = blockIdx.x, it = 0; item < n_items; item += gridDim.x, ++it) {
-      const int bh = item / n_kt, b = bh / H, h = bh % H;
-      const int key_a = (item % n_kt) * ITEM_ROWS + 64 * c + 16 * warp + lane / 4;  // keys key_a, key_a + 8
-      const int ib = it & 1;
-      float kb2[2] = {0.f, 0.f};
-      if (BIAS == 1) {
+      int t = 0;
+      for (int item = blockIdx.x, it = 0; item < n_items; item += gridDim.x, ++it) {
+        const int bh = item / n_kt, b = bh / H, h = bh % H;
+        const int key_a = (item % n_kt) * C::ITEM + row0 + 16 * warp + lane / 4;  // keys key_a, key_a + 8
+        const int ib = it % C::ITEM_BUFS;
+        float kb2[2] = {0.f, 0.f};
+        if (BIAS == 1) {
 #pragma unroll
-        for (int r = 0; r < 2; ++r)
-          if (key_a + 8 * r < Sk) kb2[r] = bias_at(bias + b * bias_sb + key_a + 8 * r) * LOG2E;
-      }
-      const float* brow = BIAS == 2 ? bias + b * bias_sb + h * bias_sh : nullptr;
-      auto issue_st = [&](int st) {  // two groups: S^T = K Q^T, then dP^T = V dO^T
-        if constexpr (A_SMEM) {
-          const int rows = 64 * c * ROW_BYTES;  // this consumer's 64 keys of the item
-          issue_over_d_ss<D>(sT, kmajor_desc(sm.item(ib, 0) + rows), kmajor_desc(sm.tile(st, 0)));
-          wgmma_commit();
-          issue_over_d_ss<D>(dpT, kmajor_desc(sm.item(ib, 1) + rows), kmajor_desc(sm.tile(st, 1)));
-        } else {
-          issue_over_d<D>(sT, kf, kmajor_desc(sm.tile(st, 0)));
-          wgmma_commit();
-          issue_over_d<D>(dpT, vf, kmajor_desc(sm.tile(st, 1)));
+          for (int r = 0; r < 2; ++r)
+            if (key_a + 8 * r < Sk) kb2[r] = bias_at(bias + b * bias_sb + key_a + 8 * r) * LOG2E;
         }
-      };
-      auto issue_kv = [&](int st) {  // dV += P^T dO, dK += dS^T Q
-        issue_rs<D>(acc_v, pf, mnmajor_desc<D>(sm.tile(st, 1)));
-        issue_rs<D>(acc_k, dsf, mnmajor_desc<D>(sm.tile(st, 0)));
-      };
-      auto tile_p = [&](int j, int st) {
-        const int m0 = j * TILE;
-        if (m0 + TILE > Sq)
-          dkv_tile_p<BIAS, true>(sT, sm.vec(st, 0), kb2, brow, key_a, Sq, Sk, m0, lane, qk_scale);
-        else
-          dkv_tile_p<BIAS, false>(sT, sm.vec(st, 0), kb2, brow, key_a, Sq, Sk, m0, lane, qk_scale);
-      };
-      auto retire_kv = [&]() {
-        fence_regs(acc_v);
-        fence_regs(acc_k);
-        fence_regs(pf);
-        fence_regs(dsf);
-      };
+        const float* brow = BIAS == 2 ? bias + b * bias_sb + h * bias_sh : nullptr;
+        // one group, S^T = K Q^T, then (with dK) a second, dP^T = V dO^T
+        auto issue_st = [&](int st) {
+          if constexpr (A_SMEM) {
+            const int rows = row0 * ROW_BYTES;  // this consumer's 64 keys of the item
+            issue_over_d_ss<D, C::ITEM>(sT, kmajor_desc(sm.item(ib, 0) + rows), kmajor_desc(sm.tile(st, 0)));
+            if constexpr (WITH_DK) {
+              wgmma_commit();
+              issue_over_d_ss<D, C::ITEM>(dpT, kmajor_desc(sm.item(ib, 1) + rows), kmajor_desc(sm.tile(st, 1)));
+            }
+          } else {
+            issue_over_d<D>(sT, kf, kmajor_desc(sm.tile(st, 0)));
+            if constexpr (WITH_DK) {
+              wgmma_commit();
+              issue_over_d<D>(dpT, vf, kmajor_desc(sm.tile(st, 1)));
+            }
+          }
+        };
+        auto issue_kv = [&](int st) {  // dV += P^T dO, dK += dS^T Q
+          if constexpr (WITH_DV) issue_rs<D>(acc_v, pf, mnmajor_desc<D>(sm.tile(st, 1)));
+          if constexpr (WITH_DK) issue_rs<D>(acc_k, dsf, mnmajor_desc<D>(sm.tile(st, 0)));
+        };
+        auto tile_p = [&](int j, int st) {
+          const int m0 = j * TILE;
+          if (m0 + TILE > Sq)
+            dkv_tile_p<BIAS, true>(sT, sm.vec(st, 0), kb2, brow, key_a, Sq, Sk, m0, lane, qk_scale);
+          else
+            dkv_tile_p<BIAS, false>(sT, sm.vec(st, 0), kb2, brow, key_a, Sq, Sk, m0, lane, qk_scale);
+        };
+        auto retire_kv = [&]() {
+          if constexpr (WITH_DV) {
+            fence_regs(acc_v);
+            fence_regs(pf);
+          }
+          if constexpr (WITH_DK) {
+            fence_regs(acc_k);
+            fence_regs(dsf);
+          }
+        };
+        auto pack = [&]() {
+          if constexpr (WITH_DV) pack_frag(pf, sT);
+          if constexpr (WITH_DK) pack_frag(dsf, dpT);
+        };
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+        for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
 
-      // K and V into registers once an item; their buffer is free for the
-      // next item's as soon as every warp of both warpgroups has them (with
-      // A_SMEM, once the item's last product has retired)
-      mbar_wait(&sm.item_full[ib], (it >> 1) & 1);
-      if constexpr (!A_SMEM) {
-        load_frags<D>(kf, sm.item(ib, 0), 64 * c, warp, lane);
-        load_frags<D>(vf, sm.item(ib, 1), 64 * c, warp, lane);
-        named_sync(3 + c, 128);
-        if (tid == 0) mbar_arrive(&sm.item_empty[ib]);
-      }
+        // K and V into registers once an item; their buffer is free for the
+        // next item's as soon as every warp of both warpgroups has them
+        // (with A_SMEM, once the item's last product has retired)
+        mbar_wait(&sm.item_full[ib], (it / C::ITEM_BUFS) & 1);
+        if constexpr (!A_SMEM) {
+          load_frags<D>(kf, sm.item(ib, 0), row0, warp, lane);
+          load_frags<D>(vf, sm.item(ib, 1), row0, warp, lane);
+          named_sync(3 + c, 128);
+          if (tid == 0) mbar_arrive(&sm.item_empty[ib]);
+        }
 
-      // tile 0: S^T and dP^T alone
-      mbar_wait(&sm.full[t % G::STAGES], (t / G::STAGES) & 1);
-      wgmma_fence();
-      issue_st(t % G::STAGES);
-      wgmma_commit();
-      wgmma_wait<1>();  // S^T is in; dP^T runs on
-      fence_regs(sT);
-      tile_p(0, t % G::STAGES);
-      wgmma_wait<0>();
-      fence_regs(dpT);
-      dkv_tile_ds(sT, dpT, sm.vec(t % G::STAGES, 1), lane);
-      pack_frag(pf, sT);
-      pack_frag(dsf, dpT);
-
-      for (int j = 1; j < n_tiles; ++j) {
-        const int cur = t + j, st = cur % G::STAGES, prev = (cur - 1) % G::STAGES;
-        mbar_wait(&sm.full[st], (cur / G::STAGES) & 1);
-        wgmma_fence();  // P^T, dS^T of tile j-1 are written before the products read them
-        issue_st(st);
+        // tile 0: S^T and dP^T alone
+        mbar_wait(&sm.full[t % C::STAGES], (t / C::STAGES) & 1);
+        wgmma_fence();
+        issue_st(t % C::STAGES);
         wgmma_commit();
-        issue_kv(prev);
-        wgmma_commit();
-        wgmma_wait<2>();  // S^T of tile j is in; its dP^T and tile j-1's dV, dK products run on
+        wgmma_wait<WITH_DK ? 1 : 0>();  // S^T is in; dP^T runs on
         fence_regs(sT);
-        tile_p(j, st);
-        wgmma_wait<1>();  // dP^T of tile j is in; tile j-1's dV, dK products run on
-        fence_regs(dpT);
-        dkv_tile_ds(sT, dpT, sm.vec(st, 1), lane);
-        wgmma_wait<0>();  // tile j-1's products retired: its stage can be refilled
+        tile_p(0, t % C::STAGES);
+        if constexpr (WITH_DK) {
+          wgmma_wait<0>();
+          fence_regs(dpT);
+          dkv_tile_ds(sT, dpT, sm.vec(t % C::STAGES, 1), lane);
+        }
+        pack();
+
+        for (int j = 1; j < n_tiles; ++j) {
+          const int cur = t + j, st = cur % C::STAGES, prev = (cur - 1) % C::STAGES;
+          mbar_wait(&sm.full[st], (cur / C::STAGES) & 1);
+          wgmma_fence();  // P^T, dS^T of tile j-1 are written before the products read them
+          issue_st(st);
+          wgmma_commit();
+          issue_kv(prev);
+          wgmma_commit();
+          wgmma_wait<WITH_DK ? 2 : 1>();  // S^T of tile j is in; its dP^T and tile j-1's dV, dK products run on
+          fence_regs(sT);
+          tile_p(j, st);
+          if constexpr (WITH_DK) {
+            wgmma_wait<1>();  // dP^T of tile j is in; tile j-1's dV, dK products run on
+            fence_regs(dpT);
+            dkv_tile_ds(sT, dpT, sm.vec(st, 1), lane);
+          }
+          wgmma_wait<0>();  // tile j-1's products retired: its stage can be refilled
+          retire_kv();
+          if (tid == 0) mbar_arrive(&sm.empty[prev]);
+          pack();
+        }
+        const int last = (t + n_tiles - 1) % C::STAGES;
+        wgmma_fence();
+        issue_kv(last);
+        wgmma_commit();
+        wgmma_wait<0>();
         retire_kv();
-        if (tid == 0) mbar_arrive(&sm.empty[prev]);
-        pack_frag(pf, sT);
-        pack_frag(dsf, dpT);
+        if (tid == 0) mbar_arrive(&sm.empty[last]);
+        if constexpr (A_SMEM) {
+          named_sync(3 + c, 128);  // every warp's products that read the item have retired
+          if (tid == 0) mbar_arrive(&sm.item_empty[ib]);
+        }
+        t += n_tiles;
+        if constexpr (WITH_DK) store_rows<D>(dk, acc_k, key_a, Sk, H, b, h, scale, lane);
+        if constexpr (WITH_DV) store_rows<D>(dv, acc_v, key_a, Sk, H, b, h, 1.f, lane);
       }
-      const int last = (t + n_tiles - 1) % G::STAGES;
-      wgmma_fence();
-      issue_kv(last);
-      wgmma_commit();
-      wgmma_wait<0>();
-      retire_kv();
-      if (tid == 0) mbar_arrive(&sm.empty[last]);
-      if constexpr (A_SMEM) {
-        named_sync(3 + c, 128);  // every warp's products that read the item have retired
-        if (tid == 0) mbar_arrive(&sm.item_empty[ib]);
-      }
-      t += n_tiles;
-      store_rows<D>(dk, acc_k, key_a, Sk, H, b, h, scale, lane);
-      store_rows<D>(dv, acc_v, key_a, Sk, H, b, h, 1.f, lane);
+    };
+    // split, the dK role (S^T, dP^T, dS^T and dK: 160 accumulator and
+    // fragment registers, beside a full bias's loads) takes 8 registers a
+    // thread of the dV role's (S^T, P^T and dV: 128)
+    if constexpr (!C::SPLIT) {
+      setmaxnreg_inc<232>();
+      consume(std::integral_constant<Role, BOTH>());
+    } else if (c == 0) {
+      setmaxnreg_inc<224>();
+      consume(std::integral_constant<Role, DV_ONLY>());
+    } else {
+      setmaxnreg_inc<240>();
+      consume(std::integral_constant<Role, DK_ONLY>());
     }
   }
 }
@@ -783,13 +880,14 @@ struct Args {
 
 template <int D, int BIAS>
 int launch_dq(const Maps& m, const Args& a) {
+  using C = Cfg<D, false>;
   int sms = 0;
-  const int rc = sm_count<flash_bwd_dq_sm90_kernel<D, BIAS>, Geo<D>::SMEM>(&sms);
+  const int rc = sm_count<flash_bwd_dq_sm90_kernel<D, BIAS>, C::SMEM>(&sms);
   if (rc != 0) return rc;
-  const long long n_items = (long long)((a.Sq + ITEM_ROWS - 1) / ITEM_ROWS) * a.B * a.H;
+  const long long n_items = (long long)((a.Sq + C::ITEM - 1) / C::ITEM) * a.B * a.H;
   if (n_items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = static_cast<int>(n_items < sms ? n_items : sms);  // one block per SM, persistent
-  flash_bwd_dq_sm90_kernel<D, BIAS><<<grid, THREADS, Geo<D>::SMEM, a.stream>>>(
+  flash_bwd_dq_sm90_kernel<D, BIAS><<<grid, THREADS, C::SMEM, a.stream>>>(
       m.q, m.k, m.v, m.dout, static_cast<const float*>(a.bias), static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<__nv_bfloat16*>(a.out0), a.H, a.Sq, a.Sk, m.bias_sb,
       m.bias_sh, static_cast<int>(n_items), a.scale * LOG2E, a.scale);
@@ -798,27 +896,30 @@ int launch_dq(const Maps& m, const Args& a) {
 
 template <int D, int BIAS>
 int launch_dkv(const Maps& m, const Args& a) {
+  using C = Cfg<D, true>;
   int sms = 0;
-  const int rc = sm_count<flash_bwd_dkv_sm90_kernel<D, BIAS>, Geo<D>::SMEM>(&sms);
+  const int rc = sm_count<flash_bwd_dkv_sm90_kernel<D, BIAS>, C::SMEM>(&sms);
   if (rc != 0) return rc;
-  const long long n_items = (long long)((a.Sk + ITEM_ROWS - 1) / ITEM_ROWS) * a.B * a.H;
+  const long long n_items = (long long)((a.Sk + C::ITEM - 1) / C::ITEM) * a.B * a.H;
   if (n_items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = static_cast<int>(n_items < sms ? n_items : sms);
-  flash_bwd_dkv_sm90_kernel<D, BIAS><<<grid, THREADS, Geo<D>::SMEM, a.stream>>>(
+  flash_bwd_dkv_sm90_kernel<D, BIAS><<<grid, THREADS, C::SMEM, a.stream>>>(
       m.q, m.k, m.v, m.dout, static_cast<const float*>(a.bias), static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<__nv_bfloat16*>(a.out0), static_cast<__nv_bfloat16*>(a.out1),
       a.H, a.Sq, a.Sk, m.bias_sb, m.bias_sh, static_cast<int>(n_items), a.scale * LOG2E, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// encode the maps (q and dout in boxes of Q_ROWS rows, k and v of K_ROWS)
-// and launch the instance of head dim D and the bias mode
+// encode the maps (dK/dV: q and dout in boxes of a tile's rows, k and v of
+// an item's; dQ the other way round) and launch the instance of head dim D
+// and the bias mode
 template <int D, bool DKV>
 int run(const void* q, const void* k, const void* v, const void* dout, const unsigned long long* maps, int bias_mode,
         const Args& a) {
+  constexpr int ITEM = Cfg<D, DKV>::ITEM;
   Maps m;
-  const int rc = DKV ? encode_maps<D>(&m, q, k, v, dout, maps, TILE, ITEM_ROWS)
-                     : encode_maps<D>(&m, q, k, v, dout, maps, ITEM_ROWS, TILE);
+  const int rc = DKV ? encode_maps<D>(&m, q, k, v, dout, maps, TILE, ITEM)
+                     : encode_maps<D>(&m, q, k, v, dout, maps, ITEM, TILE);
   if (rc != 0) return rc;
   switch (bias_mode) {
     case 0: return DKV ? launch_dkv<D, 0>(m, a) : launch_dq<D, 0>(m, a);
@@ -835,6 +936,7 @@ int dispatch(int head_dim, const void* q, const void* k, const void* v, const vo
     case 40: return run<40, DKV>(q, k, v, dout, maps, bias_mode, a);
     case 64: return run<64, DKV>(q, k, v, dout, maps, bias_mode, a);
     case 80: return run<80, DKV>(q, k, v, dout, maps, bias_mode, a);
+    case 160: return run<160, DKV>(q, k, v, dout, maps, bias_mode, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -842,7 +944,7 @@ int dispatch(int head_dim, const void* q, const void* k, const void* v, const vo
 }  // namespace
 
 // q, dout: bf16 [B, Sq, H, D] and k, v: bf16 [B, Sk, H, D] views, D = 40,
-// 64 or 80; maps: four tensor-map specs of MAP_WORDS words (q, k, v, dout),
+// 64, 80 or 160; maps: four tensor-map specs of MAP_WORDS words (q, k, v, dout),
 // then the bias's batch and head strides in elements (bias_mode 1: [B, Sk]
 // key bias; 2: full, rows of Sk keys). lse, delta: contiguous fp32 [B, H,
 // Sq]. Outputs contiguous bf16 [B, S, H, D]. Each returns 0, a cudaError_t

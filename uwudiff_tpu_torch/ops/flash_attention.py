@@ -11,11 +11,12 @@ warpgroups) or an mma.sync one:
   kernel template (64 is SDXL's, CLIP's, T5's and the SD3 MMDiT's; 40/80/
   160 SD1.5's); ``csrc/flash_fwd.cu`` (mma.sync) computes the same function
   at 40/80/160 and stays built and tested as the yardstick, on no path;
-- dQ and dK/dV: ``csrc/flash_bwd_sm90.cu`` at D = 40, 64 and 80, one
+- dQ and dK/dV: ``csrc/flash_bwd_sm90.cu`` at D = 40, 64, 80 and 160, one
   kernel template each (D = 64's 128-byte swizzled tiles at every head
-  dim, the columns past D zero-filled); ``csrc/flash_bwd.cu`` (mma.sync) at
-  D = 160, where its dK/dV kernel splits the columns of dK and dV across
-  a warp pair;
+  dim, the columns past D zero-filled; at 160 dK/dV's two consumer
+  warpgroups share 64 keys, one accumulating dV and the other dK);
+  ``csrc/flash_bwd.cu`` (mma.sync) computes the same function at D = 160
+  and stays built and tested as the yardstick, on no path;
 - dQ + dBias (K5): ``csrc/flash_bwd.cu`` at every backward head dim.
 
 The Hopper kernels' tensor maps are computed and checked here
@@ -42,7 +43,8 @@ the JAX package.
 :func:`flash_fwd` (through :func:`forward_kernel`: :func:`flash_fwd_sm90`
 at every head dim; :func:`flash_fwd_mma` is called only by name),
 :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`
-(through :func:`backward_kernels`: the ``_sm90`` or the ``_mma`` pair) and
+(through :func:`backward_kernels`: the ``_sm90`` pair; the ``_mma`` pair
+is called only by name) and
 :func:`flash_bwd_dq_dbias` launch the kernels and take CUDA tensors only;
 :func:`flash_attention_reference` and
 :func:`flash_attention_backward_reference` are the plain PyTorch
@@ -80,14 +82,15 @@ __all__ = [
     "flash_fwd_mma",
     "flash_fwd_sm90",
     "forward_kernel",
+    "sm90_bwd_box_rows",
     "tma_map",
 ]
 
 NEG_INF = -1e30
 HEAD_DIMS = (40, 64, 80, 160)  # the Hopper forward's (D = 64: SDXL, CLIP, T5, the SD3 MMDiT; SD1.5's 40/80/160)
 MMA_HEAD_DIMS = (40, 80, 160)  # the mma.sync forward (SD1.5's), built and tested, on no path
-SM90_BWD_HEAD_DIMS = (40, 64, 80)  # the Hopper dQ and dK/dV kernels (SD1.5's 40/80 beside 64)
-MMA_BWD_HEAD_DIMS = (160,)  # the mma.sync dQ and dK/dV kernels (SD1.5's D = 160)
+SM90_BWD_HEAD_DIMS = (40, 64, 80, 160)  # the Hopper dQ and dK/dV kernels (SD1.5's 40/80/160 beside 64)
+MMA_BWD_HEAD_DIMS = (160,)  # the mma.sync dQ and dK/dV kernels (SD1.5's D = 160), built and tested, on no path
 BWD_HEAD_DIMS = (40, 64, 80, 160)  # every head dim a backward (and K5) was built for
 
 _fns: dict = {}
@@ -220,9 +223,11 @@ TMA_BOX_ROWS = 128  # rows of q (a work item's query tile) or k/v (a key tile) p
 # keys leaves room for one stage only)
 SM90_FWD_Q_ROWS = {40: 192, 64: 128, 80: 128, 160: 128}
 SM90_FWD_KEY_ROWS = {40: 128, 64: 128, 80: 128, 160: 64}
-# the Hopper backward's boxes: an item's 128 rows (q and dout for dQ, k and v
-# for dK/dV) and the 64-row tiles streamed past them
+# the Hopper backward's boxes: an item's rows (q and dout for dQ: 128; k and v
+# for dK/dV: 128, or 64 at D = 160, where both consumer warpgroups share an
+# item's keys) and the 64-row tiles streamed past them
 SM90_BWD_ITEM_ROWS, SM90_BWD_TILE_ROWS = 128, 64
+SM90_BWD_DKV_ITEM_ROWS = {40: 128, 64: 128, 80: 128, 160: 64}
 _TMA_ENCODE_FAILED = 100000  # the C side's code for a tensor map the driver refused (+ its CUresult)
 
 
@@ -392,12 +397,10 @@ flash_fwd_mma.head_dims = {}  # launches by head dim
 
 def backward_kernels(d):
     """The backward's (dQ, dK/dV) wrappers for head dim ``d``: the Hopper
-    kernels at D = 40/64/80, the mma.sync kernels at D = 160; any other
+    kernels at every head dim in :data:`SM90_BWD_HEAD_DIMS`; any other
     raises. (K5, the dQ + dBias kernel, is mma.sync at every head dim.)"""
     if d in SM90_BWD_HEAD_DIMS:
         return flash_bwd_dq_sm90, flash_bwd_dkv_sm90
-    if d in MMA_BWD_HEAD_DIMS:
-        return flash_bwd_dq_mma, flash_bwd_dkv_mma
     raise ValueError(f"flash_bwd: head dim {d} not in {BWD_HEAD_DIMS}")
 
 
@@ -414,13 +417,24 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, bias=None, scale=None):
     return backward_kernels(q.shape[-1])[1](q, k, v, dout, lse, delta, bias, scale)
 
 
-def _bwd_sm90(who, q, k, v, dout, lse, delta, bias, scale, q_rows, k_rows):
+def sm90_bwd_box_rows(d, dkv):
+    """(q and dout's box rows, k and v's) of the Hopper dQ kernel, or with
+    ``dkv`` the dK/dV kernel, at head dim ``d``: an item's rows for the
+    item's own inputs, a tile's for the streamed ones."""
+    if dkv:
+        return SM90_BWD_TILE_ROWS, SM90_BWD_DKV_ITEM_ROWS[d]
+    return SM90_BWD_ITEM_ROWS, SM90_BWD_TILE_ROWS
+
+
+def _bwd_sm90(who, q, k, v, dout, lse, delta, bias, scale, dkv):
     """What the two Hopper backward wrappers share: checks, tensor maps
-    (q and dout in boxes of ``q_rows``, k and v of ``k_rows``), the bias
-    in place, the C call's pointers before the outputs and its arguments
-    after them. The C side reads the map specs from ``words``, which must
-    outlive the call."""
+    (boxes of an item's rows for the item's own inputs, q and dout for dQ,
+    k and v for dK/dV with ``dkv``; of a tile's for the streamed ones), the
+    bias in place, the C call's pointers before the outputs and its
+    arguments after them. The C side reads the map specs from ``words``,
+    which must outlive the call."""
     _check(who, SM90_BWD_HEAD_DIMS, ("q", q), ("k", k), ("v", v), ("dout", dout))
+    q_rows, k_rows = sm90_bwd_box_rows(q.shape[-1], dkv)
     maps = [tma_map(t, who=who, name=n, rows=r, head_dims=SM90_BWD_HEAD_DIMS)
             for n, t, r in (("q", q, q_rows), ("k", k, k_rows), ("v", v, k_rows), ("dout", dout, q_rows))]
     b, sq, h, d = q.shape
@@ -435,10 +449,9 @@ def _bwd_sm90(who, q, k, v, dout, lse, delta, bias, scale, q_rows, k_rows):
 
 
 def flash_bwd_dq_sm90(q, k, v, dout, lse, delta, bias=None, scale=None):
-    """Launch the Hopper dQ kernel (K4, D = 40/64/80): q/k/v/dout go in
+    """Launch the Hopper dQ kernel (K4, D = 40/64/80/160): q/k/v/dout go in
     uncopied through TMA tensor maps, a full bias is read in place."""
-    maps, _words, ptrs, args = _bwd_sm90("flash_bwd_dq_sm90", q, k, v, dout, lse, delta, bias, scale,
-                                         SM90_BWD_ITEM_ROWS, SM90_BWD_TILE_ROWS)
+    maps, _words, ptrs, args = _bwd_sm90("flash_bwd_dq_sm90", q, k, v, dout, lse, delta, bias, scale, False)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     rc = _kernel("flash_bwd_sm90.cu", "uwu_flash_bwd_dq_sm90", 8)(*ptrs, dq.data_ptr(), *args)
     _check_sm90_rc("flash_bwd_dq_sm90", rc, maps)
@@ -452,9 +465,8 @@ flash_bwd_dq_sm90.head_dims = {}  # launches by head dim
 
 
 def flash_bwd_dkv_sm90(q, k, v, dout, lse, delta, bias=None, scale=None):
-    """Launch the Hopper dK/dV kernel (K6, D = 40/64/80). Returns (dk, dv)."""
-    maps, _words, ptrs, args = _bwd_sm90("flash_bwd_dkv_sm90", q, k, v, dout, lse, delta, bias, scale,
-                                         SM90_BWD_TILE_ROWS, SM90_BWD_ITEM_ROWS)
+    """Launch the Hopper dK/dV kernel (K6, D = 40/64/80/160). Returns (dk, dv)."""
+    maps, _words, ptrs, args = _bwd_sm90("flash_bwd_dkv_sm90", q, k, v, dout, lse, delta, bias, scale, True)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     rc = _kernel("flash_bwd_sm90.cu", "uwu_flash_bwd_dkv_sm90", 9)(*ptrs, dk.data_ptr(), dv.data_ptr(), *args)
@@ -469,7 +481,8 @@ flash_bwd_dkv_sm90.head_dims = {}  # launches by head dim
 
 
 def flash_bwd_dq_mma(q, k, v, dout, lse, delta, bias=None, scale=None):
-    """Launch the mma.sync dQ kernel (K4, D = 160)."""
+    """Launch the mma.sync dQ kernel (K4, D = 160), the yardstick of the
+    Hopper one there, on no path."""
     _check("flash_bwd_dq_mma", MMA_BWD_HEAD_DIMS, ("q", q), ("k", k), ("v", v), ("dout", dout))
     b, sq, h, d = q.shape
     scale = scale if scale is not None else d**-0.5
@@ -525,7 +538,8 @@ flash_bwd_dq_dbias.launches = 0
 
 
 def flash_bwd_dkv_mma(q, k, v, dout, lse, delta, bias=None, scale=None):
-    """Launch the mma.sync dK/dV kernel (K6, D = 160). Returns (dk, dv)."""
+    """Launch the mma.sync dK/dV kernel (K6, D = 160), the yardstick of the
+    Hopper one there, on no path. Returns (dk, dv)."""
     _check("flash_bwd_dkv_mma", MMA_BWD_HEAD_DIMS, ("q", q), ("k", k), ("v", v), ("dout", dout))
     b, sq, h, d = q.shape
     sk = k.shape[1]
