@@ -8,11 +8,15 @@ Phases, each fatal on failure:
   2. kernels - each kernel against its plain PyTorch version on the card,
                in bf16: the forward and backward kernels at the serving,
                training and textual-inversion paths' shapes (CLIP-L/bigG,
-               T5-XXL, the MMDiT's joint attention) and at every attention
+               T5-XXL at 256 and at Flux's 512 tokens, the MMDiT's joint
+               attention) and at every attention
                shape of the SD1.5 step (batch 16; head dims 40/80/160: the
                Hopper forward, timed beside the mma.sync one it replaced on
                the path, and at 160 the Hopper dQ and dK/dV beside the
-               mma.sync pair they replaced), each twice for bitwise
+               mma.sync pair they replaced) and at flux_dev's joint
+               attention (D = 128 with the T5 mask: 1024^2 alone and in a
+               batch of 4, 512^2; D = 128 with no bias at 512^2 and with a
+               key bias at a ragged shape), each twice for bitwise
                reproducibility,
                the dQ + dBias kernel at T5-XXL's and at D = 160; every
                GroupNorm shape on the route plan_gn gives it (the fused
@@ -85,6 +89,20 @@ Phases, each fatal on failure:
                step's launches against the plan from the modules (K4 in
                every T5 layer, whose learned bias is frozen here, so no K5;
                every flash forward, dQ and dK/dV on the Hopper kernels).
+  7. flux    - Flux txt2img at flux_dev's full width and depth (19 double
+               and 38 single blocks, 24 heads of 128; random bf16 weights,
+               the zero-initialised leaves drawn) with CLIP-L pooled-only,
+               T5-XXL at 512 tokens with its key mask and the 16-channel
+               decoder, through sampling.diffusion_sampling (RFDenoiser,
+               cfg 1, the dynamic-shift RF ladder, Euler-ancestral):
+               first a 2 + 2 block Flux at that width on the card against
+               the same weights on the CPU, then a lone 1024x1024 request
+               and a batch of 4, 4 steps each. Checks that each run launched
+               flash_fwd_sm90 57 x 4 times at D = 128 and every flash
+               forward on it, the images (1024x1024 uint8, not constant),
+               finite latents, each new GroupNorm call of the decode; prints
+               per-step ms, the encode / step / decode phases, the card's
+               busy share over a step and the peak GiB.
 Prints the card's name and power limit, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA is
 unavailable or the package is missing. A full report goes to
@@ -251,9 +269,23 @@ def flash_cases():
         ("clip_bigg_causal", 8, 77, 77, 20, 64, "full", None),
         ("clip_l_causal", 8, 77, 77, 12, 64, "full", None),
         ("t5_xxl", 8, 256, 256, 64, 64, "t5", 1.0),
+        ("t5_xxl_512", 8, 512, 512, 64, 64, "t5", 1.0),  # the Flux stack's T5-XXL at 512 tokens
         ("mmdit_joint", 8, 1357, 1357, 24, 64, "joint", None),
         ("ragged_keymask", 2, 200, 200, 4, 64, "key", None),
-    ] + SD15_ATTENTION
+    ] + SD15_ATTENTION + FLUX_ATTENTION
+
+
+# flux_dev's joint attention (24 heads of 128) over 512 T5 tokens, masked
+# after each prompt's length (a key bias), and the image's tokens: a served
+# 1024^2 step alone and in a batch of 4, and a 512^2 request; then the
+# D = 128 instance with no bias, and a ragged key-bias shape (partial tiles)
+FLUX_ATTENTION = [
+    ("flux_1024_b1", 1, 4608, 4608, 24, 128, "flux", None),
+    ("flux_1024_b4", 4, 4608, 4608, 24, 128, "flux", None),
+    ("flux_512_b2", 2, 1536, 1536, 24, 128, "flux", None),
+    ("flux_512_b2_nobias", 2, 1536, 1536, 24, 128, "none", None),
+    ("ragged_key_d128", 2, 130, 300, 2, 128, "key", None),
+]
 
 
 # the SD1.5 training step's attentions at batch 16 and 64x64 latents: each
@@ -277,6 +309,11 @@ def make_bias(kind, b, h, sq, sk, dev, gen):
         mask = torch.ones(b, sk, device=dev)
         mask[:, sk - 37:] = 0
         return torch.where(mask.bool(), 0.0, neg)[:, None, None, :]
+    if kind == "flux":  # [T5's 512 | image]: each prompt's T5 tokens padded after its length
+        t5_len = (torch.arange(b, device=dev) * 53) % 512 + 7
+        keys = torch.arange(sk, device=dev)[None, :]
+        masked = (keys >= t5_len[:, None]) & (keys < 512)
+        return torch.where(masked, neg, 0.0)[:, None, None, :]
     if kind == "joint":  # [CLIP pair's 77 | T5's 256 | image]: each prompt's T5 tokens padded after its length
         keys = torch.arange(sk, device=dev)[None, :]
         t5_len = (torch.arange(b, device=dev) * 53) % TI_CONTEXT[1] + 7
@@ -1743,6 +1780,158 @@ def time_optimizer(trainer, failures) -> dict:
     return out
 
 
+# ------------------------------------------------------------------- flux
+
+FLUX_STEPS = 4
+FLUX_PROMPTS = ["a lighthouse at dusk, oil painting", "a red fox in snow", "a bowl of ramen, studio photo",
+                "an astronaut riding a horse"]
+FLUX_SEEDS = [21, 22, 23, 24]
+
+
+def check_flux_vs_cpu(failures):
+    """A Flux of 2 double and 2 single blocks at flux_dev's width (head dim
+    128, the zero-initialised leaves drawn): the card's bf16 forward through
+    the kernels against the same weights' fp32 forward on the CPU through
+    the plain versions, which the CPU tests hold against the JAX package;
+    256 image tokens and 64 text tokens with the T5 mask, as a key bias."""
+    import copy
+
+    from uwudiff_tpu_torch.models import Flux
+    from uwudiff_tpu_torch.ops import launches_by_head_dim, reset_launch_counts
+    from uwudiff_tpu_torch.training.bench_setup import fill_zero_initialised
+
+    torch.manual_seed(SEED + 5)
+    cpu = fill_zero_initialised(Flux.from_config("flux_dev", device="cuda", depth=2, depth_single=2)).cpu()
+    gpu = copy.deepcopy(cpu).to(device="cuda", dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(SEED + 6)
+    x = torch.randn((2, 32, 32, 16), generator=gen)
+    t = torch.tensor([10.5, 731.25])
+    ctx = torch.randn((2, 64, 4096), generator=gen)
+    mask = (torch.arange(64)[None, :] < torch.tensor([[9], [64]])).int()
+    pooled = torch.randn((2, 768), generator=gen)
+    with torch.inference_mode():
+        ref = cpu(x, t, ctx, mask, {"text_embeds": pooled})
+        reset_launch_counts()
+        out = gpu(*(a.cuda() for a in (x, t, ctx, mask)), {"text_embeds": pooled.cuda()})
+        launches = launches_by_head_dim()["flash_fwd_sm90"].get(128, 0)
+    err = ((out.float().cpu() - ref).abs().max() / ref.abs().max().clamp_min(1e-6)).item()
+    finite = bool(torch.isfinite(out).all())
+    tol = 5e-2  # bf16 weights and activations through four blocks, as check_models_vs_cpu
+    log(f"  flux (2 + 2 blocks, width 3072) card bf16 vs CPU fp32 plain: rel err {err:.2e} (tol {tol});"
+        f" |ref| max {ref.abs().max().item():.3e}; flash_fwd_sm90 at D = 128: {launches} launches")
+    if not (finite and err <= tol and ref.abs().max() > 0 and launches == 4):
+        failures.append(f"flux card vs CPU: rel err {err} (tol {tol}), finite {finite}, D = 128 launches {launches}"
+                        " (4 expected)")
+    del cpu, gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"rel_err": err, "tol": tol, "flash_fwd_d128_launches": launches}
+
+
+def flux_phases(pipe, n):
+    """One request batch of n, phase by phase with a sync after each: the
+    text encode, one denoiser step (CUDA events, the median of 3), the
+    decode; and the card's busy share over one step (torch.profiler: device
+    time over the traced wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from uwudiff_tpu_torch.diffusion import NoiseSchedule
+    from uwudiff_tpu_torch.sampling import RFDenoiser, build_cfg_fn, encode_cfg_inputs
+
+    out = {}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = encode_cfg_inputs(FLUX_PROMPTS[:n], [""] * n, RES, RES, pipe.te)
+        torch.cuda.synchronize()
+        out["encode_s"] = time.perf_counter() - t0
+        den = RFDenoiser(model_fn=pipe.model, schedule=NoiseSchedule.sdxl().to("cuda"))
+        step = build_cfg_fn(den, enc, 1.0)
+        x = torch.randn((n, RES // 8, RES // 8, 16), device="cuda")
+        sigma = torch.full((n,), 5.0, device="cuda")
+        out["step_ms"] = time_ms(lambda: step(x, sigma), reps=1, warmup=1, runs=3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(x, sigma)
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        out.update(traced_step_window_ms=window_ms, traced_step_busy_ms=busy_ms, busy_share=busy_ms / window_ms)
+        t0 = time.perf_counter()
+        pipe.vae.decode(x)
+        torch.cuda.synchronize()
+        out["decode_s"] = time.perf_counter() - t0
+    return out
+
+
+def flux(report, failures):
+    """flux_dev txt2img at 1024x1024 through diffusion_sampling: a lone
+    request and a batch of 4, FLUX_STEPS steps each."""
+    from uwudiff_tpu_torch.ops import launch_counts, launches_by_head_dim, reset_launch_counts
+    from uwudiff_tpu_torch.serving import flux_txt2img
+    from uwudiff_tpu_torch.training.bench_setup import fill_zero_initialised
+
+    report["flux_vs_cpu"] = check_flux_vs_cpu(failures)
+    t0 = time.perf_counter()
+    pipe = flux_txt2img("cuda", torch.bfloat16, SEED)
+    fill_zero_initialised(pipe.model)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = {name: sum(p.numel() for p in m.parameters())
+                for name, m in (("flux", pipe.model), ("text_encoders", pipe.te.module), ("vae_decoder", pipe.vae))}
+    log(f"  built flux_dev + clip_l + t5_xxl + 16-channel vae in {build_s:.1f} s: {n_params};"
+        f" {torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    t0 = time.perf_counter()
+    for n in (1, 4):  # one pass per batch size
+        pipe(FLUX_PROMPTS[:n], num_steps=1, num_samples=n, seed=FLUX_SEEDS[:n], width=RES, height=RES)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    gn_calls: list = []
+    hooks = record_gn_calls([pipe.vae], gn_calls)
+    runs, counts_total = {}, None
+    torch.cuda.reset_peak_memory_stats()
+    for n in (1, 4):
+        reset_launch_counts()  # the main path's run starts here (the count of each batch size)
+        t0 = time.perf_counter()
+        images = pipe(FLUX_PROMPTS[:n], num_steps=FLUX_STEPS, num_samples=n, seed=FLUX_SEEDS[:n], width=RES,
+                      height=RES)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts, by_dim = launch_counts(), launches_by_head_dim()  # and ends here
+        counts_total = counts if counts_total is None else {k: counts_total[k] + v for k, v in counts.items()}
+        d128 = by_dim["flash_fwd_sm90"].get(128, 0)
+        check_forward_route(counts, f"flux batch {n}", failures)
+        if d128 != 57 * FLUX_STEPS:
+            failures.append(f"flux batch {n}: flash_fwd_sm90 ran {d128} times at D = 128, 57 x {FLUX_STEPS} expected")
+        stds = [float(img.astype(np.float32).std()) for img in images]
+        if len(images) != n or any(img.shape != (RES, RES, 3) or img.dtype != np.uint8 for img in images) or \
+                not all(sd > 0 for sd in stds):
+            failures.append(f"flux batch {n}: {len(images)} images, shapes {[i.shape for i in images]}, stds {stds}")
+        runs[n] = dict(wall_s=wall_s, imgs_per_s=n / wall_s, launches=counts, launches_by_head_dim=by_dim,
+                       flash_fwd_d128=d128, image_stds=stds)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for h in hooks:
+        h.remove()
+    lat = pipe(FLUX_PROMPTS[1], num_steps=FLUX_STEPS, num_samples=1, seed=FLUX_SEEDS[1], width=RES, height=RES,
+               return_latents=True)
+    lat_std = lat.float().std().item()
+    if not (bool(torch.isfinite(lat).all()) and lat_std > 0):
+        failures.append(f"flux latents: finite {bool(torch.isfinite(lat).all())}, std {lat_std}")
+    phases = {f"batch_{n}": flux_phases(pipe, n) for n in (1, 4)}
+    gn_checks = check_gn_calls(gn_calls, failures, backward=False)
+    report["flux"] = dict(
+        model="flux_dev", steps=FLUX_STEPS, resolution=RES, t5_tokens=512, joint_tokens=512 + (RES // 16) ** 2,
+        params=n_params, build_s=build_s, warmup_s=warmup_s, runs=runs, peak_memory_gib=peak_gib,
+        latents_std=lat_std, phases=phases, gn_call_checks=gn_checks)
+    log(f"  flux_dev ({report['card']}): lone request {runs[1]['wall_s']:.2f} s, batch of 4 {runs[4]['wall_s']:.2f} s"
+        f" ({runs[4]['imgs_per_s']:.3f} imgs/s); peak {peak_gib:.1f} GiB; D = 128 launches"
+        f" {runs[1]['flash_fwd_d128']} + {runs[4]['flash_fwd_d128']}; latents std {lat_std:.3f}")
+    log(f"  flux phases: {json.dumps(phases)}")
+    return counts_total, runs[1]["flash_fwd_d128"] + runs[4]["flash_fwd_d128"]
+
+
 def record_gn_calls(modules, calls):
     """Forward pre-hooks that append (n, hw, c, groups, silu, eps) of every
     GroupNorm call under ``modules`` to ``calls`` (its first four are what
@@ -2193,7 +2382,7 @@ def main() -> int:
     report = {"card": smi, "sm_clock_max_mhz": float(clock), "torch": torch.__version__, "cuda": torch.version.cuda}
     failures: list[str] = []
 
-    log("[1/6] build")
+    log("[1/7] build")
     built = build_all()
     report["build_s"] = built["seconds"]
     log(f"  built in {built['seconds']:.1f} s")
@@ -2213,7 +2402,7 @@ def main() -> int:
         seconds[key] = time.perf_counter() - t0
         return out
 
-    log("[2/6] kernels vs plain (bf16)")
+    log("[2/7] kernels vs plain (bf16)")
     results: list[dict] = []
     for check in (check_flash, check_gn, check_flash_bwd, check_flash_dbias, check_gn_bwd, check_optimizer):
         timed(check.__name__, check, results, failures)
@@ -2223,23 +2412,28 @@ def main() -> int:
     report["sd15_train_step_vs_cpu"] = timed("check_sd15_train_vs_cpu", check_sd15_train_vs_cpu, failures)
     report["ti_step_vs_cpu"] = timed("check_ti_vs_cpu", check_ti_vs_cpu, failures)
 
-    log("[3/6] serve SDXL 1024x1024")
+    log("[3/7] serve SDXL 1024x1024")
     serve_counts = timed("serve", serve, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # the serving stack is gone before the trainer is built
 
-    log("[4/6] train SDXL (full fine-tune, batch 8, 64x64 latents)")
+    log("[4/7] train SDXL (full fine-tune, batch 8, 64x64 latents)")
     counts = timed("train", train, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SDXL trainer before the SD1.5 one
 
-    log("[5/6] train SD1.5 (full fine-tune, batch 16, 64x64 latents)")
+    log("[5/7] train SD1.5 (full fine-tune, batch 16, 64x64 latents)")
     sd15_counts, sd15_by_dim = timed("train_sd15", train_sd15, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SD1.5 trainer before the SD3 one
 
-    log("[6/6] textual inversion SD3-medium + CLIP-L + CLIP-bigG + T5-XXL (batch 8, 64x64x16 latents)")
+    log("[6/7] textual inversion SD3-medium + CLIP-L + CLIP-bigG + T5-XXL (batch 8, 64x64x16 latents)")
     ti_counts = timed("ti", ti, report, failures)
+    gc.collect()
+    torch.cuda.empty_cache()  # and the SD3 trainer before the Flux stack
+
+    log("[7/7] serve Flux (flux_dev + CLIP-L + T5-XXL at 512 tokens) 1024x1024")
+    flux_counts, flux_d128 = timed("flux", flux, report, failures)
 
     # (kernel, the case of its row's numbers): the kernels serving SD1.5 at
     # its level-0 self-attention (D = 40) and at level 2 (D = 160): the
@@ -2247,7 +2441,8 @@ def main() -> int:
     # forward, dQ and dK/dV, on no path since the Hopper ones took SD1.5's
     # head dims, the forward at level 0, dQ and dK/dV at level 2
     main_case = [("flash_fwd_sm90", "sdxl_l1_self"), ("flash_fwd_sm90", "sd15_l0_self"),
-                 ("flash_fwd_sm90", "sd15_l2_self"), ("flash_fwd_mma", "sd15_l0_self"),
+                 ("flash_fwd_sm90", "sd15_l2_self"), ("flash_fwd_sm90", "flux_1024_b1"),
+                 ("flash_fwd_mma", "sd15_l0_self"),
                  ("flash_bwd_dq_sm90", "train_l1_self"),
                  ("flash_bwd_dkv_sm90", "train_l1_self"), ("flash_bwd_dq_sm90", "sd15_l0_self"),
                  ("flash_bwd_dkv_sm90", "sd15_l0_self"), ("flash_bwd_dq_sm90", "sd15_l2_self"),
@@ -2277,8 +2472,9 @@ def main() -> int:
     # the count of the run whose path the row's shape is from: K5's is the
     # textual-inversion step's (0: no path trains an attention bias), the
     # chunked GroupNorm pair's the served batch's, a flash kernel's at
-    # SD1.5's head dims the SD1.5 step's at the row's head dim, the others'
-    # the SDXL training step's
+    # SD1.5's head dims the SD1.5 step's at the row's head dim, the forward's
+    # at D = 128 the Flux runs' (a lone request and a batch of 4), the
+    # others' the SDXL training step's
     path_counts = {"flash_bwd_dq_dbias": ti_counts, "gn_stats": serve_counts, "gn_silu_apply": serve_counts}
     kernels = []
     for name, case in main_case:
@@ -2286,17 +2482,20 @@ def main() -> int:
         by_dim = name in sd15_by_dim
         d = row["shape"][-1]
         sd15 = by_dim and d in (40, 80, 160)
+        if name == "flash_fwd_sm90" and d == 128:
+            launches = flux_d128
+        else:
+            launches = sd15_by_dim[name].get(d, 0) if sd15 else path_counts.get(name, counts)[name]
         kernels.append(dict(
             name=name, route="cuda", source=source.get(name, csrc + "groupnorm_silu.cu"),
-            replaces=replaces[name],
-            launches=sd15_by_dim[name].get(d, 0) if sd15 else path_counts.get(name, counts)[name],
+            replaces=replaces[name], launches=launches,
             max_abs_err=max(r["max_abs_err"] for r in results if r["kernel"] == name
                             and (not by_dim or r["shape"][-1] == d)),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], device_ms=row.get("device_ms", row.get("kernel_device_ms")),
             shape=row["shape"], case=case,
             serving_launches=serve_counts[name], train_launches=counts[name], sd15_launches=sd15_counts[name],
-            ti_launches=ti_counts[name],
+            ti_launches=ti_counts[name], flux_launches=flux_counts[name],
         ))
     # the update's kernels (no Pallas kernel stood there: optax through XLA),
     # checked and timed over the SDXL step's leaves (O1) and the SD1.5 step's
@@ -2316,7 +2515,7 @@ def main() -> int:
                 shape=f"{opt['leaves']} {what} leaves, {opt['params']} params",
                 plain_is="the whole plain update of the leaves (training/optimizers.py::apply_update_)",
                 serving_launches=serve_counts[name], train_launches=counts[name], sd15_launches=sd15_counts[name],
-                ti_launches=ti_counts[name],
+                ti_launches=ti_counts[name], flux_launches=flux_counts[name],
             ))
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start

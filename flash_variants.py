@@ -5,7 +5,7 @@
 Each forward variant (``VARIANTS``) is ``csrc/flash_fwd_sm90.cu`` with one
 choice of its ``Cfg`` changed (a textual substitution): the consumer
 warpgroups, the share of exp2 on the FMA pipe, the Q buffers, the K/V
-stages. Each backward variant (``BWD_VARIANTS``) is
+stages, the key tile (at Flux's D = 128). Each backward variant (``BWD_VARIANTS``) is
 ``csrc/flash_bwd_sm90.cu`` with one choice of the D = 160 design changed:
 dK/dV's item buffers. Each is built with
 ``nvcc`` into ``csrc/build/variants/``, its ptxas spills and serialised
@@ -42,21 +42,26 @@ fa = importlib.import_module("uwudiff_tpu_torch.ops.flash_attention")
 L0, L0_CROSS = (16, 4096, 4096, 8, 40), (16, 4096, 77, 8, 40)  # SD1.5's shapes (B, Sq, Sk, H, D)
 L1, L2, L2_CROSS = (16, 1024, 1024, 8, 80), (16, 256, 256, 8, 160), (16, 256, 77, 8, 160)
 SDXL_L1, SDXL_L2 = (8, 4096, 4096, 10, 64), (8, 1024, 1024, 20, 64)
+FLUX_1024, FLUX_512 = (1, 4608, 4608, 24, 128), (2, 1536, 1536, 24, 128)  # flux_dev's joint attention
 
-# name -> (what the committed line becomes, the forward's query rows it
-# needs by head dim, the shapes to time)
+# name -> (what the committed line becomes, the forward's query rows and key
+# rows it needs by head dim, the shapes to time)
 VARIANTS = {
-    "d40_two_consumers": (("CONSUMERS = D == 40 ? 3 : 2", "CONSUMERS = 2"), {40: 128}, (L0, L0_CROSS)),
-    "d64_three_consumers": (("CONSUMERS = D == 40 ? 3 : 2", "CONSUMERS = D <= 64 ? 3 : 2"), {64: 192},
+    "d40_two_consumers": (("CONSUMERS = D == 40 ? 3 : 2", "CONSUMERS = 2"), {40: 128}, {}, (L0, L0_CROSS)),
+    "d64_three_consumers": (("CONSUMERS = D == 40 ? 3 : 2", "CONSUMERS = D <= 64 ? 3 : 2"), {64: 192}, {},
                             (SDXL_L1, SDXL_L2)),
-    "d40_exp2_fma_one_in_4": (("EMU_EVERY = 8;", "EMU_EVERY = D == 40 ? 4 : 8;"), {}, (L0, L0_CROSS)),
-    "d40_exp2_fma_one_in_2": (("EMU_EVERY = 8;", "EMU_EVERY = D == 40 ? 2 : 8;"), {}, (L0,)),
-    "d80_exp2_fma_one_in_4": (("EMU_EVERY = 8;", "EMU_EVERY = D == 80 ? 4 : 8;"), {}, (L1,)),
-    "d80_d160_exp2_on_sfu": (("EMU_EVERY = 8;", "EMU_EVERY = D > 64 ? 0 : 8;"), {}, (L1, L2)),
-    "d80_two_q_buffers": (("Q_STAGES = D > 64 ? 1 : 2", "Q_STAGES = D == 160 ? 1 : 2"), {}, (L1,)),
-    "d160_two_q_buffers": (("Q_STAGES = D > 64 ? 1 : 2", "Q_STAGES = D == 80 ? 1 : 2"), {}, (L2, L2_CROSS)),
-    "four_stages": (("STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES", "STAGES = FIT < 4 ? FIT : 4"), {},
+    "d40_exp2_fma_one_in_4": (("EMU_EVERY = 8;", "EMU_EVERY = D == 40 ? 4 : 8;"), {}, {}, (L0, L0_CROSS)),
+    "d40_exp2_fma_one_in_2": (("EMU_EVERY = 8;", "EMU_EVERY = D == 40 ? 2 : 8;"), {}, {}, (L0,)),
+    "d80_exp2_fma_one_in_4": (("EMU_EVERY = 8;", "EMU_EVERY = D == 80 ? 4 : 8;"), {}, {}, (L1,)),
+    "d80_d160_exp2_on_sfu": (("EMU_EVERY = 8;", "EMU_EVERY = D > 64 ? 0 : 8;"), {}, {}, (L1, L2)),
+    "d80_two_q_buffers": (("Q_STAGES = D > 64 ? 1 : 2", "Q_STAGES = D == 160 ? 1 : 2"), {}, {}, (L1,)),
+    "d160_two_q_buffers": (("Q_STAGES = D > 64 ? 1 : 2", "Q_STAGES = D == 80 ? 1 : 2"), {}, {}, (L2, L2_CROSS)),
+    "four_stages": (("STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES", "STAGES = FIT < 4 ? FIT : 4"), {}, {},
                     (L0, SDXL_L1)),
+    "d128_64_key_tiles": (("BLOCK_N = D > 128 ? 64 : 128", "BLOCK_N = D >= 128 ? 64 : 128"), {}, {128: 64},
+                          (FLUX_1024, FLUX_512)),
+    "d128_two_q_buffers": (("Q_STAGES = D > 64 ? 1 : 2", "Q_STAGES = D > 64 && D != 128 ? 1 : 2"), {}, {},
+                           (FLUX_1024, FLUX_512)),
 }
 # name -> (what the committed line of flash_bwd_sm90.cu becomes, the shapes
 # to time): at D = 160, dK/dV with two item buffers and two ring stages in
@@ -82,21 +87,24 @@ def _build_variant(name, old, new, source="flash_fwd_sm90.cu"):
 
 
 @contextlib.contextmanager
-def _as_the_kernel(lib, q_rows):
+def _as_the_kernel(lib, q_rows, key_rows):
     """flash_fwd_sm90 launches the variant's library (and boxes q in the
-    variant's work-item rows) inside the block."""
+    variant's work-item rows, k and v in its key tile) inside the block."""
     fn = ctypes.CDLL(str(lib)).uwu_flash_fwd_sm90
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
-    saved_fn, saved_rows = fa._fns.get("uwu_flash_fwd_sm90"), dict(fa.SM90_FWD_Q_ROWS)
+    tables = ((fa.SM90_FWD_Q_ROWS, q_rows), (fa.SM90_FWD_KEY_ROWS, key_rows))
+    saved_fn, saved = fa._fns.get("uwu_flash_fwd_sm90"), [dict(table) for table, _ in tables]
     fa._fns["uwu_flash_fwd_sm90"] = fn
-    fa.SM90_FWD_Q_ROWS.update(q_rows)
+    for table, rows in tables:
+        table.update(rows)
     try:
         yield
     finally:
         fa._fns["uwu_flash_fwd_sm90"] = saved_fn
-        fa.SM90_FWD_Q_ROWS.clear()
-        fa.SM90_FWD_Q_ROWS.update(saved_rows)
+        for (table, _), rows in zip(tables, saved):
+            table.clear()
+            table.update(rows)
 
 
 @contextlib.contextmanager
@@ -235,8 +243,8 @@ def main() -> int:
             (old, new), shapes = BWD_VARIANTS[name]
             as_variant, check = (lambda: _as_the_backward(lib)), _check_bwd  # noqa: E731
         else:
-            (old, new), q_rows, shapes = VARIANTS[name]
-            as_variant, check = (lambda: _as_the_kernel(lib, q_rows)), _check  # noqa: E731
+            (old, new), q_rows, key_rows, shapes = VARIANTS[name]
+            as_variant, check = (lambda: _as_the_kernel(lib, q_rows, key_rows)), _check  # noqa: E731
         warnings = [ln.strip() for ln in (out + err).splitlines()
                     if "(C75" in ln or re.search(r"[1-9]\d* bytes spill stores", ln)]
         dims = sorted({s[-1] for s in shapes})

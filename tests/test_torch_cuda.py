@@ -84,6 +84,7 @@ def _assert_flash_close(out, ref):
         (2, 130, 300, 2, 40, "key"),
         (1, 64, 129, 2, 80, "none"),
         (1, 100, 100, 2, 160, "full"),
+        (2, 130, 300, 2, 128, "key"),
     ],
 )
 def test_flash_kernel_matches_plain(dev, b, sq, sk, h, d, kind):
@@ -110,7 +111,9 @@ def test_flash_kernel_takes_strided_heads(dev):
 # every D = 64 attention shape the serve, train and textual-inversion paths
 # run (B, Sq, Sk, H, D, bias kind, scale), and a ragged one with a key mask;
 # SD1.5's eight at D = 40/80/160 (each level's self- and cross-attention at
-# 64^2 latents, batch cut to 2), and a key and a full bias at each head dim
+# 64^2 latents, batch cut to 2), and a key and a full bias at each head dim;
+# Flux's D = 128 joint attention at 1024^2 (512 text + 4096 image tokens,
+# the T5 mask as a key bias) and at 512^2, unmasked
 _PATH_CASES = [
     (8, 4096, 4096, 10, 64, "none", None),  # SDXL level 1 self-attention, serving (128^2 latents)
     (8, 1024, 1024, 20, 64, "none", None),  # level 2, serving
@@ -139,6 +142,10 @@ _PATH_CASES = [
     (2, 130, 130, 3, 80, "full", None),
     (2, 300, 200, 3, 160, "key", None),
     (2, 130, 130, 3, 160, "full", None),
+    (1, 4608, 4608, 24, 128, "key", None),  # flux_dev's served step
+    (2, 1536, 1536, 24, 128, "none", None),  # a 512^2 request
+    (2, 300, 200, 3, 128, "key", None),
+    (2, 130, 130, 3, 128, "full", None),
 ]
 
 
@@ -160,7 +167,7 @@ def test_hopper_forward_matches_plain_at_the_path_shapes(dev, b, sq, sk, h, d, k
     assert (lse - ref_lse).abs().max().item() < 1e-3
 
 
-@pytest.mark.parametrize("d", [64, 40])
+@pytest.mark.parametrize("d", [64, 40, 128])
 def test_hopper_forward_takes_fused_qkv_head_views(dev, d):
     """q/k/v as [B, S, H, D] views of one [B, S, 3, H, D] projection go
     into the tensor maps with their own strides, uncopied."""
@@ -205,10 +212,13 @@ def test_hopper_forward_refuses_views_tma_cannot_take(dev):
 
 
 @pytest.mark.parametrize("d,kernel", [(64, "flash_fwd_sm90"), (40, "flash_fwd_sm90"), (80, "flash_fwd_sm90"),
-                                      (160, "flash_fwd_sm90")])
+                                      (128, "flash_fwd_sm90"), (160, "flash_fwd_sm90")])
 def test_forward_dispatches_on_the_head_dim(dev, d, kernel):
     """Every head dim on the Hopper forward; the mma.sync one, on no path,
-    refuses D = 64 and is right at SD1.5's head dims."""
+    refuses D = 64 and 128 and is right at SD1.5's head dims."""
+    from uwudiff_tpu_torch.ops.flash_attention import MMA_HEAD_DIMS, forward_kernel
+
+    assert forward_kernel(d) is flash_fwd_sm90
     q = torch.randn((1, 130, 2, d), device=dev, dtype=torch.bfloat16)
     reset_launch_counts()
     out, _ = flash_fwd(q, q, q)
@@ -216,7 +226,7 @@ def test_forward_dispatches_on_the_head_dim(dev, d, kernel):
     assert counts[kernel] == counts["flash_fwd"] == 1
     ref = flash_attention_reference(q, q, q)[0]
     _assert_flash_close(out, ref)
-    if d == 64:
+    if d not in MMA_HEAD_DIMS:
         with pytest.raises(ValueError, match="head dim"):
             flash_fwd_mma(q, q, q)
     else:
@@ -518,6 +528,19 @@ def test_flash_bwd_raises_for_a_head_dim_it_was_not_built_for(dev):
     reset_launch_counts()
     with pytest.raises(ValueError, match="head dim"):
         flash_bwd(q, q, q, None, out, lse, torch.ones_like(out))
+    assert launch_counts()["flash_bwd_dq"] == launch_counts()["flash_bwd_dkv"] == 0
+
+
+def test_flash_bwd_raises_at_fluxs_head_dim(dev):
+    """The forward runs at D = 128, the backward is not built there yet: the
+    autograd function's backward raises, it does not fall back."""
+    q, k, v = (torch.randn((1, 130, 2, 128), device=dev, dtype=torch.bfloat16, requires_grad=True)
+               for _ in range(3))
+    reset_launch_counts()
+    out = flash_attention(q, k, v)
+    assert launch_counts()["flash_fwd_sm90"] == 1
+    with pytest.raises(ValueError, match="head dim"):
+        out.backward(torch.ones_like(out))
     assert launch_counts()["flash_bwd_dq"] == launch_counts()["flash_bwd_dkv"] == 0
 
 

@@ -1,5 +1,5 @@
 """What surrounds the Hopper flash forward, on the CPU: the head-dim dispatch
-(the Hopper kernel at D = 40/64/80/160) and the TMA tensor-map arithmetic
+(the Hopper kernel at D = 40/64/80/128/160) and the TMA tensor-map arithmetic
 for ``[B, S, H, D]`` views (64-column boxes at every head dim).
 
 The kernel itself (``csrc/flash_fwd_sm90.cu``) runs only on the card and is
@@ -39,13 +39,13 @@ VARIANTS = _variants_script().VARIANTS
 
 
 @pytest.mark.parametrize("d,kernel", [(64, flash_fwd_sm90), (40, flash_fwd_sm90), (80, flash_fwd_sm90),
-                                      (160, flash_fwd_sm90)])
+                                      (128, flash_fwd_sm90), (160, flash_fwd_sm90)])
 def test_head_dim_selects_the_forward(d, kernel):
     assert d in HEAD_DIMS
     assert forward_kernel(d) is kernel
 
 
-@pytest.mark.parametrize("d", [16, 32, 48, 96, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 48, 96, 256])
 def test_other_head_dims_raise(d):
     with pytest.raises(ValueError, match="head dim"):
         forward_kernel(d)
@@ -95,6 +95,29 @@ def test_maps_at_sd15s_head_dims(d):
     assert q_map.strides == (2 * d, 3 * 2 * d, 100 * 3 * 2 * d)
     assert q_map.box == (64, 1, 192 if d == 40 else TMA_BOX_ROWS, 1)
     assert k_map.box == (64, 1, 64 if d == 160 else 128, 1)
+
+
+def test_maps_at_fluxs_head_dim():
+    # D = 128 fills two 64-column boxes exactly (TMA zero-fills nothing past
+    # D); q in boxes of a work item's 128 rows, k and v of 128-key tiles
+    t = torch.zeros((1, 4608, 24, 128), dtype=BF16)
+    q_map = tma_map(t, rows=SM90_FWD_Q_ROWS[128])
+    k_map = tma_map(t, rows=SM90_FWD_KEY_ROWS[128])
+    assert q_map.dims == k_map.dims == (128, 24, 4608, 1)
+    assert q_map.strides == (256, 24 * 256, 4608 * 24 * 256)
+    assert q_map.box == k_map.box == (64, 1, 128, 1)
+    assert 2 * q_map.box[0] == q_map.dims[0]
+
+
+def test_the_c_side_builds_an_instance_for_each_head_dim():
+    # the forward's switch and its Cfg's static_assert name the Python side's
+    # head dims, no more and no fewer
+    import re
+
+    src = (ROOT / "uwudiff_tpu_torch" / "csrc" / "flash_fwd_sm90.cu").read_text()
+    assert set(map(int, re.findall(r"case (\d+): return run<", src))) == set(HEAD_DIMS)
+    asserted = re.search(r"static_assert\(((?:D == \d+(?: \|\| )?)+)", src).group(1)
+    assert set(map(int, re.findall(r"D == (\d+)", asserted))) == set(HEAD_DIMS)
 
 
 @pytest.mark.parametrize("d", [40, 160])
@@ -196,10 +219,12 @@ def test_a_bias_with_strided_rows_is_copied_full():
 def test_each_variant_changes_one_line_of_the_kernel(name):
     # flash_variants.py builds each variant by replacing one line of the
     # kernel's Cfg and launches it through flash_fwd_sm90's library slot,
-    # with the variant's work-item rows: each must still find what it edits
-    (old, new), q_rows, shapes = VARIANTS[name]
+    # with the variant's work-item rows and key tile: each must still find
+    # what it edits
+    (old, new), q_rows, key_rows, shapes = VARIANTS[name]
     src = (ROOT / "uwudiff_tpu_torch" / "csrc" / "flash_fwd_sm90.cu").read_text()
     assert src.count(old) == 1 and old != new
     assert set(q_rows) <= set(SM90_FWD_Q_ROWS) and all(r % 64 == 0 for r in q_rows.values())
+    assert set(key_rows) <= set(SM90_FWD_KEY_ROWS) and all(r % 64 == 0 for r in key_rows.values())
     assert {shape[-1] for shape in shapes} <= set(HEAD_DIMS)
     assert '"uwu_flash_fwd_sm90"' in inspect.getsource(flash_fwd_sm90)

@@ -13,8 +13,9 @@ only the leaf needs translating:
 A module may name whole subtrees it does not port in
 ``jax_skip_subtrees`` (the VAE's encoder). A scanned block stack
 (``scan_blocks=True``: one ``blocks`` subtree whose leaves carry a leading
-layer axis, as the SD3 config trains the MMDiT) is unstacked into the
-port's ``blocks_{i}``. Any other missing, extra or mis-shaped key raises.
+layer axis, as the SD3 config trains the MMDiT; Flux scans ``blocks`` and
+``single_blocks``) is unstacked into the port's ``blocks_{i}`` (and
+``single_blocks_{i}``). Any other missing, extra or mis-shaped key raises.
 
 :func:`to_jax_params` is the inverse: a module's state dict, or any
 tensors named like it (its gradients), as a flax-named nested dict of
@@ -24,6 +25,7 @@ by leaf.
 
 from __future__ import annotations
 
+import re
 from collections.abc import Mapping
 
 import numpy as np
@@ -62,20 +64,28 @@ def _jax_state_dict(params, skip=()) -> dict[str, np.ndarray]:
 
 
 def _unstack_scanned(module: torch.nn.Module, params):
-    """``params["blocks"]`` with a leading layer axis -> ``blocks_{i}``
-    subtrees, where the module holds ``blocks_0``, ``blocks_1``, ..."""
-    if not isinstance(params, Mapping) or "blocks" not in params or not hasattr(module, "blocks_0"):
+    """Each subtree ``params[name]`` with a leading layer axis -> ``{name}_{i}``
+    subtrees, where the module holds ``{name}_0``, ``{name}_1``, ... and no
+    ``name`` of its own (``blocks``; Flux's ``single_blocks`` too)."""
+    if not isinstance(params, Mapping):
         return params
 
     def take(tree, i):
         return {k: take(v, i) if isinstance(v, Mapping) else np.asarray(v)[i] for k, v in tree.items()}
 
-    n = sum(1 for name, _ in module.named_children() if name.startswith("blocks_"))
-    depth = {np.shape(a)[0] for _, a in _flatten(params["blocks"])}
-    if depth != {n}:
-        raise ValueError(f"scanned blocks have layer axes {sorted(depth)}, the module {n} blocks")
-    out = {k: v for k, v in params.items() if k != "blocks"}
-    out.update({f"blocks_{i}": take(params["blocks"], i) for i in range(n)})
+    children = [name for name, _ in module.named_children()]
+    out = dict(params)
+    for stack, tree in params.items():
+        if not isinstance(tree, Mapping) or stack in children:
+            continue
+        n = sum(1 for name in children if re.fullmatch(rf"{re.escape(stack)}_\d+", name))
+        if n == 0:
+            continue
+        depth = {np.shape(a)[0] for _, a in _flatten(tree)}
+        if depth != {n}:
+            raise ValueError(f"scanned {stack} have layer axes {sorted(depth)}, the module {n} blocks")
+        del out[stack]
+        out.update({f"{stack}_{i}": take(tree, i) for i in range(n)})
     return out
 
 

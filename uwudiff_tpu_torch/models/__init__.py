@@ -1,6 +1,7 @@
-"""Models of the port: SDXL (UNet, VAE, CLIP) and SD3 (MMDiT, T5)."""
+"""Models of the port: SDXL (UNet, VAE, CLIP), SD3 (MMDiT, T5) and Flux."""
 
 from uwudiff_tpu_torch.models.clip import CLIP_PRESETS, CLIPTextModel
+from uwudiff_tpu_torch.models.flux import FLUX_PRESETS, Flux
 from uwudiff_tpu_torch.models.mmdit import MMDIT_PRESETS, MMDiT
 from uwudiff_tpu_torch.models.t5 import T5_PRESETS, T5EncoderModel
 from uwudiff_tpu_torch.models.text_encoders import (
@@ -17,6 +18,8 @@ __all__ = [
     "CLIPTextModel",
     "CLIP_PRESETS",
     "ConcatTextEncoders",
+    "FLUX_PRESETS",
+    "Flux",
     "MMDIT_PRESETS",
     "MMDiT",
     "SimpleTokenizer",

@@ -7,9 +7,9 @@ the head dim, and every kernel is a Hopper one (TMA loads into an
 mbarrier ring, wgmma, a producer warpgroup and two or three consumer
 warpgroups) or an mma.sync one:
 
-- the forward: ``csrc/flash_fwd_sm90.cu`` at D = 40, 64, 80 and 160, one
-  kernel template (64 is SDXL's, CLIP's, T5's and the SD3 MMDiT's; 40/80/
-  160 SD1.5's); ``csrc/flash_fwd.cu`` (mma.sync) computes the same function
+- the forward: ``csrc/flash_fwd_sm90.cu`` at D = 40, 64, 80, 128 and 160,
+  one kernel template (64 is SDXL's, CLIP's, T5's and the SD3 MMDiT's;
+  40/80/160 SD1.5's; 128 Flux's); ``csrc/flash_fwd.cu`` (mma.sync) computes the same function
   at 40/80/160 and stays built and tested as the yardstick, on no path;
 - dQ and dK/dV: ``csrc/flash_bwd_sm90.cu`` at D = 40, 64, 80 and 160, one
   kernel template each (D = 64's 128-byte swizzled tiles at every head
@@ -21,7 +21,7 @@ warpgroups) or an mma.sync one:
 
 The Hopper kernels' tensor maps are computed and checked here
 (:func:`tma_map`) and encoded by the C side. Any other head dim raises on
-the card. Each source note says what bounds the kernel on an H100 and how
+the card, and so does the backward at Flux's D = 128 (not built yet). Each source note says what bounds the kernel on an H100 and how
 the design answers that.
 
 Contract (the JAX function's): ``q`` ``[B, Sq, H, D]``, ``k``/``v``
@@ -87,7 +87,7 @@ __all__ = [
 ]
 
 NEG_INF = -1e30
-HEAD_DIMS = (40, 64, 80, 160)  # the Hopper forward's (D = 64: SDXL, CLIP, T5, the SD3 MMDiT; SD1.5's 40/80/160)
+HEAD_DIMS = (40, 64, 80, 128, 160)  # the Hopper forward's (D = 64: SDXL, CLIP, T5, the SD3 MMDiT; SD1.5's 40/80/160; Flux's 128)
 MMA_HEAD_DIMS = (40, 80, 160)  # the mma.sync forward (SD1.5's), built and tested, on no path
 SM90_BWD_HEAD_DIMS = (40, 64, 80, 160)  # the Hopper dQ and dK/dV kernels (SD1.5's 40/80/160 beside 64)
 MMA_BWD_HEAD_DIMS = (160,)  # the mma.sync dQ and dK/dV kernels (SD1.5's D = 160), built and tested, on no path
@@ -221,8 +221,8 @@ TMA_BOX_ROWS = 128  # rows of q (a work item's query tile) or k/v (a key tile) p
 # item's query rows (BLOCK_M: three consumer warpgroups of 64 at D = 40, two
 # elsewhere) and its key tile (BLOCK_N: 64 at D = 160, where a stage of 128
 # keys leaves room for one stage only)
-SM90_FWD_Q_ROWS = {40: 192, 64: 128, 80: 128, 160: 128}
-SM90_FWD_KEY_ROWS = {40: 128, 64: 128, 80: 128, 160: 64}
+SM90_FWD_Q_ROWS = {40: 192, 64: 128, 80: 128, 128: 128, 160: 128}
+SM90_FWD_KEY_ROWS = {40: 128, 64: 128, 80: 128, 128: 128, 160: 64}
 # the Hopper backward's boxes: an item's rows (q and dout for dQ: 128; k and v
 # for dK/dV: 128, or 64 at D = 160, where both consumer warpgroups share an
 # item's keys) and the 64-row tiles streamed past them
@@ -236,7 +236,7 @@ class TmaMap(NamedTuple):
     first: ``dims`` (D, H, S, B) in elements, ``strides`` of H, S and B in
     bytes, ``box`` (64, 1, rows, 1) in elements: one 128-byte swizzle row
     of 64 columns, loaded once per 64-column block of D (twice at
-    D = 80, three times at 160), the columns past D zero-filled."""
+    D = 80 and 128, three times at 160), the columns past D zero-filled."""
 
     dims: tuple
     strides: tuple
@@ -341,7 +341,7 @@ def _check_sm90_rc(who, rc, maps):
 
 
 def flash_fwd_sm90(q, k, v, bias=None, scale=None):
-    """Launch the Hopper forward (D = 40/64/80/160): q/k/v go in uncopied
+    """Launch the Hopper forward (D = 40/64/80/128/160): q/k/v go in uncopied
     through TMA tensor maps (:func:`tma_map`; q in boxes of a work item's
     rows, k and v of the head dim's key tile). Returns (out, lse)."""
     _check("flash_fwd_sm90", HEAD_DIMS, ("q", q), ("k", k), ("v", v))

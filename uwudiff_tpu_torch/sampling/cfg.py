@@ -1,6 +1,9 @@
 """Classifier-free guidance (``uwudiff_tpu/sampling/cfg.py``).
 
-Text encoding happens once per request batch (:func:`encode_cfg_inputs`);
+Text encoding happens once per request batch (:func:`encode_cfg_inputs`:
+SDXL's stack with its micro-conditioning ids, or Flux's, whose pooled
+vector comes from the pooled-only CLIP slot and whose key mask is T5's;
+a model without ``time_ids`` ignores them);
 :func:`build_cfg_fn` returns ``model_fn(x, sigma)`` that runs
 the denoiser on the doubled cond|uncond batch in one call and combines
 with the CFG scale. The ``cfg_interval`` option waits for a later slice.

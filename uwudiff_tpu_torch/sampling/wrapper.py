@@ -1,8 +1,11 @@
-"""k-diffusion sigma-parameterization wrapper (``uwudiff_tpu/sampling/wrapper.py``).
+"""k-diffusion sigma-parameterization wrappers (``uwudiff_tpu/sampling/wrapper.py``).
 
 An eps-predicting discrete-schedule model is driven in continuous sigma
 space via ``c_in = 1/sqrt(sigma^2+1)``, ``c_out = -sigma`` and the
-log-linear sigma<->t interpolation of :class:`NoiseSchedule`.
+log-linear sigma<->t interpolation of :class:`NoiseSchedule`;
+:class:`RFDenoiser` drives a rectified-flow (velocity) model, Flux's, the
+same way. The v-prediction and EDM wrappers come with the models that use
+them.
 """
 
 from __future__ import annotations
@@ -16,7 +19,21 @@ import numpy as np
 from uwudiff_tpu_torch.diffusion.schedules import NoiseSchedule
 from uwudiff_tpu_torch.utils import append_dims
 
-__all__ = ["KDiffusionDenoiser", "to_d", "get_ancestral_step"]
+__all__ = ["KDiffusionDenoiser", "RFDenoiser", "denoiser_for_loss", "get_ancestral_step", "to_d"]
+
+
+def denoiser_for_loss(loss) -> type:
+    """The sampling wrapper of a training loss's parameterization:
+    ``RectifiedFlowLoss`` -> :class:`RFDenoiser`; eps or sample prediction
+    -> :class:`KDiffusionDenoiser`. v-prediction's ``VDenoiser`` is not
+    ported (ROADMAP.md, Queue 1)."""
+    from uwudiff_tpu_torch.diffusion.losses import RectifiedFlowLoss
+
+    if isinstance(loss, RectifiedFlowLoss):
+        return RFDenoiser
+    if getattr(loss, "prediction_type", None) == "v_prediction":
+        raise NotImplementedError("VDenoiser (v-prediction sampling) is not ported yet (ROADMAP.md, Queue 1)")
+    return KDiffusionDenoiser
 
 
 def to_d(x, sigma, denoised):
@@ -52,3 +69,17 @@ class KDiffusionDenoiser:
         t = self.schedule.sigma_to_t(sigma)
         eps = self.model_fn(x * append_dims(c_in, x.dim()), t, **kwargs)
         return x + eps * append_dims(c_out, x.dim())
+
+
+@dataclasses.dataclass(frozen=True)
+class RFDenoiser(KDiffusionDenoiser):
+    """Sigma-space wrapper of a rectified-flow network (``RectifiedFlowLoss``'s
+    convention: the model sees ``x / sqrt(1 + sigma^2)`` at fractional DDPM
+    timesteps and predicts the velocity ``v = noise - x0``), so in
+    k-diffusion space ``x0 = (x - sigma * v) / (1 + sigma)``."""
+
+    def __call__(self, x, sigma, **kwargs):
+        t = self.schedule.sigma_to_t(sigma)
+        v = self.model_fn(x * append_dims(1.0 / (sigma**2 + 1.0).sqrt(), x.dim()), t, **kwargs)
+        sig = append_dims(sigma, x.dim())
+        return (x - sig * v) / (1.0 + sig)

@@ -1,18 +1,26 @@
 """Serving: a text-to-image pipeline and a continuous-batching server
-(``uwudiff_tpu/serving.py``).
+(``uwudiff_tpu/serving.py``), and the Flux stack.
 
 ``Txt2ImgPipeline`` binds the UNet, the text encoders and the VAE on one
-device; ``sample_device`` enqueues a whole request batch (encode, CFG
-Euler-ancestral sampling, uint8 decode) without waiting on the device,
-so ``BatchingServer``'s fetch thread copies one batch's images to the
-host while the dispatcher enqueues the next. Adapter hot-swap, int8
+device; ``sample_device`` enqueues a whole request batch (encode and CFG
+Euler-ancestral sampling through the generic entry point
+``sampling.diffusion_sampling``, then a uint8 decode) without waiting on
+the device, so ``BatchingServer``'s fetch thread copies one batch's images
+to the host while the dispatcher enqueues the next. Adapter hot-swap, int8
 weights, latent sharding and the ``**kwargs`` path of the JAX pipeline
 come with the modules they need.
+
+``flux_txt2img`` builds ``flux_dev`` (or another Flux preset) with T5-XXL,
+CLIP-L and the 16-channel decoder; :class:`FluxTxt2Img` serves it through
+the generic entry point ``sampling.diffusion_sampling`` as the JAX package
+does (``tests/test_flux.py``): ``RFDenoiser``, cfg 1 with the distilled
+guidance embedded, the dynamic-shift RF ladder.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import queue
 import threading
@@ -21,19 +29,16 @@ from concurrent.futures import Future
 
 import numpy as np
 import torch
+from torch import nn
 
 from uwudiff_tpu_torch.diffusion.schedules import NoiseSchedule
-from uwudiff_tpu_torch.sampling.cfg import build_cfg_fn, encode_cfg_inputs
-from uwudiff_tpu_torch.sampling.euler import sample_euler_ancestral
-from uwudiff_tpu_torch.sampling.noise import (
-    expand_seeds,
-    make_per_sample_noise_sampler,
-    per_sample_init_noise,
-)
-from uwudiff_tpu_torch.sampling.wrapper import KDiffusionDenoiser
+from uwudiff_tpu_torch.sampling.get_sigmas import dynamic_shift_time, get_sigmas_for_rf, mu_for_image_seq_len
+from uwudiff_tpu_torch.sampling.sampling import diffusion_sampling
+from uwudiff_tpu_torch.sampling.wrapper import RFDenoiser
 from uwudiff_tpu_torch.utils import resolve_device, truncate_or_pad_to_length, vae_image_postprocess
 
-__all__ = ["Txt2ImgPipeline", "BatchingServer", "Request", "ServerOverloaded", "sdxl_pipeline"]
+__all__ = ["BatchingServer", "FluxTxt2Img", "Request", "ServerOverloaded", "Txt2ImgPipeline", "flux_txt2img",
+           "sdxl_pipeline"]
 
 
 class Txt2ImgPipeline:
@@ -83,27 +88,23 @@ class Txt2ImgPipeline:
                       return_latents: bool = False, cfg_rescale: float = 0.0):
         """The request path, asynchronous: returns ``(device tensor,
         is_images)`` without waiting for the device. ``seed`` is an int
-        (sample j uses seed+j) or a per-sample sequence."""
+        (sample j uses seed+j) or a per-sample sequence. The latents come
+        from :func:`diffusion_sampling` (on the device schedule and the
+        cached ladder, so nothing waits); the decode is rounded to uint8
+        on the device."""
         if isinstance(prompt, str):
             prompt = [prompt]
         if isinstance(neg_prompt, str):
             neg_prompt = [neg_prompt]
+        # each list cycles to num_samples on its own (diffusion_sampling wants them of one length)
         prompt = truncate_or_pad_to_length(list(prompt), num_samples, "cycling")
         neg_prompt = truncate_or_pad_to_length(list(neg_prompt), num_samples, "cycling")
-        enc = encode_cfg_inputs(prompt, neg_prompt, width, height, self.te)
-        sigmas = self.sigmas(num_steps)
-        seeds = expand_seeds(seed, num_samples)
-        down, ch = self.vae_downscale, self.latent_channels
-        cfg_fn = build_cfg_fn(
-            KDiffusionDenoiser(model_fn=self.unet, schedule=self.schedule), enc, cfg_scale,
-            cfg_rescale,
+        latents = diffusion_sampling(
+            self.unet, self.te, None, self.schedule, prompt, neg_prompt, num_steps=num_steps,
+            get_sigma_func=self.sigmas, num_samples=num_samples, cfg_scale=cfg_scale, cfg_rescale=cfg_rescale,
+            seed=seed, width=width, height=height, vae_std=self.vae_std, latent_channels=self.latent_channels,
+            vae_downscale=self.vae_downscale, return_latents=True,
         )
-        init_scale = float(np.sqrt(np.float32(1.0) + sigmas[0] ** 2))
-        init_x = per_sample_init_noise(seeds, (height // down, width // down, ch), self.device)
-        latents = sample_euler_ancestral(
-            cfg_fn, init_x * init_scale, sigmas, make_per_sample_noise_sampler(seeds, self.device)
-        )
-        latents = latents * self.vae_std
         if return_latents or self.vae is None:
             return latents, False
         images = self.vae.decode(latents)
@@ -143,6 +144,70 @@ def sdxl_pipeline(device="cuda", dtype=torch.bfloat16, seed: int = 0) -> Txt2Img
     vae = AutoencoderKL.from_config("sdxl", device=dev, dtype=dtype)
     te_pipe = TextEncodingPipeline(te, [SimpleTokenizer(), SimpleTokenizer()], device=dev)
     return Txt2ImgPipeline(unet, te_pipe, vae, NoiseSchedule.sdxl(), device=dev)
+
+
+# black-forest-labs/FLUX.1-dev's vae/config.json: the SDXL decoder's widths at
+# 16 latent channels, scaling_factor 0.3611 (vae_std = 1 / it), shift_factor 0.1159
+FLUX_VAE = dict(block_out_channels=(128, 256, 512, 512), layers_per_block=2, latent_channels=16,
+                scaling_factor=0.3611)
+FLUX_VAE_SHIFT = 0.1159
+# CLIP-L in the pooled-only slot (its pooled vector only), T5-XXL's sequence in
+# bucket 1 with its key mask (configs/sampling/demo_sampling_flux.yaml's stack)
+FLUX_TEXT_ENCODERS = [
+    ({"model_type": "clip", "preset": "clip_l"}, {"use_pooled": True, "pooled_only": True}),
+    ({"model_type": "t5", "preset": "t5_xxl"}, {"concat_bucket": 1, "need_mask": True}),
+]
+FLUX_T5_TOKENS = 512  # flux_dev's published max_sequence_length
+FLUX_MAX_SIGMA = 14.6146  # the RF ladder's top: the SDXL schedule's largest sigma (demo_sampling_flux.yaml)
+
+
+@dataclasses.dataclass
+class FluxTxt2Img:
+    """Flux txt2img on one device through :func:`diffusion_sampling`:
+    ``RFDenoiser`` over ``NoiseSchedule.sdxl()``'s timesteps, cfg 1 (the
+    guidance is the model's embedded ``default_guidance``), Euler-ancestral
+    on ``get_sigmas_for_rf`` warped by ``dynamic_shift_time`` at
+    ``mu_for_image_seq_len`` of the request's image tokens."""
+
+    model: nn.Module  # models.Flux
+    te: object  # TextEncodingPipeline
+    vae: nn.Module  # AutoencoderKL with 16 latent channels
+
+    def sigmas(self, num_steps: int, width: int, height: int) -> np.ndarray:
+        patch = self.vae.downscale * self.model.patch_size
+        disc = functools.partial(dynamic_shift_time, mu=mu_for_image_seq_len((height // patch) * (width // patch)))
+        return get_sigmas_for_rf(num_steps, FLUX_MAX_SIGMA, time_disc_func=disc)
+
+    def __call__(self, prompt, num_steps: int = 4, num_samples: int = 1, seed=42, width: int = 1024,
+                 height: int = 1024, return_latents: bool = False):
+        """uint8 HWC images (numpy), or with ``return_latents`` the latents
+        on the device."""
+        prompt = [prompt] if isinstance(prompt, str) else list(prompt)
+        return diffusion_sampling(
+            self.model, self.te, self.vae.decode, NoiseSchedule.sdxl(), prompt, [""] * len(prompt),
+            num_steps=num_steps, num_samples=num_samples, cfg_scale=1.0, seed=seed, width=width, height=height,
+            denoiser_cls=RFDenoiser, get_sigma_func=lambda n: self.sigmas(n, width, height),
+            vae_std=1.0 / self.vae.scaling_factor, vae_mean=FLUX_VAE_SHIFT, latent_channels=self.model.in_channels,
+            vae_downscale=self.vae.downscale, return_latents=return_latents,
+        )
+
+
+def flux_txt2img(device="cuda", dtype=torch.bfloat16, seed: int = 0) -> FluxTxt2Img:
+    """The Flux serving stack with random weights from ``seed``, each
+    module built on ``device`` in ``dtype``: ``flux_dev`` (11.9 B
+    parameters, made in bf16 with no fp32 copy), CLIP-L pooled-only and
+    T5-XXL at 512 tokens with hash tokenizers, the 16-channel decoder. The
+    transformer's zero-initialised leaves stay zero (a fresh model outputs
+    zeros); ``training.bench_setup.fill_zero_initialised`` draws them."""
+    from uwudiff_tpu_torch.models import AutoencoderKL, ConcatTextEncoders, Flux, SimpleTokenizer, TextEncodingPipeline
+
+    dev = resolve_device(device)
+    torch.manual_seed(seed)
+    model = Flux.from_config("flux_dev", device=dev, dtype=dtype)
+    te = ConcatTextEncoders.from_config(FLUX_TEXT_ENCODERS, device=dev, dtype=dtype)
+    vae = AutoencoderKL.from_config(FLUX_VAE, device=dev, dtype=dtype)
+    tokenizers = [SimpleTokenizer(), SimpleTokenizer(model_max_length=FLUX_T5_TOKENS)]
+    return FluxTxt2Img(model, TextEncodingPipeline(te, tokenizers, device=dev), vae)
 
 
 @dataclasses.dataclass

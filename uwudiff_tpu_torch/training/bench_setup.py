@@ -102,15 +102,16 @@ def build_trainer_and_batch(batch: int | None = None, latent: int = 64, seed: in
     return trainer, data
 
 
-def fill_zero_initialised(mmdit: MMDiT) -> MMDiT:
-    """Give the leaves the JAX init zeroes (every adaLN modulation, the final
-    modulation and projection) torch's default Linear draws: at zero they
-    cut the gradient from the loss to the text context, and textual
-    inversion would learn nothing."""
-    for name, m in mmdit.named_modules():
-        if name.rsplit(".", 1)[-1] in ("adaLN_x", "adaLN_ctx", "final_modulation", "final_proj"):
+def fill_zero_initialised(model):
+    """Give the leaves the JAX init zeroes in the MMDiT and Flux (every
+    adaLN modulation, the final modulation and projection) torch's default
+    Linear draws: at zero they cut the gradient from the loss to the text
+    context, so textual inversion would learn nothing, and a fresh Flux
+    outputs zeros, which every check would pass."""
+    for name, m in model.named_modules():
+        if name.rsplit(".", 1)[-1] in ("adaLN", "adaLN_x", "adaLN_ctx", "final_modulation", "final_proj"):
             m.reset_parameters()
-    return mmdit
+    return model
 
 
 def build_ti_trainer_and_batch(batch: int = 8, latent: int = 64, seed: int = 0, device="cuda"):
