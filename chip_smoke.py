@@ -16,9 +16,13 @@ Phases, each fatal on failure:
                mma.sync pair they replaced) and at flux_dev's joint
                attention (D = 128 with the T5 mask: 1024^2 alone and in a
                batch of 4, 512^2; D = 128 with no bias at 512^2 and with a
-               key bias at a ragged shape), each twice for bitwise
-               reproducibility,
-               the dQ + dBias kernel at T5-XXL's and at D = 160; every
+               key bias at a ragged shape) and at the flux_1b training
+               step's ([8,1101,1101,12,128]: the forward, and the Hopper dQ
+               and dK/dV with no bias and with a T5 key mask, and ragged
+               with a key bias), each twice for bitwise reproducibility,
+               the dQ + dBias kernel at T5-XXL's and at D = 160 and 128;
+               ptxas's registers and spills of every instance (a spill at
+               D = 128 fails the run); every
                GroupNorm shape on the route plan_gn gives it (the fused
                single-pass kernel or the chunked stats + apply pair), with
                wall and device ms beside F.group_norm+F.silu, and the
@@ -42,8 +46,12 @@ Phases, each fatal on failure:
                through the kernels, against the same weights in fp32 on the
                CPU: forwards, one SDXL training step's loss and gradients,
                one SD1.5-recipe step's (fp32 masters under bf16 compute,
-               head dims 40/80/160, adamw_fp16) and one textual-inversion
-               step's loss and row gradients
+               head dims 40/80/160, adamw_fp16), one textual-inversion
+               step's loss and row gradients, and one step of a 1 + 1
+               block Flux at flux_1b's width (12 heads of 128, blocks
+               recomputed in the backward; bf16 params) against fp32 on the
+               CPU, without and with a T5 key mask: the loss and every
+               leaf's gradient
   3. serve   - SDXL at full width (random weights from a fixed seed, bf16):
                BatchingServer -> clip_l + clip_bigg -> CFG 5.0
                Euler-ancestral UNet -> VAE decode, 1024x1024 requests: a
@@ -103,6 +111,19 @@ Phases, each fatal on failure:
                finite latents, each new GroupNorm call of the decode; prints
                per-step ms, the encode / step / decode phases, the card's
                busy share over a step and the peak GiB.
+  8. train_flux - bench.py's flux_1b full fine-tune step at full width
+               (training/bench_setup.py, model="flux_1b": 6 double and 12
+               single blocks at width 1536, 12 heads of 128, every block
+               recomputed in the backward, batch 8, 64x64x16 latents, 77
+               tokens of 4096-wide context, bf16 params with stochastic
+               rounding, adamw_factored): one warm-up step and 5 timed
+               steps. Checks finite and moving losses, non-zero grad norms,
+               that every parameter took an update, and each step's
+               launches: 36 flash forwards (18 and 18 recomputed), 18 dQ and
+               18 dK/dV, all at D = 128 on the Hopper kernels, and the
+               update's kernels as plan_optimizer says; prints the step's
+               ms split into forward+backward and optimizer, the peak GiB
+               and the card's busy share over a traced step.
 Prints the card's name and power limit, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA is
 unavailable or the package is missing. A full report goes to
@@ -278,13 +299,16 @@ def flash_cases():
 # flux_dev's joint attention (24 heads of 128) over 512 T5 tokens, masked
 # after each prompt's length (a key bias), and the image's tokens: a served
 # 1024^2 step alone and in a batch of 4, and a 512^2 request; then the
-# D = 128 instance with no bias, and a ragged key-bias shape (partial tiles)
+# D = 128 instance with no bias, a ragged key-bias shape (partial tiles),
+# and the flux_1b training step's: 77 text and 1024 image tokens, batch 8,
+# no mask (bench.py's batch has none)
 FLUX_ATTENTION = [
     ("flux_1024_b1", 1, 4608, 4608, 24, 128, "flux", None),
     ("flux_1024_b4", 4, 4608, 4608, 24, 128, "flux", None),
     ("flux_512_b2", 2, 1536, 1536, 24, 128, "flux", None),
     ("flux_512_b2_nobias", 2, 1536, 1536, 24, 128, "none", None),
     ("ragged_key_d128", 2, 130, 300, 2, 128, "key", None),
+    ("flux_1b_train", 8, 1101, 1101, 12, 128, "none", None),  # the flux_1b training step (12 heads of 128)
 ]
 
 
@@ -313,6 +337,11 @@ def make_bias(kind, b, h, sq, sk, dev, gen):
         t5_len = (torch.arange(b, device=dev) * 53) % 512 + 7
         keys = torch.arange(sk, device=dev)[None, :]
         masked = (keys >= t5_len[:, None]) & (keys < 512)
+        return torch.where(masked, neg, 0.0)[:, None, None, :]
+    if kind == "flux_77":  # [text's 77 | image]: each prompt's T5 tokens padded after its length
+        t5_len = (torch.arange(b, device=dev) * 53) % 77 + 7
+        keys = torch.arange(sk, device=dev)[None, :]
+        masked = (keys >= t5_len[:, None]) & (keys < 77)
         return torch.where(masked, neg, 0.0)[:, None, None, :]
     if kind == "joint":  # [CLIP pair's 77 | T5's 256 | image]: each prompt's T5 tokens padded after its length
         keys = torch.arange(sk, device=dev)[None, :]
@@ -591,7 +620,8 @@ def flash_bwd_cases():
     # attentions at 64x64 latents (level 1: 32x32 tokens, 10 heads; level 2:
     # 16x16, 20) and the textual-inversion path's (CLIP-bigG as
     # "full_bias", CLIP-L, T5-XXL, whose dQ pass there is K5, and the
-    # MMDiT's joint attention), all at D = 64 on the Hopper kernels
+    # MMDiT's joint attention), all at D = 64, and the SD1.5 and flux_1b
+    # steps' at D = 40/80/160 and 128, all on the Hopper kernels
     return [
         ("train_l1_self", 8, 1024, 1024, 10, 64, "none", None),
         ("train_l1_cross", 8, 1024, 77, 10, 64, "none", None),
@@ -608,6 +638,12 @@ def flash_bwd_cases():
         ("full_bias_d40", 8, 77, 77, 8, 40, "full", None),
         ("ragged_key_d160", 2, 130, 300, 2, 160, "key", None),
         ("full_bias_d160", 8, 77, 77, 8, 160, "full", None),
+        # Flux's D = 128: the flux_1b step's joint attention, without a mask
+        # (bench.py's batch) and with a T5 key mask over its 77 text tokens
+        # (demo_training_flux.yaml's need_mask), and ragged with a key bias
+        ("flux_1b_train", 8, 1101, 1101, 12, 128, "none", None),
+        ("flux_1b_t5_mask", 8, 1101, 1101, 12, 128, "flux_77", None),
+        ("ragged_key_d128", 2, 130, 300, 2, 128, "key", None),
     ] + SD15_ATTENTION  # SD1.5's head dims 40/80/160
 
 
@@ -763,9 +799,10 @@ def check_flash_bwd_views(failures):
 def flash_dbias_cases():
     # (name, B, S, H, D, scale): T5-XXL's attention at 256 tokens (no
     # 1/sqrt(d) scale), a ragged case and other head dims (160 at the SD1.5
-    # step's level-2 shape; no path trains an attention bias there)
+    # step's level-2 shape, 128 at the flux_1b step's joint attention; no
+    # path trains an attention bias there)
     return [("t5_xxl", 8, 256, 64, 64, 1.0), ("ragged", 2, 200, 4, 64, 1.0), ("d80", 2, 256, 8, 80, None),
-            ("d160", 16, 256, 8, 160, None)]
+            ("d160", 16, 256, 8, 160, None), ("d128", 8, 1101, 12, 128, None)]
 
 
 def t5_bias(b, h, s, dev, gen):
@@ -1828,6 +1865,71 @@ def check_flux_vs_cpu(failures):
     return {"rel_err": err, "tol": tol, "flash_fwd_d128_launches": launches}
 
 
+def check_flux_train_vs_cpu(failures):
+    """One training step of a Flux at flux_1b's width (1536, 12 heads of
+    128) with one block of each kind, the zero-initialised leaves drawn:
+    bf16 parameters on the card through the kernels, every block recomputed
+    in the backward (the recipe's gradient_checkpointing), against the same
+    weights in fp32 on the CPU through the plain versions, which the CPU
+    tests hold against the JAX package's step; the same noise and
+    timesteps, without and with a T5 key mask. Checks the loss and every
+    leaf's gradient, and the card's launches: K1 twice a block (the forward
+    and its recompute), K4 and K6 once, all at D = 128."""
+    import copy
+
+    from uwudiff_tpu_torch.diffusion import DiffusionLoss, NoiseSchedule
+    from uwudiff_tpu_torch.models import Flux
+    from uwudiff_tpu_torch.ops import launches_by_head_dim, reset_launch_counts
+    from uwudiff_tpu_torch.training import DMTrainer
+    from uwudiff_tpu_torch.training.bench_setup import fill_zero_initialised
+
+    torch.manual_seed(SEED + 13)
+    cpu = fill_zero_initialised(Flux.from_config("flux_1b", device="cuda", depth=1, depth_single=1)).cpu()
+    gpu = copy.deepcopy(cpu).to(device="cuda")
+    gpu.gradient_checkpointing = True
+    gen = torch.Generator().manual_seed(SEED + 14)
+    batch = {"sample": torch.randn((2, 32, 32, 16), generator=gen), "ctx": torch.randn((2, 77, 4096), generator=gen),
+             "pooled": torch.randn((2, 768), generator=gen)}
+    noise = torch.randn((2, 32, 32, 16), generator=gen)
+    timesteps = torch.tensor([37, 712])
+    # bf16 weights, activations and gradients through two blocks; a leaf's
+    # gradient is held in norm, against its own size
+    tol, leaf_tol = 5e-2, 1e-1
+    out = {}
+    for masked in (False, True):
+        data = dict(batch, ctx_mask=(torch.arange(77)[None, :] < torch.tensor([[9], [77]])).int()) if masked else batch
+        losses, grads = {}, {}
+        for dev, unet, pdt in (("cpu", cpu, None), ("cuda", gpu, "bfloat16")):
+            tr = DMTrainer({"unet": unet}, loss_config=DiffusionLoss(schedule=NoiseSchedule.sd15()),
+                           param_dtype=pdt, device=dev)
+            reset_launch_counts()
+            loss, _ = tr.forward_backward(data, noise, timesteps)
+            by_dim = launches_by_head_dim()
+            losses[dev] = loss.float().cpu()
+            grads[dev] = {n: p.grad.float().cpu() for n, p in tr.params}
+        launches = {k: by_dim[k] for k in ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")}
+        loss_err = ((losses["cuda"] - losses["cpu"]).abs() / losses["cpu"].abs()).item()
+        flat = {dev: torch.cat([g.flatten() for g in grads[dev].values()]) for dev in grads}
+        grad_err = ((flat["cuda"] - flat["cpu"]).norm() / flat["cpu"].norm()).item()
+        leaf_errs = {n: ((grads["cuda"][n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+                     for n, g in grads["cpu"].items()}
+        worst = max(leaf_errs, key=leaf_errs.get)
+        case = "t5 mask" if masked else "no mask"
+        log(f"  flux_1b width (1 + 1 blocks) training step, {case}, card bf16 vs CPU fp32 plain: loss rel err"
+            f" {loss_err:.2e}, grads |d|/|ref| {grad_err:.2e} (tol {tol}), worst leaf {worst} {leaf_errs[worst]:.2e}"
+            f" (tol {leaf_tol}); launches {launches}")
+        want = {"flash_fwd_sm90": {128: 4}, "flash_bwd_dq_sm90": {128: 2}, "flash_bwd_dkv_sm90": {128: 2}}
+        if not (loss_err <= tol and grad_err <= tol and leaf_errs[worst] <= leaf_tol and launches == want):
+            failures.append(f"flux_1b-width training step card vs CPU, {case}: loss {loss_err} grads {grad_err}"
+                            f" (tol {tol}), {worst} {leaf_errs[worst]} (tol {leaf_tol}), launches {launches}")
+        out[case] = dict(loss_rel_err=loss_err, grad_rel_err=grad_err, worst_leaf=worst,
+                         worst_leaf_rel_err=leaf_errs[worst], launches=launches)
+    del cpu, gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(out, tol=tol, leaf_tol=leaf_tol)
+
+
 def flux_phases(pipe, n):
     """One request batch of n, phase by phase with a sync after each: the
     text encode, one denoiser step (CUDA events, the median of 3), the
@@ -2357,6 +2459,150 @@ def ti(report, failures):
     return counts
 
 
+# ---------------------------------------------------------- train flux_1b
+
+FLUX_1B_STEPS = 5
+
+
+def plan_flux_launches(model) -> dict:
+    """The flash kernels' launches per training step of a Flux, by head dim:
+    one joint attention a block, its forward run again in the backward where
+    the blocks are recomputed (gradient_checkpointing), one dQ and one dK/dV."""
+    attn = len(model.block_names) + len(model.single_block_names)
+    d = model.single_blocks_0.attn1.norm_q.weight.shape[0] if attn else None
+    return {"flash_fwd_sm90": {d: attn * (2 if model.gradient_checkpointing else 1)},
+            "flash_bwd_dq_sm90": {d: attn}, "flash_bwd_dkv_sm90": {d: attn}}
+
+
+def expected_sr_moves(trainer, i, steps) -> float:
+    """About how many values of bf16 leaf ``i`` stochastic rounding moved
+    over ``steps`` steps of adamw_factored: a value moves by one bf16 step
+    (its ulp) with probability |update| / ulp, and the update is the
+    momentum (lr already in it: Adafactor's momentum of lr-scaled, RMS-
+    clipped g / sqrt(v)) plus the weight decay, lr wd |p|. The last
+    step's momentum stands for every step's (a bound: it grows from 0.1 of
+    its steady value). Computed from the state, not measured."""
+    _, p = trainer.params[i]
+    tx = trainer.tx
+    lr = float(trainer.lr_schedule(trainer.step))
+    pf = p.detach().float()
+    ulp = torch.ldexp(torch.ones_like(pf), torch.frexp(pf).exponent - 8)  # bf16: 8 significant bits
+    update = trainer.opt_state.leaves[i]["mu"].float().abs() + lr * tx.weight_decay * pf.abs()
+    return steps * (update / ulp).clamp(max=1.0).sum().item()
+
+
+def step_busy_share(trainer, batch) -> dict:
+    """One training step traced by torch.profiler: the device time of its
+    kernels and copies over the traced wall time (the profiler's host
+    overhead lengthens the window, so the share is a lower bound)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return dict(traced_window_ms=window_ms, traced_busy_ms=busy_ms, busy_share=busy_ms / window_ms)
+
+
+def train_flux(report, failures):
+    """bench.py's flux_1b training step at full width (training/bench_setup.py,
+    model="flux_1b": 6 double and 12 single blocks at width 1536, 12 heads of
+    128, every block recomputed in the backward, batch 8, 64x64x16 latents,
+    77 tokens of 4096-wide context, bf16 params with stochastic rounding,
+    adamw_factored): one warm-up step, FLUX_1B_STEPS timed."""
+    from uwudiff_tpu_torch.ops import launch_counts, launches_by_head_dim, reset_launch_counts
+    from uwudiff_tpu_torch.training.bench_setup import build_trainer_and_batch
+
+    t0 = time.perf_counter()
+    trainer, data = build_trainer_and_batch(model="flux_1b", seed=SEED)
+    trainer.setup()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    bsz = len(data["sample"])
+    dev = trainer.device
+    batch = {"sample": torch.as_tensor(data["sample"], device=dev), "ctx": torch.as_tensor(data["ctx"], device=dev),
+             "pooled": torch.as_tensor(data["pooled"], device=dev)}
+    n_params = sum(p.numel() for _, p in trainer.params)
+    # in host memory: the peak below is the step's own
+    start = [p.detach().to("cpu", copy=True) for _, p in trainer.params]
+    log(f"  built the flux_1b trainer ({n_params / 1e9:.3f} G bf16 params, {len(start)} leaves) in {build_s:.1f} s")
+    t0 = time.perf_counter()
+    warm, _ = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()  # the main path's run starts here
+    steps = []
+    for _ in range(FLUX_1B_STEPS):
+        t0 = time.perf_counter()
+        metrics, _ = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        phases = trainer.step_phase_ms()
+        steps.append(dict(step_s=time.perf_counter() - t0, loss=metrics["train/loss"].item(),
+                          grad_norm=metrics["train/grad_norm"].item(), lr=metrics["train/lr"], **phases))
+    counts = launch_counts()  # the main path's run ends here
+    by_dim = launches_by_head_dim()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    # 36 K1 (18 forwards, 18 recomputed), 18 K4 and 18 K6 a step, all at
+    # D = 128 on the Hopper kernels, and the update's kernels as planned
+    flash_plan = plan_flux_launches(trainer.unet)
+    for name, per_step in flash_plan.items():
+        want = {d: n * FLUX_1B_STEPS for d, n in per_step.items()}
+        if by_dim[name] != want or counts[name] != sum(want.values()):
+            failures.append(f"flux_1b {name}: {by_dim[name]} by head dim in {FLUX_1B_STEPS} steps, {want} planned")
+    opt_plan = plan_optimizer(trainer)
+    for name, per_step in opt_plan.items():
+        if counts[name] != per_step * FLUX_1B_STEPS:
+            failures.append(f"flux_1b {name}: {counts[name]} launches in {FLUX_1B_STEPS} steps, plan {per_step} a step")
+    check_forward_route(counts, "flux_1b", failures)
+    check_backward_route(counts, "flux_1b", failures)
+    losses = [warm["train/loss"].item()] + [st["loss"] for st in steps]
+    norms = [warm["train/grad_norm"].item()] + [st["grad_norm"] for st in steps]
+    if not all(map(math.isfinite, losses + norms)) or len(set(losses)) < 2 or not all(n > 0 for n in norms):
+        failures.append(f"flux_1b training metrics: losses {losses} grad norms {norms}")
+    moments_ok = all(bool(torch.isfinite(st["mu"]).all()) and bool(st["mu"].any())
+                     for st in trainer.opt_state.leaves)
+    if not moments_ok or trainer.opt_state.count != FLUX_1B_STEPS + 1:
+        failures.append(f"flux_1b optimizer state: moments ok {moments_ok}, count {trainer.opt_state.count}")
+    # every leaf took an update (its momentum, above), and moved, unless
+    # stochastic rounding would rarely move it: a leaf whose gradients are
+    # far below sqrt(eps) (1e-4: adamw_factored adds eps to g^2) takes
+    # updates far below lr, each value a small chance a step to move by one
+    # bf16 step (the text stream's biases), as do the norm scales
+    # initialised to ones
+    unchanged = {name: i for i, ((name, p), p0) in enumerate(zip(trainer.params, start)) if torch.equal(p.cpu(), p0)}
+    expected = {name: expected_sr_moves(trainer, i, FLUX_1B_STEPS + 1) for name, i in unchanged.items()}
+    moved_wrongly = [n for n, e in expected.items() if e >= 3.0]  # such a leaf keeps every value with p < e^-3
+    if moved_wrongly:
+        failures.append(f"flux_1b: {len(moved_wrongly)} parameter leaves unchanged after {FLUX_1B_STEPS + 1} steps"
+                        f" where stochastic rounding should have moved ~3 values or more: "
+                        f"{[(n, round(expected[n], 1)) for n in moved_wrongly[:8]]}")
+    del start
+    busy = step_busy_share(trainer, batch)
+    mid = FLUX_1B_STEPS // 2
+    step_s = sorted(st["step_s"] for st in steps)[mid]
+    fb_ms = sorted(st["forward_backward_ms"] for st in steps)[mid]
+    opt_ms = sorted(st["optimizer_ms"] for st in steps)[mid]
+    report["train_flux_1b"] = dict(
+        batch=bsz, latent=64, params=n_params, leaves=len(trainer.params), build_s=build_s, warmup_step_s=warmup_s,
+        steps=steps, median_step_s=step_s, imgs_per_s=bsz / step_s, median_forward_backward_ms=fb_ms,
+        median_optimizer_ms=opt_ms, peak_memory_gib=peak_gib, launches=counts, launches_by_head_dim=by_dim,
+        flash_plan_per_step=flash_plan, optimizer_plan_per_step=opt_plan, unchanged_leaves=expected,
+        losses=losses, grad_norms=norms, **busy)
+    log(f"  flux_1b ({report['card']}): step {step_s * 1e3:.1f} ms ({bsz / step_s:.2f} imgs/s), forward+backward"
+        f" {fb_ms:.1f} ms, optimizer {opt_ms:.1f} ms, peak {peak_gib:.1f} GiB, busy {100 * busy['busy_share']:.1f} %"
+        f" of a traced step; losses {[round(v, 4) for v in losses]}, grad norms {[round(v, 3) for v in norms]};"
+        f" flash launches/step {flash_plan}, update {opt_plan}; leaves unchanged {len(unchanged)} of"
+        f" {len(trainer.params)}, each expected to move fewer than 3 values: {not moved_wrongly}"
+        f" (largest {max(expected.values(), default=0.0):.2f})")
+    return counts, by_dim
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -2382,7 +2628,7 @@ def main() -> int:
     report = {"card": smi, "sm_clock_max_mhz": float(clock), "torch": torch.__version__, "cuda": torch.version.cuda}
     failures: list[str] = []
 
-    log("[1/7] build")
+    log("[1/8] build")
     built = build_all()
     report["build_s"] = built["seconds"]
     log(f"  built in {built['seconds']:.1f} s")
@@ -2393,6 +2639,9 @@ def main() -> int:
                 instance = kernel_instance(line)
             if "registers" in line or "spill" in line or "(C75" in line:  # C75xx: wgmma serialised
                 log(f"  {src} {instance}: {line.strip()}")
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spills and "<128," in instance and int(spills[1]) + int(spills[2]) > 0:  # Flux's head dim
+                failures.append(f"{src} {instance} spills: {line.strip()}")
 
     seconds = report["seconds"] = {"build": time.perf_counter() - t_start}
 
@@ -2402,7 +2651,7 @@ def main() -> int:
         seconds[key] = time.perf_counter() - t0
         return out
 
-    log("[2/7] kernels vs plain (bf16)")
+    log("[2/8] kernels vs plain (bf16)")
     results: list[dict] = []
     for check in (check_flash, check_gn, check_flash_bwd, check_flash_dbias, check_gn_bwd, check_optimizer):
         timed(check.__name__, check, results, failures)
@@ -2411,43 +2660,53 @@ def main() -> int:
     report["train_step_vs_cpu"] = timed("check_train_vs_cpu", check_train_vs_cpu, failures)
     report["sd15_train_step_vs_cpu"] = timed("check_sd15_train_vs_cpu", check_sd15_train_vs_cpu, failures)
     report["ti_step_vs_cpu"] = timed("check_ti_vs_cpu", check_ti_vs_cpu, failures)
+    report["flux_train_step_vs_cpu"] = timed("check_flux_train_vs_cpu", check_flux_train_vs_cpu, failures)
 
-    log("[3/7] serve SDXL 1024x1024")
+    log("[3/8] serve SDXL 1024x1024")
     serve_counts = timed("serve", serve, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # the serving stack is gone before the trainer is built
 
-    log("[4/7] train SDXL (full fine-tune, batch 8, 64x64 latents)")
+    log("[4/8] train SDXL (full fine-tune, batch 8, 64x64 latents)")
     counts = timed("train", train, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SDXL trainer before the SD1.5 one
 
-    log("[5/7] train SD1.5 (full fine-tune, batch 16, 64x64 latents)")
+    log("[5/8] train SD1.5 (full fine-tune, batch 16, 64x64 latents)")
     sd15_counts, sd15_by_dim = timed("train_sd15", train_sd15, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SD1.5 trainer before the SD3 one
 
-    log("[6/7] textual inversion SD3-medium + CLIP-L + CLIP-bigG + T5-XXL (batch 8, 64x64x16 latents)")
+    log("[6/8] textual inversion SD3-medium + CLIP-L + CLIP-bigG + T5-XXL (batch 8, 64x64x16 latents)")
     ti_counts = timed("ti", ti, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SD3 trainer before the Flux stack
 
-    log("[7/7] serve Flux (flux_dev + CLIP-L + T5-XXL at 512 tokens) 1024x1024")
+    log("[7/8] serve Flux (flux_dev + CLIP-L + T5-XXL at 512 tokens) 1024x1024")
     flux_counts, flux_d128 = timed("flux", flux, report, failures)
+    gc.collect()
+    torch.cuda.empty_cache()  # and the Flux serving stack before the flux_1b trainer
+
+    log("[8/8] train flux_1b (full fine-tune, batch 8, 64x64x16 latents, blocks recomputed in the backward)")
+    flux1b_counts, flux1b_by_dim = timed("train_flux", train_flux, report, failures)
 
     # (kernel, the case of its row's numbers): the kernels serving SD1.5 at
     # its level-0 self-attention (D = 40) and at level 2 (D = 160): the
-    # Hopper forward, dQ and dK/dV, also at D = 64; and the mma.sync
+    # Hopper forward, dQ and dK/dV, also at D = 64 and at the flux_1b step's
+    # D = 128 (the forward also at flux_dev's served step); and the mma.sync
     # forward, dQ and dK/dV, on no path since the Hopper ones took SD1.5's
-    # head dims, the forward at level 0, dQ and dK/dV at level 2
+    # head dims, the forward at level 0, dQ and dK/dV at level 2; K5 at D =
+    # 64 and 128
     main_case = [("flash_fwd_sm90", "sdxl_l1_self"), ("flash_fwd_sm90", "sd15_l0_self"),
                  ("flash_fwd_sm90", "sd15_l2_self"), ("flash_fwd_sm90", "flux_1024_b1"),
-                 ("flash_fwd_mma", "sd15_l0_self"),
+                 ("flash_fwd_sm90", "flux_1b_train"), ("flash_fwd_mma", "sd15_l0_self"),
                  ("flash_bwd_dq_sm90", "train_l1_self"),
                  ("flash_bwd_dkv_sm90", "train_l1_self"), ("flash_bwd_dq_sm90", "sd15_l0_self"),
                  ("flash_bwd_dkv_sm90", "sd15_l0_self"), ("flash_bwd_dq_sm90", "sd15_l2_self"),
-                 ("flash_bwd_dkv_sm90", "sd15_l2_self"), ("flash_bwd_dq_mma", "sd15_l2_self"),
+                 ("flash_bwd_dkv_sm90", "sd15_l2_self"), ("flash_bwd_dq_sm90", "flux_1b_train"),
+                 ("flash_bwd_dkv_sm90", "flux_1b_train"), ("flash_bwd_dq_mma", "sd15_l2_self"),
                  ("flash_bwd_dkv_mma", "sd15_l2_self"), ("flash_bwd_dq_dbias", "t5_xxl"),
+                 ("flash_bwd_dq_dbias", "d128"),
                  ("gn_silu_fused", "8x4096x320"), ("gn_stats", "8x16384x960"), ("gn_silu_apply", "8x16384x960"),
                  ("gn_silu_bwd_fused", "8x4096x320"), ("gn_bwd_partials", "8x4096x960"), ("gn_bwd_dx", "8x4096x960")]
     csrc = "uwudiff_tpu_torch/csrc/"
@@ -2472,9 +2731,10 @@ def main() -> int:
     # the count of the run whose path the row's shape is from: K5's is the
     # textual-inversion step's (0: no path trains an attention bias), the
     # chunked GroupNorm pair's the served batch's, a flash kernel's at
-    # SD1.5's head dims the SD1.5 step's at the row's head dim, the forward's
-    # at D = 128 the Flux runs' (a lone request and a batch of 4), the
-    # others' the SDXL training step's
+    # SD1.5's head dims the SD1.5 step's at the row's head dim, at the
+    # flux_1b step's shape that step's at D = 128, the forward's at flux_dev's
+    # the Flux runs' (a lone request and a batch of 4), the others' the SDXL
+    # training step's
     path_counts = {"flash_bwd_dq_dbias": ti_counts, "gn_stats": serve_counts, "gn_silu_apply": serve_counts}
     kernels = []
     for name, case in main_case:
@@ -2482,7 +2742,9 @@ def main() -> int:
         by_dim = name in sd15_by_dim
         d = row["shape"][-1]
         sd15 = by_dim and d in (40, 80, 160)
-        if name == "flash_fwd_sm90" and d == 128:
+        if case == "flux_1b_train":
+            launches = flux1b_by_dim[name].get(128, 0)
+        elif name == "flash_fwd_sm90" and d == 128:
             launches = flux_d128
         else:
             launches = sd15_by_dim[name].get(d, 0) if sd15 else path_counts.get(name, counts)[name]
@@ -2492,10 +2754,11 @@ def main() -> int:
             max_abs_err=max(r["max_abs_err"] for r in results if r["kernel"] == name
                             and (not by_dim or r["shape"][-1] == d)),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row["library_ms"], device_ms=row.get("device_ms", row.get("kernel_device_ms")),
+            library_ms=row["library_ms"],
+            device_ms=row.get("device_ms", row.get("kernel_device_ms", row.get("kernel_ms"))),
             shape=row["shape"], case=case,
             serving_launches=serve_counts[name], train_launches=counts[name], sd15_launches=sd15_counts[name],
-            ti_launches=ti_counts[name], flux_launches=flux_counts[name],
+            ti_launches=ti_counts[name], flux_launches=flux_counts[name], flux_1b_launches=flux1b_counts[name],
         ))
     # the update's kernels (no Pallas kernel stood there: optax through XLA),
     # checked and timed over the SDXL step's leaves (O1) and the SD1.5 step's
@@ -2515,7 +2778,7 @@ def main() -> int:
                 shape=f"{opt['leaves']} {what} leaves, {opt['params']} params",
                 plain_is="the whole plain update of the leaves (training/optimizers.py::apply_update_)",
                 serving_launches=serve_counts[name], train_launches=counts[name], sd15_launches=sd15_counts[name],
-                ti_launches=ti_counts[name], flux_launches=flux_counts[name],
+                ti_launches=ti_counts[name], flux_launches=flux_counts[name], flux_1b_launches=flux1b_counts[name],
             ))
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start

@@ -6,8 +6,9 @@ Each forward variant (``VARIANTS``) is ``csrc/flash_fwd_sm90.cu`` with one
 choice of its ``Cfg`` changed (a textual substitution): the consumer
 warpgroups, the share of exp2 on the FMA pipe, the Q buffers, the K/V
 stages, the key tile (at Flux's D = 128). Each backward variant (``BWD_VARIANTS``) is
-``csrc/flash_bwd_sm90.cu`` with one choice of the D = 160 design changed:
-dK/dV's item buffers. Each is built with
+``csrc/flash_bwd_sm90.cu`` with one choice of the D = 128 or 160 design
+changed: dK/dV's item buffers, its consumers split by role or not, dQ's
+operands read from shared memory or held in registers. Each is built with
 ``nvcc`` into ``csrc/build/variants/``, its ptxas spills and serialised
 ``wgmma`` (C75xx) printed, held against the plain version in every bias
 mode at two ragged shapes (bitwise from run to run too), then timed in
@@ -43,6 +44,7 @@ L0, L0_CROSS = (16, 4096, 4096, 8, 40), (16, 4096, 77, 8, 40)  # SD1.5's shapes 
 L1, L2, L2_CROSS = (16, 1024, 1024, 8, 80), (16, 256, 256, 8, 160), (16, 256, 77, 8, 160)
 SDXL_L1, SDXL_L2 = (8, 4096, 4096, 10, 64), (8, 1024, 1024, 20, 64)
 FLUX_1024, FLUX_512 = (1, 4608, 4608, 24, 128), (2, 1536, 1536, 24, 128)  # flux_dev's joint attention
+FLUX_1B = (8, 1101, 1101, 12, 128)  # the flux_1b training step's joint attention (1024 image + 77 text tokens)
 
 # name -> (what the committed line becomes, the forward's query rows and key
 # rows it needs by head dim, the shapes to time)
@@ -63,12 +65,19 @@ VARIANTS = {
     "d128_two_q_buffers": (("Q_STAGES = D > 64 ? 1 : 2", "Q_STAGES = D > 64 && D != 128 ? 1 : 2"), {}, {},
                            (FLUX_1024, FLUX_512)),
 }
-# name -> (what the committed line of flash_bwd_sm90.cu becomes, the shapes
-# to time): at D = 160, dK/dV with two item buffers and two ring stages in
-# place of one and three
+# name -> (what the committed line of flash_bwd_sm90.cu becomes, the dK/dV
+# item rows it needs by head dim, the shapes to time): at D = 160, dK/dV
+# with two item buffers and two ring stages in place of one and three; at
+# 128, dK/dV unsplit (each consumer its own 64 of 128 keys, dK and dV both),
+# one item buffer in each kernel (then 4 dQ and 5 dK/dV stages), and dQ
+# holding Q and dO as register fragments
 BWD_VARIANTS = {
-    "d160_dkv_two_item_buffers": (("ITEM_BUFS = D > 128 ? 1 : 2", "ITEM_BUFS = !DKV && D > 128 ? 1 : 2"),
+    "d160_dkv_two_item_buffers": (("ITEM_BUFS = D > 128 ? 1 : 2", "ITEM_BUFS = !DKV && D > 128 ? 1 : 2"), {},
                                   (L2, L2_CROSS)),
+    "d128_dkv_unsplit": (("SPLIT = DKV && D >= 128;", "SPLIT = DKV && D > 128;"), {128: 128}, (FLUX_1B,)),
+    "d128_one_item_buffer": (("ITEM_BUFS = D > 128 ? 1 : 2", "ITEM_BUFS = D >= 128 ? 1 : 2"), {}, (FLUX_1B,)),
+    "d128_dq_a_from_registers": (("A_SMEM = D > 64 && (DKV || D >= 128);", "A_SMEM = D > 64 && (DKV || D > 128);"),
+                                 {}, (FLUX_1B,)),
 }
 
 
@@ -108,11 +117,13 @@ def _as_the_kernel(lib, q_rows, key_rows):
 
 
 @contextlib.contextmanager
-def _as_the_backward(lib):
+def _as_the_backward(lib, dkv_rows):
     """flash_bwd_dq_sm90 and flash_bwd_dkv_sm90 launch the variant's library
-    inside the block."""
+    (and box k and v for dK/dV in the variant's item rows) inside the block."""
     names = {"uwu_flash_bwd_dq_sm90": 8, "uwu_flash_bwd_dkv_sm90": 9}
     saved = {name: fa._fns.get(name) for name in names}
+    saved_rows = dict(fa.SM90_BWD_DKV_ITEM_ROWS)
+    fa.SM90_BWD_DKV_ITEM_ROWS.update(dkv_rows)
     for name, n_ptrs in names.items():
         fn = getattr(ctypes.CDLL(str(lib)), name)
         fn.restype = ctypes.c_int
@@ -122,6 +133,8 @@ def _as_the_backward(lib):
     try:
         yield
     finally:
+        fa.SM90_BWD_DKV_ITEM_ROWS.clear()
+        fa.SM90_BWD_DKV_ITEM_ROWS.update(saved_rows)
         for name, fn in saved.items():
             if fn is None:
                 fa._fns.pop(name, None)
@@ -240,8 +253,8 @@ def main() -> int:
             raise RuntimeError(f"nvcc failed for {name}:\n{out}{err}")
         backward = name in BWD_VARIANTS
         if backward:
-            (old, new), shapes = BWD_VARIANTS[name]
-            as_variant, check = (lambda: _as_the_backward(lib)), _check_bwd  # noqa: E731
+            (old, new), dkv_rows, shapes = BWD_VARIANTS[name]
+            as_variant, check = (lambda: _as_the_backward(lib, dkv_rows)), _check_bwd  # noqa: E731
         else:
             (old, new), q_rows, key_rows, shapes = VARIANTS[name]
             as_variant, check = (lambda: _as_the_kernel(lib, q_rows, key_rows)), _check  # noqa: E731

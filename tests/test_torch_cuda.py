@@ -449,6 +449,12 @@ def test_tiny_pipeline_runs_through_the_kernels(dev):
         (2, 64, 77, 8, 160, "none"),
         (1, 130, 300, 2, 160, "key"),
         (2, 130, 130, 3, 160, "full"),
+        # Flux's D = 128 (the flux_1b step's 1101 joint tokens, heads cut to
+        # 2), ragged with a key mask, and a full bias: the Hopper pair, whose
+        # dK/dV consumers split by role as at 160
+        (2, 1101, 1101, 2, 128, "none"),
+        (1, 130, 300, 2, 128, "key"),
+        (2, 130, 130, 3, 128, "full"),
     ],
 )
 def test_flash_bwd_kernels_match_plain(dev, b, sq, sk, h, d, kind):
@@ -531,17 +537,24 @@ def test_flash_bwd_raises_for_a_head_dim_it_was_not_built_for(dev):
     assert launch_counts()["flash_bwd_dq"] == launch_counts()["flash_bwd_dkv"] == 0
 
 
-def test_flash_bwd_raises_at_fluxs_head_dim(dev):
-    """The forward runs at D = 128, the backward is not built there yet: the
-    autograd function's backward raises, it does not fall back."""
+def test_flash_autograd_runs_the_hopper_pair_at_fluxs_head_dim(dev):
+    """At D = 128 the autograd function's backward is the Hopper dQ and
+    dK/dV, once each, held to the plain backward."""
+    from uwudiff_tpu_torch.ops.flash_attention import flash_attention_backward_reference
+
     q, k, v = (torch.randn((1, 130, 2, 128), device=dev, dtype=torch.bfloat16, requires_grad=True)
                for _ in range(3))
     reset_launch_counts()
     out = flash_attention(q, k, v)
-    assert launch_counts()["flash_fwd_sm90"] == 1
-    with pytest.raises(ValueError, match="head dim"):
-        out.backward(torch.ones_like(out))
-    assert launch_counts()["flash_bwd_dq"] == launch_counts()["flash_bwd_dkv"] == 0
+    dout = torch.randn_like(out)
+    out.backward(dout)
+    counts = launch_counts()
+    assert counts["flash_fwd_sm90"] == counts["flash_bwd_dq_sm90"] == counts["flash_bwd_dkv_sm90"] == 1
+    assert counts["flash_bwd_dq_mma"] == counts["flash_bwd_dkv_mma"] == 0
+    _, lse = flash_fwd(q.detach(), k.detach(), v.detach())
+    refs = flash_attention_backward_reference(q.detach(), k.detach(), v.detach(), None, out.detach(), lse, dout)
+    for t, r in zip((q, k, v), refs[:3]):
+        _assert_flash_close(t.grad, r)
 
 
 # every D = 64 backward shape of the train and textual-inversion paths (B,
@@ -568,6 +581,26 @@ def _bwd_inputs(b, sq, sk, h, kind, scale, seed, d=64):
     dout = torch.randn(out.shape, generator=gen, device="cuda", dtype=torch.bfloat16)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     return q, k, v, bias, out, lse, dout, delta
+
+
+@pytest.mark.parametrize("kind", ["none", "key"])
+def test_hopper_backward_matches_plain_at_the_flux_1b_step(dev, kind):
+    """The flux_1b step's joint attention, [8, 1101, 1101, 12, 128], with
+    no bias (bench.py's batch has no text mask) and with a key mask (a T5
+    bucket's): dQ and dK/dV at D = 128, bitwise from run to run."""
+    from uwudiff_tpu_torch.ops.flash_attention import flash_attention_backward_reference, flash_bwd_dkv, flash_bwd_dq
+
+    q, k, v, bias, out, lse, dout, delta = _bwd_inputs(8, 1101, 1101, 12, kind, None, seed=15, d=128)
+    reset_launch_counts()
+    dq = flash_bwd_dq(q, k, v, dout, lse, delta, bias)
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, bias)
+    assert launch_counts()["flash_bwd_dq_sm90"] == launch_counts()["flash_bwd_dkv_sm90"] == 1
+    refs = flash_attention_backward_reference(q, k, v, bias, out, lse, dout)[:3]
+    for g, r in zip((dq, dk, dv), refs):
+        assert torch.isfinite(g).all()
+        _assert_flash_close(g, r)
+    assert torch.equal(dq, flash_bwd_dq(q, k, v, dout, lse, delta, bias))
+    assert all(torch.equal(x, y) for x, y in zip((dk, dv), flash_bwd_dkv(q, k, v, dout, lse, delta, bias)))
 
 
 @pytest.mark.parametrize("b,sq,sk,h,kind,scale", _BWD_PATH_CASES)
@@ -659,7 +692,7 @@ def test_hopper_backward_reads_clips_bias_in_place(dev, which):
         _assert_flash_close(g, r)
 
 
-@pytest.mark.parametrize("d,suffix", [(64, "_sm90"), (40, "_sm90"), (80, "_sm90"), (160, "_sm90")])
+@pytest.mark.parametrize("d,suffix", [(64, "_sm90"), (40, "_sm90"), (80, "_sm90"), (128, "_sm90"), (160, "_sm90")])
 def test_backward_dispatches_on_the_head_dim(dev, d, suffix):
     from uwudiff_tpu_torch.ops.flash_attention import (
         MMA_BWD_HEAD_DIMS,
@@ -867,6 +900,7 @@ def _assert_dbias_close(got, ref):
         (1, 130, 2, 40, None),
         (1, 77, 2, 80, None),  # odd Sk: 4-byte dBias stores
         (2, 256, 8, 160, None),  # SD1.5's level-2 shape (no path trains a bias there)
+        (2, 200, 12, 128, None),  # Flux's head dim, ragged (no path trains a bias there)
     ],
 )
 def test_flash_dbias_kernel_matches_plain(dev, b, s, h, d, scale):
@@ -889,14 +923,14 @@ def test_flash_dbias_kernel_matches_plain(dev, b, s, h, d, scale):
         _assert_flash_close(g, r)
     assert dbias.shape == (b, h, s, s) and dbias.dtype == torch.float32
     _assert_dbias_close(dbias, rds)
-    # both outputs bitwise reproducible; dQ is the mma.sync K4's, bitwise,
-    # where K4 is that kernel (D = 40/80/160) and within the flash bound of the
-    # Hopper K4 at D = 64 (other products, summed in another order)
+    # both outputs bitwise reproducible; dQ is the Hopper K4's, bitwise, at
+    # D = 40/80/160 and within the flash bound of it at D = 64 and 128 (other
+    # products, summed in another order)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     dq2, db2 = flash_bwd_dq_dbias(q, k, v, dout, lse, delta, bias, scale)
     assert torch.equal(dq, dq2) and torch.equal(dbias.reshape(b * h, s, s), db2)
     dq_k4 = flash_bwd(q, k, v, bias, out, lse, dout, scale)[0]
-    if d == 64:
+    if d in (64, 128):
         _assert_flash_close(dq, dq_k4)
     else:
         assert torch.equal(dq, dq_k4)

@@ -1,5 +1,5 @@
 """What surrounds the Hopper flash backward, on the CPU: the head-dim
-dispatch of dQ and dK/dV (Hopper at D = 40/64/80/160; the mma.sync pair at
+dispatch of dQ and dK/dV (Hopper at D = 40/64/80/128/160; the mma.sync pair at
 160 on no path), the launch counters, the TMA boxes (128-byte swizzle rows
 of 64 columns at every head dim, the item rows of each kernel), the
 kernels' shared-memory layouts and the bias the kernels read in place.
@@ -56,6 +56,7 @@ BWD_VARIANTS = _bwd_variants()
 @pytest.mark.parametrize("d,kernels", [(64, (flash_bwd_dq_sm90, flash_bwd_dkv_sm90)),
                                        (40, (flash_bwd_dq_sm90, flash_bwd_dkv_sm90)),
                                        (80, (flash_bwd_dq_sm90, flash_bwd_dkv_sm90)),
+                                       (128, (flash_bwd_dq_sm90, flash_bwd_dkv_sm90)),
                                        (160, (flash_bwd_dq_sm90, flash_bwd_dkv_sm90))])
 def test_head_dim_selects_the_backward(d, kernels):
     assert d in BWD_HEAD_DIMS
@@ -66,7 +67,7 @@ def test_head_dim_selects_the_backward(d, kernels):
     assert set(MMA_BWD_HEAD_DIMS) <= set(SM90_BWD_HEAD_DIMS)
 
 
-@pytest.mark.parametrize("d", [16, 32, 48, 96, 128, 152, 256])
+@pytest.mark.parametrize("d", [16, 32, 48, 96, 120, 152, 256])
 def test_other_head_dims_raise(d):
     with pytest.raises(ValueError, match="head dim"):
         backward_kernels(d)
@@ -108,12 +109,13 @@ def test_the_source_is_built_and_its_tiles_match_the_boxes():
     src = (CSRC / "flash_bwd_sm90.cu").read_text()
     assert int(re.search(r"constexpr int ITEM_ROWS = (\d+);", src)[1]) == SM90_BWD_ITEM_ROWS
     assert int(re.search(r"constexpr int TILE = (\d+);", src)[1]) == SM90_BWD_TILE_ROWS
-    # dK/dV's item at D = 160, the keys both consumers share, is the box of
-    # its k and v maps
-    assert int(re.search(r"ITEM = SPLIT \? (\d+) : ITEM_ROWS;", src)[1]) == SM90_BWD_DKV_ITEM_ROWS[160]
+    # dK/dV's item at D = 128 and 160, the keys both consumers share, is the
+    # box of its k and v maps
+    item = int(re.search(r"ITEM = SPLIT \? (\d+) : ITEM_ROWS;", src)[1])
+    assert item == SM90_BWD_DKV_ITEM_ROWS[128] == SM90_BWD_DKV_ITEM_ROWS[160]
     # the C side's instances are the Python side's head dims, and its swizzle
     # row (64 columns at every head dim) is the maps' box
-    assert re.search(r"static_assert\(D == 40 \|\| D == 64 \|\| D == 80 \|\| D == 160,", src)
+    assert re.search(r"static_assert\(D == 40 \|\| D == 64 \|\| D == 80 \|\| D == 128 \|\| D == 160,", src)
     assert set(map(int, re.findall(r"case (\d+): return run<", src))) == set(SM90_BWD_HEAD_DIMS)
     assert int(re.search(r"constexpr int COLS = (\d+);", src)[1]) == 64
     common = (CSRC / "hopper_common.cuh").read_text()
@@ -151,29 +153,33 @@ def test_a_64_row_map_of_a_heads_first_gradient():
 
 
 @pytest.mark.parametrize("d,rows", [(40, SM90_BWD_TILE_ROWS), (40, SM90_BWD_ITEM_ROWS), (80, SM90_BWD_TILE_ROWS),
-                                    (80, SM90_BWD_ITEM_ROWS), (160, SM90_BWD_TILE_ROWS),
+                                    (80, SM90_BWD_ITEM_ROWS), (128, SM90_BWD_TILE_ROWS),
+                                    (128, SM90_BWD_DKV_ITEM_ROWS[128]), (160, SM90_BWD_TILE_ROWS),
                                     (160, SM90_BWD_ITEM_ROWS)])
 def test_a_backward_map_at_sd15s_head_dims_is_64_column_boxes(d, rows):
-    # SD1.5's level-0 / 1 / 2 self-attention, contiguous: the box is one
-    # 64-column block (128 bytes, the 128-byte swizzle), the kernel loads
-    # ceil(D / 64) of them (1, 2, 3) and TMA zero-fills the columns past D
-    s = 4096 if d < 160 else 256
-    t = torch.zeros((16, s, 8, d), dtype=BF16)
+    # SD1.5's level-0 / 1 / 2 self-attention and the flux_1b step's joint
+    # attention (8 x 1101 tokens, 12 heads of 128), contiguous: the box is
+    # one 64-column block (128 bytes, the 128-byte swizzle), the kernel
+    # loads ceil(D / 64) of them (1, 2, 2, 3) and TMA zero-fills the columns
+    # past D (none at 128)
+    b, s, h = (8, 1101, 12) if d == 128 else (16, 4096 if d < 160 else 256, 8)
+    t = torch.zeros((b, s, h, d), dtype=BF16)
     m = tma_map(t, who="flash_bwd_dq_sm90", name="q", rows=rows, head_dims=SM90_BWD_HEAD_DIMS)
-    assert m.dims == (d, 8, s, 16)
-    assert m.strides == (2 * d, 8 * 2 * d, s * 8 * 2 * d)
+    assert m.dims == (d, h, s, b)
+    assert m.strides == (2 * d, h * 2 * d, s * h * 2 * d)
     assert m.box == (64, 1, rows, 1)
-    assert -(-d // m.box[0]) == {40: 1, 80: 2, 160: 3}[d]
+    assert -(-d // m.box[0]) == {40: 1, 80: 2, 128: 2, 160: 3}[d]
     assert len(m.words()) == 11
 
 
-@pytest.mark.parametrize("d", [40, 64, 80, 160])
+@pytest.mark.parametrize("d", [40, 64, 80, 128, 160])
 def test_each_backward_kernel_boxes_its_item_and_its_tiles(d):
     # dQ: q and dout in boxes of an item's 128 query rows, k and v of a
     # 64-key tile; dK/dV: k and v in boxes of an item's keys (128, or at
-    # D = 160 the 64 both consumers share), q and dout of a 64-row tile
+    # D = 128 and 160 the 64 both consumers share), q and dout of a 64-row
+    # tile
     assert sm90_bwd_box_rows(d, False) == (SM90_BWD_ITEM_ROWS, SM90_BWD_TILE_ROWS) == (128, 64)
-    assert sm90_bwd_box_rows(d, True) == (SM90_BWD_TILE_ROWS, 64 if d == 160 else 128)
+    assert sm90_bwd_box_rows(d, True) == (SM90_BWD_TILE_ROWS, 64 if d >= 128 else 128)
     t = torch.zeros((16, 256, 8, d), dtype=BF16)
     for dkv in (False, True):
         q_rows, k_rows = sm90_bwd_box_rows(d, dkv)
@@ -195,7 +201,7 @@ def _bwd_layout(d, dkv):
              for n in ("ITEM_ROWS", "TILE", "COLS", "SMEM_MAX", "MAX_STAGES")}
     row_bytes, vec_bytes = 2 * const["COLS"], 4 * const["TILE"]
     nblk = -(-d // const["COLS"])
-    item = 64 if dkv and d > 128 else const["ITEM_ROWS"]
+    item = 64 if dkv and d >= 128 else const["ITEM_ROWS"]
     bufs = 1 if d > 128 else 2
     item_bytes, tile_bytes = nblk * item * row_bytes, nblk * const["TILE"] * row_bytes
     stage_bytes = 2 * tile_bytes + 2 * vec_bytes
@@ -206,22 +212,25 @@ def _bwd_layout(d, dkv):
 
 
 @pytest.mark.parametrize("dkv", [False, True])
-@pytest.mark.parametrize("d", [40, 64, 80, 160])
+@pytest.mark.parametrize("d", [40, 64, 80, 128, 160])
 def test_each_backward_layout_fits_shared_memory(d, dkv):
     # the Python mirror above follows the source's Cfg lines ...
     src = (CSRC / "flash_bwd_sm90.cu").read_text()
-    for line in ("SPLIT = DKV && D > 128;", "ITEM = SPLIT ? 64 : ITEM_ROWS;", "ITEM_BUFS = D > 128 ? 1 : 2;",
+    for line in ("SPLIT = DKV && D >= 128;", "ITEM = SPLIT ? 64 : ITEM_ROWS;", "ITEM_BUFS = D > 128 ? 1 : 2;",
                  "STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;", "SMEM_MAX = 232448;"):
         assert line in src
     # ... and every layout fits the 227 KB a block may have, with a ring of
-    # at least two stages: at D = 160 one item buffer, dQ's 96 KB of Q and
-    # dO beside two stages, dK/dV's 48 KB of K and V (64 keys) beside three;
-    # D = 40/64/80 keep the layouts they had before D = 160 joined
+    # at least two stages: at D = 128 two item buffers, dQ's 64 KB of Q and
+    # dO twice beside three stages, dK/dV's 32 KB of K and V (64 keys) twice
+    # beside four; at 160 one, dQ's 96 KB beside two stages, dK/dV's 48 KB
+    # beside three; D = 40/64/80 keep the layouts they had before
     lay = _bwd_layout(d, dkv)
     assert lay["smem"] <= lay["smem_max"] == 227 * 1024
-    assert lay["stages"] == {40: 5, 64: 5, 80: 3, 160: 3 if dkv else 2}[d]
+    assert lay["stages"] == {40: 5, 64: 5, 80: 3, 128: 4 if dkv else 3, 160: 3 if dkv else 2}[d]
     assert lay["bufs"] == (1 if d == 160 else 2)
     assert lay["smem"] == {40: 151152, 64: 151152, 80: 232016}.get(d, lay["smem"])
+    if d == 128:
+        assert lay["smem"] == (199776 if dkv else 232016)
     if d == 160:
         assert lay["smem"] == (199232 if dkv else 198704)
 
@@ -229,7 +238,7 @@ def test_each_backward_layout_fits_shared_memory(d, dkv):
 def test_the_d160_instances_are_in_the_source():
     src = (CSRC / "flash_bwd_sm90.cu").read_text()
     assert "case 160: return run<160, DKV>" in src
-    assert "else wgmma_m64n160k16_rs_tb(d, a, desc_b);" in src  # dQ, dK and dV at N = 160
+    assert "else if constexpr (D == 160) wgmma_m64n160k16_rs_tb(d, a, desc_b);" in src  # dQ, dK and dV at N = 160
     assert "wgmma_m64n160k16_rs_tb" in (CSRC / "hopper_common.cuh").read_text()
     # the split's two roles, each with its own register budget
     for role, regs in (("DV_ONLY", 224), ("DK_ONLY", 240)):
@@ -240,15 +249,17 @@ def test_the_d160_instances_are_in_the_source():
 def test_each_backward_variant_changes_one_line_of_the_kernel(name):
     # flash_variants.py builds each backward variant by replacing one line of
     # flash_bwd_sm90.cu and launches it through the two wrappers' library
-    # slots: each must still find what it edits
-    (old, new), shapes = BWD_VARIANTS[name]
+    # slots (boxing k and v in the variant's dK/dV item rows): each must
+    # still find what it edits
+    (old, new), dkv_rows, shapes = BWD_VARIANTS[name]
     src = (CSRC / "flash_bwd_sm90.cu").read_text()
     assert src.count(old) == 1 and old != new
     assert {shape[-1] for shape in shapes} <= set(SM90_BWD_HEAD_DIMS)
+    assert set(dkv_rows) <= set(SM90_BWD_HEAD_DIMS) and set(dkv_rows.values()) <= {64, 128}
     assert '"uwu_flash_bwd_dq_sm90"' in inspect.getsource(flash_bwd_dq_sm90)
 
 
-@pytest.mark.parametrize("d,which", [(40, 0), (40, 2), (80, 1), (160, 1), (160, 3)])
+@pytest.mark.parametrize("d,which", [(40, 0), (40, 2), (80, 1), (128, 2), (160, 1), (160, 3)])
 def test_a_backward_map_of_a_head_slice_of_a_fused_tensor(d, which):
     qkv = torch.zeros((2, 1024, 4, 8, d), dtype=BF16)
     t = qkv[:, :, which]  # q, k, v or dO cut from one [B, S, 4, H, D] tensor, uncopied
@@ -321,3 +332,18 @@ def test_the_hopper_backward_reads_the_paths_biases_in_place(name, q_shape, bias
     assert (got_mode, (sb, sh)) == (mode, strides)
     assert t.data_ptr() == bias.data_ptr()  # no [B*H, Sq, Sk] copy: read where it lies
     assert t.numel() == bias.numel()
+
+
+def test_the_d128_instances_are_in_the_source():
+    # Flux's head dim: dQ, dK and dV at N = 128 on wgmma.m64n128k16, both
+    # kernels reading their item's operands from shared memory, dK/dV's
+    # consumers split by role over 64 shared keys as at 160
+    src = (CSRC / "flash_bwd_sm90.cu").read_text()
+    assert "case 128: return run<128, DKV>" in src
+    assert "else if constexpr (D == 128) wgmma_m64n128k16_rs_tb(d, a, desc_b);" in src
+    assert "wgmma_m64n128k16_rs_tb" in (CSRC / "hopper_common.cuh").read_text()
+    assert "A_SMEM = D > 64 && (DKV || D >= 128);" in src
+    assert set(SM90_BWD_HEAD_DIMS) == set(BWD_HEAD_DIMS) == {40, 64, 80, 128, 160}
+    # K5 (flash_bwd.cu) is built at every backward head dim
+    k5 = (CSRC / "flash_bwd.cu").read_text()
+    assert {int(d) for d in re.findall(r"case (\d+): return dispatch_bias<KIND, \d+>", k5)} == set(BWD_HEAD_DIMS)

@@ -1,4 +1,5 @@
-"""The port's Flux txt2img path against the JAX package's, on the CPU, in fp32.
+"""The port's Flux txt2img path and Flux training step against the JAX
+package's, on the CPU, in fp32.
 
 The rotary tables, the RF sigma ladders, the ``tiny`` Flux forward at one
 block of each kind (with and without the text mask and the guidance
@@ -13,19 +14,24 @@ tests and the slice, and the JAX programs are compiled with the suite's
 cheap compiler settings (``FAST_COMPILE``), each once. Tolerances: tables
 bitwise, ladders exactly, the rotation within 1e-6, the forward within
 1e-4 of the output's largest element (fp32 sums in another order), the
-sampled latents within 1e-4 of theirs.
+sampled latents within 1e-4 of theirs. The training step (bench.py's
+flux_1b recipe at a small width with Flux's head dim 128) states its own
+tolerances.
 """
 
 import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
 from test_torch_models import one_torch_thread  # noqa: F401  (autouse: one torch thread in this module)
 from test_torch_models import FAST_COMPILE, compile_fast, random_params
+from uwudiff_tpu.diffusion.losses import DiffusionLoss as JaxDiffusionLoss
 from uwudiff_tpu.diffusion.losses import RectifiedFlowLoss as JaxRFLoss
 from uwudiff_tpu.diffusion.schedules import NoiseSchedule as JaxSchedule
 from uwudiff_tpu.models import flux as jflux
@@ -33,18 +39,21 @@ from uwudiff_tpu.models.text_encoders import ConcatTextEncoders as JaxConcat
 from uwudiff_tpu.models.text_encoders import TextEncodingPipeline as JaxTEPipeline
 from uwudiff_tpu.models.tokenizers import SimpleTokenizer as JaxTokenizer
 from uwudiff_tpu.models.vae import AutoencoderKL as JaxVAE
+from uwudiff_tpu.parallel import batch_sharding, make_mesh
 from uwudiff_tpu.sampling import get_sigmas as jsig
 from uwudiff_tpu.sampling import noise as jnoise
 from uwudiff_tpu.sampling.cfg import encode_cfg_inputs as jax_encode_cfg_inputs
 from uwudiff_tpu.sampling.sampling import diffusion_sampling as jax_diffusion_sampling
 from uwudiff_tpu.sampling.wrapper import RFDenoiser as JaxRFDenoiser
+from uwudiff_tpu.training import DMTrainer as JaxTrainer
 from uwudiff_tpu_torch import sampling as tsampling
-from uwudiff_tpu_torch.convert import load_jax_params
+from uwudiff_tpu_torch.convert import load_jax_params, to_jax_params
 from uwudiff_tpu_torch.diffusion import DiffusionLoss, NoiseSchedule, RectifiedFlowLoss
 from uwudiff_tpu_torch.models import AutoencoderKL, ConcatTextEncoders, Flux, SimpleTokenizer, TextEncodingPipeline
 from uwudiff_tpu_torch.models import flux as tflux
 from uwudiff_tpu_torch.sampling import encode_cfg_inputs
 from uwudiff_tpu_torch.sampling import sampling as tsampling_module
+from uwudiff_tpu_torch.training import DMTrainer
 
 # the Flux text stack: CLIP in the pooled-only slot, T5 in bucket 1 with its key mask
 TE_CFGS = [
@@ -168,9 +177,9 @@ def test_flux_loads_a_scanned_tree_and_zero_initialises(flux_pair):
     x, t, ctx, mask, pooled = (torch.from_numpy(a) for a in _inputs())
     with torch.no_grad():
         assert not fresh(x, t, ctx, mask, {"text_embeds": pooled}).any()  # adaLN-Zero
-    for key in ("scan_blocks", "gradient_checkpointing"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Flux.from_config("tiny", device="cpu", **{key: True})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Flux.from_config("tiny", device="cpu", scan_blocks=True)
+    assert Flux.from_config("tiny", device="cpu", gradient_checkpointing=True).gradient_checkpointing
     with pytest.raises(ValueError, match="axes_dims"):
         Flux.from_config("tiny", device="cpu", axes_dims=(4, 4, 4))
 
@@ -305,3 +314,185 @@ def test_flux_txt2img_matches_jax(flux_pair, monkeypatch):
     assert len(images) == 2 and images[0].shape == (w, w, 3) and images[0].dtype == np.uint8
     # a pixel may round across a level boundary; no more than one level off
     assert max(np.abs(a.astype(int) - b.astype(int)).max() for a, b in zip(images, want)) <= 1
+
+
+# ---------------------------------------------------------------- training
+# bench.py's flux_1b step at a small width with Flux's head dim 128 (hidden
+# 256, 2 heads, axes (16, 56, 56)), one block of each kind, the recipe's
+# adamw_factored in fp32, through the JAX package's DMTrainer (its blocks
+# under nn.remat) and the port's, remat on and off; and the rectified-flow
+# loss Flux users train with (configs/demo_training_flux.yaml)
+STEP_MODEL = dict(hidden_size=256, num_heads=2, depth=1, depth_single=1, axes_dims=(16, 56, 56), in_channels=16,
+                  context_dim=32, pooled_dim=32)
+STEP_OPT = {"weight_decay": 0.01, "betas": (0.9, 0.999), "clipping_threshold": 1.0}
+STEP_KW = dict(lr=1e-3, optimizer="adamw_factored", opt_config=STEP_OPT, use_warm_up=False, grad_clip=None, seed=0)
+
+
+def _step_batch():
+    rng = np.random.default_rng(11)
+    mask = np.ones((2, 8), np.int32)
+    mask[1, 5:] = 0
+    return {"sample": rng.standard_normal((2, 8, 8, 16)).astype(np.float32),
+            "ctx": rng.standard_normal((2, 8, 32)).astype(np.float32), "ctx_mask": mask,
+            "pooled": rng.standard_normal((2, 32)).astype(np.float32), "tokenizer_outputs": []}
+
+
+def _step_loss(kind, jax_side):
+    if kind == "eps":
+        return (JaxDiffusionLoss(schedule=JaxSchedule.sd15()) if jax_side
+                else DiffusionLoss(schedule=NoiseSchedule.sd15()))
+    return (JaxRFLoss(schedule=JaxSchedule.sdxl(), time_sampling_type="logit_normal") if jax_side
+            else RectifiedFlowLoss(schedule=NoiseSchedule.sdxl(), time_sampling_type="logit_normal"))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_trainer(kind):
+    """The JAX trainer of the small Flux with ``kind``'s loss: DiffusionLoss
+    with its blocks under ``nn.remat``, as ``bench.py`` trains flux_1b; the
+    rectified-flow loss without."""
+    jmodel = jflux.Flux.from_config("tiny", gradient_checkpointing=kind == "eps", **STEP_MODEL)
+    jtr = JaxTrainer(model_config={"unet": jmodel, "te": None, "vae": None},
+                     loss_config=_step_loss(kind, jax_side=True), **STEP_KW)
+    jtr.mesh = make_mesh({"data": 1}, devices=jax.devices()[:1])  # what setup builds, on one device
+    jtr._batch_sh = batch_sharding(jtr.mesh)
+    return jtr
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_flux_programs():
+    """The small Flux's random params and the JAX trainer's first step, the
+    body of ``_train_step_impl`` in fp32 as three programs so that the two
+    losses share the update's: ``jax.value_and_grad`` of the trainer's
+    ``_loss_for_batch`` under the key its step 0 folds, for each loss, and
+    ``(grads, params) -> params`` after one step of ``adamw_factored`` from
+    its initial state (``tx.update``, then ``optax.apply_updates``). Each is
+    traced here and compiled in a thread of its own (XLA's compile releases
+    the interpreter lock), so the compiles run beside the tracing and the
+    port's step; the futures are read by :func:`_jax_flux_step`."""
+    batch = _step_batch()
+    params = random_params(jflux.Flux.from_config("tiny", **STEP_MODEL), batch["sample"][:1],
+                           np.zeros((1,), np.float32), batch["ctx"][:1], batch["ctx_mask"][:1],
+                           {"text_embeds": batch["pooled"][:1]}, seed=12)
+    pool = ThreadPoolExecutor(3)
+    programs = {}
+    for kind in ("eps", "rf"):
+        jtr = _jax_trainer(kind)
+        put = jtr._put_batch(batch)
+
+        def loss_and_grads(p, b, jtr=jtr):
+            return jax.value_and_grad(lambda p_: jtr._loss_for_batch(p_, {}, b, _step_rng()), has_aux=True)(p)
+
+        programs[kind] = (pool.submit(jax.jit(loss_and_grads).lower(params, put).compile, FAST_COMPILE), put)
+    tx = _jax_trainer("eps").tx
+
+    def update(grads, p):
+        return optax.apply_updates(p, tx.update(grads, tx.init(p), p)[0])
+
+    programs["update"] = pool.submit(jax.jit(update).lower(params, params).compile, FAST_COMPILE)
+    pool.shutdown(wait=False)  # the threads end with their compiles
+    return params, programs
+
+
+def _step_rng():
+    """The key the JAX trainer's step 0 passes its loss: its seed's, folded with the step."""
+    return jax.random.fold_in(jax.random.PRNGKey(STEP_KW["seed"]), 0)
+
+
+def _jax_draws(kind, x):
+    """The JAX loss's draws at step 0, from its own samplers: the step's key
+    split for (encode, loss, dropout), the loss's for (time, noise); noise and
+    timesteps for DiffusionLoss, noise and the logit-normal z for the
+    rectified-flow loss."""
+    jloss = _jax_trainer(kind).loss
+    rng_t, rng_n = jax.random.split(jax.random.split(_step_rng(), 3)[1])
+    if kind == "eps":
+        return dict(noise=np.array(jloss.sample_noise(rng_n, jnp.asarray(x))),
+                    timesteps=np.array(jloss.sample_timesteps_and_sigmas(rng_t, x.shape[0])[0]))
+    return dict(noise=np.array(jloss.get_x0_and_noises(rng_n, jnp.asarray(x))[1]),
+                time_draws=np.array(jax.random.normal(rng_t, (x.shape[0],))))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_flux_step(kind):
+    """The JAX trainer's first step with ``kind``'s loss: loss, grad norm,
+    the target and timesteps it drew, the gradients and the params after the
+    update (from :func:`_jax_flux_programs`)."""
+    params, programs = _jax_flux_programs()
+    compiled, put = programs[kind]
+    (loss, aux), grads = compiled.result()(params, put)
+    flat = dict(_flat_tree(jax.device_get(grads)))
+    return {"loss": float(loss), "grad_norm": float(np.sqrt(sum(np.sum(g.astype(np.float64) ** 2)
+                                                               for g in flat.values()))),
+            "target": np.asarray(aux.target), "timesteps": np.asarray(aux.timesteps), "grads": flat,
+            "params": dict(_flat_tree(jax.device_get(programs["update"].result()(grads, params))))}
+
+
+def _flat_tree(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_tree(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", np.asarray(v, np.float32)
+
+
+def _port_flux_trainer(kind, params, remat):
+    model = load_jax_params(Flux.from_config("tiny", device="cpu", gradient_checkpointing=remat, **STEP_MODEL),
+                            params)
+    return DMTrainer({"unet": model, "te": None, "vae": None}, loss_config=_step_loss(kind, jax_side=False),
+                     device="cpu", **STEP_KW)
+
+
+@pytest.mark.parametrize("kind,remat", [("eps", True), ("eps", False), ("rf", True)])
+def test_flux_training_step_at_head_dim_128_matches_jax(kind, remat):
+    """One fp32 step at head dim 128: loss and grad norm within 1e-5
+    relative; every gradient within 2e-4 of the leaf's largest and the
+    median leaf within 5e-5 (fp32 sums in another order; the guidance
+    sinusoid's phase, up to 3,500 rad, rounds by up to 1.2e-4 in fp32,
+    which reaches ``g_fc1``'s gradient); every parameter's change within one
+    bf16 step of its largest (the factored optimizer's bf16 momentum) plus
+    two fp32 steps of the leaf against the JAX update of the port's own
+    gradients, and within 1e-2 of the JAX step's change in norm (an
+    unfactored leaf's first step, g / sqrt(g^2 + eps), turns a small
+    gradient's rounding into a large change of that element). The port with
+    remat on and off computes the same gradients, bitwise."""
+    params, programs = _jax_flux_programs()  # compiling while the port's step runs
+    batch = _step_batch()
+    draws = _jax_draws(kind, batch["sample"])
+    tr = _port_flux_trainer(kind, params, remat)
+    assert tr.unet.single_blocks_0.attn1.norm_q.weight.shape == (128,)  # the head dim
+    grads = {}
+    apply_updates = tr.apply_updates
+
+    def capture(sr_bits=None):
+        grads.update({n: p.grad.detach().clone() for n, p in tr.params})
+        return apply_updates(sr_bits)
+
+    tr.apply_updates = capture
+    m, aux = tr.train_step(batch, **draws)
+    ref = _jax_flux_step(kind)
+    want_target = draws["noise"] if kind == "eps" else draws["noise"] - batch["sample"]
+    np.testing.assert_allclose(ref["target"], want_target, atol=1e-6)  # the draws the JAX step made
+    np.testing.assert_allclose(float(m["train/loss"]), ref["loss"], rtol=1e-5)
+    np.testing.assert_allclose(float(m["train/grad_norm"]), ref["grad_norm"], rtol=1e-5)
+    np.testing.assert_allclose(aux.timesteps.numpy(), ref["timesteps"], rtol=1e-5)
+    grad_tree = to_jax_params(tr.unet, grads)
+    got_grads, got_params = dict(_flat_tree(grad_tree)), dict(_flat_tree(to_jax_params(tr.unet)))
+    p0 = dict(_flat_tree(params))
+    same_grads = dict(_flat_tree(jax.device_get(programs["update"].result()(grad_tree, params))))
+    assert set(got_grads) == set(ref["grads"]) == set(p0)
+    rel = []
+    for name, want in ref["grads"].items():
+        assert np.abs(want).max() > 0, name
+        np.testing.assert_allclose(got_grads[name], want, atol=2e-4 * np.abs(want).max(), rtol=0, err_msg=name)
+        rel.append(np.abs(got_grads[name] - want).max() / np.abs(want).max())
+        jd, td = same_grads[name] - p0[name], got_params[name] - p0[name]
+        tol = 2.0**-8 * np.abs(jd).max() + 2.0**-22 * np.abs(p0[name]).max()
+        np.testing.assert_allclose(td, jd, atol=tol, rtol=0, err_msg=name)
+        jd = ref["params"][name] - p0[name]
+        assert np.linalg.norm(td - jd) <= 1e-2 * np.linalg.norm(jd), name
+    assert np.median(rel) <= 5e-5, np.median(rel)
+    if not remat:  # the same step's gradients with each block recomputed in the backward
+        again = _port_flux_trainer(kind, params, remat=True)
+        again.forward_backward(batch, **draws)
+        for name, p in again.params:
+            assert torch.equal(p.grad, grads[name]), name

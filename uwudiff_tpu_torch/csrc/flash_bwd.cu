@@ -1,5 +1,5 @@
 // Flash-attention backward on mma.sync (sm_90a): dQ + dBias (K5) at head
-// dims 40/64/80/160, dQ and dK/dV at 160 only (at 40/64/80 they are
+// dims 40/64/80/128/160, dQ and dK/dV at 160 only (at 40/64/80/128 they are
 // flash_bwd_sm90.cu's Hopper kernels); bf16 q/k/v/dO, fp32 softmax
 // recompute and accumulators.
 //
@@ -55,18 +55,21 @@
 // D = 160 (SD1.5's third level, 1280 channels over 8 heads) does not fit the
 // registers of that design: a warp's dK and dV for its 16 keys would take
 // 160 fp32 registers a thread, and the K/V (dK/dV) or Q/dO (dQ) fragments
-// held beside them 80 more. So at D = 160
+// held beside them 80 more. Nor does K5 at Flux's D = 128: Q and dO's
+// fragments, 64 registers, beside a 64-register dQ and 64-key S and dP
+// (64). So at D = 128 (K5 only) and 160
 //   - no operand fragment is held: each product reads its A fragments from
 //     the shared tile one k-step at a time (mma_abt_smem), which costs an
-//     ldmatrix per k-step and saves 80 registers;
+//     ldmatrix per k-step and saves 64 or 80 registers;
 //   - dQ takes a 32-key tile (BN), so S and dP take 32 registers, not 64,
-//     beside its 80-register accumulator; shared memory 86 KB, two blocks
-//     an SM;
+//     beside its 64- or 80-register accumulator; shared memory 68 or 86 KB,
+//     two blocks an SM;
 //   - dK/dV runs 8 warps, two per 16 keys: both warps of a pair compute the
 //     same S^T and dP^T over the full depth (the repeated products are half
 //     again the work of the dK/dV sums), and each accumulates one half of
 //     dK's and dV's 160 columns (80 registers).
-// flash_bwd_sm90.cu redesigns dQ and dK/dV at D = 40/64/80 on TMA and wgmma.
+// flash_bwd_sm90.cu redesigns dQ and dK/dV at D = 40/64/80/128/160 on TMA and
+// wgmma.
 
 #include <math.h>
 
@@ -454,8 +457,8 @@ int dispatch_bias(int bias_mode, const Args& a) {
   }
 }
 
-// K5 is built at every head dim; dQ and dK/dV at D = 160 only (at 40, 64
-// and 80 they are flash_bwd_sm90.cu's)
+// K5 is built at every head dim; dQ and dK/dV at D = 160 only (at 40, 64,
+// 80 and 128 they are flash_bwd_sm90.cu's)
 template <int KIND>
 int dispatch(int D, int bias_mode, const Args& a) {
   if constexpr (KIND == DQ_DBIAS) {
@@ -463,6 +466,7 @@ int dispatch(int D, int bias_mode, const Args& a) {
       case 40: return dispatch_bias<KIND, 40>(bias_mode, a);
       case 64: return dispatch_bias<KIND, 64>(bias_mode, a);
       case 80: return dispatch_bias<KIND, 80>(bias_mode, a);
+      case 128: return dispatch_bias<KIND, 128>(bias_mode, a);
       case 160: return dispatch_bias<KIND, 160>(bias_mode, a);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }

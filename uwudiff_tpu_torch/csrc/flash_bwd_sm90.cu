@@ -1,11 +1,12 @@
-// Flash-attention backward for Hopper (sm_90a) at head dims 40, 64, 80 and
-// 160: dQ and dK/dV, each a persistent, warp-specialised kernel on TMA, an
-// mbarrier ring and wgmma, one template over the head dim.
+// Flash-attention backward for Hopper (sm_90a) at head dims 40, 64, 80, 128
+// and 160: dQ and dK/dV, each a persistent, warp-specialised kernel on TMA,
+// an mbarrier ring and wgmma, one template over the head dim.
 //
 // Replaces the TPU kernels uwudiff_tpu/ops/flash_attention.py::_bwd_dq_kernel
 // (:271, K4: flash_bwd_dq_sm90) and ::_bwd_dkv_kernel (:365, K6:
 // flash_bwd_dkv_sm90). D = 64 is SDXL's, CLIP's, T5's and the SD3 MMDiT's;
-// 40, 80 and 160 are SD1.5's three levels. The dQ + dBias kernel (K5) is
+// 40, 80 and 160 are SD1.5's three levels; 128 is Flux's (the flux_1b
+// training step, 12 heads of 128). The dQ + dBias kernel (K5) is
 // flash_bwd.cu's at every head dim; flash_bwd.cu's mma.sync dQ and dK/dV
 // compute the same function at D = 160 and stay built as the yardstick, on
 // no path.
@@ -17,7 +18,7 @@
 //   dQ  : an item is 128 query rows of one (batch, head); Q and dO come in
 //         once, the loop runs over key tiles of 64: S = Q.K^T and
 //         dP = dO.V^T, dS = P (dP - delta), dQ += dS.K; dQ *= scale.
-//   dK/dV: an item is 128 keys (64 at D = 160); K and V come in once, the
+//   dK/dV: an item is 128 keys (64 at D = 128 and 160); K and V come in once, the
 //         loop runs over query tiles of 64: S^T = K.Q^T and dP^T = V.dO^T,
 //         so that each consumer's 64 keys are the rows of its fragments,
 //         dS^T = P^T (dP^T - delta), dV += P^T.dO and dK += dS^T.Q; dK *=
@@ -26,7 +27,7 @@
 // A from registers: the item's own operand (Q and dO, or K and V), read from
 // shared memory into wgmma fragments once an item (ldmatrix through the
 // swizzle); B the streamed tile, K-major. The products into dQ, dV and dK
-// are wgmma.m64nDk16 (N = 40, 64, 80, 160) with A the fp32 P and dS (P^T,
+// are wgmma.m64nDk16 (N = 40, 64, 80, 128, 160) with A the fp32 P and dS (P^T,
 // dS^T) re-packed to bf16, B the streamed tile MN-major (the transpose bit).
 // P is the P the forward normalised (flash_fwd_sm90.cu, flash_fwd.cu): the
 // logit scale and the bias's LOG2E are applied to the fp32 S tile, never
@@ -45,16 +46,19 @@
 // m64n64k16 a group run at 45 % of the tensor rate, 10 at 77 %;
 // m64n40k16 at 64 %), and a D = 40 tile's products are fewer to hide it
 // behind than D = 64's. At SD1.5's D = 160 shapes (256 or 64 query rows,
-// 256, 77 or 64 keys) the bytes bound both kernels. The design:
+// 256, 77 or 64 keys) the bytes bound both kernels. At the flux_1b step's
+// [8, 1101, 1101, 12, 128] the tensor cores do (0.090 / 0.120 ms for dQ /
+// dK/dV at 989 TF/s, the bytes 0.04); dK/dV, split, computes S^T twice
+// (5 products a tile, 0.151 ms). The design:
 //   - a persistent grid of one 384-thread block per SM; warpgroup 0 is the
 //     producer (40 registers after setmaxnreg; its first warp loads),
 //     warpgroups 1 and 2 consume 64 rows of the item each (232; 224 and
 //     240 where dK/dV's consumers split by role, below);
 //   - shared tiles are D = 64's at every head dim: rows of 64 columns, 128
 //     bytes, 128B-swizzled, one TMA box per 64-column block (one at D = 40
-//     and 64, two at 80, three at 160), TMA zero-filling the columns past
-//     D. The products over D read only up to the next multiple of 16 (3, 4,
-//     5, 10 k16 steps; columns 40-47 at D = 40 are those zeros), the
+//     and 64, two at 80 and 128, three at 160), TMA zero-filling the columns
+//     past D. The products over D read only up to the next multiple of 16
+//     (3, 4, 5, 8, 10 k16 steps; columns 40-47 at D = 40 are those zeros), the
 //     products into dQ, dK, dV write N = D columns. Boxes of 16 columns
 //     under a 32-byte swizzle, the tile no wider than D, took 3-5 % longer
 //     at D = 40: three small TMA rows for each of D = 64's one;
@@ -62,7 +66,8 @@
 //     buffers, freed as soon as both consumers hold it in registers, so the
 //     next item's loads early; the streamed tiles (K and V, or Q and dO) go
 //     through a ring of as many stages as fit, at most 5 (5 at D = 40 and
-//     64, 3 at 80, 2 or 3 at 160), that runs on across items, each with a full
+//     64, 3 at 80, 3 (dQ) or 4 (dK/dV) at 128, 2 or 3 at 160), that runs on
+//     across items, each with a full
 //     mbarrier (TMA transaction bytes plus the vectors' copies) and an empty
 //     one (one arrival per consumer warpgroup, made after wgmma.wait_group
 //     has retired every product that reads the stage). Tensor maps are rank
@@ -71,7 +76,7 @@
 //   - A from registers halves the shared-memory reads of the products over
 //     D. Where the fragments do not fit beside the accumulators (dK/dV at
 //     D = 80: 40 registers beside 176; dK/dV with a full bias, whose loads
-//     need the room; both kernels at 160) the item's operands stay in its
+//     need the room; both kernels at 128 and 160) the item's operands stay in its
 //     buffer and those products read A from shared memory too; the buffer
 //     is freed when the item's last product that reads it retires;
 //   - D = 160 (Cfg): dQ's 128-row item of Q and dO is 96 KB, so it has one
@@ -84,6 +89,21 @@
 //     the other S^T, dP^T, dS^T and dK (160): S^T is computed twice, 5
 //     products a tile where one consumer would issue 4, but no P^T goes
 //     through shared memory and neither waits for the other;
+//   - D = 128 (Cfg) takes D = 160's choices where the registers force them
+//     and keeps two item buffers where shared memory allows. dK/dV: dK and
+//     dV at m64n128 are 64 fp32 registers each, and the two beside S^T,
+//     dP^T (32 + 32) and the bf16 P^T and dS^T (16 + 16) are 224 of the
+//     consumers' 232 before an address: so the consumers split by role over
+//     64 shared keys as at 160 (dV role: S^T, P^T, dV, 112 registers; dK
+//     role: S^T, dP^T, dS^T, dK, 144), K and V read from the item's buffer,
+//     which holds 32 KB, so two buffers beside four stages. dQ: the Q and
+//     dO fragments (8 k16 steps, 64 registers) beside dQ (64), S and dP
+//     (64) and dS (16) would leave 24 for the rest, so Q and dO are read
+//     from the item's 64 KB buffer, two of them beside three stages.
+//     Measured against this (flash_variants.py, [8, 1101, 1101, 12, 128]):
+//     dK/dV unsplit spills and serialises its wgmma, 10 % slower; dQ with
+//     Q and dO in registers the same, 28 % slower; one item buffer (4 and 5
+//     stages) level within 2 %;
 //   - the fp32 vectors beside a tile (the key bias for dQ; lse and delta for
 //     dK/dV) have rows of Sk or Sq entries, not multiples of 16 bytes, so TMA
 //     cannot take them: the producer warp's 32 lanes copy them with 4-byte
@@ -108,8 +128,8 @@
 // Tiles of 128 would need 128 accumulator registers a thread for S and dP
 // alone, past what the launch gives with the accumulators beside them.
 // ptxas (CUDA 12.9): 168 registers at launch, no spills, no serialised
-// wgmma at every instance (chip_smoke.py prints the report); times are in
-// PERF.md.
+// wgmma at every instance, D = 128's too (chip_smoke.py prints the report);
+// times are in PERF.md.
 
 #include <math.h>
 
@@ -135,40 +155,44 @@ constexpr uint32_t SBO = 8 * ROW_BYTES;  // bytes between 8-row groups
 constexpr int SMEM_MAX = 232448;         // dynamic shared memory a block may have (227 KB)
 constexpr int MAX_STAGES = 5;
 
-// The tiles of head dim D (40, 64, 80 or 160): at every D the 128-byte
+// The tiles of head dim D (40, 64, 80, 128 or 160): at every D the 128-byte
 // swizzle of D = 64, a tile's row 64 columns. A tile is NBLK column blocks
 // of rows x 128 bytes, one TMA box each (one block at D = 40 and 64, two at
-// 80, three at 160); TMA zero-fills the columns past D, which the products
-// over D read only up to the next multiple of 16 (KSTEPS k16 steps: 3, 4,
-// 5, 10; columns 40-47 at D = 40 are zeros). The products into dQ, dK and
-// dV run at N = D (wgmma.m64n40k16 / m64n64k16 / m64n80k16 / m64n160k16).
+// 80 and 128, three at 160); TMA zero-fills the columns past D, which the
+// products over D read only up to the next multiple of 16 (KSTEPS k16
+// steps: 3, 4, 5, 8, 10; columns 40-47 at D = 40 are zeros). The products
+// into dQ, dK and dV run at N = D (wgmma.m64n40k16 / m64n64k16 / m64n80k16 /
+// m64n128k16 / m64n160k16).
 template <int D>
 struct Geo {
-  static_assert(D == 40 || D == 64 || D == 80 || D == 160, "head dims 40, 64, 80, 160");
+  static_assert(D == 40 || D == 64 || D == 80 || D == 128 || D == 160, "head dims 40, 64, 80, 128, 160");
   static constexpr int NBLK = (D + COLS - 1) / COLS;
   static constexpr int KSTEPS = (D + 15) / 16;
 };
 
 // The shared memory of one kernel (dQ, or dK/dV with DKV) at head dim D.
-// SPLIT (dK/dV at D = 160): the two consumers share an item of 64 keys,
-// one accumulating dV and the other dK, where each would otherwise hold
-// both at m64n160 (160 registers beside S^T and dP^T). ITEM_BUFS buffers
-// of the item's two inputs: two, so the next item loads during this one,
-// but one at D = 160: dQ's 128-row Q + dO is 96 KB, and dK/dV's 48 KB of
-// K and V in one buffer leave room for a third stage, which the card
-// measured faster than a second buffer beside two (flash_variants.py). As
-// many ring stages as fit beside them, at most MAX_STAGES: 5 at D = 40 and
-// 64, 3 at 80, 2 (dQ) and 3 (dK/dV) at 160.
+// SPLIT (dK/dV at D = 128 and 160): the two consumers share an item of 64
+// keys, one accumulating dV and the other dK, where each would otherwise
+// hold both (at m64n128 128 registers, at m64n160 160, beside S^T, dP^T,
+// P^T and dS^T). ITEM_BUFS buffers of the item's two inputs: two, so the
+// next item loads during this one (at D = 128 dQ's 64 KB of Q + dO twice
+// beside three stages, dK/dV's 32 KB of K + V twice beside four), but one
+// at D = 160: dQ's 128-row Q + dO is 96 KB, and dK/dV's 48 KB of K and V
+// in one buffer leave room for a third stage, which the card measured
+// faster than a second buffer beside two (flash_variants.py). As many ring
+// stages as fit beside them, at most MAX_STAGES: 5 at D = 40 and 64, 3 at
+// 80, 3 (dQ) and 4 (dK/dV) at 128, 2 (dQ) and 3 (dK/dV) at 160.
 template <int D, bool DKV>
 struct Cfg : Geo<D> {
-  static constexpr bool SPLIT = DKV && D > 128;
+  static constexpr bool SPLIT = DKV && D >= 128;
   static constexpr int ITEM = SPLIT ? 64 : ITEM_ROWS;  // rows an item owns
   static constexpr int ITEM_BUFS = D > 128 ? 1 : 2;
   // K and V (dK/dV) or Q and dO (dQ) read by the products over D from the
   // item's buffer, not from registers: where the fragments do not fit
   // beside the accumulators (dK/dV at D = 80: 40 registers beside the 176
-  // of S^T, dP^T, P^T, dS^T and the accumulators; both kernels at 160: 80)
-  static constexpr bool A_SMEM = D > 64 && (DKV || D > 128);
+  // of S^T, dP^T, P^T, dS^T and the accumulators; both kernels at 128: 64
+  // beside 144 in dQ; at 160: 80)
+  static constexpr bool A_SMEM = D > 64 && (DKV || D >= 128);
   static constexpr int ITEM_BYTES = Geo<D>::NBLK * ITEM * ROW_BYTES;  // one of the item's two inputs
   static constexpr int TILE_BYTES = Geo<D>::NBLK * TILE * ROW_BYTES;  // one of a stage's two inputs
   static constexpr int STAGE_BYTES = 2 * TILE_BYTES + 2 * VEC_BYTES;
@@ -257,7 +281,9 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[D / 2], const uint32_t (&
   if constexpr (D == 40) wgmma_m64n40k16_rs_tb(d, a, desc_b);
   else if constexpr (D == 64) wgmma_m64n64k16_rs_tb(d, a, desc_b);
   else if constexpr (D == 80) wgmma_m64n80k16_rs_tb(d, a, desc_b);
-  else wgmma_m64n160k16_rs_tb(d, a, desc_b);
+  else if constexpr (D == 128) wgmma_m64n128k16_rs_tb(d, a, desc_b);
+  else if constexpr (D == 160) wgmma_m64n160k16_rs_tb(d, a, desc_b);
+  else static_assert(D == 160, "a head dim with no product into dQ, dK, dV");
 }
 
 // acc += A.B over the four k16 slices of a tile's 64 rows; A the bf16
@@ -805,8 +831,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     };
     // split, the dK role (S^T, dP^T, dS^T and dK: 160 accumulator and
-    // fragment registers, beside a full bias's loads) takes 8 registers a
-    // thread of the dV role's (S^T, P^T and dV: 128)
+    // fragment registers at D = 160, 144 at 128, beside a full bias's loads)
+    // takes 8 registers a thread of the dV role's (S^T, P^T and dV: 128 at
+    // 160, 112 at 128)
     if constexpr (!C::SPLIT) {
       setmaxnreg_inc<232>();
       consume(std::integral_constant<Role, BOTH>());
@@ -936,6 +963,7 @@ int dispatch(int head_dim, const void* q, const void* k, const void* v, const vo
     case 40: return run<40, DKV>(q, k, v, dout, maps, bias_mode, a);
     case 64: return run<64, DKV>(q, k, v, dout, maps, bias_mode, a);
     case 80: return run<80, DKV>(q, k, v, dout, maps, bias_mode, a);
+    case 128: return run<128, DKV>(q, k, v, dout, maps, bias_mode, a);
     case 160: return run<160, DKV>(q, k, v, dout, maps, bias_mode, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -944,7 +972,7 @@ int dispatch(int head_dim, const void* q, const void* k, const void* v, const vo
 }  // namespace
 
 // q, dout: bf16 [B, Sq, H, D] and k, v: bf16 [B, Sk, H, D] views, D = 40,
-// 64, 80 or 160; maps: four tensor-map specs of MAP_WORDS words (q, k, v, dout),
+// 64, 80, 128 or 160; maps: four tensor-map specs of MAP_WORDS words (q, k, v, dout),
 // then the bias's batch and head strides in elements (bias_mode 1: [B, Sk]
 // key bias; 2: full, rows of Sk keys). lse, delta: contiguous fp32 [B, H,
 // Sq]. Outputs contiguous bf16 [B, S, H, D]. Each returns 0, a cudaError_t

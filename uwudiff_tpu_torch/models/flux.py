@@ -21,8 +21,13 @@ Attribute names are the flax module names (``blocks_{i}``,
 ``single_blocks_{i}``, ``attn1``/``attn2``, ``adaLN_x``, ...), so
 ``convert.load_jax_params`` loads a JAX tree, scanned or not. As in the JAX
 module, the adaLN modulations, ``final_modulation`` and ``final_proj`` are
-zero-initialised: a freshly built model outputs zeros. ``scan_blocks`` and
-``gradient_checkpointing`` (training options) are not ported.
+zero-initialised: a freshly built model outputs zeros.
+``gradient_checkpointing`` recomputes each block in the backward, as the
+JAX module's ``nn.remat`` of every block does: while autograd records, a
+block's forward runs under ``torch.utils.checkpoint`` (non-reentrant) and
+keeps only its inputs, and the backward runs it again, its attention
+through the flash forward once more. ``scan_blocks`` (a training option)
+is not ported.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from uwudiff_tpu_torch.models.layers import get_timestep_embedding
 from uwudiff_tpu_torch.models.mmdit import _MLP, _layer_norm, _modulation, _StreamAttention, _zero_linear
@@ -39,7 +45,7 @@ from uwudiff_tpu_torch.utils import build_module
 
 __all__ = ["FLUX_PRESETS", "Flux", "FluxDoubleBlock", "FluxSingleBlock", "apply_flux_rope", "flux_rope_table"]
 
-_UNPORTED = ("gradient_checkpointing", "scan_blocks")
+_UNPORTED = ("scan_blocks",)
 
 
 def flux_rope_table(ids: np.ndarray, axes_dims, theta: float = 10000.0) -> tuple[np.ndarray, np.ndarray]:
@@ -153,13 +159,16 @@ class Flux(nn.Module):
         default_guidance: float = 3.5,
         axes_dims=(16, 56, 56),
         rope_theta: float = 10000.0,
+        gradient_checkpointing: bool = False,
     ):
         super().__init__()
         if sum(axes_dims) != hidden_size // num_heads:
             raise ValueError(f"axes_dims {tuple(axes_dims)} must sum to the per-head dim {hidden_size // num_heads}")
         self.patch_size, self.in_channels = patch_size, in_channels
+        self.context_dim, self.pooled_dim = context_dim, pooled_dim
         self.guidance_embeds, self.default_guidance = guidance_embeds, default_guidance
         self.axes_dims, self.rope_theta = tuple(axes_dims), rope_theta
+        self.gradient_checkpointing = gradient_checkpointing
         self.x_embedder = nn.Linear(patch_size * patch_size * in_channels, hidden_size)
         self.context_embedder = nn.Linear(context_dim, hidden_size)
         self.t_fc1 = nn.Linear(256, hidden_size)
@@ -191,6 +200,14 @@ class Flux(nn.Module):
             if cfg.pop(key, None):
                 raise NotImplementedError(f"Flux {key} is a training option not ported yet (ROADMAP.md, Queue 1)")
         return build_module(cls, cfg, device, dtype, construct_in_dtype=True)
+
+    def _run_block(self, block, *args):
+        """``block(*args)``; with ``gradient_checkpointing`` while autograd
+        records, recomputed in the backward from its inputs (the blocks draw
+        no random numbers, so no RNG state is kept)."""
+        if self.gradient_checkpointing and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
+        return block(*args)
 
     def _pack(self, sample):
         """[B, H, W, C] -> [B, (H/p)(W/p), C*p*p], features ordered (C, ph, pw)."""
@@ -247,10 +264,10 @@ class Flux(nn.Module):
             m = encoder_attention_mask
             bias = attention_bias_from_mask(torch.cat([m, m.new_ones((b, gh * gw))], dim=1))
         for name in self.block_names:
-            x, ctx = getattr(self, name)(x, ctx, c, rope, bias)
+            x, ctx = self._run_block(getattr(self, name), x, ctx, c, rope, bias)
         hcat = torch.cat([ctx, x], dim=1)
         for name in self.single_block_names:
-            hcat = getattr(self, name)(hcat, c, rope, bias)
+            hcat = self._run_block(getattr(self, name), hcat, c, rope, bias)
         x = hcat[:, n_txt:]
         scale, shift = _modulation(self.final_modulation, c, 2)  # scale first (AdaLayerNormContinuous)
         x = self.final_proj(_layer_norm(x) * (1 + scale) + shift)

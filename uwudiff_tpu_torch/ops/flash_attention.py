@@ -11,17 +11,17 @@ warpgroups) or an mma.sync one:
   one kernel template (64 is SDXL's, CLIP's, T5's and the SD3 MMDiT's;
   40/80/160 SD1.5's; 128 Flux's); ``csrc/flash_fwd.cu`` (mma.sync) computes the same function
   at 40/80/160 and stays built and tested as the yardstick, on no path;
-- dQ and dK/dV: ``csrc/flash_bwd_sm90.cu`` at D = 40, 64, 80 and 160, one
-  kernel template each (D = 64's 128-byte swizzled tiles at every head
-  dim, the columns past D zero-filled; at 160 dK/dV's two consumer
-  warpgroups share 64 keys, one accumulating dV and the other dK);
+- dQ and dK/dV: ``csrc/flash_bwd_sm90.cu`` at D = 40, 64, 80, 128 and
+  160, one kernel template each (D = 64's 128-byte swizzled tiles at every
+  head dim, the columns past D zero-filled; at 128 and 160 dK/dV's two
+  consumer warpgroups share 64 keys, one accumulating dV and the other dK);
   ``csrc/flash_bwd.cu`` (mma.sync) computes the same function at D = 160
   and stays built and tested as the yardstick, on no path;
 - dQ + dBias (K5): ``csrc/flash_bwd.cu`` at every backward head dim.
 
 The Hopper kernels' tensor maps are computed and checked here
 (:func:`tma_map`) and encoded by the C side. Any other head dim raises on
-the card, and so does the backward at Flux's D = 128 (not built yet). Each source note says what bounds the kernel on an H100 and how
+the card. Each source note says what bounds the kernel on an H100 and how
 the design answers that.
 
 Contract (the JAX function's): ``q`` ``[B, Sq, H, D]``, ``k``/``v``
@@ -89,9 +89,9 @@ __all__ = [
 NEG_INF = -1e30
 HEAD_DIMS = (40, 64, 80, 128, 160)  # the Hopper forward's (D = 64: SDXL, CLIP, T5, the SD3 MMDiT; SD1.5's 40/80/160; Flux's 128)
 MMA_HEAD_DIMS = (40, 80, 160)  # the mma.sync forward (SD1.5's), built and tested, on no path
-SM90_BWD_HEAD_DIMS = (40, 64, 80, 160)  # the Hopper dQ and dK/dV kernels (SD1.5's 40/80/160 beside 64)
+SM90_BWD_HEAD_DIMS = (40, 64, 80, 128, 160)  # the Hopper dQ and dK/dV kernels (SD1.5's 40/80/160, Flux's 128, 64)
 MMA_BWD_HEAD_DIMS = (160,)  # the mma.sync dQ and dK/dV kernels (SD1.5's D = 160), built and tested, on no path
-BWD_HEAD_DIMS = (40, 64, 80, 160)  # every head dim a backward (and K5) was built for
+BWD_HEAD_DIMS = (40, 64, 80, 128, 160)  # every head dim a backward (and K5) was built for
 
 _fns: dict = {}
 
@@ -224,10 +224,10 @@ TMA_BOX_ROWS = 128  # rows of q (a work item's query tile) or k/v (a key tile) p
 SM90_FWD_Q_ROWS = {40: 192, 64: 128, 80: 128, 128: 128, 160: 128}
 SM90_FWD_KEY_ROWS = {40: 128, 64: 128, 80: 128, 128: 128, 160: 64}
 # the Hopper backward's boxes: an item's rows (q and dout for dQ: 128; k and v
-# for dK/dV: 128, or 64 at D = 160, where both consumer warpgroups share an
-# item's keys) and the 64-row tiles streamed past them
+# for dK/dV: 128, or 64 at D = 128 and 160, where both consumer warpgroups
+# share an item's keys) and the 64-row tiles streamed past them
 SM90_BWD_ITEM_ROWS, SM90_BWD_TILE_ROWS = 128, 64
-SM90_BWD_DKV_ITEM_ROWS = {40: 128, 64: 128, 80: 128, 160: 64}
+SM90_BWD_DKV_ITEM_ROWS = {40: 128, 64: 128, 80: 128, 128: 64, 160: 64}
 _TMA_ENCODE_FAILED = 100000  # the C side's code for a tensor map the driver refused (+ its CUresult)
 
 
@@ -449,7 +449,7 @@ def _bwd_sm90(who, q, k, v, dout, lse, delta, bias, scale, dkv):
 
 
 def flash_bwd_dq_sm90(q, k, v, dout, lse, delta, bias=None, scale=None):
-    """Launch the Hopper dQ kernel (K4, D = 40/64/80/160): q/k/v/dout go in
+    """Launch the Hopper dQ kernel (K4, D = 40/64/80/128/160): q/k/v/dout go in
     uncopied through TMA tensor maps, a full bias is read in place."""
     maps, _words, ptrs, args = _bwd_sm90("flash_bwd_dq_sm90", q, k, v, dout, lse, delta, bias, scale, False)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -465,7 +465,7 @@ flash_bwd_dq_sm90.head_dims = {}  # launches by head dim
 
 
 def flash_bwd_dkv_sm90(q, k, v, dout, lse, delta, bias=None, scale=None):
-    """Launch the Hopper dK/dV kernel (K6, D = 40/64/80/160). Returns (dk, dv)."""
+    """Launch the Hopper dK/dV kernel (K6, D = 40/64/80/128/160). Returns (dk, dv)."""
     maps, _words, ptrs, args = _bwd_sm90("flash_bwd_dkv_sm90", q, k, v, dout, lse, delta, bias, scale, True)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)

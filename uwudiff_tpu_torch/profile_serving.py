@@ -2,7 +2,7 @@
 
     python -m uwudiff_tpu_torch.profile_serving [--batch 4] [--steps 4]
     python -m uwudiff_tpu_torch.profile_serving --model flux_dev [--batch 4] [--steps 4]
-    python -m uwudiff_tpu_torch.profile_serving --train [--model sdxl|sd15] [--batch 8]
+    python -m uwudiff_tpu_torch.profile_serving --train [--model sdxl|sd15|flux_1b] [--batch 8]
     python -m uwudiff_tpu_torch.profile_serving --ti [--batch 8]
 
 Serving: builds the SDXL serving stack at full width with random weights
@@ -14,15 +14,18 @@ request batch at 1024x1024 through ``diffusion_sampling``, cfg 1.
 ``--train``: builds the SDXL
 full fine-tune step of ``training/bench_setup.py`` (64x64 latents, bf16
 params, ``adamw_factored``; ``--model sd15``: the SD1.5 step, batch 16,
-fp32 masters under bf16 compute, ``adamw_fp16``), runs two warm-up steps,
-then traces one step. ``--ti``: the same for the SD3-medium textual-inversion step
+fp32 masters under bf16 compute, ``adamw_fp16``; ``--model flux_1b``: the
+flux_1b step, batch 8, bf16 params, ``adamw_factored``, every block
+recomputed in the backward), runs two warm-up steps, then traces one
+step. ``--ti``: the same for the SD3-medium textual-inversion step
 (``build_ti_trainer_and_batch``). Each reports the device time by kernel
 family (the backward kernels as families of their own), the device's
 busy share of the traced window, and the slowest kernels. The profiler's
 host overhead lengthens the window, so the busy share is a lower bound;
 and the peak device memory of the traced run. Writes the tables to
 ``chiprun_out/profile_serving.json`` (``profile_serving_flux_dev.json``,
-``profile_train.json``, ``profile_train_sd15.json``, ``profile_ti.json``)
+``profile_train.json``, ``profile_train_sd15.json``,
+``profile_train_flux_1b.json``, ``profile_ti.json``)
 beside the checkout's root.
 """
 
@@ -34,6 +37,10 @@ import os
 import time
 
 import torch
+
+# the models each mode takes: a training step's (training/bench_setup.py's
+# recipes), a served stack's; the textual-inversion step takes none
+MODELS = {"train": ("sdxl", "sd15", "flux_1b"), "serve": ("sdxl", "flux_dev"), "ti": ("sdxl",)}
 
 # kernel-name fragments -> family, first match wins
 _FAMILIES = (
@@ -69,15 +76,16 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=None, help="requests (serving, 4) or images (--train, 8)")
     ap.add_argument("--steps", type=int, default=4, help="sampler steps (serving)")
     ap.add_argument("--train", action="store_true", help="trace one training step")
-    ap.add_argument("--model", default="sdxl", choices=("sdxl", "sd15", "flux_dev"),
-                    help="the training step's model (--train: sdxl or sd15) or the served one (sdxl or flux_dev)")
+    ap.add_argument("--model", default="sdxl", choices=("sdxl", "sd15", "flux_1b", "flux_dev"),
+                    help="the training step's model (--train: sdxl, sd15 or flux_1b) or the served one"
+                         " (sdxl or flux_dev)")
     ap.add_argument("--ti", action="store_true", help="trace one SD3-medium textual-inversion step")
     args = ap.parse_args()
 
     from torch.profiler import ProfilerActivity, profile
 
     mode = "ti" if args.ti else "train" if args.train else "serve"
-    if args.model == ("flux_dev" if mode == "train" else "sd15"):
+    if args.model not in MODELS[mode]:
         ap.error(f"--model {args.model} does not go with {mode}")
     if args.ti:
         from uwudiff_tpu_torch.training.bench_setup import build_ti_trainer_and_batch
