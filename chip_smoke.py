@@ -124,6 +124,27 @@ Phases, each fatal on failure:
                update's kernels as plan_optimizer says; prints the step's
                ms split into forward+backward and optimizer, the peak GiB
                and the card's busy share over a traced step.
+  9. sampling - SDXL at full width (random bf16 weights, the VAE with its
+               encoder): first img2img on a small SDXL-layout stack, card
+               bf16 against CPU fp32 (DPM++ 2M, injected draws); then (a)
+               each of the 12 samplers of sampling/ through
+               Txt2ImgPipeline(sampler=...).sample_device (the served
+               path), 1024x1024, batch 2, 6 steps on
+               the Karras ladder (LCM: LCMDenoiser, cfg 1, 4 steps on
+               get_sigmas_lcm), each run's UNet calls held to the count its
+               gates give and its K1 launches to 140 a call plus the text
+               encoders' 44, all at D = 64; (b) img2img, a batch of 4
+               synthetic 1024x1024 images from the seed through the VAE
+               encoder, DPM++ 2M SDE on Karras, 12 of 20 steps, decoded:
+               encode / sample / decode seconds, peak GiB, the launches and
+               the GroupNorm routes by plan_gn; then inpainting of the
+               right half, the kept half bitwise the init latents; (c)
+               tiled decode (64 latents, overlap 16) and encode (512
+               pixels, overlap 128) against untiled: time, peak above the
+               weights, the largest difference, one tile bitwise the
+               untiled call; (d) inversion image -> noise -> image
+               (euler_latent_sampling, 10 steps each way); (f) each
+               GroupNorm call of (b) and (c) phase 2 did not hold.
 Prints the card's name and power limit, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA is
 unavailable or the package is missing. A full report goes to
@@ -183,47 +204,115 @@ def time_ms(fn, reps=20, warmup=2, runs=3):
     return times[len(times) // 2]
 
 
-def profiled_ms(fn, family=None, reps=10, tries=3, per_launch=False):
-    """Device time of one call from torch.profiler over ``reps`` calls:
-    (the kernels of ``family``, as profile_serving names them; every other
-    kernel or copy the call puts on the device), or with no ``family`` the
-    sum of every kernel and copy. With ``per_launch`` the family's time is
-    the mean of the launches the trace caught (for a call that launches
-    one kernel: a trace may miss some of a run's launches). A trace that
-    caught no device activity (it happens) is taken again; after ``tries``
-    empty traces the sum is None, and a family the profiler never saw
-    raises."""
+MARKER = "spin_kernel"  # torch.cuda._sleep's kernel: no call that is traced launches it
+
+
+def traced_device_events(fn, reps, cpu=False):
+    """The device events (kernels, copies) of ``reps`` calls of ``fn`` from
+    one torch.profiler session: ``reps`` calls that warm the session up, a
+    marker kernel (MARKER) between two synchronisations, then the ``reps``
+    calls whose events (those that start after the marker ends) are
+    returned. A session can drop its first kernels (a trace of ten one-kernel
+    calls held seven to nine of them, fresh or after a scheduled warm-up
+    step, on an H100); the warm-up half takes that loss. [] if the marker
+    was lost. With ``cpu`` the host's activity is traced too."""
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda ev: ev.time_range.start)
+    marks = [ev.time_range.end for ev in events if MARKER in ev.name]
+    return [ev for ev in events if ev.time_range.start >= marks[-1]] if marks else []
+
+
+def whole_trace(fn, reps, tries=8, cpu=False):
+    """The device events of ``reps`` calls of ``fn`` (traced_device_events)
+    from the first of ``tries`` traces in which every kernel and copy
+    appears a multiple of ``reps`` times: each call puts the same work on
+    the device, so a trace that dropped launches fails that. None if no
+    trace did."""
+    from collections import Counter
+
+    for _ in range(tries):
+        events = traced_device_events(fn, reps, cpu)
+        counts = Counter(ev.name for ev in events)
+        if counts and all(n % reps == 0 for n in counts.values()):
+            return events
+    return None
+
+
+UNMEASURED: list[str] = []  # the device readings no whole trace gave, for the report
+
+
+def profiled_ms(fn, family=None, reps=10, per_launch=False):
+    """Device time of one call over ``reps`` calls (whole_trace): (the
+    kernels of ``family``, as profile_serving names them; every other
+    kernel or copy the call puts on the device), or with no ``family`` the
+    sum of every kernel and copy. With ``per_launch`` the family's time is
+    the mean of its launches (for a call that launches one kernel). A
+    reading no whole trace gave is None (not measured; its CUDA-event time
+    stands beside it), and so is a family the trace does not hold."""
     from uwudiff_tpu_torch.profile_serving import _family
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        mine = other = 0.0
-        caught = 0
-        for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
-                if family is not None and _family(ev.name) == family:
-                    mine += ev.time_range.elapsed_us() / 1e3
-                    caught += 1
-                else:
-                    other += ev.time_range.elapsed_us() / 1e3
-        if mine + other > 0:
-            break
+    events = whole_trace(fn, reps, cpu=True)
+    if events is None:
+        UNMEASURED.append(family or getattr(fn, "__name__", "call"))
+        log(f"  (no whole trace of {family or 'the call'} in 8 tries: its device time is not measured)")
+        return None if family is None else (None, None)
+    mine = other = 0.0
+    caught = 0
+    for ev in events:
+        if family is not None and _family(ev.name) == family:
+            mine += ev.time_range.elapsed_us() / 1e3
+            caught += 1
+        else:
+            other += ev.time_range.elapsed_us() / 1e3
     if family is None:
         return other / reps if other > 0 else None
-    if mine == 0.0:
-        raise RuntimeError(f"the profiler saw no {family} kernel")
+    if caught == 0:
+        UNMEASURED.append(family)
+        log(f"  (a whole trace held no {family} kernel: its device time is not measured)")
+        return None, other / reps
     return mine / (caught if per_launch else reps), other / reps
+
+
+def share(bound_ms, dev_ms):
+    """The share of its bound, in %, that a device reading implies ("n/a"
+    where the reading is missing)."""
+    return "n/a" if dev_ms is None else f"{100 * bound_ms / dev_ms:.0f} %"
+
+
+def add(*readings):
+    """The sum of device readings, None where one is missing."""
+    return None if any(r is None for r in readings) else sum(readings)
 
 
 def _ms(t):
     return "n/a" if t is None else f"{t:.4f}"
+
+
+def check_device_readings(rows, failures):
+    """Every device reading of ``rows`` (``device_ms``, else
+    ``kernel_device_ms``) at or above its ``bound_ms``: a reading under the
+    least time the card could take (a share of the bound above 100 %)
+    comes from a trace that missed launches, and fails the run."""
+    for row in rows:
+        dev = row.get("device_ms", row.get("kernel_device_ms"))
+        bound_ms = row.get("bound_ms")
+        if isinstance(dev, (int, float)) and isinstance(bound_ms, (int, float)) and dev < bound_ms:
+            failures.append(f"{row.get('name', row.get('kernel'))} {row.get('case')}: device reading {dev} ms under"
+                            f" its bound {bound_ms} ms ({100 * bound_ms / dev:.0f} % of the bound)")
 
 
 def sfu_floor_ms(b, h, sq, sk):
@@ -584,7 +673,7 @@ def check_gn(results, failures):
             sb, sby = bound(2 * elems + 4 * c + 8 * n * c, 3.0 * elems, PEAK_FP32)
             ab, aby = bound(4 * elems + 8 * n * c, 5.0 * elems, PEAK_FP32)
             apply_err = (y.float() - gn_silu_apply_reference(x, scale, shift).float()).abs().max().item()
-            common.update(pair_ms=ms_stats + ms_apply, pair_device_ms=dev_stats + dev_apply)
+            common.update(pair_ms=ms_stats + ms_apply, pair_device_ms=add(dev_stats, dev_apply))
             results.append(dict(kernel="gn_stats", case=f"{n}x{hw}x{c}", ms=ms_stats, device_ms=dev_stats,
                                 plain_ms=plain_stats, library_ms=stats_library_ms,
                                 library_device_ms=stats_library_dev,
@@ -592,10 +681,10 @@ def check_gn(results, failures):
                                 bound_ms=sb, bound_by=sby, **common))
             results.append(dict(kernel="gn_silu_apply", case=f"{n}x{hw}x{c}", ms=ms_apply, device_ms=dev_apply,
                                 plain_ms=plain_apply, library_ms=None, bound_ms=ab, bound_by=aby,
-                                bound_share=ab / dev_apply, apply_err=apply_err, **common))
+                                bound_share=None if dev_apply is None else ab / dev_apply, apply_err=apply_err, **common))
             log(f"  gn [{n},{hw},{c}] chunked err {err:.2e} (tol {tol:.1e}) stats {stats_err:.1e}"
-                f" bitwise {bitwise} {'ok' if ok else 'FAIL'} | stats {ms_stats:.4f} (device {dev_stats:.4f})"
-                f" apply {ms_apply:.4f} (device {dev_apply:.4f}, {100 * ab / dev_apply:.0f} % of its bound)"
+                f" bitwise {bitwise} {'ok' if ok else 'FAIL'} | stats {ms_stats:.4f} (device {_ms(dev_stats)})"
+                f" apply {ms_apply:.4f} (device {_ms(dev_apply)}, {share(ab, dev_apply)} of its bound)"
                 f" vs F.group_norm+silu {library_ms:.4f} (device {_ms(library_dev)}), stats vs var_mean"
                 f" {stats_library_ms:.4f}; bound {sb + ab:.4f}; plain {plain_stats + plain_apply:.2f}")
             del x_g
@@ -879,8 +968,8 @@ def check_flash_dbias(results, failures):
             bound_by=bound_by, bytes=nbytes, gb_per_s=nbytes / ms / 1e6))
         log(f"  flash_dq_dbias {name:8s} dq {dq_err:.1e}/{dq_tol:.1e} dbias {db_err:.1e}/{db_tol:.1e}"
             f" rms {db_rms:.1e}/{db_rms_tol:.1e} bitwise {bitwise} {'ok' if ok else 'FAIL'}"
-            f" | {ms:.3f} ms ({nbytes / ms / 1e6:.0f} GB/s; kernel alone {kernel_ms:.3f},"
-            f" other device work {wrapper_other_ms:.3f}) bound {bound_ms:.3f} ({bound_by})"
+            f" | {ms:.3f} ms ({nbytes / ms / 1e6:.0f} GB/s; kernel alone {_ms(kernel_ms)},"
+            f" other device work {_ms(wrapper_other_ms)}) bound {bound_ms:.3f} ({bound_by})"
             f" sdpa bwd {library_ms if library_ms is None else round(library_ms, 3)} plain {plain_ms:.2f}")
         if library_ms is None:
             log(f"    {library_note}")
@@ -953,22 +1042,15 @@ def check_gn_calls(gn_calls, failures, backward) -> list:
     return out
 
 
-def device_ops(fn, tries=3):
+def device_ops(fn):
     """The names of the device kernels and copies of one call of ``fn``,
-    from torch.profiler (a trace that caught nothing is taken again)."""
-    from torch.profiler import ProfilerActivity, profile
+    from a whole trace of two (whole_trace); [] if none was."""
+    from collections import Counter
 
     fn()
     torch.cuda.synchronize()
-    names = []
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
-            break
-    return names
+    counts = Counter(ev.name for ev in whole_trace(fn, 2) or [])
+    return [name for name, n in counts.items() for _ in range(n // 2)]
 
 
 def gn_bwd_check(x, g, saved, silu, groups):
@@ -1080,7 +1162,7 @@ def check_gn_bwd(results, failures):
         common = dict(shape=[n, hw, c], silu=silu, route=plan.route, plan=plan._asdict(), ok=ok, bitwise=bitwise,
                       backward_device_ops=ops,
                       tol={o: v[3] for o, v in checks.items()}, errs={o: v[1] for o, v in checks.items()},
-                      pair_ms=ms_t + ms_dx, pair_device_ms=dev_t + dev_dx, library_ms=library_ms,
+                      pair_ms=ms_t + ms_dx, pair_device_ms=add(dev_t, dev_dx), library_ms=library_ms,
                       library_computes="dx, dgamma and dbeta (F.group_norm+F.silu backward, NCHW)")
         line = (f"  gn_bwd [{n},{hw},{c}] silu={silu} {plan.route}"
                 + (f" c{plan.cluster}" if fused else "") + " "
@@ -1092,16 +1174,16 @@ def check_gn_bwd(results, failures):
             plain = time_ms(lambda: gn_silu_bwd_fused_reference(x, g, *saved, silu), reps=3)
             results.append(dict(kernel="gn_silu_bwd_fused", case=case, ms=ms, device_ms=dev_ms, plain_ms=plain,
                                 bound_ms=fb, bound_by=fby, max_abs_err=checks["dx_kernel"][1], **common))
-            line += (f" fused {ms:.4f} ms (device {_ms(dev_ms)}, {100 * fb / dev_ms:.0f} % of its bound {fb:.4f});"
-                     f" pair {ms_t + ms_dx:.4f} (device {dev_t + dev_dx:.4f})")
+            line += (f" fused {ms:.4f} ms (device {_ms(dev_ms)}, {share(fb, dev_ms)} of its bound {fb:.4f});"
+                     f" pair {ms_t + ms_dx:.4f} (device {_ms(add(dev_t, dev_dx))})")
         else:
             results.append(dict(kernel="gn_bwd_partials", case=case, ms=ms_t, device_ms=dev_t, plain_ms=plain_t,
                                 bound_ms=tb, bound_by=tby, max_abs_err=checks["t"][1], **common))
             results.append(dict(kernel="gn_bwd_dx", case=case, ms=ms_dx, device_ms=dev_dx, plain_ms=plain_dx,
-                                bound_ms=xb, bound_by=xby, bound_share=xb / dev_dx,
+                                bound_ms=xb, bound_by=xby, bound_share=None if dev_dx is None else xb / dev_dx,
                                 max_abs_err=checks["dx_kernel"][1], **common))
-            line += (f" partials {ms_t:.4f} (device {dev_t:.4f}, {100 * tb / dev_t:.0f} %) dx {ms_dx:.4f}"
-                     f" (device {dev_dx:.4f}, {100 * xb / dev_dx:.0f} %) ms")
+            line += (f" partials {ms_t:.4f} (device {_ms(dev_t)}, {share(tb, dev_t)}) dx {ms_dx:.4f}"
+                     f" (device {_ms(dev_dx)}, {share(xb, dev_dx)}) ms")
         log(line + f" vs F.group_norm+silu bwd {library_ms:.4f}; plain {plain_t + plain_dx:.2f}")
         if not ok:
             failures.append(f"gn_bwd {case}: {checks} bitwise {bitwise} device ops {ops}")
@@ -1617,7 +1699,7 @@ def serve(report, failures):
     report["model_build_s"] = time.perf_counter() - t0
     n_params = {name: sum(p.numel() for p in m.parameters())
                 for name, m in (("unet", pipe.unet), ("text_encoders", pipe.te.module),
-                                ("vae_decoder", pipe.vae))}
+                                ("vae", pipe.vae))}
     report["params"] = n_params
     log(f"  built sdxl unet + clip_l/clip_bigg + sdxl vae in {report['model_build_s']:.1f} s: {n_params}")
 
@@ -1810,7 +1892,7 @@ def time_optimizer(trainer, failures) -> dict:
                update_bound_ms=whole, update_ms=update_ms, plain_ms=plain_ms, adamw_fused_ms=adamw_ms,
                adamw_fused_computes="torch.optim.AdamW(fused=True): full second moment, no rounding, no clip")
     log(f"  optimizer over {len(params)} leaves ({n / 1e9:.3f} G params, {tiles} tiles): "
-        + ", ".join(f"{k} {wall[k]:.3f} ms (device {device[k]:.3f}, bound {bounds[k]:.3f})" for k in wall)
+        + ", ".join(f"{k} {wall[k]:.3f} ms (device {_ms(device[k])}, bound {bounds[k]:.3f})" for k in wall)
         + f"; update {update_ms:.2f} ms (bound {whole:.2f}), plain {plain_ms:.1f} ms,"
         f" AdamW(fused) {adamw_ms:.2f} ms (another function)")
     del grads
@@ -1981,7 +2063,7 @@ def flux(report, failures):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     n_params = {name: sum(p.numel() for p in m.parameters())
-                for name, m in (("flux", pipe.model), ("text_encoders", pipe.te.module), ("vae_decoder", pipe.vae))}
+                for name, m in (("flux", pipe.model), ("text_encoders", pipe.te.module), ("vae", pipe.vae))}
     log(f"  built flux_dev + clip_l + t5_xxl + 16-channel vae in {build_s:.1f} s: {n_params};"
         f" {torch.cuda.memory_allocated() / 2**30:.1f} GiB")
     t0 = time.perf_counter()
@@ -2261,7 +2343,7 @@ def time_fp16_optimizer(trainer, grads, failures) -> dict:
                adamw_fused_computes="torch.optim.AdamW(fused=True) over the fp32 masters: fp32 moments, no decay"
                                     " accumulator, no working copy")
     log(f"  adamw_fp16 over {len(masters)} leaves ({n / 1e9:.3f} G params, {plan.n_tiles} tiles): "
-        + ", ".join(f"{k} {wall[k]:.3f} ms (device {device[k]:.3f}, bound {bounds[k]:.3f})" for k in wall)
+        + ", ".join(f"{k} {wall[k]:.3f} ms (device {_ms(device[k])}, bound {bounds[k]:.3f})" for k in wall)
         + f"; update {update_ms:.2f} ms (bound {out['update_bound_ms']:.2f}), plain {plain_ms:.1f} ms,"
         f" AdamW(fused) {adamw_ms:.2f} ms (another function)")
     return out
@@ -2603,6 +2685,292 @@ def train_flux(report, failures):
     return counts, by_dim
 
 
+# ------------------------------------------------------- sampling surface
+
+SURFACE_STEPS = 6  # each sampler's run (LCM: 4)
+SURFACE_PROMPTS = ["a lighthouse at dusk, oil painting", "a red fox in snow", "a bowl of ramen, studio photo",
+                   "an astronaut riding a horse"]
+IMG2IMG_STEPS, IMG2IMG_STRENGTH = 20, 0.6  # 12 steps run
+INVERT_STEPS = 10
+# the samplers whose second model call of a step is taken except on the step to 0
+TWO_CALLS = ("heun", "dpm2", "dpm2_cfgpp", "dpmpp_sde", "dpmpp_2s_ancestral")
+
+
+def expected_model_calls(name, sigmas) -> int:
+    """The model calls a sampler of sampling/ makes over ``sigmas``, from its
+    own gates: one a step, two for TWO_CALLS where the step does not end at
+    0 (dpmpp_2s_ancestral: where its ancestral sigma_down is not 0)."""
+    from uwudiff_tpu_torch.sampling import get_ancestral_step
+
+    calls = 0
+    for s, s_next in zip(sigmas[:-1], sigmas[1:]):
+        end = get_ancestral_step(s, s_next)[0] if name == "dpmpp_2s_ancestral" else s_next
+        calls += 1 + int(name in TWO_CALLS and end != 0)
+    return calls
+
+
+def synthetic_images(n, res, seed, device):
+    """[n, res, res, 3] images in [-0.9, 0.9] made from ``seed``: a sum of
+    random plane waves per channel, smooth where noise would not be."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ramp = torch.linspace(-math.pi, math.pi, res, device=device)
+    yy, xx = torch.meshgrid(ramp, ramp, indexing="ij")
+    f = torch.rand((n, 3, 3), generator=gen, device=device) * 6.0 + 1.0
+    img = torch.sin(f[..., 0, None, None] * xx + f[..., 1, None, None] * yy + f[..., 2, None, None])
+    return (0.9 * img).permute(0, 2, 3, 1).contiguous()
+
+
+def small_sdxl_stack(device, dtype):
+    """The small SDXL-layout text encoders, UNet and VAE at head dim 64 of
+    check_models_vs_cpu, from one seed."""
+    from uwudiff_tpu_torch.models import AutoencoderKL, ConcatTextEncoders, SimpleTokenizer, TextEncodingPipeline
+
+    torch.manual_seed(SEED + 21)
+    clip = {"preset": "tiny", "hidden_size": 128, "num_heads": 2}
+    te = ConcatTextEncoders.from_config(
+        [(clip, {"layer_idx": -2}), (clip, {"use_pooled": True, "layer_idx": -2})], device="cpu")
+    unet, vae = small_unet("cpu", torch.float32), AutoencoderKL.from_config("tiny", device="cpu",
+                                                                             block_out_channels=(32, 64))
+    te, unet, vae = (m.to(device=device, dtype=dtype) for m in (te, unet, vae))
+    return TextEncodingPipeline(te, [SimpleTokenizer(), SimpleTokenizer()], device=device), unet, vae
+
+
+def check_img2img_vs_cpu(failures) -> float:
+    """image_to_image_sampling (DPM++ 2M, strength 0.6 of 5 steps, CFG) on
+    the small SDXL-layout stack: the card in bf16 through the kernels
+    against the same weights in fp32 on the CPU, the encoder's draw and the
+    start noise injected; the largest difference over the largest latent."""
+    from uwudiff_tpu_torch.diffusion import NoiseSchedule
+    from uwudiff_tpu_torch.sampling import image_to_image_sampling, sample_dpmpp_2m
+
+    gen = torch.Generator().manual_seed(SEED + 22)
+    images = synthetic_images(2, 64, SEED + 23, "cpu")
+    enc_noise, start = torch.randn((2, 2, 32, 32, 4), generator=gen)
+    out = {}
+    for device, dtype in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+        te, unet, vae = small_sdxl_stack(device, dtype)
+        out[device] = image_to_image_sampling(
+            unet, te, images.to(device), SURFACE_PROMPTS[:2], ["blurry", ""],
+            vae_encode=lambda img, g, vae=vae: vae.encode(img).sample(noise=enc_noise.to(img.device)),
+            train_schedule=NoiseSchedule.sdxl(), strength=0.6, num_steps=5, cfg_scale=CFG, vae_std=1 / 0.18215,
+            vae_downscale=2, internal_sampling_func=sample_dpmpp_2m, noise=start.to(device), return_latents=True)
+    ref = out["cpu"]
+    err = ((out["cuda"].float().cpu() - ref).abs().max() / ref.abs().max()).item()
+    tol = 5e-2  # the script's card-vs-CPU bound: bf16 weights and activations through a few dozen layers
+    log(f"  img2img, small SDXL layout, card bf16 vs CPU fp32: rel err {err:.2e} (tol {tol})")
+    if not err <= tol:
+        failures.append(f"img2img card vs CPU rel err {err} > {tol}")
+    return err
+
+
+def sync_s(fn, *args, **kwargs):
+    """``fn``'s result and its wall seconds, ending in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0
+
+
+def peak_run(fn, *args, **kwargs):
+    """``fn``'s result, wall seconds, peak GiB and the peak above what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    result, seconds = sync_s(fn, *args, **kwargs)
+    peak = torch.cuda.max_memory_allocated()
+    return result, seconds, peak / 2**30, (peak - base) / 2**30
+
+
+def sampling_surface(report, failures):
+    """SDXL at full width through every sampler, img2img and inpainting
+    through the VAE encoder, tiled decode and encode, inversion; the
+    counts of the img2img request are returned."""
+    import functools
+
+    from uwudiff_tpu_torch.diffusion import NoiseSchedule
+    from uwudiff_tpu_torch.models.transformer import BasicTransformerBlock
+    from uwudiff_tpu_torch.ops import launch_counts, launches_by_head_dim, plan_gn, reset_launch_counts
+    from uwudiff_tpu_torch.sampling import (
+        SAMPLERS,
+        LCMDenoiser,
+        encode_cfg_inputs,
+        euler_latent_sampling,
+        get_sigmas_lcm,
+        image_to_image_sampling,
+        img2img_sigmas,
+        karras_sigmas,
+    )
+    from uwudiff_tpu_torch.serving import Txt2ImgPipeline, sdxl_pipeline
+
+    out = report["sampling"] = {"card": report["card"]}
+    out["img2img_vs_cpu_rel_err"] = check_img2img_vs_cpu(failures)
+    base, out["build_s"] = sync_s(sdxl_pipeline, "cuda", torch.bfloat16, SEED)
+    sched = NoiseSchedule.sdxl()
+    karras = functools.partial(karras_sigmas, sigma_min=float(sched.sigma_min), sigma_max=float(sched.sigma_max))
+    unet_attn = sum(2 if m.has_cross else 1 for m in base.unet.modules() if isinstance(m, BasicTransformerBlock))
+    calls = []
+
+    def unet(*args, **kwargs):  # the UNet, its calls counted
+        calls.append(1)
+        return base.unet(*args, **kwargs)
+
+    prompts, seeds = SURFACE_PROMPTS[:2], [31, 32]
+    with torch.inference_mode():  # the text encoders' launches of one request: one a CLIP layer
+        reset_launch_counts()
+        sync_s(encode_cfg_inputs, prompts, [""] * 2, RES, RES, base.te)
+        te_fwd = launch_counts()["flash_fwd"]
+    Txt2ImgPipeline(unet, base.te, base.vae, sched, "cuda")(prompts, num_steps=1, num_samples=2, cfg_scale=CFG,
+                                                            return_latents=True, seed=seeds)  # warm-up, 4 rows
+
+    # (a) every sampler, 1024^2, batch 2, Karras (LCM: its own ladder and wrapper, cfg 1)
+    runs = {}
+    for name, sampler in SAMPLERS.items():
+        lcm = name == "lcm"
+        steps = 4 if lcm else SURFACE_STEPS
+        ladder = functools.partial(get_sigmas_lcm, schedule=sched) if lcm else karras
+        pipe = Txt2ImgPipeline(unet, base.te, base.vae, sched, "cuda", sampler=sampler,
+                               denoiser_cls=LCMDenoiser if lcm else None)
+        calls.clear()
+        reset_launch_counts()  # the run starts here
+        (lat, _), wall = sync_s(pipe.sample_device, prompts, num_steps=steps, num_samples=2,
+                                cfg_scale=1.0 if lcm else CFG, width=RES, height=RES, seed=seeds,
+                                return_latents=True, get_sigma_func=ladder)
+        counts, by_dim = launch_counts(), launches_by_head_dim()  # and ends here
+        want_calls = expected_model_calls(name, ladder(steps))
+        want_k1 = te_fwd + unet_attn * len(calls)
+        d64 = by_dim["flash_fwd_sm90"].get(64, 0)
+        finite = bool(torch.isfinite(lat).all())
+        runs[name] = dict(steps=steps, model_calls=len(calls), expected_model_calls=want_calls,
+                          flash_fwd=counts["flash_fwd"], expected_flash_fwd=want_k1, flash_fwd_d64=d64, wall_s=wall,
+                          ms_per_step=wall * 1e3 / steps, ms_per_model_call=wall * 1e3 / len(calls),
+                          latents_std=lat.float().std().item(), finite=finite)
+        check_forward_route(counts, f"sampler {name}", failures)
+        if len(calls) != want_calls or counts["flash_fwd"] != want_k1 or d64 != want_k1 or not finite:
+            failures.append(f"sampler {name}: {runs[name]}")
+        log(f"  {name}: {steps} steps, {len(calls)} UNet calls (expected {want_calls}), K1 {counts['flash_fwd']}"
+            f" = {te_fwd} + {unet_attn} x {len(calls)} at D = 64: {d64}; {wall:.2f} s,"
+            f" {wall * 1e3 / steps:.1f} ms a step; latents finite {finite}")
+    out["samplers"] = dict(resolution=RES, batch=2, cfg=CFG, ladder="karras", te_flash_fwd=te_fwd,
+                           unet_flash_fwd=unet_attn, runs=runs)
+    del lat
+
+    # (b) img2img and inpainting, a batch of 4 through the encoder
+    n, std = 4, 1.0 / base.vae.scaling_factor
+    images = synthetic_images(n, RES, SEED, "cuda")
+    parts = {}
+
+    def encode(img, gen):
+        z, parts["encode_s"] = sync_s(lambda: base.vae.encode(img).sample(gen))
+        return z
+
+    def decode(lat):
+        img, parts["decode_s"] = sync_s(base.vae.decode, lat)
+        return img
+
+    i2i = functools.partial(image_to_image_sampling, base.unet, base.te, prompt=SURFACE_PROMPTS, neg_prompt=[""] * n,
+                            train_schedule=sched, num_steps=IMG2IMG_STEPS, get_sigma_func=karras, cfg_scale=CFG,
+                            seed=SEED, vae_std=std, vae_downscale=base.vae_downscale,
+                            internal_sampling_func=SAMPLERS["dpmpp_2m_sde"])
+    i2i(init_image=images, vae_encode=encode, vae_decode=decode, strength=0.05)  # warm-up: one step
+    gn_calls: list = []
+    hooks = record_gn_calls([base.unet, base.vae], gn_calls)
+    reset_launch_counts()  # the main run of the phase starts here
+    imgs, total_s, peak, above = peak_run(i2i, init_image=images, vae_encode=encode, vae_decode=decode,
+                                          strength=IMG2IMG_STRENGTH)
+    i2i_counts = launch_counts()  # and ends here
+    for h in hooks:
+        h.remove()
+    steps_run = len(img2img_sigmas(sched, IMG2IMG_STEPS, IMG2IMG_STRENGTH, karras)) - 1
+    routes = [plan_gn(*call[:4], torch.bfloat16).route for call in gn_calls]
+    gn_plan = {"gn_silu_fused": routes.count("fused"), "gn_stats": routes.count("chunked"),
+               "gn_silu_apply": routes.count("chunked")}
+    want_k1 = te_fwd + unet_attn * steps_run
+    ok_imgs = len(imgs) == n and all(i.shape == (RES, RES, 3) and i.dtype == np.uint8 for i in imgs)
+    if not ok_imgs or i2i_counts["flash_fwd"] != want_k1 or any(i2i_counts[k] != v for k, v in gn_plan.items()):
+        failures.append(f"img2img: images ok {ok_imgs}, K1 {i2i_counts['flash_fwd']} (expected {want_k1}),"
+                        f" GroupNorm {[i2i_counts[k] for k in gn_plan]} against plan_gn's {gn_plan}")
+    check_forward_route(i2i_counts, "img2img", failures)
+    out["img2img"] = dict(batch=n, steps=IMG2IMG_STEPS, strength=IMG2IMG_STRENGTH, steps_run=steps_run,
+                          sampler="dpmpp_2m_sde", ladder="karras", request_s=total_s, encode_s=parts["encode_s"],
+                          decode_s=parts["decode_s"], sample_s=total_s - parts["encode_s"] - parts["decode_s"],
+                          peak_memory_gib=peak, peak_above_weights_gib=above, launches=i2i_counts,
+                          groupnorm_plan=gn_plan, image_stds=[float(i.astype(np.float32).std()) for i in imgs])
+    log(f"  img2img ({report['card']}): batch {n} at {RES}^2, {steps_run} of {IMG2IMG_STEPS} steps: {total_s:.2f} s"
+        f" (encode {parts['encode_s']:.2f}, sample {out['img2img']['sample_s']:.2f}, decode {parts['decode_s']:.2f});"
+        f" peak {peak:.1f} GiB ({above:.1f} above the weights); K1 {i2i_counts['flash_fwd']}, K2"
+        f" {i2i_counts['gn_silu_fused']}, K3 {i2i_counts['gn_stats']} + apply {i2i_counts['gn_silu_apply']}")
+    with torch.inference_mode():
+        init_latent = base.vae.encode(images).sample(torch.Generator(device="cuda").manual_seed(SEED)) / std
+    mask = torch.zeros((n, RES // 8, RES // 8, 1), device="cuda")
+    mask[:, :, RES // 16:] = 1.0  # the right half repainted, the left kept
+    inpainted, inpaint_s = sync_s(i2i, init_image=None, init_latent=init_latent, inpaint_mask=mask,
+                                  strength=IMG2IMG_STRENGTH, return_latents=True)
+    keep = (mask == 0).expand_as(inpainted)
+    kept_exact = bool(torch.equal(inpainted[keep], (init_latent * std + 0.0)[keep]))
+    moved = (inpainted[~keep] - (init_latent * std)[~keep]).abs().max().item()
+    if not kept_exact or not bool(torch.isfinite(inpainted).all()) or not moved > 0:
+        failures.append(f"inpaint: kept half exact {kept_exact}, repainted half moved {moved}")
+    out["inpaint"] = dict(request_s=inpaint_s, kept_half_bitwise=kept_exact, repainted_max_move=moved)
+    log(f"  inpaint: {inpaint_s:.2f} s; kept half bitwise the init latents {kept_exact}; repainted moved {moved:.3f}")
+
+    # (c) tiled decode and encode at 1024^2: 64-latent / 512-pixel tiles
+    lat = init_latent * std
+    tile_calls: list = []
+    hooks = record_gn_calls([base.vae], tile_calls)
+    with torch.inference_mode():
+        whole, dec_s, dec_peak, dec_above = peak_run(base.vae.decode, lat)
+        tiled, tdec_s, tdec_peak, tdec_above = peak_run(base.vae.decode_tiled, lat, tile=64, overlap=16)
+        single_dec = bool(torch.equal(base.vae.decode_tiled(lat, tile=RES // 8), whole))
+        dec_diff = (tiled - whole).abs().max().item()
+        del whole, tiled
+        ewhole, enc_s, enc_peak, enc_above = peak_run(base.vae.encode, images)
+        etiled, tenc_s, tenc_peak, tenc_above = peak_run(base.vae.encode_tiled, images, tile=512, overlap=128)
+        esingle = base.vae.encode_tiled(images, tile=RES)
+        single_enc = bool(torch.equal(esingle.mean, ewhole.mean) and torch.equal(esingle.logvar, ewhole.logvar))
+        enc_diff = (etiled.mean - ewhole.mean).abs().max().item()
+    for h in hooks:
+        h.remove()
+    if not (single_dec and single_enc) or not math.isfinite(dec_diff + enc_diff):
+        failures.append(f"tiles: single-tile decode bitwise {single_dec}, encode {single_enc};"
+                        f" diffs {dec_diff}, {enc_diff}")
+    out["tiles"] = dict(batch=n, decode=dict(untiled_s=dec_s, tiled_s=tdec_s, untiled_peak_gib=dec_peak,
+                                             tiled_peak_gib=tdec_peak, untiled_above_gib=dec_above,
+                                             tiled_above_gib=tdec_above, max_abs_diff=dec_diff,
+                                             single_tile_bitwise=single_dec, tile=64, overlap=16),
+                        encode=dict(untiled_s=enc_s, tiled_s=tenc_s, untiled_peak_gib=enc_peak,
+                                    tiled_peak_gib=tenc_peak, untiled_above_gib=enc_above,
+                                    tiled_above_gib=tenc_above, mean_max_abs_diff=enc_diff,
+                                    single_tile_bitwise=single_enc, tile=512, overlap=128))
+    log(f"  tiles ({report['card']}): decode untiled {dec_s:.2f} s / {dec_above:.1f} GiB above the weights, 3x3 tiles"
+        f" {tdec_s:.2f} s / {tdec_above:.1f} GiB, max diff {dec_diff:.3f}; encode untiled {enc_s:.2f} s /"
+        f" {enc_above:.1f} GiB, tiled {tenc_s:.2f} s / {tenc_above:.1f} GiB, mean max diff {enc_diff:.3f};"
+        f" one tile bitwise: decode {single_dec}, encode {single_enc}")
+
+    # (d) inversion: image -> noise -> image, batch 2, Euler (eta 0), the conditional pass
+    x0 = init_latent[:2]
+    inv_runs = {}
+    latents = x0
+    for direction in ("image_to_noise", "noise_to_image"):
+        reset_launch_counts()
+        latents, wall = sync_s(euler_latent_sampling, latents, base.unet, base.te, sched, prompts, ["", ""],
+                               image_to_noise=direction == "image_to_noise", cfg_scale=1.0, num_steps=INVERT_STEPS,
+                               seed=SEED)
+        k1 = launch_counts()["flash_fwd"]
+        inv_runs[direction] = dict(wall_s=wall, flash_fwd=k1, latents_std=latents.float().std().item())
+        if k1 != te_fwd + unet_attn * INVERT_STEPS or not bool(torch.isfinite(latents).all()):
+            failures.append(f"inversion {direction}: K1 {k1}, expected {te_fwd + unet_attn * INVERT_STEPS}")
+    rel_rms = ((latents - x0).pow(2).mean().sqrt() / x0.pow(2).mean().sqrt()).item()
+    out["inversion"] = dict(batch=2, steps=INVERT_STEPS, cfg=1.0, runs=inv_runs, reconstruction_rel_rms=rel_rms)
+    log(f"  inversion: {INVERT_STEPS} steps each way, {inv_runs['image_to_noise']['wall_s']:.2f} +"
+        f" {inv_runs['noise_to_image']['wall_s']:.2f} s; reconstruction rel RMS {rel_rms:.3f} (random weights)")
+
+    # (f) the GroupNorm calls of (b) and (c) phase 2 did not hold
+    out["gn_call_checks"] = check_gn_calls(gn_calls + tile_calls, failures, backward=False)
+    return i2i_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -2628,7 +2996,7 @@ def main() -> int:
     report = {"card": smi, "sm_clock_max_mhz": float(clock), "torch": torch.__version__, "cuda": torch.version.cuda}
     failures: list[str] = []
 
-    log("[1/8] build")
+    log("[1/9] build")
     built = build_all()
     report["build_s"] = built["seconds"]
     log(f"  built in {built['seconds']:.1f} s")
@@ -2651,7 +3019,7 @@ def main() -> int:
         seconds[key] = time.perf_counter() - t0
         return out
 
-    log("[2/8] kernels vs plain (bf16)")
+    log("[2/9] kernels vs plain (bf16)")
     results: list[dict] = []
     for check in (check_flash, check_gn, check_flash_bwd, check_flash_dbias, check_gn_bwd, check_optimizer):
         timed(check.__name__, check, results, failures)
@@ -2662,33 +3030,38 @@ def main() -> int:
     report["ti_step_vs_cpu"] = timed("check_ti_vs_cpu", check_ti_vs_cpu, failures)
     report["flux_train_step_vs_cpu"] = timed("check_flux_train_vs_cpu", check_flux_train_vs_cpu, failures)
 
-    log("[3/8] serve SDXL 1024x1024")
+    log("[3/9] serve SDXL 1024x1024")
     serve_counts = timed("serve", serve, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # the serving stack is gone before the trainer is built
 
-    log("[4/8] train SDXL (full fine-tune, batch 8, 64x64 latents)")
+    log("[4/9] train SDXL (full fine-tune, batch 8, 64x64 latents)")
     counts = timed("train", train, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SDXL trainer before the SD1.5 one
 
-    log("[5/8] train SD1.5 (full fine-tune, batch 16, 64x64 latents)")
+    log("[5/9] train SD1.5 (full fine-tune, batch 16, 64x64 latents)")
     sd15_counts, sd15_by_dim = timed("train_sd15", train_sd15, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SD1.5 trainer before the SD3 one
 
-    log("[6/8] textual inversion SD3-medium + CLIP-L + CLIP-bigG + T5-XXL (batch 8, 64x64x16 latents)")
+    log("[6/9] textual inversion SD3-medium + CLIP-L + CLIP-bigG + T5-XXL (batch 8, 64x64x16 latents)")
     ti_counts = timed("ti", ti, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SD3 trainer before the Flux stack
 
-    log("[7/8] serve Flux (flux_dev + CLIP-L + T5-XXL at 512 tokens) 1024x1024")
+    log("[7/9] serve Flux (flux_dev + CLIP-L + T5-XXL at 512 tokens) 1024x1024")
     flux_counts, flux_d128 = timed("flux", flux, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the Flux serving stack before the flux_1b trainer
 
-    log("[8/8] train flux_1b (full fine-tune, batch 8, 64x64x16 latents, blocks recomputed in the backward)")
+    log("[8/9] train flux_1b (full fine-tune, batch 8, 64x64x16 latents, blocks recomputed in the backward)")
     flux1b_counts, flux1b_by_dim = timed("train_flux", train_flux, report, failures)
+    gc.collect()
+    torch.cuda.empty_cache()  # and the flux_1b trainer before the SDXL stack with its encoder
+
+    log("[9/9] sampling surface: SDXL 1024x1024 through every sampler, img2img and inpainting, VAE tiles, inversion")
+    sampling_counts = timed("sampling", sampling_surface, report, failures)
 
     # (kernel, the case of its row's numbers): the kernels serving SD1.5 at
     # its level-0 self-attention (D = 40) and at level 2 (D = 160): the
@@ -2759,6 +3132,7 @@ def main() -> int:
             shape=row["shape"], case=case,
             serving_launches=serve_counts[name], train_launches=counts[name], sd15_launches=sd15_counts[name],
             ti_launches=ti_counts[name], flux_launches=flux_counts[name], flux_1b_launches=flux1b_counts[name],
+            img2img_launches=sampling_counts[name],
         ))
     # the update's kernels (no Pallas kernel stood there: optax through XLA),
     # checked and timed over the SDXL step's leaves (O1) and the SD1.5 step's
@@ -2779,8 +3153,11 @@ def main() -> int:
                 plain_is="the whole plain update of the leaves (training/optimizers.py::apply_update_)",
                 serving_launches=serve_counts[name], train_launches=counts[name], sd15_launches=sd15_counts[name],
                 ti_launches=ti_counts[name], flux_launches=flux_counts[name], flux_1b_launches=flux1b_counts[name],
+                img2img_launches=sampling_counts[name],
             ))
     report["kernels"] = kernels
+    report["device_readings_not_measured"] = UNMEASURED
+    check_device_readings(results + kernels, failures)
     report["total_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -279,6 +279,9 @@ def test_gn_kernels_match_plain(dev, dtype, n, hw, c, groups, silu):
 GN_PATH_CASES = [
     (8, 1024, 320, 32), (8, 256, 2560, 32), (8, 4096, 1920, 32), (8, 16384, 320, 32), (4, 16384, 512, 32),
     (4, 65536, 512, 32), (3, 77, 64, 8), (8, 16384, 960, 32), (1, 262144, 256, 32),
+    # the SDXL VAE encoder's at a 1024^2 batch of 4 that no other path runs:
+    # down_1 res_0's first norm and down_2 res_0's
+    (4, 262144, 128, 32), (4, 65536, 256, 32),
 ]
 
 
@@ -427,6 +430,30 @@ def test_tiny_pipeline_runs_through_the_kernels(dev):
     # chunked pair of the forward kernels is not launched; serving runs no backward
     assert counts.pop("gn_stats") == counts.pop("gn_silu_apply") == 0, counts
     assert all(counts[k] > 0 for k in FORWARD_KERNELS if k in counts), counts
+
+
+def test_vae_tiles_on_the_card(dev):
+    """A single-tile ``decode_tiled``/``encode_tiled`` is the untiled call,
+    bitwise; the multi-tile ones run through the kernels to finite outputs
+    of the untiled shapes."""
+    from uwudiff_tpu_torch.models import AutoencoderKL
+
+    torch.manual_seed(0)
+    vae = AutoencoderKL.from_config("tiny", device=dev, dtype=torch.bfloat16, block_out_channels=(32, 64))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    z = torch.randn((2, 32, 32, 4), generator=gen, device=dev)
+    x = torch.rand((2, 64, 64, 3), generator=gen, device=dev) * 2 - 1
+    with torch.inference_mode():
+        assert torch.equal(vae.decode_tiled(z, tile=32), vae.decode(z))
+        single = vae.encode_tiled(x, tile=64)
+        whole = vae.encode(x)
+        assert torch.equal(single.mean, whole.mean) and torch.equal(single.logvar, whole.logvar)
+        reset_launch_counts()
+        tiled = vae.decode_tiled(z, tile=16, overlap=4)
+        assert launch_counts()["gn_silu_fused"] > 0
+        moments = vae.encode_tiled(x, tile=32, overlap=8)
+    assert tiled.shape == (2, 64, 64, 3) and torch.isfinite(tiled).all()
+    assert moments.mean.shape == (2, 32, 32, 4) and torch.isfinite(moments.mean).all()
 
 
 # ------------------------------------------------------------------ backward

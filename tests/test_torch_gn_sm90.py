@@ -6,7 +6,7 @@ the launch counters.
 The GroupNorm shapes of the three paths are read off the models
 themselves: the SDXL UNet at 1024x1024 (a served batch of 4 under CFG, 8
 rows of 128x128 latents) and at the training step's 64x64 latents (batch
-8), and the SDXL VAE decoder at 1024x1024 (batch 4), each run once on the
+8), and the SDXL VAE decoder and encoder at 1024x1024 (batch 4), each run once on the
 meta device with the GroupNorm and attention calls recorded, not computed.
 The served UNet's shapes are also those of a 1024x1024 training step at
 batch 8. The kernels themselves (``csrc/groupnorm_silu_sm90.cu``,
@@ -80,7 +80,9 @@ def _unet(batch, latent):
 def paths():
     return {"train": _record(lambda: _unet(8, 64)), "serve": _record(lambda: _unet(8, 128)),
             "vae": _record(lambda: AutoencoderKL(**VAE_PRESETS["sdxl"]).to(BF16).decode(
-                torch.empty((4, 128, 128, 4), dtype=BF16)))}
+                torch.empty((4, 128, 128, 4), dtype=BF16))),
+            "vae_encoder": _record(lambda: AutoencoderKL(**VAE_PRESETS["sdxl"]).to(BF16).encode(
+                torch.empty((4, 1024, 1024, 3), dtype=BF16)))}
 
 
 def test_every_groupnorm_of_the_training_step_takes_the_fused_kernel(paths):
@@ -103,6 +105,17 @@ def test_the_vae_decoder_fuses_its_128_level_only(paths):
     assert len(paths["vae"]) == 30
     for s in paths["vae"]:
         assert plan_gn(*s, BF16).route == ("fused" if s[1] <= 128 * 128 else "chunked"), s
+
+
+def test_the_vae_encoder_fuses_its_128_level_and_one_256_norm(paths):
+    """An img2img batch of 4 at 1024^2: the 1024^2 and 512^2 levels and the
+    256^2 level's 512-channel norms take the chunked pair (K3 + the apply);
+    the 128^2 level and down_2 res_0's first norm, [4, 65536, 256], fuse."""
+    routes = Counter((s, plan_gn(*s, BF16).route) for s in paths["vae_encoder"])
+    assert len(paths["vae_encoder"]) == 22
+    assert routes == Counter({((4, 16384, 512, 32), "fused"): 10, ((4, 65536, 256, 32), "fused"): 1,
+                              ((4, 1048576, 128, 32), "chunked"): 4, ((4, 262144, 128, 32), "chunked"): 1,
+                              ((4, 262144, 256, 32), "chunked"): 3, ((4, 65536, 512, 32), "chunked"): 3})
 
 
 def test_every_groupnorm_backward_of_the_training_step_fuses_but_the_widest_level_0_one(paths):
@@ -129,7 +142,7 @@ def test_every_fused_plan_fits_the_kernel(paths):
     multiple (a legal TMA box), boxes of at most 256 rows that start
     128-byte aligned, a tile within one block's shared memory, a cluster
     of at most 16 blocks that covers every row."""
-    for n, hw, c, groups in sorted(set(paths["train"] + paths["serve"] + paths["vae"])):
+    for n, hw, c, groups in sorted(set(paths["train"] + paths["serve"] + paths["vae"] + paths["vae_encoder"])):
         for dtype, es in ((BF16, 2), (torch.float32, 4)):
             p = plan_gn(n, hw, c, groups, dtype)
             if p.route != "fused":
@@ -150,7 +163,7 @@ def test_every_fused_backward_plan_fits_the_kernel(paths):
     """As the forward's, with both tiles (x and dy) in tile_bytes; the
     slab is the forward's, so the backward's maps have the forward's
     geometry at its own box rows."""
-    for n, hw, c, groups in sorted(set(paths["train"] + paths["serve"] + paths["vae"])):
+    for n, hw, c, groups in sorted(set(paths["train"] + paths["serve"] + paths["vae"] + paths["vae_encoder"])):
         for dtype, es in ((BF16, 2), (torch.float32, 4)):
             p = plan_gn_bwd(n, hw, c, groups, dtype)
             if p.route != "fused":

@@ -168,7 +168,7 @@ def test_vae_decode_matches_jax():
     jvae = JaxVAE.from_config("tiny")
     params = random_params(jvae, z, method=jvae.decode)
     # decode-only init has no encoder; the full tree (with encoder and
-    # quant_conv) is what checkpoints hold, and the converter skips it
+    # quant_conv) is what checkpoints hold, and the port's VAE holds it all
     full = random_params(jvae, np.zeros((1, 16, 16, 3), np.float32), jax.random.PRNGKey(1))
     full = {**full, "decoder": params["decoder"], "post_quant_conv": params["post_quant_conv"]}
     ref = jax.jit(functools.partial(jvae.apply, method=jvae.decode))({"params": full}, z)
@@ -180,9 +180,8 @@ def test_vae_decode_matches_jax():
 
 
 def test_convert_raises_on_mismatch():
-    z = np.zeros((1, 8, 8, 4), np.float32)
     jvae = JaxVAE.from_config("tiny")
-    params = random_params(jvae, z, method=jvae.decode)
+    params = random_params(jvae, np.zeros((1, 16, 16, 3), np.float32), jax.random.PRNGKey(1))
     vae = AutoencoderKL.from_config("tiny", device="cpu")
     extra = {**params, "stray": {"kernel": np.zeros((2, 2), np.float32)}}
     with pytest.raises(KeyError, match="stray"):

@@ -10,8 +10,7 @@ only the leaf needs translating:
 - ``Embed.embedding``               -> ``Embedding.weight``
 - ``bias``, CLIP's ``position_embedding`` -> as they are.
 
-A module may name whole subtrees it does not port in
-``jax_skip_subtrees`` (the VAE's encoder). A scanned block stack
+A scanned block stack
 (``scan_blocks=True``: one ``blocks`` subtree whose leaves carry a leading
 layer axis, as the SD3 config trains the MMDiT; Flux scans ``blocks`` and
 ``single_blocks``) is unstacked into the port's ``blocks_{i}`` (and
@@ -42,12 +41,10 @@ def _flatten(tree, prefix=()):
             yield prefix + (key,), np.asarray(value)
 
 
-def _jax_state_dict(params, skip=()) -> dict[str, np.ndarray]:
+def _jax_state_dict(params) -> dict[str, np.ndarray]:
     """A flax param tree (nested mappings of arrays) -> torch-named arrays."""
     out = {}
     for path, arr in _flatten(params):
-        if path[0] in skip:
-            continue
         *mods, leaf = path
         if leaf == "kernel":
             if arr.ndim == 2:
@@ -93,7 +90,7 @@ def load_jax_params(module: torch.nn.Module, params) -> torch.nn.Module:
     """Copy a flax param tree into ``module`` in place (dtype and device
     follow the module). Returns the module."""
     params = _unstack_scanned(module, params)
-    src = _jax_state_dict(params, getattr(module, "jax_skip_subtrees", ()))
+    src = _jax_state_dict(params)
     dst = module.state_dict()
     missing, extra = sorted(set(dst) - set(src)), sorted(set(src) - set(dst))
     if missing or extra:

@@ -3,8 +3,9 @@
 Conventions as in the JAX package: ``alphas_cumprod[t]`` for integer
 ``t in [0, N)``; ascending ``sigmas = sqrt((1-acp)/acp)``; the inference
 ladder indexes the flipped, zero-appended sigmas; ``sigma_to_t`` is the
-log-sigma interpolation of k-diffusion's ``DiscreteSchedule``
-(``quantize=False``). The arrays live on the CPU until :meth:`to`.
+log-sigma interpolation of k-diffusion's ``DiscreteSchedule``, or with
+``quantize`` the nearest grid timestep. The arrays live on the CPU until
+:meth:`to`.
 """
 
 from __future__ import annotations
@@ -68,13 +69,23 @@ class NoiseSchedule:
         return self.alphas_cumprod.shape[0]
 
     @property
+    def sigma_min(self) -> torch.Tensor:
+        return self.sigmas[0]
+
+    @property
+    def sigma_max(self) -> torch.Tensor:
+        return self.sigmas[-1]
+
+    @property
     def sigmas_descending(self) -> torch.Tensor:
         return torch.cat([self.sigmas.flip(0), self.sigmas.new_zeros(1)])
 
-    def sigma_to_t(self, sigma: torch.Tensor) -> torch.Tensor:
-        """Fractional timestep by log-sigma interpolation (the JAX
-        package's ``quantize=False``)."""
+    def sigma_to_t(self, sigma: torch.Tensor, quantize: bool = False) -> torch.Tensor:
+        """Fractional timestep by log-sigma interpolation; with ``quantize``
+        the integer timestep whose log-sigma is nearest."""
         log_sigma = torch.log(torch.clamp(sigma, min=1e-10))
+        if quantize:
+            return (log_sigma[..., None] - self.log_sigmas).abs().argmin(dim=-1).reshape(sigma.shape)
         dists = log_sigma[..., None] - self.log_sigmas
         # low_idx: last grid point with log_sigma >= grid, clamped to N-2
         low_idx = torch.clamp((dists >= 0).sum(dim=-1) - 1, 0, self.log_sigmas.shape[0] - 2)

@@ -1,13 +1,16 @@
 """Serving: a text-to-image pipeline and a continuous-batching server
 (``uwudiff_tpu/serving.py``), and the Flux stack.
 
-``Txt2ImgPipeline`` binds the UNet, the text encoders and the VAE on one
-device; ``sample_device`` enqueues a whole request batch (encode and CFG
-Euler-ancestral sampling through the generic entry point
-``sampling.diffusion_sampling``, then a uint8 decode) without waiting on
-the device, so ``BatchingServer``'s fetch thread copies one batch's images
-to the host while the dispatcher enqueues the next. Adapter hot-swap, int8
-weights, latent sharding and the ``**kwargs`` path of the JAX pipeline
+``Txt2ImgPipeline`` binds the UNet, the text encoders, the VAE, a sampler
+(default Euler-ancestral) and a sigma-space wrapper on one device;
+``sample_device`` enqueues a whole request batch (encode and CFG sampling
+through the generic entry point ``sampling.diffusion_sampling``, then a
+uint8 decode, tiled with ``vae_tiling``) without waiting on the device, so
+``BatchingServer``'s fetch thread copies one batch's images to the host
+while the dispatcher enqueues the next. Any other ``diffusion_sampling``
+argument (a ladder's ``get_sigma_func``, ``cfg_interval``, ``rescale``)
+goes to ``sample_device`` or a call of the pipeline as a keyword and on to
+``diffusion_sampling``. Adapter hot-swap, int8 weights and latent sharding
 come with the modules they need.
 
 ``flux_txt2img`` builds ``flux_dev`` (or another Flux preset) with T5-XXL,
@@ -33,12 +36,21 @@ from torch import nn
 
 from uwudiff_tpu_torch.diffusion.schedules import NoiseSchedule
 from uwudiff_tpu_torch.sampling.get_sigmas import dynamic_shift_time, get_sigmas_for_rf, mu_for_image_seq_len
+from uwudiff_tpu_torch.sampling.euler import sample_euler_ancestral
 from uwudiff_tpu_torch.sampling.sampling import diffusion_sampling
-from uwudiff_tpu_torch.sampling.wrapper import RFDenoiser
+from uwudiff_tpu_torch.sampling.wrapper import KDiffusionDenoiser, RFDenoiser
 from uwudiff_tpu_torch.utils import resolve_device, truncate_or_pad_to_length, vae_image_postprocess
 
 __all__ = ["BatchingServer", "FluxTxt2Img", "Request", "ServerOverloaded", "Txt2ImgPipeline", "flux_txt2img",
            "sdxl_pipeline"]
+
+
+def _cycled_prompts(prompt, neg_prompt, n: int):
+    """Each prompt list cycled to ``n`` on its own (``diffusion_sampling``
+    wants them of one length)."""
+    prompt = [prompt] if isinstance(prompt, str) else list(prompt)
+    neg_prompt = [neg_prompt] if isinstance(neg_prompt, str) else list(neg_prompt)
+    return truncate_or_pad_to_length(prompt, n, "cycling"), truncate_or_pad_to_length(neg_prompt, n, "cycling")
 
 
 class Txt2ImgPipeline:
@@ -49,11 +61,17 @@ class Txt2ImgPipeline:
         vae=None,  # AutoencoderKL (decode) or None -> latents only
         schedule: NoiseSchedule | None = None,  # None -> NoiseSchedule.sdxl()
         device="cuda",
+        sampler=sample_euler_ancestral,  # any sampler of sampling/ (sampling.SAMPLERS)
+        denoiser_cls: type | None = None,  # None -> KDiffusionDenoiser; LCMDenoiser with sampler=sample_lcm, cfg 1
+        vae_tiling: int | None = None,  # decode in tiles of this many latents (AutoencoderKL.decode_tiled)
     ):
         self.device = resolve_device(device)
         self.unet = unet
         self.te = te_pipeline
         self.vae = vae
+        self.sampler = sampler
+        self.denoiser_cls = denoiser_cls or KDiffusionDenoiser
+        self.vae_tiling = vae_tiling
         self._host_schedule = schedule if schedule is not None else NoiseSchedule.sdxl()
         self.schedule = self._host_schedule.to(self.device)
         # latents are normalised as in training: x / vae_std, vae_std = 1/scaling_factor
@@ -70,14 +88,21 @@ class Txt2ImgPipeline:
             self._sigma_cache[num_steps] = sig
         return sig
 
+    def decode(self, latents):
+        """[-1, 1] images of ``latents``, tiled with ``vae_tiling``."""
+        if self.vae_tiling:
+            return self.vae.decode_tiled(latents, tile=self.vae_tiling)
+        return self.vae.decode(latents)
+
     def __call__(self, prompt, neg_prompt="", num_steps: int = 16, num_samples: int = 1,
                  cfg_scale: float = 3.0, width: int = 1024, height: int = 1024, seed=42,
-                 return_latents: bool = False, cfg_rescale: float = 0.0):
-        """Blocking: a list of uint8 HWC images, or the latents array."""
+                 return_latents: bool = False, cfg_rescale: float = 0.0, **kwargs):
+        """Blocking: a list of uint8 HWC images, or the latents array, on
+        the host. ``kwargs`` go to :func:`diffusion_sampling`."""
         out, is_images = self.sample_device(
             prompt, neg_prompt, num_steps=num_steps, num_samples=num_samples,
             cfg_scale=cfg_scale, width=width, height=height, seed=seed,
-            return_latents=return_latents, cfg_rescale=cfg_rescale,
+            return_latents=return_latents, cfg_rescale=cfg_rescale, **kwargs,
         )
         host = out.cpu().numpy()
         return [vae_image_postprocess(img) for img in host] if is_images else host
@@ -85,29 +110,24 @@ class Txt2ImgPipeline:
     @torch.inference_mode()
     def sample_device(self, prompt, neg_prompt="", num_steps: int = 16, num_samples: int = 1,
                       cfg_scale: float = 3.0, width: int = 1024, height: int = 1024, seed=42,
-                      return_latents: bool = False, cfg_rescale: float = 0.0):
+                      return_latents: bool = False, cfg_rescale: float = 0.0, **kwargs):
         """The request path, asynchronous: returns ``(device tensor,
         is_images)`` without waiting for the device. ``seed`` is an int
         (sample j uses seed+j) or a per-sample sequence. The latents come
-        from :func:`diffusion_sampling` (on the device schedule and the
+        from :func:`diffusion_sampling`, with ``kwargs`` (by default on the
         cached ladder, so nothing waits); the decode is rounded to uint8
         on the device."""
-        if isinstance(prompt, str):
-            prompt = [prompt]
-        if isinstance(neg_prompt, str):
-            neg_prompt = [neg_prompt]
-        # each list cycles to num_samples on its own (diffusion_sampling wants them of one length)
-        prompt = truncate_or_pad_to_length(list(prompt), num_samples, "cycling")
-        neg_prompt = truncate_or_pad_to_length(list(neg_prompt), num_samples, "cycling")
+        kwargs.setdefault("get_sigma_func", self.sigmas)
         latents = diffusion_sampling(
-            self.unet, self.te, None, self.schedule, prompt, neg_prompt, num_steps=num_steps,
-            get_sigma_func=self.sigmas, num_samples=num_samples, cfg_scale=cfg_scale, cfg_rescale=cfg_rescale,
+            self.unet, self.te, None, self.schedule, *_cycled_prompts(prompt, neg_prompt, num_samples),
+            num_steps=num_steps, num_samples=num_samples, cfg_scale=cfg_scale, cfg_rescale=cfg_rescale,
             seed=seed, width=width, height=height, vae_std=self.vae_std, latent_channels=self.latent_channels,
-            vae_downscale=self.vae_downscale, return_latents=True,
+            vae_downscale=self.vae_downscale, internal_sampling_func=self.sampler, denoiser_cls=self.denoiser_cls,
+            return_latents=True, **kwargs,
         )
         if return_latents or self.vae is None:
             return latents, False
-        images = self.vae.decode(latents)
+        images = self.decode(latents)
         return ((images.clamp(-1.0, 1.0) + 1.0) * 127.5).to(torch.uint8), True
 
     def warmup(self, widths_heights_batches, num_steps: int = 16):
@@ -118,11 +138,13 @@ class Txt2ImgPipeline:
                  return_latents=self.vae is None)
 
 
-def sdxl_pipeline(device="cuda", dtype=torch.bfloat16, seed: int = 0) -> Txt2ImgPipeline:
+def sdxl_pipeline(device="cuda", dtype=torch.bfloat16, seed: int = 0, **pipeline_kw) -> Txt2ImgPipeline:
     """The SDXL serving stack at full width with random weights from
     ``seed`` (made on ``device``): the ``sdxl`` UNet, ``clip_l`` +
     ``clip_bigg`` (``layer_idx=-2``, pooled from bigG) with hash
-    tokenizers, the ``sdxl`` VAE decoder, ``NoiseSchedule.sdxl()``. Real
+    tokenizers, the ``sdxl`` VAE (encoder and decoder), ``NoiseSchedule.sdxl()``;
+    ``pipeline_kw`` go to :class:`Txt2ImgPipeline` (``sampler``,
+    ``denoiser_cls``, ``vae_tiling``). Real
     weights and the BPE tokenizer wait until their files are in the
     repository."""
     from uwudiff_tpu_torch.models import (
@@ -143,7 +165,7 @@ def sdxl_pipeline(device="cuda", dtype=torch.bfloat16, seed: int = 0) -> Txt2Img
     )
     vae = AutoencoderKL.from_config("sdxl", device=dev, dtype=dtype)
     te_pipe = TextEncodingPipeline(te, [SimpleTokenizer(), SimpleTokenizer()], device=dev)
-    return Txt2ImgPipeline(unet, te_pipe, vae, NoiseSchedule.sdxl(), device=dev)
+    return Txt2ImgPipeline(unet, te_pipe, vae, NoiseSchedule.sdxl(), device=dev, **pipeline_kw)
 
 
 # black-forest-labs/FLUX.1-dev's vae/config.json: the SDXL decoder's widths at
