@@ -19,18 +19,21 @@ Phases, each fatal on failure:
                key bias at a ragged shape) and at the flux_1b training
                step's ([8,1101,1101,12,128]: the forward, and the Hopper dQ
                and dK/dV with no bias and with a T5 key mask, and ragged
-               with a key bias), each twice for bitwise reproducibility,
-               the dQ + dBias kernel at T5-XXL's and at D = 160 and 128;
-               ptxas's registers and spills of every instance (a spill at
-               D = 128 fails the run); every
+               with a key bias), and at DiT-XL/2's D = 72 (CFG over 8
+               labels at 256^2, a lone 512^2 request, the dit_xl_2
+               training step's [64,256,256,16,72], ragged with a key
+               bias: the forward, dQ and dK/dV), each twice for bitwise
+               reproducibility, the dQ + dBias kernel at T5-XXL's and at
+               D = 160 and 128; ptxas's registers and spills of every
+               instance (a spill at D = 128 or 72 fails the run); every
                GroupNorm shape on the route plan_gn gives it (the fused
                single-pass kernel or the chunked stats + apply pair), with
                wall and device ms beside F.group_norm+F.silu, and the
                training path's GroupNorm backward (and a 1024^2 one) on the
                route plan_gn_bwd gives it (the fused single-pass kernel or
                K7 + K8), beside F.group_norm+F.silu's backward; the
-               Hopper forward (D = 64 and 40) and backward (D = 64, 40 and
-               160) also on
+               Hopper forward (D = 64, 40 and 72) and backward (D = 64,
+               40, 160 and 72) also on
                strided head views of one fused tensor, and raising on a view
                TMA cannot take; the Hopper backward reading CLIP's broadcast
                bias in place; median ms of the kernel, the plain version and one
@@ -145,6 +148,32 @@ Phases, each fatal on failure:
                untiled call; (d) inversion image -> noise -> image
                (euler_latent_sampling, 10 steps each way); (f) each
                GroupNorm call of (b) and (c) phase 2 did not hold.
+ 10. dit     - DiT-XL/2 class-conditional sampling at full width (28
+               blocks, 16 heads of 72; random bf16 weights, the
+               zero-initialised leaves drawn) with the sd15 VAE, through
+               sampling.class_conditional_sampling: first a 2-block DiT at
+               that width on the card against the same weights on the CPU,
+               then 8 labels at 256x256 (CFG 4.0 over [labels, null],
+               Euler-ancestral, 16 steps), a lone label at 256x256 and a
+               lone 512x512 request. Checks each run's model calls (one a
+               step on the doubled batch) and 28 K1 launches a call, all at
+               D = 72 on flash_fwd_sm90, the images (uint8, not constant),
+               finite latents, each new GroupNorm call of the decode;
+               prints per-step ms, the runs' seconds, peak GiB and the
+               card's busy share over a step.
+ 11. train_dit - bench.py's dit_xl_2 training step at full width
+               (training/bench_setup.py, model="dit_xl_2": batch 64, 32x32x4
+               latents, class labels with dropout 0.1, fp32 masters under
+               bf16 compute, adamw, global clip 1.0): first one step of a
+               2-block DiT at that width on the card against fp32 on the
+               CPU (the loss and every leaf's gradient), then one warm-up
+               step and 5 timed steps. Checks finite and moving losses,
+               non-zero grad norms, that every master moved and the module
+               holds their bf16 rounding, and each step's launches: 28 K1,
+               28 K4 and 28 K6, all at D = 72 on the Hopper kernels, and no
+               other kernel; prints the step's ms split into
+               forward+backward and optimizer, the peak GiB and the busy
+               share.
 Prints the card's name and power limit, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA is
 unavailable or the package is missing. A full report goes to
@@ -382,7 +411,19 @@ def flash_cases():
         ("t5_xxl_512", 8, 512, 512, 64, 64, "t5", 1.0),  # the Flux stack's T5-XXL at 512 tokens
         ("mmdit_joint", 8, 1357, 1357, 24, 64, "joint", None),
         ("ragged_keymask", 2, 200, 200, 4, 64, "key", None),
-    ] + SD15_ATTENTION + FLUX_ATTENTION
+    ] + SD15_ATTENTION + FLUX_ATTENTION + DIT_ATTENTION
+
+
+# DiT-XL/2's attention (16 heads of 72): CFG over 8 labels at 256^2 (the
+# doubled batch of 16 over 256 tokens), a lone 512^2 request (CFG's 2 over
+# 1024 tokens), bench.py's dit_xl_2 training step (batch 64 on 32x32
+# latents) and a ragged key-bias shape (partial tiles, the key bias)
+DIT_ATTENTION = [
+    ("dit_cfg8_256", 16, 256, 256, 16, 72, "none", None),
+    ("dit_512_b1", 2, 1024, 1024, 16, 72, "none", None),
+    ("dit_xl_2_train", 64, 256, 256, 16, 72, "none", None),
+    ("ragged_key_d72", 2, 130, 300, 2, 72, "key", None),
+]
 
 
 # flux_dev's joint attention (24 heads of 128) over 512 T5 tokens, masked
@@ -538,13 +579,14 @@ def check_flash(results, failures):
 def check_flash_views(failures):
     """The Hopper forward on q/k/v cut as strided head views from one fused
     [B, S, 3, H, D] projection (taken uncopied by TMA; SDXL's level 2 at
-    D = 64, SD1.5's level 1 at D = 40), and refusing a view TMA cannot take
+    D = 64, SD1.5's level 1 at D = 40, DiT-XL/2's CFG batch at D = 72, rows
+    of 144 bytes), and refusing a view TMA cannot take
     (k expanded over heads, stride 0): it raises, it does not copy."""
     from uwudiff_tpu_torch.ops import launch_counts, reset_launch_counts
     from uwudiff_tpu_torch.ops.flash_attention import flash_attention_reference, flash_fwd_sm90
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
-    for shape in ((8, 1024, 3, 10, 64), (16, 1024, 3, 8, 40)):
+    for shape in ((8, 1024, 3, 10, 64), (16, 1024, 3, 8, 40), (16, 256, 3, 16, 72)):
         qkv = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
         q, k, v = qkv.unbind(2)
         ok, err, rms_err, tol = close_enough(flash_fwd_sm90(q, k, v)[0], flash_attention_reference(q, k, v)[0])
@@ -709,8 +751,9 @@ def flash_bwd_cases():
     # attentions at 64x64 latents (level 1: 32x32 tokens, 10 heads; level 2:
     # 16x16, 20) and the textual-inversion path's (CLIP-bigG as
     # "full_bias", CLIP-L, T5-XXL, whose dQ pass there is K5, and the
-    # MMDiT's joint attention), all at D = 64, and the SD1.5 and flux_1b
-    # steps' at D = 40/80/160 and 128, all on the Hopper kernels
+    # MMDiT's joint attention), all at D = 64, and the SD1.5, flux_1b and
+    # dit_xl_2 steps' at D = 40/80/160, 128 and 72 (with the DiT's serving
+    # shapes), all on the Hopper kernels
     return [
         ("train_l1_self", 8, 1024, 1024, 10, 64, "none", None),
         ("train_l1_cross", 8, 1024, 77, 10, 64, "none", None),
@@ -733,7 +776,7 @@ def flash_bwd_cases():
         ("flux_1b_train", 8, 1101, 1101, 12, 128, "none", None),
         ("flux_1b_t5_mask", 8, 1101, 1101, 12, 128, "flux_77", None),
         ("ragged_key_d128", 2, 130, 300, 2, 128, "key", None),
-    ] + SD15_ATTENTION  # SD1.5's head dims 40/80/160
+    ] + SD15_ATTENTION + DIT_ATTENTION  # SD1.5's head dims 40/80/160, DiT-XL/2's 72
 
 
 def check_flash_bwd(results, failures):
@@ -825,7 +868,8 @@ def check_flash_bwd(results, failures):
 
 def check_flash_bwd_views(failures):
     """The Hopper backward on q/k/v/dO cut as strided head views (taken
-    uncopied by TMA) at D = 64 and at SD1.5's D = 40 and 160, refusing a stride-0
+    uncopied by TMA) at D = 64, at SD1.5's D = 40 and 160 and at DiT-XL/2's
+    72, refusing a stride-0
     view (it raises, it does not copy), and reading CLIP's [B, 1, Sq, Sk]
     bias in place: the kernels allocate their outputs and nothing else, no
     [B*H, Sq, Sk] copy."""
@@ -838,7 +882,7 @@ def check_flash_bwd_views(failures):
     )
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
-    for b, s, h, d in ((2, 1024, 8, 40), (2, 256, 8, 160), (8, 1024, 10, 64)):
+    for b, s, h, d in ((2, 1024, 8, 40), (2, 256, 8, 160), (16, 256, 16, 72), (8, 1024, 10, 64)):
         qkv = torch.randn((b, s, 4, h, d), generator=gen, device="cuda", dtype=torch.bfloat16)
         q, k, v, dout = qkv.unbind(2)  # dO as a head view too
         out, lse = flash_fwd(q, k, v)
@@ -2971,6 +3015,330 @@ def sampling_surface(report, failures):
     return i2i_counts
 
 
+# ------------------------------------------------------------------- DiT
+
+DIT_STEPS = 16
+DIT_CFG = 4.0
+DIT_LABELS = [207, 360, 387, 974, 88, 979, 417, 279]  # ImageNet classes, one sample each
+DIT_SEED = 31
+DIT_TRAIN_STEPS = 5
+
+
+def dit_vae():
+    """The DiT family's VAE (SD1.x's, ``sd15``) in bf16 on the card, from the
+    seed, and its latents' std (1 / scaling_factor)."""
+    from uwudiff_tpu_torch.models import AutoencoderKL
+
+    torch.manual_seed(SEED + 21)
+    vae = AutoencoderKL.from_config("sd15", device="cuda", dtype=torch.bfloat16)
+    return vae, 1.0 / vae.scaling_factor
+
+
+def check_dit_vs_cpu(failures):
+    """A 2-block DiT at dit_xl_2's width (1152, 16 heads of 72; the
+    zero-initialised leaves drawn): the card's bf16 forward through the
+    kernels against the same weights' fp32 forward on the CPU through the
+    plain versions, which the CPU tests hold against the JAX package; 256
+    tokens (32x32 latents), labels and the null class, learn_sigma off."""
+    import copy
+
+    from uwudiff_tpu_torch.models import DiT
+    from uwudiff_tpu_torch.ops import launches_by_head_dim, reset_launch_counts
+    from uwudiff_tpu_torch.training.bench_setup import fill_zero_initialised
+
+    torch.manual_seed(SEED + 22)
+    cpu = fill_zero_initialised(DiT.from_config("dit_xl_2", device="cuda", depth=2)).cpu()
+    gpu = copy.deepcopy(cpu).to(device="cuda", dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(SEED + 23)
+    x = torch.randn((4, 32, 32, 4), generator=gen)
+    t = torch.tensor([10.5, 731.25, 250.0, 999.0])
+    labels = torch.tensor([1, 999, 1000, 417])
+    with torch.inference_mode():
+        ref = cpu(x, t, labels)
+        reset_launch_counts()
+        out = gpu(x.cuda(), t.cuda(), labels.cuda())
+        launches = launches_by_head_dim()["flash_fwd_sm90"]
+    err = ((out.float().cpu() - ref).abs().max() / ref.abs().max().clamp_min(1e-6)).item()
+    finite = bool(torch.isfinite(out).all())
+    tol = 5e-2  # bf16 weights and activations through two blocks, as check_models_vs_cpu
+    log(f"  dit (2 blocks, width 1152, 16 heads of 72) card bf16 vs CPU fp32 plain: rel err {err:.2e} (tol {tol});"
+        f" |ref| max {ref.abs().max().item():.3e}; flash_fwd_sm90 launches by head dim {launches}")
+    if not (finite and err <= tol and ref.abs().max() > 0 and launches == {72: 2}):
+        failures.append(f"dit card vs CPU: rel err {err} (tol {tol}), finite {finite}, launches {launches}"
+                        " ({72: 2} expected)")
+    del cpu, gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"rel_err": err, "tol": tol, "flash_fwd_launches_by_head_dim": {str(k): v for k, v in launches.items()}}
+
+
+def dit_step_phases(model, vae, vae_std, n, res):
+    """One request batch of n labels at res^2, phase by phase: one CFG
+    step of the DiT on the doubled batch (CUDA events, the median of 3), the
+    card's busy share over one step (torch.profiler: device time over the
+    traced wall time), and the decode."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from uwudiff_tpu_torch.diffusion import NoiseSchedule
+    from uwudiff_tpu_torch.sampling import KDiffusionDenoiser, build_class_cfg_fn
+
+    out = {}
+    with torch.inference_mode():
+        den = KDiffusionDenoiser(model_fn=lambda x, t, class_labels=None: model(x, t, class_labels),
+                                 schedule=NoiseSchedule.sd15().to("cuda"))
+        step = build_class_cfg_fn(den, torch.tensor(DIT_LABELS[:n], device="cuda"), 1000, DIT_CFG)
+        x = torch.randn((n, res // 8, res // 8, 4), device="cuda")
+        sigma = torch.full((n,), 5.0, device="cuda")
+        out["step_ms"] = time_ms(lambda: step(x, sigma), reps=1, warmup=1, runs=3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(x, sigma)
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        out.update(traced_step_window_ms=window_ms, traced_step_busy_ms=busy_ms, busy_share=busy_ms / window_ms)
+        t0 = time.perf_counter()
+        vae.decode(x * vae_std)
+        torch.cuda.synchronize()
+        out["decode_s"] = time.perf_counter() - t0
+    return out
+
+
+def dit(report, failures):
+    """DiT-XL/2 class-conditional sampling at full width through
+    sampling.class_conditional_sampling: 8 labels at 256x256 (CFG 4.0 over
+    the doubled batch with the null class, Euler-ancestral, DIT_STEPS steps,
+    the sd15 VAE's decode), then a lone label at 256x256 and a lone 512x512
+    request (64x64 latents, 1024 tokens)."""
+    from uwudiff_tpu_torch.diffusion import NoiseSchedule
+    from uwudiff_tpu_torch.models import DiT
+    from uwudiff_tpu_torch.ops import launch_counts, launches_by_head_dim, reset_launch_counts
+    from uwudiff_tpu_torch.sampling import class_conditional_sampling
+    from uwudiff_tpu_torch.training.bench_setup import fill_zero_initialised
+
+    report["dit_vs_cpu"] = check_dit_vs_cpu(failures)
+    t0 = time.perf_counter()
+    torch.manual_seed(SEED + 20)
+    model = fill_zero_initialised(DiT.from_config("dit_xl_2", device="cuda", dtype=torch.bfloat16))
+    vae, vae_std = dit_vae()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = {"dit": sum(p.numel() for p in model.parameters()), "vae": sum(p.numel() for p in vae.parameters())}
+    log(f"  built dit_xl_2 + the sd15 vae in {build_s:.1f} s: {n_params}; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    schedule = NoiseSchedule.sd15().to("cuda")
+    calls = []
+
+    def unet_fn(x, t, labels):
+        calls.append(x.shape[0])
+        return model(x, t, labels)
+
+    def run(labels, res, **kw):
+        return class_conditional_sampling(unet_fn, schedule, labels, model.num_classes, vae_decode=vae.decode,
+                                          num_steps=DIT_STEPS, cfg_scale=DIT_CFG, seed=DIT_SEED, width=res,
+                                          height=res, vae_std=vae_std, device="cuda", **kw)
+
+    t0 = time.perf_counter()
+    for labels, res in ((DIT_LABELS, 256), (DIT_LABELS[:1], 512)):  # one pass per shape
+        class_conditional_sampling(unet_fn, schedule, labels, model.num_classes, num_steps=1, cfg_scale=DIT_CFG,
+                                   width=res, height=res, device="cuda")
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    gn_calls: list = []
+    hooks = record_gn_calls([vae], gn_calls)
+    runs, counts_total, d72_total = {}, None, 0
+    for name, labels, res in (("batch_8_256", DIT_LABELS, 256), ("lone_256", DIT_LABELS[:1], 256),
+                              ("lone_512", DIT_LABELS[:1], 512)):
+        calls.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()  # the main path's run starts here
+        t0 = time.perf_counter()
+        images = run(labels, res)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts, by_dim = launch_counts(), launches_by_head_dim()  # and ends here
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        counts_total = counts if counts_total is None else {k: counts_total[k] + v for k, v in counts.items()}
+        n = len(labels)
+        # Euler-ancestral: one model call a step on the doubled batch, 28 K1 a call, all at D = 72
+        want = 28 * DIT_STEPS
+        d72 = by_dim["flash_fwd_sm90"].get(72, 0)
+        d72_total += d72
+        check_forward_route(counts, f"dit {name}", failures)
+        if calls != [2 * n] * DIT_STEPS or by_dim["flash_fwd_sm90"] != {72: want}:
+            failures.append(f"dit {name}: model calls {calls} ({DIT_STEPS} of {2 * n} expected), flash_fwd_sm90 by"
+                            f" head dim {by_dim['flash_fwd_sm90']} ({{72: {want}}} expected)")
+        stds = [float(img.astype(np.float32).std()) for img in images]
+        if len(images) != n or any(img.shape != (res, res, 3) or img.dtype != np.uint8 for img in images) or \
+                not all(sd > 0 for sd in stds):
+            failures.append(f"dit {name}: {len(images)} images, shapes {[i.shape for i in images]}, stds {stds}")
+        runs[name] = dict(labels=n, resolution=res, tokens=(res // 16) ** 2, wall_s=wall_s, imgs_per_s=n / wall_s,
+                          step_ms_wall=wall_s * 1e3 / DIT_STEPS, peak_memory_gib=peak_gib, launches=counts,
+                          flash_fwd_d72=d72, model_calls=list(calls), image_stds=stds)
+    for h in hooks:
+        h.remove()
+    lat = run(DIT_LABELS[:2], 256, return_latents=True)
+    lat_std = lat.float().std().item()
+    if not (bool(torch.isfinite(lat).all()) and lat_std > 0 and lat.shape == (2, 32, 32, 4)):
+        failures.append(f"dit latents: finite {bool(torch.isfinite(lat).all())}, std {lat_std}, {tuple(lat.shape)}")
+    phases = {f"batch_{n}_{res}": dit_step_phases(model, vae, vae_std, n, res) for n, res in ((8, 256), (1, 512))}
+    gn_checks = check_gn_calls(gn_calls, failures, backward=False)
+    report["dit"] = dict(model="dit_xl_2", steps=DIT_STEPS, cfg=DIT_CFG, params=n_params, build_s=build_s,
+                         warmup_s=warmup_s, runs=runs, latents_std=lat_std, phases=phases, gn_call_checks=gn_checks)
+    log(f"  dit_xl_2 ({report['card']}): " + "; ".join(
+        f"{k} {r['wall_s']:.2f} s ({r['step_ms_wall']:.1f} ms a step, {r['imgs_per_s']:.2f} imgs/s,"
+        f" peak {r['peak_memory_gib']:.1f} GiB, D = 72 launches {r['flash_fwd_d72']})" for k, r in runs.items())
+        + f"; latents std {lat_std:.3f}")
+    log(f"  dit phases: {json.dumps(phases)}")
+    del model, vae
+    return counts_total, d72_total
+
+
+def check_dit_train_vs_cpu(failures):
+    """One training step of a 2-block DiT at dit_xl_2's width (1152, 16
+    heads of 72), the zero-initialised leaves drawn: bf16 compute over fp32
+    masters on the card through the kernels (the recipe's precision),
+    against the same weights in fp32 on the CPU through the plain versions,
+    which the CPU tests hold against the JAX package's step; the same
+    noise, timesteps and label-drop mask. Checks the loss and every leaf's
+    gradient, and the card's launches: K1, K4 and K6 once a block, at
+    D = 72."""
+    import copy
+
+    from uwudiff_tpu_torch.diffusion import DiffusionLoss, NoiseSchedule
+    from uwudiff_tpu_torch.models import DiT
+    from uwudiff_tpu_torch.ops import launches_by_head_dim, reset_launch_counts
+    from uwudiff_tpu_torch.training import DMTrainer
+    from uwudiff_tpu_torch.training.bench_setup import fill_zero_initialised
+
+    torch.manual_seed(SEED + 24)
+    cpu = fill_zero_initialised(DiT.from_config("dit_xl_2", device="cuda", depth=2)).cpu()
+    gpu = copy.deepcopy(cpu).to(device="cuda")
+    gen = torch.Generator().manual_seed(SEED + 25)
+    batch = {"sample": torch.randn((4, 32, 32, 4), generator=gen), "class_labels": torch.tensor([3, 207, 999, 1])}
+    noise = torch.randn((4, 32, 32, 4), generator=gen)
+    timesteps = torch.tensor([37, 712, 250, 999])
+    drop = torch.tensor([False, True, False, False])
+    tol, leaf_tol = 5e-2, 1e-1  # bf16 weights, activations and gradients through two blocks, as for Flux
+    losses, grads = {}, {}
+    for dev, unet, cdt in (("cpu", cpu, None), ("cuda", gpu, "bfloat16")):
+        tr = DMTrainer({"unet": unet}, loss_config=DiffusionLoss(schedule=NoiseSchedule.sd15()), optimizer="adamw",
+                       compute_dtype=cdt, device=dev)
+        reset_launch_counts()
+        loss, _ = tr.forward_backward(batch, noise, timesteps, drop_mask=drop)
+        by_dim = launches_by_head_dim()
+        losses[dev] = loss.float().cpu()
+        grads[dev] = {n: p.grad.float().cpu() for n, p in tr.params}
+    launches = {k: by_dim[k] for k in ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")}
+    loss_err = ((losses["cuda"] - losses["cpu"]).abs() / losses["cpu"].abs()).item()
+    flat = {dev: torch.cat([g.flatten() for g in grads[dev].values()]) for dev in grads}
+    grad_err = ((flat["cuda"] - flat["cpu"]).norm() / flat["cpu"].norm()).item()
+    # the k projection's bias has a zero gradient in exact arithmetic (softmax
+    # ignores a shift of a row's logits): held against the tree's largest
+    scale = max(g.norm() for g in grads["cpu"].values())
+    leaf_errs = {n: ((grads["cuda"][n] - g).norm() / (g.norm() if not n.endswith("k.bias") else scale)).item()
+                 for n, g in grads["cpu"].items()}
+    worst = max(leaf_errs, key=leaf_errs.get)
+    log(f"  dit_xl_2 width (2 blocks) training step, card bf16 over fp32 masters vs CPU fp32 plain: loss rel err"
+        f" {loss_err:.2e}, grads |d|/|ref| {grad_err:.2e} (tol {tol}), worst leaf {worst} {leaf_errs[worst]:.2e}"
+        f" (tol {leaf_tol}); launches {launches}")
+    want = {"flash_fwd_sm90": {72: 2}, "flash_bwd_dq_sm90": {72: 2}, "flash_bwd_dkv_sm90": {72: 2}}
+    if not (loss_err <= tol and grad_err <= tol and leaf_errs[worst] <= leaf_tol and launches == want):
+        failures.append(f"dit_xl_2-width training step card vs CPU: loss {loss_err} grads {grad_err} (tol {tol}),"
+                        f" {worst} {leaf_errs[worst]} (tol {leaf_tol}), launches {launches}")
+    del cpu, gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(loss_rel_err=loss_err, grad_rel_err=grad_err, worst_leaf=worst, worst_leaf_rel_err=leaf_errs[worst],
+                launches={k: {str(d): n for d, n in v.items()} for k, v in launches.items()}, tol=tol,
+                leaf_tol=leaf_tol)
+
+
+def train_dit(report, failures):
+    """bench.py's dit_xl_2 training step at full width
+    (training/bench_setup.py, model="dit_xl_2": 28 blocks at width 1152, 16
+    heads of 72, batch 64, 32x32x4 latents, class labels with dropout 0.1,
+    fp32 masters under bf16 compute, adamw, global clip 1.0): one warm-up
+    step, DIT_TRAIN_STEPS timed."""
+    from uwudiff_tpu_torch.ops import launch_counts, launches_by_head_dim, reset_launch_counts
+    from uwudiff_tpu_torch.training.bench_setup import build_trainer_and_batch
+
+    report["dit_train_step_vs_cpu"] = check_dit_train_vs_cpu(failures)
+    t0 = time.perf_counter()
+    trainer, data = build_trainer_and_batch(model="dit_xl_2", seed=SEED)
+    trainer.setup()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    bsz = len(data["sample"])
+    dev = trainer.device
+    batch = {"sample": torch.as_tensor(data["sample"], device=dev),
+             "class_labels": torch.as_tensor(data["class_labels"], device=dev)}
+    n_params = sum(m.numel() for m in trainer.masters)
+    start = [m.cpu() for m in trainer.masters]  # in host memory: the peak below is the step's own
+    log(f"  built the dit_xl_2 trainer ({n_params / 1e9:.3f} G fp32 masters under bf16 compute, {len(start)} leaves)"
+        f" in {build_s:.1f} s")
+    t0 = time.perf_counter()
+    warm, _ = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()  # the main path's run starts here
+    steps = []
+    for _ in range(DIT_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics, _ = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        phases = trainer.step_phase_ms()
+        steps.append(dict(step_s=time.perf_counter() - t0, loss=metrics["train/loss"].item(),
+                          grad_norm=metrics["train/grad_norm"].item(), lr=metrics["train/lr"], **phases))
+    counts = launch_counts()  # the main path's run ends here
+    by_dim = launches_by_head_dim()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    # 28 K1, 28 K4 and 28 K6 a step, all at D = 72 on the Hopper kernels;
+    # the update is eager (optax's adamw was XLA): no kernel of the repo's
+    blocks = len(trainer.unet.block_names)
+    for name in ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90"):
+        want = {72: blocks * DIT_TRAIN_STEPS}
+        if by_dim[name] != want or counts[name] != sum(want.values()):
+            failures.append(f"dit_xl_2 {name}: {by_dim[name]} by head dim in {DIT_TRAIN_STEPS} steps, {want} planned")
+    check_forward_route(counts, "dit_xl_2", failures)
+    check_backward_route(counts, "dit_xl_2", failures)
+    other = {k: v for k, v in counts.items() if v and not k.startswith("flash_")}
+    if other or counts["flash_bwd_dq_dbias"]:
+        failures.append(f"dit_xl_2: launches of kernels the step does not run: {other}")
+    losses = [warm["train/loss"].item()] + [st["loss"] for st in steps]
+    norms = [warm["train/grad_norm"].item()] + [st["grad_norm"] for st in steps]
+    if not all(map(math.isfinite, losses + norms)) or len(set(losses)) < 2 or not all(n > 0 for n in norms):
+        failures.append(f"dit_xl_2 training metrics: losses {losses} grad norms {norms}")
+    unmoved = [name for (name, _), m, m0 in zip(trainer.params, trainer.masters, start)
+               if torch.equal(m, m0.to(m.device))]
+    rounded = all(torch.equal(p.detach(), m.to(torch.bfloat16)) for (_, p), m in zip(trainer.params, trainer.masters))
+    if unmoved or not rounded:
+        failures.append(f"dit_xl_2: {len(unmoved)} masters unchanged ({unmoved[:8]}), module = bf16(masters) {rounded}")
+    del start
+    busy = step_busy_share(trainer, batch)
+    mid = DIT_TRAIN_STEPS // 2
+    step_s = sorted(st["step_s"] for st in steps)[mid]
+    fb_ms = sorted(st["forward_backward_ms"] for st in steps)[mid]
+    opt_ms = sorted(st["optimizer_ms"] for st in steps)[mid]
+    report["train_dit"] = dict(
+        batch=bsz, latent=32, params=n_params, leaves=len(trainer.params), build_s=build_s, warmup_step_s=warmup_s,
+        steps=steps, median_step_s=step_s, imgs_per_s=bsz / step_s, median_forward_backward_ms=fb_ms,
+        median_optimizer_ms=opt_ms, peak_memory_gib=peak_gib, launches=counts,
+        launches_by_head_dim={k: {str(d): n for d, n in v.items()} for k, v in by_dim.items()},
+        masters_unchanged=unmoved, module_is_bf16_of_masters=rounded, losses=losses, grad_norms=norms, **busy)
+    log(f"  dit_xl_2 ({report['card']}): step {step_s * 1e3:.1f} ms ({bsz / step_s:.1f} imgs/s), forward+backward"
+        f" {fb_ms:.1f} ms, optimizer {opt_ms:.1f} ms, peak {peak_gib:.1f} GiB, busy {100 * busy['busy_share']:.1f} %"
+        f" of a traced step; losses {[round(v, 4) for v in losses]}, grad norms {[round(v, 3) for v in norms]};"
+        f" flash launches by head dim {by_dim['flash_fwd_sm90']} / {by_dim['flash_bwd_dq_sm90']} /"
+        f" {by_dim['flash_bwd_dkv_sm90']}; masters unchanged {len(unmoved)} of {len(trainer.masters)}")
+    return counts, by_dim
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -2996,7 +3364,7 @@ def main() -> int:
     report = {"card": smi, "sm_clock_max_mhz": float(clock), "torch": torch.__version__, "cuda": torch.version.cuda}
     failures: list[str] = []
 
-    log("[1/9] build")
+    log("[1/11] build")
     built = build_all()
     report["build_s"] = built["seconds"]
     log(f"  built in {built['seconds']:.1f} s")
@@ -3008,7 +3376,8 @@ def main() -> int:
             if "registers" in line or "spill" in line or "(C75" in line:  # C75xx: wgmma serialised
                 log(f"  {src} {instance}: {line.strip()}")
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if spills and "<128," in instance and int(spills[1]) + int(spills[2]) > 0:  # Flux's head dim
+            # Flux's and DiT-XL/2's head dims
+            if spills and ("<128," in instance or "<72," in instance) and int(spills[1]) + int(spills[2]) > 0:
                 failures.append(f"{src} {instance} spills: {line.strip()}")
 
     seconds = report["seconds"] = {"build": time.perf_counter() - t_start}
@@ -3019,7 +3388,7 @@ def main() -> int:
         seconds[key] = time.perf_counter() - t0
         return out
 
-    log("[2/9] kernels vs plain (bf16)")
+    log("[2/11] kernels vs plain (bf16)")
     results: list[dict] = []
     for check in (check_flash, check_gn, check_flash_bwd, check_flash_dbias, check_gn_bwd, check_optimizer):
         timed(check.__name__, check, results, failures)
@@ -3030,38 +3399,48 @@ def main() -> int:
     report["ti_step_vs_cpu"] = timed("check_ti_vs_cpu", check_ti_vs_cpu, failures)
     report["flux_train_step_vs_cpu"] = timed("check_flux_train_vs_cpu", check_flux_train_vs_cpu, failures)
 
-    log("[3/9] serve SDXL 1024x1024")
+    log("[3/11] serve SDXL 1024x1024")
     serve_counts = timed("serve", serve, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # the serving stack is gone before the trainer is built
 
-    log("[4/9] train SDXL (full fine-tune, batch 8, 64x64 latents)")
+    log("[4/11] train SDXL (full fine-tune, batch 8, 64x64 latents)")
     counts = timed("train", train, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SDXL trainer before the SD1.5 one
 
-    log("[5/9] train SD1.5 (full fine-tune, batch 16, 64x64 latents)")
+    log("[5/11] train SD1.5 (full fine-tune, batch 16, 64x64 latents)")
     sd15_counts, sd15_by_dim = timed("train_sd15", train_sd15, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SD1.5 trainer before the SD3 one
 
-    log("[6/9] textual inversion SD3-medium + CLIP-L + CLIP-bigG + T5-XXL (batch 8, 64x64x16 latents)")
+    log("[6/11] textual inversion SD3-medium + CLIP-L + CLIP-bigG + T5-XXL (batch 8, 64x64x16 latents)")
     ti_counts = timed("ti", ti, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SD3 trainer before the Flux stack
 
-    log("[7/9] serve Flux (flux_dev + CLIP-L + T5-XXL at 512 tokens) 1024x1024")
+    log("[7/11] serve Flux (flux_dev + CLIP-L + T5-XXL at 512 tokens) 1024x1024")
     flux_counts, flux_d128 = timed("flux", flux, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the Flux serving stack before the flux_1b trainer
 
-    log("[8/9] train flux_1b (full fine-tune, batch 8, 64x64x16 latents, blocks recomputed in the backward)")
+    log("[8/11] train flux_1b (full fine-tune, batch 8, 64x64x16 latents, blocks recomputed in the backward)")
     flux1b_counts, flux1b_by_dim = timed("train_flux", train_flux, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the flux_1b trainer before the SDXL stack with its encoder
 
-    log("[9/9] sampling surface: SDXL 1024x1024 through every sampler, img2img and inpainting, VAE tiles, inversion")
+    log("[9/11] sampling surface: SDXL 1024x1024 through every sampler, img2img and inpainting, VAE tiles, inversion")
     sampling_counts = timed("sampling", sampling_surface, report, failures)
+    gc.collect()
+    torch.cuda.empty_cache()  # and the SDXL stack before the DiT
+
+    log("[10/11] serve DiT-XL/2 (class-conditional, CFG 4.0) at 256x256 and 512x512")
+    dit_counts, dit_d72 = timed("dit", dit, report, failures)
+    gc.collect()
+    torch.cuda.empty_cache()  # and the DiT serving stack before its trainer
+
+    log("[11/11] train dit_xl_2 (full fine-tune, batch 64, 32x32 latents, fp32 masters under bf16 compute)")
+    dit_train_counts, dit_train_by_dim = timed("train_dit", train_dit, report, failures)
 
     # (kernel, the case of its row's numbers): the kernels serving SD1.5 at
     # its level-0 self-attention (D = 40) and at level 2 (D = 160): the
@@ -3079,7 +3458,9 @@ def main() -> int:
                  ("flash_bwd_dkv_sm90", "sd15_l2_self"), ("flash_bwd_dq_sm90", "flux_1b_train"),
                  ("flash_bwd_dkv_sm90", "flux_1b_train"), ("flash_bwd_dq_mma", "sd15_l2_self"),
                  ("flash_bwd_dkv_mma", "sd15_l2_self"), ("flash_bwd_dq_dbias", "t5_xxl"),
-                 ("flash_bwd_dq_dbias", "d128"),
+                 ("flash_bwd_dq_dbias", "d128"), ("flash_fwd_sm90", "dit_cfg8_256"),
+                 ("flash_fwd_sm90", "dit_xl_2_train"), ("flash_bwd_dq_sm90", "dit_xl_2_train"),
+                 ("flash_bwd_dkv_sm90", "dit_xl_2_train"),
                  ("gn_silu_fused", "8x4096x320"), ("gn_stats", "8x16384x960"), ("gn_silu_apply", "8x16384x960"),
                  ("gn_silu_bwd_fused", "8x4096x320"), ("gn_bwd_partials", "8x4096x960"), ("gn_bwd_dx", "8x4096x960")]
     csrc = "uwudiff_tpu_torch/csrc/"
@@ -3106,8 +3487,9 @@ def main() -> int:
     # chunked GroupNorm pair's the served batch's, a flash kernel's at
     # SD1.5's head dims the SD1.5 step's at the row's head dim, at the
     # flux_1b step's shape that step's at D = 128, the forward's at flux_dev's
-    # the Flux runs' (a lone request and a batch of 4), the others' the SDXL
-    # training step's
+    # the Flux runs' (a lone request and a batch of 4), at DiT-XL/2's D = 72
+    # the DiT serving runs' (the forward) or the dit_xl_2 step's, the others'
+    # the SDXL training step's
     path_counts = {"flash_bwd_dq_dbias": ti_counts, "gn_stats": serve_counts, "gn_silu_apply": serve_counts}
     kernels = []
     for name, case in main_case:
@@ -3117,6 +3499,10 @@ def main() -> int:
         sd15 = by_dim and d in (40, 80, 160)
         if case == "flux_1b_train":
             launches = flux1b_by_dim[name].get(128, 0)
+        elif case == "dit_xl_2_train":
+            launches = dit_train_by_dim[name].get(72, 0)
+        elif case == "dit_cfg8_256":
+            launches = dit_d72
         elif name == "flash_fwd_sm90" and d == 128:
             launches = flux_d128
         else:
@@ -3132,7 +3518,8 @@ def main() -> int:
             shape=row["shape"], case=case,
             serving_launches=serve_counts[name], train_launches=counts[name], sd15_launches=sd15_counts[name],
             ti_launches=ti_counts[name], flux_launches=flux_counts[name], flux_1b_launches=flux1b_counts[name],
-            img2img_launches=sampling_counts[name],
+            img2img_launches=sampling_counts[name], dit_launches=dit_counts[name],
+            dit_train_launches=dit_train_counts[name],
         ))
     # the update's kernels (no Pallas kernel stood there: optax through XLA),
     # checked and timed over the SDXL step's leaves (O1) and the SD1.5 step's
@@ -3153,7 +3540,8 @@ def main() -> int:
                 plain_is="the whole plain update of the leaves (training/optimizers.py::apply_update_)",
                 serving_launches=serve_counts[name], train_launches=counts[name], sd15_launches=sd15_counts[name],
                 ti_launches=ti_counts[name], flux_launches=flux_counts[name], flux_1b_launches=flux1b_counts[name],
-                img2img_launches=sampling_counts[name],
+                img2img_launches=sampling_counts[name], dit_launches=dit_counts[name],
+                dit_train_launches=dit_train_counts[name],
             ))
     report["kernels"] = kernels
     report["device_readings_not_measured"] = UNMEASURED

@@ -146,6 +146,10 @@ _PATH_CASES = [
     (2, 1536, 1536, 24, 128, "none", None),  # a 512^2 request
     (2, 300, 200, 3, 128, "key", None),
     (2, 130, 130, 3, 128, "full", None),
+    (16, 256, 256, 16, 72, "none", None),  # DiT-XL/2: CFG over 8 labels at 256^2
+    (2, 1024, 1024, 16, 72, "none", None),  # a lone 512^2 request
+    (2, 300, 200, 3, 72, "key", None),
+    (2, 130, 130, 3, 72, "full", None),
 ]
 
 
@@ -167,7 +171,7 @@ def test_hopper_forward_matches_plain_at_the_path_shapes(dev, b, sq, sk, h, d, k
     assert (lse - ref_lse).abs().max().item() < 1e-3
 
 
-@pytest.mark.parametrize("d", [64, 40, 128])
+@pytest.mark.parametrize("d", [64, 40, 128, 72])
 def test_hopper_forward_takes_fused_qkv_head_views(dev, d):
     """q/k/v as [B, S, H, D] views of one [B, S, 3, H, D] projection go
     into the tensor maps with their own strides, uncopied."""
@@ -212,7 +216,7 @@ def test_hopper_forward_refuses_views_tma_cannot_take(dev):
 
 
 @pytest.mark.parametrize("d,kernel", [(64, "flash_fwd_sm90"), (40, "flash_fwd_sm90"), (80, "flash_fwd_sm90"),
-                                      (128, "flash_fwd_sm90"), (160, "flash_fwd_sm90")])
+                                      (128, "flash_fwd_sm90"), (160, "flash_fwd_sm90"), (72, "flash_fwd_sm90")])
 def test_forward_dispatches_on_the_head_dim(dev, d, kernel):
     """Every head dim on the Hopper forward; the mma.sync one, on no path,
     refuses D = 64 and 128 and is right at SD1.5's head dims."""
@@ -630,6 +634,27 @@ def test_hopper_backward_matches_plain_at_the_flux_1b_step(dev, kind):
     assert all(torch.equal(x, y) for x, y in zip((dk, dv), flash_bwd_dkv(q, k, v, dout, lse, delta, bias)))
 
 
+@pytest.mark.parametrize("kind", ["none", "key"])
+def test_hopper_backward_matches_plain_at_the_dit_xl_2_step(dev, kind):
+    """The dit_xl_2 step's attention, [64, 256, 256, 16, 72] (bench.py's
+    batch of 64 on 32x32 latents), and a ragged key-bias shape: dQ and dK/dV
+    at D = 72 on the Hopper kernels, bitwise from run to run."""
+    from uwudiff_tpu_torch.ops.flash_attention import flash_attention_backward_reference, flash_bwd_dkv, flash_bwd_dq
+
+    b, sq, sk, h = (64, 256, 256, 16) if kind == "none" else (2, 130, 300, 2)
+    q, k, v, bias, out, lse, dout, delta = _bwd_inputs(b, sq, sk, h, kind, None, seed=16, d=72)
+    reset_launch_counts()
+    dq = flash_bwd_dq(q, k, v, dout, lse, delta, bias)
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, bias)
+    assert launch_counts()["flash_bwd_dq_sm90"] == launch_counts()["flash_bwd_dkv_sm90"] == 1
+    refs = flash_attention_backward_reference(q, k, v, bias, out, lse, dout)[:3]
+    for g, r in zip((dq, dk, dv), refs):
+        assert torch.isfinite(g).all()
+        _assert_flash_close(g, r)
+    assert torch.equal(dq, flash_bwd_dq(q, k, v, dout, lse, delta, bias))
+    assert all(torch.equal(x, y) for x, y in zip((dk, dv), flash_bwd_dkv(q, k, v, dout, lse, delta, bias)))
+
+
 @pytest.mark.parametrize("b,sq,sk,h,kind,scale", _BWD_PATH_CASES)
 def test_hopper_backward_matches_plain_at_the_path_shapes(dev, b, sq, sk, h, kind, scale):
     from uwudiff_tpu_torch.ops.flash_attention import flash_attention_backward_reference, flash_bwd_dkv, flash_bwd_dq
@@ -649,9 +674,11 @@ def test_hopper_backward_matches_plain_at_the_path_shapes(dev, b, sq, sk, h, kin
     assert all(torch.equal(x, y) for x, y in zip((dk, dv), flash_bwd_dkv(q, k, v, dout, lse, delta, bias, scale)))
 
 
-def test_hopper_backward_takes_fused_qkv_head_views(dev):
+@pytest.mark.parametrize("d", [64, 72])
+def test_hopper_backward_takes_fused_qkv_head_views(dev, d):
     """q/k/v/dO as [B, S, H, D] views of one [B, S, 4, H, D] tensor go into
-    the tensor maps with their own strides, uncopied."""
+    the tensor maps with their own strides, uncopied (at D = 72 a view's
+    rows are 144 bytes, its second 64-column box 8 columns wide)."""
     from uwudiff_tpu_torch.ops.flash_attention import (
         flash_attention_backward_reference,
         flash_bwd_dkv_sm90,
@@ -659,7 +686,7 @@ def test_hopper_backward_takes_fused_qkv_head_views(dev):
     )
 
     gen = torch.Generator(device=dev).manual_seed(11)
-    qkv = torch.randn((2, 300, 4, 3, 64), generator=gen, device=dev, dtype=torch.bfloat16)
+    qkv = torch.randn((2, 300, 4, 3, d), generator=gen, device=dev, dtype=torch.bfloat16)
     q, k, v, dout = qkv.unbind(2)
     out, lse = flash_fwd(q, k, v)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
@@ -719,7 +746,8 @@ def test_hopper_backward_reads_clips_bias_in_place(dev, which):
         _assert_flash_close(g, r)
 
 
-@pytest.mark.parametrize("d,suffix", [(64, "_sm90"), (40, "_sm90"), (80, "_sm90"), (128, "_sm90"), (160, "_sm90")])
+@pytest.mark.parametrize("d,suffix", [(64, "_sm90"), (40, "_sm90"), (80, "_sm90"), (128, "_sm90"), (160, "_sm90"),
+                                      (72, "_sm90")])
 def test_backward_dispatches_on_the_head_dim(dev, d, suffix):
     from uwudiff_tpu_torch.ops.flash_attention import (
         MMA_BWD_HEAD_DIMS,
@@ -1025,15 +1053,19 @@ def test_flash_lse_is_differentiable_on_the_card(dev):
         _assert_flash_close(a, r)
 
 
-def test_flash_dbias_raises_for_a_head_dim_it_was_not_built_for(dev):
-    """K5 at D = 96 (see the test above) raises."""
+@pytest.mark.parametrize("d", [96, 72])
+def test_flash_dbias_raises_for_a_head_dim_it_was_not_built_for(dev, d):
+    """K5 at D = 96 (see the test above) raises, and at DiT-XL/2's 72,
+    where dQ and dK/dV are built but no path trains an attention bias."""
     from uwudiff_tpu_torch.ops.flash_attention import flash_bwd
 
-    q = torch.randn((1, 64, 2, 96), device=dev, dtype=torch.bfloat16)
+    q = torch.randn((1, 64, 2, d), device=dev, dtype=torch.bfloat16)
     bias = torch.zeros((1, 2, 64, 64), device=dev)
     out, lse = flash_attention_reference(q, q, q, bias)
+    reset_launch_counts()
     with pytest.raises(ValueError, match="head dim"):
         flash_bwd(q, q, q, bias, out, lse, torch.ones_like(out), bias_grad=True)
+    assert launch_counts()["flash_bwd_dq_dbias"] == 0
 
 
 # ------------------------------------------------- the fused optimizer update

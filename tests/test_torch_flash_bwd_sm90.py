@@ -1,5 +1,5 @@
 """What surrounds the Hopper flash backward, on the CPU: the head-dim
-dispatch of dQ and dK/dV (Hopper at D = 40/64/80/128/160; the mma.sync pair at
+dispatch of dQ and dK/dV (Hopper at D = 40/64/72/80/128/160; the mma.sync pair at
 160 on no path), the launch counters, the TMA boxes (128-byte swizzle rows
 of 64 columns at every head dim, the item rows of each kernel), the
 kernels' shared-memory layouts and the bias the kernels read in place.
@@ -21,6 +21,7 @@ from uwudiff_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
 from uwudiff_tpu_torch.ops._build import SOURCES
 from uwudiff_tpu_torch.ops.flash_attention import (
     BWD_HEAD_DIMS,
+    DBIAS_HEAD_DIMS,
     MMA_BWD_HEAD_DIMS,
     SM90_BWD_DKV_ITEM_ROWS,
     SM90_BWD_HEAD_DIMS,
@@ -55,6 +56,7 @@ BWD_VARIANTS = _bwd_variants()
 
 @pytest.mark.parametrize("d,kernels", [(64, (flash_bwd_dq_sm90, flash_bwd_dkv_sm90)),
                                        (40, (flash_bwd_dq_sm90, flash_bwd_dkv_sm90)),
+                                       (72, (flash_bwd_dq_sm90, flash_bwd_dkv_sm90)),
                                        (80, (flash_bwd_dq_sm90, flash_bwd_dkv_sm90)),
                                        (128, (flash_bwd_dq_sm90, flash_bwd_dkv_sm90)),
                                        (160, (flash_bwd_dq_sm90, flash_bwd_dkv_sm90))])
@@ -115,7 +117,8 @@ def test_the_source_is_built_and_its_tiles_match_the_boxes():
     assert item == SM90_BWD_DKV_ITEM_ROWS[128] == SM90_BWD_DKV_ITEM_ROWS[160]
     # the C side's instances are the Python side's head dims, and its swizzle
     # row (64 columns at every head dim) is the maps' box
-    assert re.search(r"static_assert\(D == 40 \|\| D == 64 \|\| D == 80 \|\| D == 128 \|\| D == 160,", src)
+    assert re.search(r"static_assert\(D == 40 \|\| D == 64 \|\| D == 72 \|\| D == 80 \|\| D == 128 \|\| D == 160,",
+                     src)
     assert set(map(int, re.findall(r"case (\d+): return run<", src))) == set(SM90_BWD_HEAD_DIMS)
     assert int(re.search(r"constexpr int COLS = (\d+);", src)[1]) == 64
     common = (CSRC / "hopper_common.cuh").read_text()
@@ -152,27 +155,29 @@ def test_a_64_row_map_of_a_heads_first_gradient():
     assert m.strides == (300 * 128, 128, 4 * 300 * 128) and m.box == (64, 1, 64, 1)
 
 
-@pytest.mark.parametrize("d,rows", [(40, SM90_BWD_TILE_ROWS), (40, SM90_BWD_ITEM_ROWS), (80, SM90_BWD_TILE_ROWS),
+@pytest.mark.parametrize("d,rows", [(40, SM90_BWD_TILE_ROWS), (40, SM90_BWD_ITEM_ROWS), (72, SM90_BWD_TILE_ROWS),
+                                    (72, SM90_BWD_ITEM_ROWS), (80, SM90_BWD_TILE_ROWS),
                                     (80, SM90_BWD_ITEM_ROWS), (128, SM90_BWD_TILE_ROWS),
                                     (128, SM90_BWD_DKV_ITEM_ROWS[128]), (160, SM90_BWD_TILE_ROWS),
                                     (160, SM90_BWD_ITEM_ROWS)])
 def test_a_backward_map_at_sd15s_head_dims_is_64_column_boxes(d, rows):
-    # SD1.5's level-0 / 1 / 2 self-attention and the flux_1b step's joint
-    # attention (8 x 1101 tokens, 12 heads of 128), contiguous: the box is
-    # one 64-column block (128 bytes, the 128-byte swizzle), the kernel
-    # loads ceil(D / 64) of them (1, 2, 2, 3) and TMA zero-fills the columns
-    # past D (none at 128)
-    b, s, h = (8, 1101, 12) if d == 128 else (16, 4096 if d < 160 else 256, 8)
+    # SD1.5's level-0 / 1 / 2 self-attention, the flux_1b step's joint
+    # attention (8 x 1101 tokens, 12 heads of 128) and the dit_xl_2 step's
+    # (64 x 256 tokens, 16 heads of 72; rows of 144 bytes), contiguous: the
+    # box is one 64-column block (128 bytes, the 128-byte swizzle), the
+    # kernel loads ceil(D / 64) of them (1, 2, 2, 2, 3) and TMA zero-fills
+    # the columns past D (none at 128)
+    b, s, h = {128: (8, 1101, 12), 72: (64, 256, 16)}.get(d, (16, 4096 if d < 160 else 256, 8))
     t = torch.zeros((b, s, h, d), dtype=BF16)
     m = tma_map(t, who="flash_bwd_dq_sm90", name="q", rows=rows, head_dims=SM90_BWD_HEAD_DIMS)
     assert m.dims == (d, h, s, b)
     assert m.strides == (2 * d, h * 2 * d, s * h * 2 * d)
     assert m.box == (64, 1, rows, 1)
-    assert -(-d // m.box[0]) == {40: 1, 80: 2, 128: 2, 160: 3}[d]
+    assert -(-d // m.box[0]) == {40: 1, 72: 2, 80: 2, 128: 2, 160: 3}[d]
     assert len(m.words()) == 11
 
 
-@pytest.mark.parametrize("d", [40, 64, 80, 128, 160])
+@pytest.mark.parametrize("d", [40, 64, 72, 80, 128, 160])
 def test_each_backward_kernel_boxes_its_item_and_its_tiles(d):
     # dQ: q and dout in boxes of an item's 128 query rows, k and v of a
     # 64-key tile; dK/dV: k and v in boxes of an item's keys (128, or at
@@ -212,7 +217,7 @@ def _bwd_layout(d, dkv):
 
 
 @pytest.mark.parametrize("dkv", [False, True])
-@pytest.mark.parametrize("d", [40, 64, 80, 128, 160])
+@pytest.mark.parametrize("d", [40, 64, 72, 80, 128, 160])
 def test_each_backward_layout_fits_shared_memory(d, dkv):
     # the Python mirror above follows the source's Cfg lines ...
     src = (CSRC / "flash_bwd_sm90.cu").read_text()
@@ -223,12 +228,13 @@ def test_each_backward_layout_fits_shared_memory(d, dkv):
     # at least two stages: at D = 128 two item buffers, dQ's 64 KB of Q and
     # dO twice beside three stages, dK/dV's 32 KB of K and V (64 keys) twice
     # beside four; at 160 one, dQ's 96 KB beside two stages, dK/dV's 48 KB
-    # beside three; D = 40/64/80 keep the layouts they had before
+    # beside three; D = 40/64/80 keep the layouts they had before, and 72
+    # takes 80's (two column blocks)
     lay = _bwd_layout(d, dkv)
     assert lay["smem"] <= lay["smem_max"] == 227 * 1024
-    assert lay["stages"] == {40: 5, 64: 5, 80: 3, 128: 4 if dkv else 3, 160: 3 if dkv else 2}[d]
+    assert lay["stages"] == {40: 5, 64: 5, 72: 3, 80: 3, 128: 4 if dkv else 3, 160: 3 if dkv else 2}[d]
     assert lay["bufs"] == (1 if d == 160 else 2)
-    assert lay["smem"] == {40: 151152, 64: 151152, 80: 232016}.get(d, lay["smem"])
+    assert lay["smem"] == {40: 151152, 64: 151152, 72: 232016, 80: 232016}.get(d, lay["smem"])
     if d == 128:
         assert lay["smem"] == (199776 if dkv else 232016)
     if d == 160:
@@ -259,7 +265,7 @@ def test_each_backward_variant_changes_one_line_of_the_kernel(name):
     assert '"uwu_flash_bwd_dq_sm90"' in inspect.getsource(flash_bwd_dq_sm90)
 
 
-@pytest.mark.parametrize("d,which", [(40, 0), (40, 2), (80, 1), (128, 2), (160, 1), (160, 3)])
+@pytest.mark.parametrize("d,which", [(40, 0), (40, 2), (72, 0), (72, 3), (80, 1), (128, 2), (160, 1), (160, 3)])
 def test_a_backward_map_of_a_head_slice_of_a_fused_tensor(d, which):
     qkv = torch.zeros((2, 1024, 4, 8, d), dtype=BF16)
     t = qkv[:, :, which]  # q, k, v or dO cut from one [B, S, 4, H, D] tensor, uncopied
@@ -343,7 +349,9 @@ def test_the_d128_instances_are_in_the_source():
     assert "else if constexpr (D == 128) wgmma_m64n128k16_rs_tb(d, a, desc_b);" in src
     assert "wgmma_m64n128k16_rs_tb" in (CSRC / "hopper_common.cuh").read_text()
     assert "A_SMEM = D > 64 && (DKV || D >= 128);" in src
-    assert set(SM90_BWD_HEAD_DIMS) == set(BWD_HEAD_DIMS) == {40, 64, 80, 128, 160}
-    # K5 (flash_bwd.cu) is built at every backward head dim
+    assert set(SM90_BWD_HEAD_DIMS) == set(BWD_HEAD_DIMS) == {40, 64, 72, 80, 128, 160}
+    # K5 (flash_bwd.cu) is built at every backward head dim but DiT-XL/2's
+    # 72 (no path trains an attention bias there)
     k5 = (CSRC / "flash_bwd.cu").read_text()
-    assert {int(d) for d in re.findall(r"case (\d+): return dispatch_bias<KIND, \d+>", k5)} == set(BWD_HEAD_DIMS)
+    assert {int(d) for d in re.findall(r"case (\d+): return dispatch_bias<KIND, \d+>", k5)} == set(DBIAS_HEAD_DIMS)
+    assert set(DBIAS_HEAD_DIMS) == set(BWD_HEAD_DIMS) - {72}

@@ -1,5 +1,5 @@
 """What surrounds the Hopper flash forward, on the CPU: the head-dim dispatch
-(the Hopper kernel at D = 40/64/80/128/160) and the TMA tensor-map arithmetic
+(the Hopper kernel at D = 40/64/72/80/128/160) and the TMA tensor-map arithmetic
 for ``[B, S, H, D]`` views (64-column boxes at every head dim).
 
 The kernel itself (``csrc/flash_fwd_sm90.cu``) runs only on the card and is
@@ -38,8 +38,8 @@ def _variants_script():
 VARIANTS = _variants_script().VARIANTS
 
 
-@pytest.mark.parametrize("d,kernel", [(64, flash_fwd_sm90), (40, flash_fwd_sm90), (80, flash_fwd_sm90),
-                                      (128, flash_fwd_sm90), (160, flash_fwd_sm90)])
+@pytest.mark.parametrize("d,kernel", [(64, flash_fwd_sm90), (40, flash_fwd_sm90), (72, flash_fwd_sm90),
+                                      (80, flash_fwd_sm90), (128, flash_fwd_sm90), (160, flash_fwd_sm90)])
 def test_head_dim_selects_the_forward(d, kernel):
     assert d in HEAD_DIMS
     assert forward_kernel(d) is kernel
@@ -83,7 +83,7 @@ def test_map_of_a_head_slice_of_a_fused_qkv(which):
     assert t.data_ptr() - qkv.data_ptr() == which * 4 * 128  # the map starts at the view, uncopied
 
 
-@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("d", [40, 72, 80, 160])
 def test_maps_at_sd15s_head_dims(d):
     # one 64-column box per column block, the columns past D zero-filled by
     # TMA: the map's own head dim stays D; q in boxes of a work item's rows
@@ -120,7 +120,7 @@ def test_the_c_side_builds_an_instance_for_each_head_dim():
     assert set(map(int, re.findall(r"D == (\d+)", asserted))) == set(HEAD_DIMS)
 
 
-@pytest.mark.parametrize("d", [40, 160])
+@pytest.mark.parametrize("d", [40, 72, 160])
 def test_map_of_a_head_slice_of_a_fused_qkv_at_sd15s_head_dims(d):
     qkv = torch.zeros((2, 100, 3, 8, d), dtype=BF16)
     t = qkv[:, :, 1]

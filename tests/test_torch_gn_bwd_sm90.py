@@ -10,10 +10,14 @@ Both routes start from the statistics the port's forward saves and are
 held against ``jax.grad`` of the JAX package: ``_gn_silu`` through its
 Pallas backward (K7, the XLA glue, K8) in interpret mode, as the JAX
 package's own tests run it, and, with SiLU off, flax ``nn.GroupNorm``,
-the plain GroupNorm of the JAX package's models. Inputs are numpy draws
-from a seed, fp32. Tolerance: 1e-4 of the largest gradient element (fp32
+the plain GroupNorm of the JAX package's models, each compiled as one
+program with the suite's cheap compiler settings (``compile_fast``) and
+computed once for the routes that share its inputs. Inputs are numpy
+draws from a seed, fp32. Tolerance: 1e-4 of the largest gradient element (fp32
 sums in another order).
 """
+
+import functools
 
 import flax.linen as nn
 import jax
@@ -23,6 +27,7 @@ import pytest
 import torch
 
 from test_torch_models import one_torch_thread  # noqa: F401  (autouse: one torch thread in this module)
+from test_torch_models import compile_fast
 from uwudiff_tpu.ops.groupnorm_silu import _gn_silu
 from uwudiff_tpu_torch.ops.groupnorm_silu import (
     gn_bwd_dx_reference,
@@ -53,9 +58,12 @@ def _data(shape, seed):
     return x, gamma, beta, g
 
 
-def _jax_grads(x, gamma, beta, g, groups, silu):
-    """(dx, dgamma, dbeta) from the JAX package: the Pallas backward in
-    interpret mode with SiLU, flax's GroupNorm without."""
+@functools.lru_cache(maxsize=None)
+def _jax_grads(shape, groups, seed, silu):
+    """(dx, dgamma, dbeta) of ``_data(shape, seed)`` from the JAX package:
+    the Pallas backward in interpret mode with SiLU, flax's GroupNorm
+    without."""
+    x, gamma, beta, g = _data(shape, seed)
     if silu:
         def fwd(x, gamma, beta):
             return _gn_silu(x, gamma, beta, groups, EPS, True)
@@ -63,8 +71,8 @@ def _jax_grads(x, gamma, beta, g, groups, silu):
         def fwd(x, gamma, beta):
             return nn.GroupNorm(num_groups=groups, epsilon=EPS).apply({"params": {"scale": gamma, "bias": beta}}, x)
 
-    return jax.grad(lambda *a: jnp.sum(fwd(*a) * g), argnums=(0, 1, 2))(
-        jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta))
+    grad = jax.grad(lambda *a: jnp.sum(fwd(*a) * g), argnums=(0, 1, 2))
+    return compile_fast(grad, x, gamma, beta)(x, gamma, beta)
 
 
 # C = 40 in 4 groups: 10 channels a group, straddling the kernels' 8-wide vectors
@@ -78,7 +86,7 @@ def test_backward_plain_versions_match_jax(route, silu, shape, groups, seed):
     """Each route's plain versions, from the forward's saved statistics:
     dx, and dgamma/dbeta as the sums over samples of t2 and t1."""
     x, gamma, beta, g = _data(shape, seed)
-    jgrads = _jax_grads(x, gamma, beta, g, groups, silu)
+    jgrads = _jax_grads(shape, groups, seed, silu)
     n, c = shape[0], shape[-1]
     x3, g3 = torch.from_numpy(x).reshape(n, -1, c), torch.from_numpy(g).reshape(n, -1, c)
     tg, tb = torch.from_numpy(gamma), torch.from_numpy(beta)
@@ -99,7 +107,7 @@ def test_cpu_backward_matches_jax(silu):
     version, its saved statistics, the fused route's plain backward)."""
     shape, groups, seed = CASES[0]
     x, gamma, beta, g = _data(shape, seed + 2)
-    jgrads = _jax_grads(x, gamma, beta, g, groups, silu)
+    jgrads = _jax_grads(shape, groups, seed + 2, silu)
     tx, tg, tb = (torch.from_numpy(a).requires_grad_() for a in (x, gamma, beta))
     tgrads = torch.autograd.grad(group_norm_silu(tx, tg, tb, groups, EPS, silu), (tx, tg, tb), torch.from_numpy(g))
     for got, want in zip(tgrads, jgrads):

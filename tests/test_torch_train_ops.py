@@ -4,8 +4,10 @@ The port's autograd functions run their plain versions here (K1's and
 the backward pair's for flash attention, the GroupNorm forward pair's and
 K7/K8's for GroupNorm+SiLU); the JAX side is ``jax.grad`` through the
 Pallas kernels in interpret mode, as the JAX package's own tests run
-them, and through flax ``nn.GroupNorm`` for the plain GroupNorm. Inputs
-are numpy draws from a seed, fp32. Tolerance: 1e-4 of the largest
+them, and through flax ``nn.GroupNorm`` for the plain GroupNorm, each
+gradient compiled as one program with the suite's cheap compiler settings
+(``test_torch_models.compile_fast``: a third of the time the same kernels
+take run op by op). Inputs are numpy draws from a seed, fp32. Tolerance: 1e-4 of the largest
 gradient element (fp32 sums in another order; the JAX kernels work in
 the exp2 domain with LOG2E folded into q).
 """
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 from test_torch_models import one_torch_thread  # noqa: F401  (autouse: one torch thread in this module)
+from test_torch_models import compile_fast
 from uwudiff_tpu.ops.flash_attention import flash_attention as jax_flash
 from uwudiff_tpu.ops.groupnorm_silu import _gn_silu
 from uwudiff_tpu_torch.ops.flash_attention import (
@@ -40,6 +43,13 @@ def _close(out, ref, rel=REL):
     out = out.detach().numpy() if isinstance(out, torch.Tensor) else np.asarray(out)
     assert out.shape == ref.shape and np.isfinite(out).all()
     np.testing.assert_allclose(out, ref, atol=rel * np.abs(ref).max(), rtol=0)
+
+
+def _grads(jax_loss, *args):
+    """``jax.grad`` of ``jax_loss`` in its three arguments at ``args``
+    (numpy), compiled as one program (``compile_fast``)."""
+    grad = jax.grad(jax_loss, argnums=(0, 1, 2))
+    return compile_fast(grad, *args)(*args)
 
 
 def _bias(kind, b, h, sq, sk, rng):
@@ -76,7 +86,7 @@ def test_flash_grads_match_jax_kernel(b, sq, sk, h, d, kind):
                         interpret=True, block_q=128, block_k=128)
         return jnp.sum(out * dout)
 
-    jgrads = jax.grad(jax_loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    jgrads = _grads(jax_loss, q, k, v)
     tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
     out = flash_attention(tq, tk, tv, None if bias is None else torch.from_numpy(bias))
     tgrads = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(dout))
@@ -103,7 +113,7 @@ def test_flash_lse_grads_match_jax_kernel(kind):
                              interpret=True, block_q=128, block_k=128, return_lse=True)
         return jnp.sum(out * dout) + jnp.sum(lse * dlse)
 
-    jgrads = jax.grad(jax_loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    jgrads = _grads(jax_loss, q, k, v)
     tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
     out, lse = flash_attention(tq, tk, tv, None if bias is None else torch.from_numpy(bias), return_lse=True)
     loss = (out * torch.from_numpy(dout)).sum() + (lse * torch.from_numpy(dlse)).sum()
@@ -158,7 +168,7 @@ def test_gn_silu_grads_match_jax_kernel(shape, groups):
     def jax_loss(x, gamma, beta):
         return jnp.sum(_gn_silu(x, gamma, beta, groups, 1e-5, True) * g)
 
-    jgrads = jax.grad(jax_loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta))
+    jgrads = _grads(jax_loss, x, gamma, beta)
     tx, tg, tb = (torch.from_numpy(a).requires_grad_() for a in (x, gamma, beta))
     y = group_norm_silu(tx, tg, tb, groups, 1e-5)
     tgrads = torch.autograd.grad(y, (tx, tg, tb), torch.from_numpy(g))
@@ -175,7 +185,7 @@ def test_plain_group_norm_grads_match_flax_groupnorm():
         y = nn.GroupNorm(num_groups=8, epsilon=1e-6).apply({"params": {"scale": gamma, "bias": beta}}, x)
         return jnp.sum(y * g)
 
-    jgrads = jax.grad(jax_loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta))
+    jgrads = _grads(jax_loss, x, gamma, beta)
     tx, tg, tb = (torch.from_numpy(a).requires_grad_() for a in (x, gamma, beta))
     y = group_norm_silu(tx, tg, tb, 8, 1e-6, silu=False)
     tgrads = torch.autograd.grad(y, (tx, tg, tb), torch.from_numpy(g))

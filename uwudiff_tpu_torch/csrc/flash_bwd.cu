@@ -1,6 +1,6 @@
 // Flash-attention backward on mma.sync (sm_90a): dQ + dBias (K5) at head
-// dims 40/64/80/128/160, dQ and dK/dV at 160 only (at 40/64/80/128 they are
-// flash_bwd_sm90.cu's Hopper kernels); bf16 q/k/v/dO, fp32 softmax
+// dims 40/64/80/128/160, dQ and dK/dV at 160 only (at 40/64/72/80/128 they
+// are flash_bwd_sm90.cu's Hopper kernels); bf16 q/k/v/dO, fp32 softmax
 // recompute and accumulators.
 //
 // Replaces the TPU kernels uwudiff_tpu/ops/flash_attention.py::_bwd_dq_kernel
@@ -457,8 +457,9 @@ int dispatch_bias(int bias_mode, const Args& a) {
   }
 }
 
-// K5 is built at every head dim; dQ and dK/dV at D = 160 only (at 40, 64,
-// 80 and 128 they are flash_bwd_sm90.cu's)
+// K5 is built at D = 40, 64, 80, 128 and 160 (not at DiT-XL/2's 72, where no
+// path trains an attention bias); dQ and dK/dV at D = 160 only (at 40, 64,
+// 72, 80 and 128 they are flash_bwd_sm90.cu's)
 template <int KIND>
 int dispatch(int D, int bias_mode, const Args& a) {
   if constexpr (KIND == DQ_DBIAS) {

@@ -1,13 +1,16 @@
-// Flash-attention backward for Hopper (sm_90a) at head dims 40, 64, 80, 128
-// and 160: dQ and dK/dV, each a persistent, warp-specialised kernel on TMA,
-// an mbarrier ring and wgmma, one template over the head dim.
+// Flash-attention backward for Hopper (sm_90a) at head dims 40, 64, 72, 80,
+// 128 and 160: dQ and dK/dV, each a persistent, warp-specialised kernel on
+// TMA, an mbarrier ring and wgmma, one template over the head dim.
 //
 // Replaces the TPU kernels uwudiff_tpu/ops/flash_attention.py::_bwd_dq_kernel
 // (:271, K4: flash_bwd_dq_sm90) and ::_bwd_dkv_kernel (:365, K6:
 // flash_bwd_dkv_sm90). D = 64 is SDXL's, CLIP's, T5's and the SD3 MMDiT's;
 // 40, 80 and 160 are SD1.5's three levels; 128 is Flux's (the flux_1b
-// training step, 12 heads of 128). The dQ + dBias kernel (K5) is
-// flash_bwd.cu's at every head dim; flash_bwd.cu's mma.sync dQ and dK/dV
+// training step, 12 heads of 128); 72 is DiT-XL/2's (the dit_xl_2 training
+// step, 16 heads of 72), an instance of D = 80's layout (two column blocks,
+// 5 k16 steps over D, dK/dV reading K and V from the item's buffer). The
+// dQ + dBias kernel (K5) is flash_bwd.cu's at 40/64/80/128/160 (no path
+// trains an attention bias at 72); flash_bwd.cu's mma.sync dQ and dK/dV
 // compute the same function at D = 160 and stay built as the yardstick, on
 // no path.
 //
@@ -27,8 +30,8 @@
 // A from registers: the item's own operand (Q and dO, or K and V), read from
 // shared memory into wgmma fragments once an item (ldmatrix through the
 // swizzle); B the streamed tile, K-major. The products into dQ, dV and dK
-// are wgmma.m64nDk16 (N = 40, 64, 80, 128, 160) with A the fp32 P and dS (P^T,
-// dS^T) re-packed to bf16, B the streamed tile MN-major (the transpose bit).
+// are wgmma.m64nDk16 (N = 40, 64, 72, 80, 128, 160) with A the fp32 P and
+// dS (P^T, dS^T) re-packed to bf16, B the streamed tile MN-major (the transpose bit).
 // P is the P the forward normalised (flash_fwd_sm90.cu, flash_fwd.cu): the
 // logit scale and the bias's LOG2E are applied to the fp32 S tile, never
 // folded into bf16 q; the bias is clamped at -1e30 as it is loaded;
@@ -56,20 +59,21 @@
 //     240 where dK/dV's consumers split by role, below);
 //   - shared tiles are D = 64's at every head dim: rows of 64 columns, 128
 //     bytes, 128B-swizzled, one TMA box per 64-column block (one at D = 40
-//     and 64, two at 80 and 128, three at 160), TMA zero-filling the columns
-//     past D. The products over D read only up to the next multiple of 16
-//     (3, 4, 5, 8, 10 k16 steps; columns 40-47 at D = 40 are those zeros), the
-//     products into dQ, dK, dV write N = D columns. Boxes of 16 columns
-//     under a 32-byte swizzle, the tile no wider than D, took 3-5 % longer
-//     at D = 40: three small TMA rows for each of D = 64's one;
+//     and 64, two at 72, 80 and 128, three at 160), TMA zero-filling the
+//     columns past D. The products over D read only up to the next multiple
+//     of 16 (3, 4, 5, 5, 8, 10 k16 steps; columns 40-47 at D = 40 and 72-79
+//     at 72 are those zeros), the products into dQ, dK, dV write N = D
+//     columns (at 72 no store reaches past column 72 into the next head of a
+//     fused tensor's row). Boxes of 16 columns under a 32-byte swizzle, the
+//     tile no wider than D, took 3-5 % longer at D = 40: three small TMA
+//     rows for each of D = 64's one;
 //   - the item's own block (Q and dO, or K and V) goes by TMA into one of two
 //     buffers, freed as soon as both consumers hold it in registers, so the
 //     next item's loads early; the streamed tiles (K and V, or Q and dO) go
 //     through a ring of as many stages as fit, at most 5 (5 at D = 40 and
-//     64, 3 at 80, 3 (dQ) or 4 (dK/dV) at 128, 2 or 3 at 160), that runs on
-//     across items, each with a full
-//     mbarrier (TMA transaction bytes plus the vectors' copies) and an empty
-//     one (one arrival per consumer warpgroup, made after wgmma.wait_group
+//     64, 3 at 72 and 80, 3 (dQ) or 4 (dK/dV) at 128, 2 or 3 at 160), that
+//     runs on across items, each with a full mbarrier (TMA transaction
+//     bytes plus the vectors' copies) and an empty one (one arrival per consumer warpgroup, made after wgmma.wait_group
 //     has retired every product that reads the stage). Tensor maps are rank
 //     4 over (D, H, S, B) with the views' own strides: strided head views go
 //     in uncopied, and TMA zero-fills rows past Sq or Sk;
@@ -155,17 +159,18 @@ constexpr uint32_t SBO = 8 * ROW_BYTES;  // bytes between 8-row groups
 constexpr int SMEM_MAX = 232448;         // dynamic shared memory a block may have (227 KB)
 constexpr int MAX_STAGES = 5;
 
-// The tiles of head dim D (40, 64, 80, 128 or 160): at every D the 128-byte
+// The tiles of head dim D (40, 64, 72, 80, 128 or 160): at every D the 128-byte
 // swizzle of D = 64, a tile's row 64 columns. A tile is NBLK column blocks
 // of rows x 128 bytes, one TMA box each (one block at D = 40 and 64, two at
-// 80 and 128, three at 160); TMA zero-fills the columns past D, which the
-// products over D read only up to the next multiple of 16 (KSTEPS k16
-// steps: 3, 4, 5, 8, 10; columns 40-47 at D = 40 are zeros). The products
-// into dQ, dK and dV run at N = D (wgmma.m64n40k16 / m64n64k16 / m64n80k16 /
-// m64n128k16 / m64n160k16).
+// 72, 80 and 128, three at 160); TMA zero-fills the columns past D, which
+// the products over D read only up to the next multiple of 16 (KSTEPS k16
+// steps: 3, 4, 5, 5, 8, 10; columns 40-47 at D = 40 and 72-79 at 72 are
+// zeros). The products into dQ, dK and dV run at N = D (wgmma.m64n40k16 /
+// m64n64k16 / m64n72k16 / m64n80k16 / m64n128k16 / m64n160k16).
 template <int D>
 struct Geo {
-  static_assert(D == 40 || D == 64 || D == 80 || D == 128 || D == 160, "head dims 40, 64, 80, 128, 160");
+  static_assert(D == 40 || D == 64 || D == 72 || D == 80 || D == 128 || D == 160,
+                "head dims 40, 64, 72, 80, 128, 160");
   static constexpr int NBLK = (D + COLS - 1) / COLS;
   static constexpr int KSTEPS = (D + 15) / 16;
 };
@@ -181,7 +186,7 @@ struct Geo {
 // in one buffer leave room for a third stage, which the card measured
 // faster than a second buffer beside two (flash_variants.py). As many ring
 // stages as fit beside them, at most MAX_STAGES: 5 at D = 40 and 64, 3 at
-// 80, 3 (dQ) and 4 (dK/dV) at 128, 2 (dQ) and 3 (dK/dV) at 160.
+// 72 and 80, 3 (dQ) and 4 (dK/dV) at 128, 2 (dQ) and 3 (dK/dV) at 160.
 template <int D, bool DKV>
 struct Cfg : Geo<D> {
   static constexpr bool SPLIT = DKV && D >= 128;
@@ -190,8 +195,8 @@ struct Cfg : Geo<D> {
   // K and V (dK/dV) or Q and dO (dQ) read by the products over D from the
   // item's buffer, not from registers: where the fragments do not fit
   // beside the accumulators (dK/dV at D = 80: 40 registers beside the 176
-  // of S^T, dP^T, P^T, dS^T and the accumulators; both kernels at 128: 64
-  // beside 144 in dQ; at 160: 80)
+  // of S^T, dP^T, P^T, dS^T and the accumulators, 168 at 72; both kernels
+  // at 128: 64 beside 144 in dQ; at 160: 80)
   static constexpr bool A_SMEM = D > 64 && (DKV || D >= 128);
   static constexpr int ITEM_BYTES = Geo<D>::NBLK * ITEM * ROW_BYTES;  // one of the item's two inputs
   static constexpr int TILE_BYTES = Geo<D>::NBLK * TILE * ROW_BYTES;  // one of a stage's two inputs
@@ -280,6 +285,7 @@ template <int D>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t desc_b) {
   if constexpr (D == 40) wgmma_m64n40k16_rs_tb(d, a, desc_b);
   else if constexpr (D == 64) wgmma_m64n64k16_rs_tb(d, a, desc_b);
+  else if constexpr (D == 72) wgmma_m64n72k16_rs_tb(d, a, desc_b);
   else if constexpr (D == 80) wgmma_m64n80k16_rs_tb(d, a, desc_b);
   else if constexpr (D == 128) wgmma_m64n128k16_rs_tb(d, a, desc_b);
   else if constexpr (D == 160) wgmma_m64n160k16_rs_tb(d, a, desc_b);
@@ -962,6 +968,7 @@ int dispatch(int head_dim, const void* q, const void* k, const void* v, const vo
   switch (head_dim) {
     case 40: return run<40, DKV>(q, k, v, dout, maps, bias_mode, a);
     case 64: return run<64, DKV>(q, k, v, dout, maps, bias_mode, a);
+    case 72: return run<72, DKV>(q, k, v, dout, maps, bias_mode, a);
     case 80: return run<80, DKV>(q, k, v, dout, maps, bias_mode, a);
     case 128: return run<128, DKV>(q, k, v, dout, maps, bias_mode, a);
     case 160: return run<160, DKV>(q, k, v, dout, maps, bias_mode, a);
@@ -972,7 +979,7 @@ int dispatch(int head_dim, const void* q, const void* k, const void* v, const vo
 }  // namespace
 
 // q, dout: bf16 [B, Sq, H, D] and k, v: bf16 [B, Sk, H, D] views, D = 40,
-// 64, 80, 128 or 160; maps: four tensor-map specs of MAP_WORDS words (q, k, v, dout),
+// 64, 72, 80, 128 or 160; maps: four tensor-map specs of MAP_WORDS words (q, k, v, dout),
 // then the bias's batch and head strides in elements (bias_mode 1: [B, Sk]
 // key bias; 2: full, rows of Sk keys). lse, delta: contiguous fp32 [B, H,
 // Sq]. Outputs contiguous bf16 [B, S, H, D]. Each returns 0, a cudaError_t

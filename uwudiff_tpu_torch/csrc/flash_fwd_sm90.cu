@@ -1,11 +1,12 @@
-// Flash-attention forward for Hopper (sm_90a) at head dims 40, 64, 80, 128
-// and 160: TMA loads into an mbarrier ring, one producer warp, two or three
+// Flash-attention forward for Hopper (sm_90a) at head dims 40, 64, 72, 80,
+// 128 and 160: TMA loads into an mbarrier ring, one producer warp, two or three
 // consumer warpgroups on wgmma; one template over the head dim.
 //
 // Replaces the TPU kernel uwudiff_tpu/ops/flash_attention.py::_fwd_kernel
 // (:152; online softmax in the exp2 domain, out + natural-log lse, bias
 // none / key / full). D = 64 is SDXL's, CLIP's, T5's and the SD3 MMDiT's;
-// 40, 80 and 160 are SD1.5's three levels; 128 is Flux's (3072 / 24 heads). flash_fwd.cu (mma.sync) computes
+// 40, 80 and 160 are SD1.5's three levels; 128 is Flux's (3072 / 24 heads);
+// 72 is DiT-XL/2's (1152 / 16 heads). flash_fwd.cu (mma.sync) computes
 // the same function at 40/80/160 and stays built as the yardstick; no path
 // launches it.
 //
@@ -28,16 +29,19 @@
 //     (24 registers after setmaxnreg; one thread issues every TMA load),
 //     the others are consumers of 64 rows each: two (BLOCK_M 128, 384
 //     threads, 168 registers at launch, 240 after setmaxnreg) at D = 64,
-//     80, 128 and 160; three at D = 40 (BLOCK_M 192, 512 threads, 128
+//     72, 80, 128 and 160; three at D = 40 (BLOCK_M 192, 512 threads, 128
 //     registers), where a third warpgroup's softmax beside the other two
 //     keeps the SFU and the tensor cores busier than two could (11 %
 //     faster at [16, 4096, 4096, 8, 40]);
 //   - shared tiles are D = 64's at every head dim (as in flash_bwd_sm90.cu):
 //     rows of 64 columns, 128 bytes, 128B-swizzled, one TMA box per
-//     64-column block (one at D = 40 and 64, two at 80 and 128, three at
-//     160), TMA zero-filling the columns past D. Q.K^T reads D up to the
-//     next multiple of 16 (3, 4, 5, 8, 10 k16 steps; a step past a block's 64
-//     columns goes through the block stride), P.V writes N = D columns;
+//     64-column block (one at D = 40 and 64, two at 72, 80 and 128, three
+//     at 160), TMA zero-filling the columns past D. Q.K^T reads D up to the
+//     next multiple of 16 (3, 4, 5, 5, 8, 10 k16 steps; a step past a
+//     block's 64 columns goes through the block stride; at D = 72 the fifth
+//     step's columns 72-79 are those zeros), P.V writes N = D columns (at 72
+//     the first block's 64 and 8 of the second's, so no store reaches past
+//     column 72 into the next head of a fused tensor);
 //   - Q goes by TMA into one of Q_STAGES buffers, so the next item's Q can
 //     load while this one is consumed; K and V tiles go through a ring of
 //     STAGES stages that runs on across items, each stage with a full
@@ -98,8 +102,8 @@ constexpr int MAX_STAGES = 3;
 // would spill at 128). A tile is NBLK column blocks of rows x 128 bytes.
 // BLOCK_N keys a K/V tile: 128, or 64 at D = 160 (a 128-key stage of 96 KB
 // would leave room for one stage only). Q_STAGES Q buffers: two at D = 40
-// and 64, so the next item's Q loads during this one; one at 80, 128 and
-// 160, where a second would cost a K/V stage (at 128: Q 32 KB and three
+// and 64, so the next item's Q loads during this one; one at 72, 80, 128
+// and 160, where a second would cost a K/V stage (at 128: Q 32 KB and three
 // stages of 64 KB). At D = 128 a consumer holds S and O, 64 fp32 registers
 // each, and P, 32, of its 240. As many K/V stages as fit beside
 // them, at most MAX_STAGES. EMU_EVERY: one n8-tile of S in EMU_EVERY takes
@@ -109,7 +113,8 @@ constexpr int MAX_STAGES = 3;
 // (flash_variants.py, at the repo's root, times each against the others).
 template <int D>
 struct Cfg {
-  static_assert(D == 40 || D == 64 || D == 80 || D == 128 || D == 160, "head dims 40, 64, 80, 128, 160");
+  static_assert(D == 40 || D == 64 || D == 72 || D == 80 || D == 128 || D == 160,
+                "head dims 40, 64, 72, 80, 128, 160");
   static constexpr int CONSUMERS = D == 40 ? 3 : 2;
   static constexpr int BLOCK_M = 64 * CONSUMERS;  // query rows a work item
   static constexpr int THREADS = 128 * (1 + CONSUMERS);
@@ -148,6 +153,7 @@ template <int D>
 __device__ __forceinline__ void wgmma_rs_tb(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t desc_v) {
   if constexpr (D == 40) wgmma_m64n40k16_rs_tb(o, a, desc_v);
   else if constexpr (D == 64) wgmma_m64n64k16_rs_tb(o, a, desc_v);
+  else if constexpr (D == 72) wgmma_m64n72k16_rs_tb(o, a, desc_v);
   else if constexpr (D == 80) wgmma_m64n80k16_rs_tb(o, a, desc_v);
   else if constexpr (D == 128) wgmma_m64n128k16_rs_tb(o, a, desc_v);
   else wgmma_m64n160k16_rs_tb(o, a, desc_v);
@@ -522,7 +528,7 @@ int run(const void* q, const void* k, const void* v, const unsigned long long* m
 
 }  // namespace
 
-// q/k/v: bf16 [B, S, H, D] views, D = 40, 64, 80, 128 or 160; maps: three
+// q/k/v: bf16 [B, S, H, D] views, D = 40, 64, 72, 80, 128 or 160; maps: three
 // tensor-map specs of MAP_WORDS words each (q, k, v), then the bias's batch
 // and head strides in elements. out: contiguous bf16 [B, Sq, H, D]; lse:
 // contiguous fp32 [B, H, Sq]. Returns 0, a cudaError_t code, or
@@ -534,6 +540,7 @@ extern "C" int uwu_flash_fwd_sm90(const void* q, const void* k, const void* v, c
   switch (head_dim) {
     case 40: return run<40>(q, k, v, maps, bias_mode, a);
     case 64: return run<64>(q, k, v, maps, bias_mode, a);
+    case 72: return run<72>(q, k, v, maps, bias_mode, a);
     case 80: return run<80>(q, k, v, maps, bias_mode, a);
     case 128: return run<128>(q, k, v, maps, bias_mode, a);
     case 160: return run<160>(q, k, v, maps, bias_mode, a);

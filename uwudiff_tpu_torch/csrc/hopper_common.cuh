@@ -10,8 +10,8 @@
 // rows of 64 bf16 (128 bytes) at a 128-byte pitch, the eight 16-byte chunks
 // of row r stored at chunk ^ (r % 8). The swizzle is a function of the
 // address bits, so every tile starts on a 1024-byte boundary (eight rows).
-// A head dim that is not 64 (40, 80, 128, 160: flash_fwd_sm90.cu, and 40,
-// 80, 160: flash_bwd_sm90.cu) is loaded the same way in boxes of 64 columns,
+// A head dim that is not 64 (40, 72, 80, 128, 160: flash_fwd_sm90.cu and
+// flash_bwd_sm90.cu) is loaded the same way in boxes of 64 columns,
 // one per 64-column block, the columns past the head dim zero-filled by TMA
 // (none at 128, which fills two blocks exactly).
 //
@@ -326,6 +326,25 @@ __device__ __forceinline__ void wgmma_m64n40k16_rs_tb(float (&d)[20], const uint
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d[64 x 72] += A[64 x 16] (registers, bf16 pairs) . B[16 x 72], B
+// MN-major in shared memory (the transpose bit set): the first column
+// block's 64 columns and 8 of the second's
+__device__ __forceinline__ void wgmma_m64n72k16_rs_tb(float (&d)[36], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %41, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35}, "
+      "{%36, %37, %38, %39}, %40, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 

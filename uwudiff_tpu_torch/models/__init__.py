@@ -1,6 +1,7 @@
-"""Models of the port: SDXL (UNet, VAE, CLIP), SD3 (MMDiT, T5) and Flux."""
+"""Models of the port: SDXL (UNet, VAE, CLIP), SD3 (MMDiT, T5), Flux and the DiT."""
 
 from uwudiff_tpu_torch.models.clip import CLIP_PRESETS, CLIPTextModel
+from uwudiff_tpu_torch.models.dit import DIT_PRESETS, DiT
 from uwudiff_tpu_torch.models.flux import FLUX_PRESETS, Flux
 from uwudiff_tpu_torch.models.mmdit import MMDIT_PRESETS, MMDiT
 from uwudiff_tpu_torch.models.t5 import T5_PRESETS, T5EncoderModel
@@ -18,6 +19,8 @@ __all__ = [
     "CLIPTextModel",
     "CLIP_PRESETS",
     "ConcatTextEncoders",
+    "DIT_PRESETS",
+    "DiT",
     "FLUX_PRESETS",
     "Flux",
     "MMDIT_PRESETS",

@@ -38,8 +38,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from uwudiff_tpu_torch.models.layers import get_timestep_embedding
-from uwudiff_tpu_torch.models.mmdit import _MLP, _layer_norm, _modulation, _StreamAttention, _zero_linear
+from uwudiff_tpu_torch.models.layers import _layer_norm, _modulation, _zero_linear, get_timestep_embedding
+from uwudiff_tpu_torch.models.mmdit import _MLP, _StreamAttention
 from uwudiff_tpu_torch.ops.attention import attention_bias_from_mask, dot_product_attention
 from uwudiff_tpu_torch.utils import build_module
 

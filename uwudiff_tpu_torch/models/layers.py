@@ -103,6 +103,27 @@ class LayerNorm(nn.LayerNorm):
         return F.layer_norm(x.float(), self.normalized_shape, w, b, self.eps).to(x.dtype)
 
 
+def _layer_norm(x):
+    """flax ``nn.LayerNorm(use_bias=False, use_scale=False)``: eps 1e-6 (the
+    transformers' pre-norms: the MMDiT's, Flux's and the DiT's)."""
+    return F.layer_norm(x, (x.shape[-1],), eps=1e-6)
+
+
+def _zero_linear(cin, cout, bias=True):
+    """A Linear with zero weight and bias: flax's ``kernel_init=zeros`` of the
+    adaLN-Zero modulations and final projections."""
+    layer = nn.Linear(cin, cout, bias=bias)
+    nn.init.zeros_(layer.weight)
+    if bias:
+        nn.init.zeros_(layer.bias)
+    return layer
+
+
+def _modulation(layer, c, n):
+    """adaLN: ``n`` modulation vectors [B, 1, hidden] from the conditioning."""
+    return layer(F.silu(c))[:, None, :].chunk(n, dim=-1)
+
+
 class RMSNorm(nn.Module):
     """RMS norm over the last dim, computed in fp32, output in the input's
     dtype (T5's ``RMSNorm`` and flax ``nn.RMSNorm``: eps 1e-6, a ``scale``

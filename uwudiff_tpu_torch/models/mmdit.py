@@ -25,31 +25,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from uwudiff_tpu_torch.models.dit import _2d_sincos_pos_embed
-from uwudiff_tpu_torch.models.layers import RMSNorm, get_timestep_embedding
+from uwudiff_tpu_torch.models.layers import RMSNorm, _layer_norm, _modulation, _zero_linear, get_timestep_embedding
 from uwudiff_tpu_torch.ops.attention import attention_bias_from_mask, dot_product_attention
 from uwudiff_tpu_torch.utils import build_module
 
 __all__ = ["MMDiT", "MMDiTBlock", "MMDIT_PRESETS"]
 
 _UNPORTED = ("num_experts", "gradient_checkpointing", "scan_blocks", "skip_layers")
-
-
-def _layer_norm(x):
-    """flax ``nn.LayerNorm(use_bias=False, use_scale=False)``: eps 1e-6."""
-    return F.layer_norm(x, (x.shape[-1],), eps=1e-6)
-
-
-def _zero_linear(cin, cout, bias=True):
-    layer = nn.Linear(cin, cout, bias=bias)
-    nn.init.zeros_(layer.weight)
-    if bias:
-        nn.init.zeros_(layer.bias)
-    return layer
-
-
-def _modulation(layer, c, n):
-    """adaLN: ``n`` modulation vectors [B, 1, hidden] from the conditioning."""
-    return layer(F.silu(c))[:, None, :].chunk(n, dim=-1)
 
 
 class _StreamAttention(nn.Module):

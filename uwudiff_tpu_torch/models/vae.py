@@ -259,6 +259,13 @@ VAE_PRESETS: dict[str, dict] = {
         latent_channels=4,
         scaling_factor=0.13025,
     ),
+    # SD1.x's VAE (the DiT family's too): SDXL's architecture, its own scale
+    "sd15": dict(
+        block_out_channels=(128, 256, 512, 512),
+        layers_per_block=2,
+        latent_channels=4,
+        scaling_factor=0.18215,
+    ),
     "tiny": dict(
         block_out_channels=(16, 32),
         layers_per_block=1,

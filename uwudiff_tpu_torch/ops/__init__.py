@@ -105,8 +105,8 @@ def launch_counts() -> dict[str, int]:
 
 def launches_by_head_dim() -> dict[str, dict[int, int]]:
     """The launches split by head dim of every kernel that counts them so:
-    the Hopper forward (40/64/80/128/160) and the mma.sync one (SD1.5's
-    40/80/160), the Hopper dQ and dK/dV (40/64/80/128/160) and the
+    the Hopper forward (40/64/72/80/128/160) and the mma.sync one (SD1.5's
+    40/80/160), the Hopper dQ and dK/dV (40/64/72/80/128/160) and the
     mma.sync ones (160)."""
     return {name: dict(sorted(fn.head_dims.items())) for name, fn in KERNELS.items() if hasattr(fn, "head_dims")}
 

@@ -7,17 +7,19 @@ the head dim, and every kernel is a Hopper one (TMA loads into an
 mbarrier ring, wgmma, a producer warpgroup and two or three consumer
 warpgroups) or an mma.sync one:
 
-- the forward: ``csrc/flash_fwd_sm90.cu`` at D = 40, 64, 80, 128 and 160,
-  one kernel template (64 is SDXL's, CLIP's, T5's and the SD3 MMDiT's;
-  40/80/160 SD1.5's; 128 Flux's); ``csrc/flash_fwd.cu`` (mma.sync) computes the same function
+- the forward: ``csrc/flash_fwd_sm90.cu`` at D = 40, 64, 72, 80, 128 and
+  160, one kernel template (64 is SDXL's, CLIP's, T5's and the SD3 MMDiT's;
+  40/80/160 SD1.5's; 128 Flux's; 72 DiT-XL/2's); ``csrc/flash_fwd.cu`` (mma.sync) computes the same function
   at 40/80/160 and stays built and tested as the yardstick, on no path;
-- dQ and dK/dV: ``csrc/flash_bwd_sm90.cu`` at D = 40, 64, 80, 128 and
+- dQ and dK/dV: ``csrc/flash_bwd_sm90.cu`` at D = 40, 64, 72, 80, 128 and
   160, one kernel template each (D = 64's 128-byte swizzled tiles at every
   head dim, the columns past D zero-filled; at 128 and 160 dK/dV's two
   consumer warpgroups share 64 keys, one accumulating dV and the other dK);
   ``csrc/flash_bwd.cu`` (mma.sync) computes the same function at D = 160
   and stays built and tested as the yardstick, on no path;
-- dQ + dBias (K5): ``csrc/flash_bwd.cu`` at every backward head dim.
+- dQ + dBias (K5): ``csrc/flash_bwd.cu`` at D = 40, 64, 80, 128 and 160
+  (:data:`DBIAS_HEAD_DIMS`; no path trains an attention bias at 72, where
+  it raises).
 
 The Hopper kernels' tensor maps are computed and checked here
 (:func:`tma_map`) and encoded by the C side. Any other head dim raises on
@@ -63,6 +65,7 @@ import torch
 
 __all__ = [
     "BWD_HEAD_DIMS",
+    "DBIAS_HEAD_DIMS",
     "FlashAttentionFunction",
     "HEAD_DIMS",
     "backward_kernels",
@@ -87,11 +90,13 @@ __all__ = [
 ]
 
 NEG_INF = -1e30
-HEAD_DIMS = (40, 64, 80, 128, 160)  # the Hopper forward's (D = 64: SDXL, CLIP, T5, the SD3 MMDiT; SD1.5's 40/80/160; Flux's 128)
+# the Hopper forward's (D = 64: SDXL, CLIP, T5, the SD3 MMDiT; SD1.5's 40/80/160; Flux's 128; DiT-XL/2's 72)
+HEAD_DIMS = (40, 64, 72, 80, 128, 160)
 MMA_HEAD_DIMS = (40, 80, 160)  # the mma.sync forward (SD1.5's), built and tested, on no path
-SM90_BWD_HEAD_DIMS = (40, 64, 80, 128, 160)  # the Hopper dQ and dK/dV kernels (SD1.5's 40/80/160, Flux's 128, 64)
+SM90_BWD_HEAD_DIMS = (40, 64, 72, 80, 128, 160)  # the Hopper dQ and dK/dV kernels (SD1.5's 40/80/160, Flux's 128, 64, 72)
 MMA_BWD_HEAD_DIMS = (160,)  # the mma.sync dQ and dK/dV kernels (SD1.5's D = 160), built and tested, on no path
-BWD_HEAD_DIMS = (40, 64, 80, 128, 160)  # every head dim a backward (and K5) was built for
+BWD_HEAD_DIMS = SM90_BWD_HEAD_DIMS  # every head dim a backward (dQ and dK/dV) was built for
+DBIAS_HEAD_DIMS = (40, 64, 80, 128, 160)  # K5's (dQ + dBias, csrc/flash_bwd.cu): a learned bias is T5's, at 64
 
 _fns: dict = {}
 
@@ -221,13 +226,13 @@ TMA_BOX_ROWS = 128  # rows of q (a work item's query tile) or k/v (a key tile) p
 # item's query rows (BLOCK_M: three consumer warpgroups of 64 at D = 40, two
 # elsewhere) and its key tile (BLOCK_N: 64 at D = 160, where a stage of 128
 # keys leaves room for one stage only)
-SM90_FWD_Q_ROWS = {40: 192, 64: 128, 80: 128, 128: 128, 160: 128}
-SM90_FWD_KEY_ROWS = {40: 128, 64: 128, 80: 128, 128: 128, 160: 64}
+SM90_FWD_Q_ROWS = {40: 192, 64: 128, 72: 128, 80: 128, 128: 128, 160: 128}
+SM90_FWD_KEY_ROWS = {40: 128, 64: 128, 72: 128, 80: 128, 128: 128, 160: 64}
 # the Hopper backward's boxes: an item's rows (q and dout for dQ: 128; k and v
 # for dK/dV: 128, or 64 at D = 128 and 160, where both consumer warpgroups
 # share an item's keys) and the 64-row tiles streamed past them
 SM90_BWD_ITEM_ROWS, SM90_BWD_TILE_ROWS = 128, 64
-SM90_BWD_DKV_ITEM_ROWS = {40: 128, 64: 128, 80: 128, 128: 64, 160: 64}
+SM90_BWD_DKV_ITEM_ROWS = {40: 128, 64: 128, 72: 128, 80: 128, 128: 64, 160: 64}
 _TMA_ENCODE_FAILED = 100000  # the C side's code for a tensor map the driver refused (+ its CUresult)
 
 
@@ -236,7 +241,7 @@ class TmaMap(NamedTuple):
     first: ``dims`` (D, H, S, B) in elements, ``strides`` of H, S and B in
     bytes, ``box`` (64, 1, rows, 1) in elements: one 128-byte swizzle row
     of 64 columns, loaded once per 64-column block of D (twice at
-    D = 80 and 128, three times at 160), the columns past D zero-filled."""
+    D = 72, 80 and 128, three times at 160), the columns past D zero-filled."""
 
     dims: tuple
     strides: tuple
@@ -341,7 +346,7 @@ def _check_sm90_rc(who, rc, maps):
 
 
 def flash_fwd_sm90(q, k, v, bias=None, scale=None):
-    """Launch the Hopper forward (D = 40/64/80/128/160): q/k/v go in uncopied
+    """Launch the Hopper forward (D = 40/64/72/80/128/160): q/k/v go in uncopied
     through TMA tensor maps (:func:`tma_map`; q in boxes of a work item's
     rows, k and v of the head dim's key tile). Returns (out, lse)."""
     _check("flash_fwd_sm90", HEAD_DIMS, ("q", q), ("k", k), ("v", v))
@@ -398,7 +403,7 @@ flash_fwd_mma.head_dims = {}  # launches by head dim
 def backward_kernels(d):
     """The backward's (dQ, dK/dV) wrappers for head dim ``d``: the Hopper
     kernels at every head dim in :data:`SM90_BWD_HEAD_DIMS`; any other
-    raises. (K5, the dQ + dBias kernel, is mma.sync at every head dim.)"""
+    raises. (K5, the dQ + dBias kernel, is mma.sync, at :data:`DBIAS_HEAD_DIMS`.)"""
     if d in SM90_BWD_HEAD_DIMS:
         return flash_bwd_dq_sm90, flash_bwd_dkv_sm90
     raise ValueError(f"flash_bwd: head dim {d} not in {BWD_HEAD_DIMS}")
@@ -449,7 +454,7 @@ def _bwd_sm90(who, q, k, v, dout, lse, delta, bias, scale, dkv):
 
 
 def flash_bwd_dq_sm90(q, k, v, dout, lse, delta, bias=None, scale=None):
-    """Launch the Hopper dQ kernel (K4, D = 40/64/80/128/160): q/k/v/dout go in
+    """Launch the Hopper dQ kernel (K4, D = 40/64/72/80/128/160): q/k/v/dout go in
     uncopied through TMA tensor maps, a full bias is read in place."""
     maps, _words, ptrs, args = _bwd_sm90("flash_bwd_dq_sm90", q, k, v, dout, lse, delta, bias, scale, False)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -465,7 +470,7 @@ flash_bwd_dq_sm90.head_dims = {}  # launches by head dim
 
 
 def flash_bwd_dkv_sm90(q, k, v, dout, lse, delta, bias=None, scale=None):
-    """Launch the Hopper dK/dV kernel (K6, D = 40/64/80/128/160). Returns (dk, dv)."""
+    """Launch the Hopper dK/dV kernel (K6, D = 40/64/72/80/128/160). Returns (dk, dv)."""
     maps, _words, ptrs, args = _bwd_sm90("flash_bwd_dkv_sm90", q, k, v, dout, lse, delta, bias, scale, True)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
@@ -511,7 +516,7 @@ flash_bwd_dq_mma.head_dims = {}  # launches by head dim
 def flash_bwd_dq_dbias(q, k, v, dout, lse, delta, bias, scale=None):
     """Launch the dQ + dBias kernel (K5) for a learned bias, taken as full.
     Returns (dq [B, Sq, H, D], dbias [B*H, Sq, Sk] fp32, natural-log units)."""
-    _check("flash_bwd_dq_dbias", BWD_HEAD_DIMS, ("q", q), ("k", k), ("v", v), ("dout", dout))
+    _check("flash_bwd_dq_dbias", DBIAS_HEAD_DIMS, ("q", q), ("k", k), ("v", v), ("dout", dout))
     if bias is None:
         raise ValueError("flash_bwd_dq_dbias: needs a bias")
     b, sq, h, d = q.shape

@@ -1,6 +1,7 @@
 from uwudiff_tpu_torch.sampling.cfg import (
     apply_cfg_rescale,
     build_cfg_fn,
+    build_class_cfg_fn,
     cfg_wrapper,
     cond_text_wrapper,
     default_time_ids,
@@ -40,7 +41,7 @@ from uwudiff_tpu_torch.sampling.noise import (
     per_sample_init_noise,
     supports_noise_sampler,
 )
-from uwudiff_tpu_torch.sampling.sampling import diffusion_sampling
+from uwudiff_tpu_torch.sampling.sampling import class_conditional_sampling, diffusion_sampling
 from uwudiff_tpu_torch.sampling.unipc import sample_unipc
 from uwudiff_tpu_torch.sampling.wrapper import (
     EDMDenoiser,
@@ -80,7 +81,9 @@ __all__ = [
     "batch_fallback_generator",
     "beta_sigmas",
     "build_cfg_fn",
+    "build_class_cfg_fn",
     "cfg_wrapper",
+    "class_conditional_sampling",
     "cond_text_wrapper",
     "default_time_ids",
     "denoiser_for_loss",

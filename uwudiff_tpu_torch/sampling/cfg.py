@@ -9,6 +9,8 @@ a model without ``time_ids`` ignores them);
 in one call and combines with the CFG scale, over every sigma or only
 those in ``cfg_interval``. :func:`cfg_wrapper` encodes and builds in one
 call; :func:`cond_text_wrapper` is a single conditional pass.
+:func:`build_class_cfg_fn` is the DiT family's: labels instead of
+prompts, the learned null class as the unconditional branch.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from uwudiff_tpu_torch.utils import append_dims
 __all__ = [
     "apply_cfg_rescale",
     "build_cfg_fn",
+    "build_class_cfg_fn",
     "cfg_wrapper",
     "cond_text_wrapper",
     "default_time_ids",
@@ -144,6 +147,33 @@ def build_cfg_fn(unet: Callable, enc: dict, cfg: float, cfg_rescale: float = 0.0
             scale = append_dims(torch.where(in_window, cfg, 1.0).to(x.dtype), x.dim())
         cfg_output = uncond + (cond - uncond) * scale
         return apply_cfg_rescale(cfg_output, cond, cfg_rescale), uncond
+
+    return cfg_fn
+
+
+def build_class_cfg_fn(unet: Callable, class_labels, null_label: int, cfg: float,
+                       cfg_rescale: float = 0.0) -> Callable:
+    """Class-label CFG for the DiT family: ``(x, sigma, sigma_cond=None) ->
+    (guided, uncond)`` over the doubled batch ``[labels, null]`` in one
+    call, the unconditional branch the learned null-class embedding (index
+    ``num_classes``, the one label dropout trains). ``cfg == 1`` is a single
+    conditional pass, ``(out, out)``, with no doubled batch."""
+    class_labels = torch.as_tensor(class_labels)
+
+    def cond_fn(x, sigma, sigma_cond=None):
+        out = unet(x, sigma, sigma_cond=sigma_cond, class_labels=class_labels)
+        return out, out
+
+    if cfg == 1.0:
+        return cond_fn
+    labels2 = torch.cat([class_labels, torch.full_like(class_labels, null_label)])
+
+    def cfg_fn(x, sigma, sigma_cond=None):
+        if sigma_cond is not None:
+            sigma_cond = torch.cat([sigma_cond, sigma_cond])
+        out = unet(torch.cat([x, x]), torch.cat([sigma, sigma]), sigma_cond=sigma_cond, class_labels=labels2)
+        cond, uncond = out.chunk(2)
+        return apply_cfg_rescale(uncond + (cond - uncond) * cfg, cond, cfg_rescale), uncond
 
     return cfg_fn
 

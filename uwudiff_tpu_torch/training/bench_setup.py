@@ -22,7 +22,16 @@ lr 1e-5 and the grad-norm metric on:
   full-block remat), built in bf16 with its zero-initialised leaves drawn
   (``fill_zero_initialised``: at zero ``final_proj`` would send a zero
   gradient to every block), the SDXL recipe's trainer settings, batch 8,
-  77 tokens of 4096-wide context and a 768-wide pooled vector.
+  77 tokens of 4096-wide context and a 768-wide pooled vector;
+- ``model="dit_xl_2"`` (``BENCH_MODEL=dit_xl_2``'s): the class-conditional
+  ``dit_xl_2`` DiT (28 blocks, width 1152, 16 heads of 72; 0.675 G
+  params), batch 64 on 32x32x4 latents (256 tokens; ``bench.py``'s default
+  latent for the DiT family), fp32 master parameters under bf16 compute
+  (the JAX ``param_dtype=None`` over a ``dtype=bfloat16`` module) with its
+  zero-initialised leaves drawn, ``adamw(weight_decay=0.01, betas=(0.9,
+  0.999))``, global-norm clip 1.0, label dropout 0.1 from the trainer's
+  generator; the batch holds ``class_labels`` in ``[0, 1000)`` and no
+  context.
 
 The batch is the model's: latents of its input channels, context of its
 width, and the pooled vector its conditioning takes (SDXL's
@@ -53,7 +62,7 @@ import numpy as np
 import torch
 
 from uwudiff_tpu_torch.diffusion import DiffusionLoss, NoiseSchedule, RectifiedFlowLoss
-from uwudiff_tpu_torch.models import ConcatTextEncoders, Flux, MMDiT, SimpleTokenizer, UNet2DConditionModel
+from uwudiff_tpu_torch.models import ConcatTextEncoders, DiT, Flux, MMDiT, SimpleTokenizer, UNet2DConditionModel
 from uwudiff_tpu_torch.training.textual_inversion import TextualInversionTrainer
 from uwudiff_tpu_torch.training.trainer import DMTrainer
 
@@ -74,27 +83,33 @@ _FACTORED_BF16 = dict(  # bench.py's adamw_factored recipe: bf16 params, update-
     opt_config={"weight_decay": 0.01, "betas": (0.9, 0.999), "clipping_threshold": 1.0},
     grad_clip=None, param_dtype="bfloat16")
 
-# model -> the batch, the model's class, the dtype and options it is built
-# with, and DMTrainer's settings
+# model -> the batch and latent size, the model's class, the dtype and
+# options it is built with, and DMTrainer's settings
 TRAIN_RECIPES = {
-    "sdxl": dict(batch=8, cls=UNet2DConditionModel, dtype=torch.bfloat16, build={}, trainer=_FACTORED_BF16),
-    "sd15": dict(batch=16, cls=UNet2DConditionModel, dtype=torch.float32, build={}, trainer=dict(
+    "sdxl": dict(batch=8, latent=64, cls=UNet2DConditionModel, dtype=torch.bfloat16, build={},
+                 trainer=_FACTORED_BF16),
+    "sd15": dict(batch=16, latent=64, cls=UNet2DConditionModel, dtype=torch.float32, build={}, trainer=dict(
         optimizer="adamw_fp16", opt_config={"weight_decay": 0.01, "betas": (0.9, 0.999)},
         grad_clip=1.0, compute_dtype="bfloat16")),
-    "flux_1b": dict(batch=8, cls=Flux, dtype=torch.bfloat16, build=dict(gradient_checkpointing=True),
+    "flux_1b": dict(batch=8, latent=64, cls=Flux, dtype=torch.bfloat16, build=dict(gradient_checkpointing=True),
                     trainer=_FACTORED_BF16),
+    "dit_xl_2": dict(batch=64, latent=32, cls=DiT, dtype=torch.float32, build={}, trainer=dict(
+        optimizer="adamw", opt_config={"weight_decay": 0.01, "betas": (0.9, 0.999)},
+        grad_clip=1.0, compute_dtype="bfloat16")),
 }
 
 
-def build_trainer_and_batch(batch: int | None = None, latent: int = 64, seed: int = 0, device="cuda",
+def build_trainer_and_batch(batch: int | None = None, latent: int | None = None, seed: int = 0, device="cuda",
                             model: str = "sdxl"):
-    """-> (trainer, batch dict of numpy arrays); ``batch`` defaults to the
-    recipe's (8 for ``sdxl`` and ``flux_1b``, 16 for ``sd15``)."""
+    """-> (trainer, batch dict of numpy arrays); ``batch`` and ``latent``
+    default to the recipe's (8 for ``sdxl`` and ``flux_1b``, 16 for
+    ``sd15``, 64 for ``dit_xl_2``; 64x64 latents, 32x32 for the DiT)."""
     recipe = TRAIN_RECIPES[model]
     batch = batch or recipe["batch"]
+    latent = latent or recipe["latent"]
     torch.manual_seed(seed)
     unet = recipe["cls"].from_config(model, device=device, dtype=recipe["dtype"], **recipe["build"])
-    if isinstance(unet, Flux):
+    if isinstance(unet, (Flux, DiT)):
         fill_zero_initialised(unet)
     trainer = DMTrainer(
         model_config={"unet": unet, "te": None, "vae": None},
@@ -107,9 +122,12 @@ def build_trainer_and_batch(batch: int | None = None, latent: int = 64, seed: in
         **recipe["trainer"],
     )
     rng = np.random.default_rng(seed)
+    sample = rng.standard_normal((batch, latent, latent, getattr(unet, "in_channels", 4)), dtype=np.float32)
+    if isinstance(unet, DiT):  # class-conditional: labels, no text context
+        return trainer, {"sample": sample, "class_labels": rng.integers(0, unet.num_classes, batch).astype(np.int32)}
     ctx_dim = unet.context_dim if isinstance(unet, Flux) else unet.cross_attention_dim
     data = {
-        "sample": rng.standard_normal((batch, latent, latent, getattr(unet, "in_channels", 4)), dtype=np.float32),
+        "sample": sample,
         "ctx": rng.standard_normal((batch, 77, ctx_dim), dtype=np.float32),
         "added_cond": {  # SDXL's micro-conditioning (unused by Flux)
             "time_ids": np.tile(np.asarray([[1024, 1024, 0, 0, 1024, 1024]], np.float32), (batch, 1)),
@@ -124,13 +142,14 @@ def build_trainer_and_batch(batch: int | None = None, latent: int = 64, seed: in
 
 
 def fill_zero_initialised(model):
-    """Give the leaves the JAX init zeroes in the MMDiT and Flux (every
-    adaLN modulation, the final modulation and projection) torch's default
-    Linear draws: at zero they cut the gradient from the loss to the text
-    context, so textual inversion would learn nothing, and a fresh Flux
-    outputs zeros, which every check would pass."""
+    """Give the leaves the JAX init zeroes in the MMDiT, Flux and the DiT
+    (every adaLN modulation, the final modulation and projection) torch's
+    default Linear draws: at zero they cut the gradient from the loss to the
+    text context, so textual inversion would learn nothing, and a fresh Flux
+    or DiT outputs zeros, which every check would pass."""
     for name, m in model.named_modules():
-        if name.rsplit(".", 1)[-1] in ("adaLN", "adaLN_x", "adaLN_ctx", "final_modulation", "final_proj"):
+        if name.rsplit(".", 1)[-1] in ("adaLN", "adaLN_x", "adaLN_ctx", "adaLN_modulation", "final_modulation",
+                                       "final_proj"):
             m.reset_parameters()
     return model
 

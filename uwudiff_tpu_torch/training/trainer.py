@@ -25,7 +25,10 @@ writes the masters and rewrites the working copy from them.
 
 Parity with the JAX ``DMTrainer``: the batch carries precached latents
 (``sample`` or ``latent``; no VAE) and text conditioning (``ctx``,
-``pooled``, ``added_cond.time_ids``); the metrics are ``train/loss``,
+``pooled``, ``added_cond.time_ids``), or, for the class-conditional DiT,
+``class_labels`` (the model called as ``unet(noisy, t, labels,
+train=True)``, its label dropout drawn from the trainer's generator or
+given as ``drop_mask``); the metrics are ``train/loss``,
 ``train/ema_loss``, ``train/lr`` and ``train/grad_norm``. A text encoder
 and its tokenizers are held for subclasses (``TextualInversionTrainer``
 encodes inside its loss); the subclass hooks are the JAX trainer's
@@ -168,9 +171,13 @@ class DMTrainer:
             return {"text_embeds": pooled}
         return {"time_ids": self._put(batch["added_cond"]["time_ids"]), "text_embeds": pooled}
 
-    def _loss_draws(self, noise=None, timesteps=None, time_draws=None):
-        """The loss's injected draws, on the device."""
+    def _loss_draws(self, noise=None, timesteps=None, time_draws=None, drop_mask=None):
+        """The loss's injected draws, on the device, and the class-label
+        dropout's mask (``drop_mask``, taken out again by
+        :meth:`_loss_for_batch`)."""
         draws = {}
+        if drop_mask is not None:
+            draws["drop_mask"] = torch.as_tensor(drop_mask).to(self.device, torch.bool)
         if noise is not None:
             draws["noise"] = self._put(noise)
         if timesteps is not None:
@@ -186,24 +193,38 @@ class DMTrainer:
             raise NotImplementedError("DMTrainer's frozen text-encoder encode is not ported yet"
                                       " (ROADMAP.md, Queue 1)")
         x = self._put(batch["latent"] if "latent" in batch else batch["sample"])
-        ctx = self._put(batch["ctx"]) if batch.get("ctx") is not None else None
-        mask = self._put(batch["ctx_mask"]) if batch.get("ctx_mask") is not None else None
-        added = self._added_cond(batch)
+        draws = dict(draws)
+        drop_mask = draws.pop("drop_mask", None)
+        if "class_labels" in batch:  # class-conditional models (DiT): label dropout inside the model
+            labels = self._put(batch["class_labels"], torch.long)
+
+            def model_fn(noisy, t):
+                return self.unet(noisy, t, labels, train=True, drop_mask=drop_mask, generator=self._gen)
+        else:
+            ctx = self._put(batch["ctx"]) if batch.get("ctx") is not None else None
+            mask = self._put(batch["ctx_mask"]) if batch.get("ctx_mask") is not None else None
+            added = self._added_cond(batch)
+
+            def model_fn(noisy, t):
+                return self.unet(noisy, t, ctx, mask, added)
+
         return self.loss(
-            x, lambda noisy, t: self.unet(noisy, t, ctx, mask, added), generator=self._gen,
+            x, model_fn, generator=self._gen,
             sample_weight=None if batch.get("loss_weight") is None else self._put(batch["loss_weight"]),
             **draws,
         )
 
-    def forward_backward(self, batch: dict, noise=None, timesteps=None, time_draws=None):
+    def forward_backward(self, batch: dict, noise=None, timesteps=None, time_draws=None, drop_mask=None):
         """The loss over ``batch`` and its backward pass: leaves each
         trainable parameter's gradient in ``.grad``. ``noise``,
         ``timesteps`` (``DiffusionLoss``) and ``time_draws``
-        (``RectifiedFlowLoss``) replace the loss's draws. Returns (loss, aux)."""
+        (``RectifiedFlowLoss``) replace the loss's draws, ``drop_mask``
+        ([B] bool) a class-conditional model's label-dropout draw. Returns
+        (loss, aux)."""
         self.setup()
         for _, p in self.params:
             p.grad = None
-        loss, aux = self._loss_for_batch(batch, self._loss_draws(noise, timesteps, time_draws))
+        loss, aux = self._loss_for_batch(batch, self._loss_draws(noise, timesteps, time_draws, drop_mask))
         loss.backward()
         return loss.detach(), aux
 
@@ -254,9 +275,10 @@ class DMTrainer:
         return norm
 
     def train_step(self, batch: dict, noise=None, timesteps=None, sr_bits: dict | None = None,
-                   time_draws=None):
+                   time_draws=None, drop_mask=None):
         """One optimizer step on ``batch``. ``noise`` [B, H, W, C],
         ``timesteps`` [B] and ``time_draws`` [B] replace the loss's draws,
+        ``drop_mask`` [B] the label dropout's,
         ``sr_bits`` (parameter name -> integer tensor of its shape) the
         stochastic-rounding bits. Returns (metrics, aux); the metrics are
         0-dim device tensors and Python floats."""
@@ -265,7 +287,7 @@ class DMTrainer:
         if timing:
             self._events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
             self._events[0].record()
-        loss, aux = self.forward_backward(batch, noise, timesteps, time_draws)
+        loss, aux = self.forward_backward(batch, noise, timesteps, time_draws, drop_mask)
         if timing:
             self._events[1].record()
         norm = self.apply_updates(sr_bits)
