@@ -8,6 +8,8 @@ Phases, each fatal on failure:
   2. kernels - each kernel against its plain PyTorch version on the card,
                in bf16: the forward and backward kernels at the serving,
                training and textual-inversion paths' shapes (CLIP-L/bigG,
+               the UNet's cross-attention over 2 and 4 prompt windows and
+               bigG over a batch of 8 prompts' 4 windows,
                T5-XXL at 256 and at Flux's 512 tokens, the MMDiT's joint
                attention) and at every attention
                shape of the SD1.5 step (batch 16; head dims 40/80/160: the
@@ -174,6 +176,28 @@ Phases, each fatal on failure:
                other kernel; prints the step's ms split into
                forward+backward and optimizer, the peak GiB and the busy
                share.
+ 12. checkpoint - SDXL served from one single-file checkpoint: first a
+               small SDXL-layout stack written as one fp32 file, loaded
+               through loader.apply_load_config on the card (bf16) and on
+               the CPU (fp32), a weighted 4-window prompt through 3 CFG
+               Euler-ancestral steps with the draws given (tolerance 5e-2);
+               then the full-width stack's random bf16 weights rounded
+               through fp16, exported (export_params, diffusers_to_ldm,
+               OpenCLIP naming for bigG) into one fp16 .safetensors in the
+               checkout (removed after), CLIP-size vocab.json/merges.txt
+               from the seed, sdxl_pipeline(ckpt_path=, tokenizer_files=).
+               Checks every file key consumed, every leaf bitwise the
+               rounded source, a plain request's latents bitwise the source
+               stack's, the weighted context against the weights applied by
+               hand, a long prompt's pooled vector against its first
+               window's, and a burst of two weighted, two long (2 and 4+
+               windows) and one plain request through
+               BatchingServer(max_batch=4) at 1024x1024: one group per
+               (prompt_weighting, long_prompt), 44 + 140 x 4 K1 launches a
+               group at D = 64, uint8 images that are not constant; prints
+               the write, read, name-mapping and copy seconds, each group's
+               encode / sample / decode seconds, the BPE host ms and the
+               peak GiB.
 Prints the card's name and power limit, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA is
 unavailable or the package is missing. A full report goes to
@@ -407,6 +431,13 @@ def flash_cases():
         ("train_l2_cross", 8, 256, 77, 20, 64, "none", None),
         ("clip_bigg_causal", 8, 77, 77, 20, 64, "full", None),
         ("clip_l_causal", 8, 77, 77, 12, 64, "full", None),
+        # long prompts: cross-attention over 2 and 4 windows of 77 keys (the
+        # last key tile partial) and bigG over a batch of 8 prompts' 4 windows
+        ("sdxl_l1_cross_154", 8, 4096, 154, 10, 64, "none", None),
+        ("sdxl_l1_cross_308", 8, 4096, 308, 10, 64, "none", None),
+        ("sdxl_l2_cross_154", 8, 1024, 154, 20, 64, "none", None),
+        ("sdxl_l2_cross_308", 8, 1024, 308, 20, 64, "none", None),
+        ("clip_bigg_causal_x4", 32, 77, 77, 20, 64, "full", None),
         ("t5_xxl", 8, 256, 256, 64, 64, "t5", 1.0),
         ("t5_xxl_512", 8, 512, 512, 64, 64, "t5", 1.0),  # the Flux stack's T5-XXL at 512 tokens
         ("mmdit_joint", 8, 1357, 1357, 24, 64, "joint", None),
@@ -3339,6 +3370,430 @@ def train_dit(report, failures):
     return counts, by_dim
 
 
+# ------------------------------------------------------------- checkpoint
+
+# the mixed burst of phase 12: two weighted prompts (nested emphasis), two long
+# ones of ~150 and ~300 BPE tokens, one plain request
+WEIGHTED_PROMPTS = ["a (red:1.3) car, [blurry]",
+                    "a ((lighthouse)) at (dusk:1.2), [[oil painting]], (detailed:0.8) waves"]
+LONG_PHRASES = ["a lighthouse on a rocky coast", "stormy sea at dusk", "oil painting", "dramatic light",
+                "seagulls over the waves", "a small red boat", "wet rocks", "heavy clouds", "distant mountains",
+                "foam and spray", "golden hour", "highly detailed"]
+LONG_TOKENS = (138, 300)  # 2 and 4+ windows of at most 75 tokens, cut after a comma
+PLAIN_PROMPT = "a red fox in snow"
+CLIP_VOCAB = 49408  # CLIP's vocabulary: 512 byte symbols, 48,894 merges, two specials
+
+
+def write_safetensors(path, tensors):
+    """A .safetensors file: the 8-byte little-endian header length, the JSON
+    header (padded to 8 bytes), each tensor's raw bytes in order."""
+    import struct
+
+    names = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16"}
+    header, offset = {}, 0
+    for key, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[key] = {"dtype": names[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return offset + 8 + len(blob)
+
+
+def write_vocab(dirname, n_ids, seed):
+    """A CLIP vocab.json / merges.txt pair of ``n_ids`` ids: the 256 byte
+    symbols in CLIP's order ("!" at 0) and their ``</w>`` forms (ids 0-511),
+    the merges in rank order, each product a new token at id 512 + rank, then
+    ``<|startoftext|>`` and ``<|endoftext|>`` at the top. The merges: first
+    ones drawn from ``seed`` over the non-ASCII byte symbols (no prompt here
+    has them), then, last, the merges that spell this script's prompt words
+    left to right, so the prompts' tokens are the table's top ids."""
+    from uwudiff_tpu_torch.models.tokenizers import _byte_to_unicode
+
+    rng = np.random.default_rng(seed)
+    tokens = list(_byte_to_unicode().values())
+    tokens += [t + "</w>" for t in tokens]
+    known = set(tokens)
+    words = sorted({w for text in WEIGHTED_PROMPTS + LONG_PHRASES + [PLAIN_PROMPT]
+                    for w in re.findall(r"[a-z]+", text.lower())})
+    spelled = []
+    for w in words:
+        for i in range(1, len(w)):
+            end = "</w>" if i == len(w) - 1 else ""
+            if w[: i + 1] + end not in known:
+                spelled.append((w[:i], w[i] + end))
+                known.add(w[: i + 1] + end)
+    inner = [c for c in tokens[:256] if not c.isascii()]  # word-inner tokens: either side of a merge
+    final = [c + "</w>" for c in inner]  # word-final ones: the right side only
+    drawn = []
+    while len(drawn) < n_ids - 514 - len(spelled):
+        a = inner[min(int(rng.exponential(0.15 * len(inner))), len(inner) - 1)]  # the shorter, older tokens first
+        pick = int(rng.integers(len(inner) + len(final)))
+        b = inner[pick] if pick < len(inner) else final[pick - len(inner)]
+        if a + b in known or len(a + b) > 16:
+            continue
+        drawn.append((a, b))
+        known.add(a + b)
+        (final if b.endswith("</w>") else inner).append(a + b)
+    merges = drawn + spelled
+    tokens += [a + b for a, b in merges] + ["<|startoftext|>", "<|endoftext|>"]
+    assert len(tokens) == n_ids == len(set(tokens)), (len(tokens), n_ids)
+    vocab, merges_path = os.path.join(dirname, "vocab.json"), os.path.join(dirname, "merges.txt")
+    with open(vocab, "w", encoding="utf-8") as f:
+        json.dump({t: i for i, t in enumerate(tokens)}, f)
+    with open(merges_path, "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges) + "\n")
+    return vocab, merges_path
+
+
+def sdxl_bundle(unet, te, vae, dtype):
+    """One A1111-layout state dict of an SDXL-layout stack (OpenCLIP naming
+    for the second tower), through the port's export and diffusers_to_ldm."""
+    from uwudiff_tpu_torch.models import import_torch as it
+    from uwudiff_tpu_torch.models.ldm_checkpoint import diffusers_to_ldm
+
+    tes = [it.export_params(m, it.clip_text_key_map, dtype) for m in te.text_models]
+    return diffusers_to_ldm(it.export_params(unet, it.unet_key_map, dtype),
+                            it.export_params(vae, it.vae_key_map, dtype), tes, arch="sdxl")
+
+
+def long_prompt(tok, target):
+    """Comma-separated phrases until ``tok`` counts ``target`` tokens."""
+    phrases, i = [], 0
+    while len(tok.tokenize(", ".join(phrases))) < target:
+        phrases.append(LONG_PHRASES[i % len(LONG_PHRASES)])
+        i += 1
+    return ", ".join(phrases)
+
+
+def check_checkpoint_vs_cpu(tmp, failures) -> float:
+    """The small SDXL-layout stack of check_img2img_vs_cpu written as one fp32
+    single-file checkpoint, loaded through loader.apply_load_config on the
+    CPU (fp32) and on the card (bf16), with CLIPBPETokenizers over a small
+    vocabulary; a weighted long prompt with CFG through 3 Euler-ancestral
+    steps, the init latents and step noise given; the largest difference over
+    the largest latent."""
+    from uwudiff_tpu_torch.diffusion import NoiseSchedule
+    from uwudiff_tpu_torch.loader import ModelLoadConfig, apply_load_config
+    from uwudiff_tpu_torch.models import CLIPBPETokenizer, TextEncodingPipeline
+    from uwudiff_tpu_torch.sampling import KDiffusionDenoiser, build_cfg_fn, encode_cfg_inputs, sample_euler_ancestral
+
+    te, unet, vae = small_sdxl_stack("cpu", torch.float32)
+    path = os.path.join(tmp, "small.safetensors")
+    write_safetensors(path, sdxl_bundle(unet, te.module, vae, None))
+    vocab = write_vocab(tmp, 1024, SEED + 24)
+    steps, sched = 3, NoiseSchedule.sdxl()
+    sigmas = sched.sample_sigmas_descending(steps).numpy()
+    gen = torch.Generator().manual_seed(SEED + 25)
+    x0 = torch.randn((2, 32, 32, 4), generator=gen) * float(np.sqrt(1 + sigmas[0] ** 2))
+    noise = torch.randn((steps, 2, 32, 32, 4), generator=gen)
+    out, windows = {}, None
+    for device, dtype in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+        te, unet, vae = small_sdxl_stack(device, dtype)
+        with torch.no_grad():  # nothing left of the drawn weights: all comes from the file
+            for m in (te.module, unet, vae):
+                for p in m.parameters():
+                    p.zero_()
+        for module, kw in ((unet, {}), (vae, {}), (te.module.text_models[0], {"te_index": 0}),
+                           (te.module.text_models[1], {"te_index": 1})):
+            apply_load_config(module, ModelLoadConfig(path, **kw))
+        tok = CLIPBPETokenizer(*vocab)
+        pipe = TextEncodingPipeline(te.module, [tok, CLIPBPETokenizer(*vocab, pad_token="!")], device=device)
+        prompts = [WEIGHTED_PROMPTS[1] + ", (" + long_prompt(tok, 200) + ":1.1)", PLAIN_PROMPT]
+        with torch.inference_mode():
+            enc = encode_cfg_inputs(prompts, ["blurry", ""], 64, 64, pipe, prompt_weighting=True, long_prompt=True)
+            windows = enc["ctx"].shape[1] // 77
+            cfg_fn = build_cfg_fn(KDiffusionDenoiser(model_fn=unet, schedule=sched.to(device)), enc, CFG)
+            draws = noise.to(device)
+            out[device] = sample_euler_ancestral(
+                cfg_fn, x0.to(device), sigmas,
+                lambda shape, s, s_next: draws[int(np.argmin(np.abs(sigmas[:-1] - s)))]).float().cpu()
+    ref = out["cpu"]
+    err = ((out["cuda"] - ref).abs().max() / ref.abs().max()).item()
+    tol = 5e-2  # phase 9's card-vs-CPU bound
+    log(f"  small SDXL layout from one file, weighted long prompt ({windows} windows), card bf16 vs CPU fp32:"
+        f" rel err {err:.2e} (tol {tol})")
+    if not err <= tol or windows < 2:
+        failures.append(f"checkpoint card vs CPU rel err {err} > {tol} (windows {windows})")
+    return err
+
+
+def decode_ids(tok, ids) -> str:
+    """BPE ids back to the (lower-cased, space-collapsed) text."""
+    from uwudiff_tpu_torch.models.tokenizers import _byte_to_unicode
+
+    inv = {i: t for t, i in tok.encoder.items()}
+    byte = {c: b for b, c in _byte_to_unicode().items()}
+    text = "".join(inv[int(i)] for i in ids).replace("</w>", " ")
+    return bytes(32 if c == " " else byte[c] for c in text).decode("utf-8").strip()
+
+
+def check_prompt_conditioning(te, long_text, failures) -> dict:
+    """The weighted and long-prompt conditioning of ``te`` (a
+    TextEncodingPipeline over two CLIPBPETokenizers, bigG's pooled second),
+    each held exactly against what it should equal, with controls that the
+    check must tell apart from it.
+
+    Weighted: the context of WEIGHTED_PROMPTS[0] equals the weights applied
+    by hand, in the encoding's dtype, to the unweighted encoding of the
+    prompt stripped of its emphasis (the same ids); controls: every weight
+    1 (the unweighted encoding) and the weights one token late. Long: the
+    pooled vector of ``long_text`` equals that of its first window encoded
+    as a short prompt in a batch of as many rows as the long prompt has
+    windows (the same shapes through bigG, so the same GEMMs); controls:
+    the second window so encoded, and the first window in a batch of one
+    (another GEMM shape: bf16 rounding apart)."""
+    from uwudiff_tpu_torch.models.long_prompt import tokenize_long
+    from uwudiff_tpu_torch.models.prompt_weights import parse_weighted_prompt, tokenize_with_weights
+
+    tok_l, tok_g = te.tokenizers
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    with torch.inference_mode():
+        got = te.encode([WEIGHTED_PROMPTS[0]], prompt_weighting=True)[0]
+        stripped = "".join(frag for frag, _ in parse_weighted_prompt(WEIGHTED_PROMPTS[0]))
+        (toks, w), plain = tokenize_with_weights(tok_l, [WEIGHTED_PROMPTS[0]]), tok_l([stripped])
+        ids_same = bool((toks["input_ids"] == plain["input_ids"]).all())
+        emb = te.encode([stripped])[0]
+
+        def by_hand(weights):
+            scaled = emb * torch.as_tensor(weights, device=emb.device).to(emb.dtype)[..., None]
+            return scaled * (emb.mean(dim=(1, 2), keepdim=True) / scaled.mean(dim=(1, 2), keepdim=True))
+
+        weighted = {"exact": torch.equal(got, by_hand(w)), "rel_err": rel(got, by_hand(w)),
+                    "control_all_ones": rel(got, emb), "control_one_token_late": rel(got, by_hand(np.roll(w, 1, 1)))}
+
+        windowed = tokenize_long(tok_g, [long_text])[0]
+        ids, mask = windowed["input_ids"][0].reshape(-1, 77), windowed["attention_mask"][0].reshape(-1, 77)
+        n = ids.shape[0]
+        win = [decode_ids(tok_g, ids[k, 1:int(mask[k].sum()) - 1]) for k in range(2)]  # between BOS and EOS
+        short = tok_g(win[0])
+        first_same = bool((short["input_ids"][0] == ids[0]).all() and (short["attention_mask"][0] == mask[0]).all())
+        pooled_long = te.encode([long_text], long_prompt=True)[2][0]
+        first_n, second_n = (te.encode([text] * n)[2][0] for text in win)
+        first_1 = te.encode([win[0]])[2][0]
+        pooled = {"windows": n, "exact": torch.equal(pooled_long, first_n), "rel_err": rel(pooled_long, first_n),
+                  "control_second_window": rel(pooled_long, second_n),
+                  "control_batch_of_one": rel(pooled_long, first_1)}
+    log(f"  weighted context vs the weights by hand on the unweighted encoding (same ids {ids_same}): bitwise"
+        f" {weighted['exact']} (rel err {weighted['rel_err']:.2e}); controls: every weight 1"
+        f" {weighted['control_all_ones']:.2e}, weights one token late {weighted['control_one_token_late']:.2e}")
+    log(f"  long prompt's pooled vs its first window as a short prompt, batch {n} (re-tokenized to the same ids"
+        f" {first_same}): bitwise {pooled['exact']} (rel err {pooled['rel_err']:.2e}); controls: the second"
+        f" window {pooled['control_second_window']:.2e}, the first at batch 1 {pooled['control_batch_of_one']:.2e}")
+    if not (ids_same and weighted["exact"] and first_same and pooled["exact"]):
+        failures.append(f"checkpoint prompts: ids same {ids_same} first window same {first_same},"
+                        f" weighted {weighted}, pooled {pooled}")
+    if not (weighted["control_all_ones"] > 0 and weighted["control_one_token_late"] > 0
+            and pooled["control_second_window"] > 0):
+        failures.append(f"checkpoint prompts: a control equals the checked result: {weighted}, {pooled}")
+    return {"weighted": weighted, "pooled": pooled, "ids_same": ids_same, "first_window_same": first_same}
+
+
+def checkpoint(report, failures):
+    """SDXL served from one single-file fp16 checkpoint and CLIP-size
+    vocabulary files, with weighted and long prompts (phase 12)."""
+    import shutil
+    import tempfile
+
+    from uwudiff_tpu_torch.models import CLIPBPETokenizer
+    from uwudiff_tpu_torch.models.import_torch import load_torch_state_dict
+    from uwudiff_tpu_torch.models.ldm_checkpoint import ldm_to_diffusers, split_ldm_checkpoint
+    from uwudiff_tpu_torch.models.long_prompt import required_chunks, tokenize_long
+    from uwudiff_tpu_torch.ops import FORWARD_KERNELS, launch_counts, launches_by_head_dim, reset_launch_counts
+    from uwudiff_tpu_torch.serving import BatchingServer, Request, sdxl_pipeline
+
+    out = report["checkpoint"] = {}
+    tmp = tempfile.mkdtemp(prefix="chip_ckpt_", dir=ROOT)  # inside the checkout, git-ignored
+    try:
+        out["small_vs_cpu_rel_err"] = check_checkpoint_vs_cpu(tmp, failures)
+
+        src, t_build = sync_s(sdxl_pipeline, "cuda", torch.bfloat16, SEED)
+        modules = {"unet": src.unet, "vae": src.vae, "clip_l": src.te.module.text_models[0],
+                   "clip_bigg": src.te.module.text_models[1]}
+        with torch.no_grad():  # the weights rounded through fp16, in place
+            for m in modules.values():
+                for p in m.parameters():
+                    p.copy_(p.half())
+        bundle = sdxl_bundle(src.unet, src.te.module, src.vae, torch.float16)
+        n_params = sum(t.numel() for t in bundle.values())
+        need = sum(t.numel() * t.element_size() for t in bundle.values())
+        free = shutil.disk_usage(tmp).free
+        path = os.path.join(tmp, "sdxl_fp16.safetensors")
+        log(f"  {len(bundle)} tensors, {n_params / 1e9:.3f} G params, {need / 2**30:.2f} GiB fp16;"
+            f" {free / 2**30:.1f} GiB free in {tmp}")
+        if free < need + 2**30:
+            failures.append(f"checkpoint: {free} bytes free for a {need}-byte file")
+            return None
+        size, write_s = sync_s(write_safetensors, path, bundle)
+        del bundle
+        torch.cuda.empty_cache()
+        vocab = write_vocab(tmp, CLIP_VOCAB, SEED + 27)
+        log(f"  wrote {size / 2**30:.2f} GiB in {write_s:.1f} s; vocab {os.path.getsize(vocab[0])} +"
+            f" merges {os.path.getsize(vocab[1])} bytes")
+
+        timings = {}
+        t0 = time.perf_counter()
+        pipe = sdxl_pipeline("cuda", torch.bfloat16, SEED + 1, ckpt_path=path, tokenizer_files=[vocab, vocab],
+                             load_timings=timings)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        log(f"  built from the files in {load_s:.1f} s (module build {load_s - sum(timings.values()):.1f},"
+            f" read {timings['read']:.2f}, name mapping {timings['map']:.2f}, copy to the card {timings['copy']:.2f};"
+            f" the file's pages warm from the write) vs a random-weight build {t_build:.1f} s")
+
+        # every key of the file was consumed, every leaf is the rounded source's
+        sd = load_torch_state_dict(path)
+        parts, split = ldm_to_diffusers(sd), split_ldm_checkpoint(sd)
+        covered = len(split["unet"]) + len(split["vae"]) + sum(len(p) for p, _ in split["text_encoders"])
+        loaded = {"unet": pipe.unet, "vae": pipe.vae, "clip_l": pipe.te.module.text_models[0],
+                  "clip_bigg": pipe.te.module.text_models[1]}
+        want = {"unet": parts["unet"], "vae": parts["vae"], "clip_l": parts["text_encoders"][0],
+                "clip_bigg": parts["text_encoders"][1]}
+        leaves, unequal = {}, []
+        for name, m in loaded.items():
+            if m.loaded_keys != set(want[name]):
+                failures.append(f"checkpoint {name}: consumed {len(m.loaded_keys)} of {len(want[name])} keys")
+            pairs = list(zip(modules[name].state_dict().items(), m.state_dict().items(), strict=True))
+            leaves[name] = len(pairs)
+            unequal += [f"{name}.{k}" for (k, a), (_, b) in pairs if not torch.equal(a, b)]
+        del sd, parts, split
+        if covered != len(load_torch_state_dict(path)) or unequal:
+            failures.append(f"checkpoint: {covered} file keys in components; leaves unequal: {unequal[:5]}")
+        out.update(file_gib=size / 2**30, params=n_params, free_gib=free / 2**30, write_s=write_s, load_s=load_s,
+                   load_timings=timings, random_build_s=t_build, leaves=leaves, leaves_unequal=len(unequal))
+        log(f"  strict import: every file key consumed; leaves bitwise the rounded source: {leaves}"
+            f" ({len(unequal)} unequal)")
+
+        # a plain request on the source stack and the loaded one, same tokenizers and seed
+        src.te.tokenizers = pipe.te.tokenizers
+        kw = dict(num_steps=STEPS, num_samples=1, cfg_scale=CFG, width=RES, height=RES, seed=41, return_latents=True)
+        lat_src = src.sample_device(PLAIN_PROMPT, **kw)[0]
+        lat_file = pipe.sample_device(PLAIN_PROMPT, **kw)[0]
+        bitwise = torch.equal(lat_src, lat_file)
+        out["plain_request_bitwise"] = bitwise
+        log(f"  plain request, loaded stack vs source stack: bitwise {bitwise}")
+        if not bitwise:
+            failures.append(f"checkpoint: loaded stack's latents differ from the source's by"
+                            f" {(lat_src - lat_file).abs().max().item()}")
+        del src, modules, lat_src, lat_file
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        tok_l, tok_g = pipe.te.tokenizers
+        longs = [long_prompt(tok_l, n) for n in LONG_TOKENS]
+        lens = [len(tok_l.tokenize(t)) for t in longs]
+        windows = [required_chunks(pipe.te, t) for t in longs]
+        host_ms = {}
+        for name, text in (("77", WEIGHTED_PROMPTS[1]), (str(lens[1]), longs[1])):
+            fresh = CLIPBPETokenizer(*vocab)  # an empty BPE cache
+            t0 = time.perf_counter()
+            fresh.tokenize(text)
+            cold = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            fresh(text, padding="max_length", truncation=True)
+            host_ms[name] = {"cold_ms": cold, "cached_ms": (time.perf_counter() - t0) * 1e3}
+        t0 = time.perf_counter()
+        tokenize_long(tok_g, longs, weighted=False)
+        host_ms["tokenize_long_2_prompts_ms"] = (time.perf_counter() - t0) * 1e3
+        log(f"  long prompts: {lens} tokens, {windows} windows; BPE on the host: {json.dumps(host_ms)}")
+
+        prompts = check_prompt_conditioning(pipe.te, longs[1], failures)
+        if not (windows[0] == 2 and windows[1] >= 4):
+            failures.append(f"checkpoint prompts: windows {windows}, want 2 and at least 4")
+
+        # the mixed burst through the server, one group per (prompt_weighting, long_prompt)
+        groups, inner = [], pipe.sample_device
+        encode, decode = pipe.te.encode, pipe.decode
+
+        def timed_encode(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = encode(*a, **k)
+            torch.cuda.synchronize()
+            groups[-1]["encode_s"] += time.perf_counter() - t0
+            return r
+
+        def timed_decode(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = decode(*a, **k)
+            torch.cuda.synchronize()
+            groups[-1]["decode_s"] += time.perf_counter() - t0
+            return r
+
+        def recording(**kw):
+            groups.append({"key": [kw.get("prompt_weighting", False), kw.get("long_prompt", False)],
+                           "requests": len(set(kw["prompt"])), "batch": kw["num_samples"], "encode_s": 0.0,
+                           "decode_s": 0.0})
+            before, before_d = launch_counts(), launches_by_head_dim()["flash_fwd_sm90"]
+            t0 = time.perf_counter()
+            result = inner(**kw)
+            torch.cuda.synchronize()
+            g = groups[-1]
+            g["total_s"] = time.perf_counter() - t0
+            g["sample_s"] = g["total_s"] - g["encode_s"] - g["decode_s"]
+            after, after_d = launch_counts(), launches_by_head_dim()["flash_fwd_sm90"]
+            g["k1"] = after["flash_fwd_sm90"] - before["flash_fwd_sm90"]
+            g["k1_d64"] = after_d.get(64, 0) - before_d.get(64, 0)
+            return result
+
+        pipe.sample_device, pipe.te.encode, pipe.decode = recording, timed_encode, timed_decode
+        server = BatchingServer(pipe, buckets=[(RES, RES)], max_batch=4, max_wait_s=0.5)
+        burst = [Request(prompt=p, num_steps=STEPS, cfg_scale=CFG, seed=51 + i, width=RES, height=RES,
+                         prompt_weighting=True) for i, p in enumerate(WEIGHTED_PROMPTS)]
+        burst += [Request(prompt=p, num_steps=STEPS, cfg_scale=CFG, seed=53 + i, width=RES, height=RES,
+                          long_prompt=True) for i, p in enumerate(longs)]
+        burst.append(Request(prompt=PLAIN_PROMPT, num_steps=STEPS, cfg_scale=CFG, seed=55, width=RES, height=RES))
+        server.start()
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()  # the main path's run starts here
+            t0 = time.perf_counter()
+            images = [f.result(timeout=900) for f in [server.submit(r) for r in burst]]
+            burst_s = time.perf_counter() - t0
+            counts = launch_counts()  # and ends here
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        finally:
+            server.stop()
+            pipe.sample_device, pipe.te.encode, pipe.decode = inner, encode, decode
+        keys = sorted(tuple(g["key"]) for g in groups)
+        want_k1 = 44 + 140 * STEPS
+        if keys != [(False, False), (False, True), (True, False)] or any(
+                g["k1"] != want_k1 or g["k1_d64"] != want_k1 for g in groups):
+            failures.append(f"checkpoint burst: groups {[(g['key'], g['k1'], g['k1_d64']) for g in groups]},"
+                            f" want one per key with {want_k1} K1 launches at D = 64")
+        for name in FORWARD_KERNELS:
+            if counts[name] == 0:
+                failures.append(f"checkpoint burst: kernel {name} was not launched")
+        check_forward_route(counts, "checkpoint", failures)
+        for i, img in enumerate(images):
+            if img.shape != (RES, RES, 3) or img.dtype.name != "uint8" or int(img.max()) == int(img.min()):
+                failures.append(f"checkpoint image {i}: shape {img.shape} dtype {img.dtype} range"
+                                f" {img.min()}..{img.max()}")
+        with torch.inference_mode():
+            lat = pipe.sample_device(longs[1], num_steps=STEPS, num_samples=1, cfg_scale=CFG, width=RES, height=RES,
+                                     seed=54, return_latents=True, long_prompt=True)[0]
+        if not bool(torch.isfinite(lat).all()):
+            failures.append("checkpoint: non-finite latents for the long prompt")
+        out.update(long_prompt_tokens=lens, long_prompt_windows=windows, bpe_host=host_ms, prompts=prompts,
+                   groups=groups, burst_s=burst_s, peak_memory_gib=peak, launches=counts)
+        for g in groups:
+            log(f"  group {g['key']} ({g['requests']} requests, batch {g['batch']}): encode {g['encode_s']:.3f} s,"
+                f" sample {g['sample_s']:.2f} s, decode {g['decode_s']:.2f} s; K1 {g['k1']} (at D = 64: {g['k1_d64']})")
+        log(f"  burst of {len(burst)} in {burst_s:.2f} s; peak {peak:.1f} GiB; launches {counts}")
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -3364,7 +3819,7 @@ def main() -> int:
     report = {"card": smi, "sm_clock_max_mhz": float(clock), "torch": torch.__version__, "cuda": torch.version.cuda}
     failures: list[str] = []
 
-    log("[1/11] build")
+    log("[1/12] build")
     built = build_all()
     report["build_s"] = built["seconds"]
     log(f"  built in {built['seconds']:.1f} s")
@@ -3388,7 +3843,7 @@ def main() -> int:
         seconds[key] = time.perf_counter() - t0
         return out
 
-    log("[2/11] kernels vs plain (bf16)")
+    log("[2/12] kernels vs plain (bf16)")
     results: list[dict] = []
     for check in (check_flash, check_gn, check_flash_bwd, check_flash_dbias, check_gn_bwd, check_optimizer):
         timed(check.__name__, check, results, failures)
@@ -3399,48 +3854,54 @@ def main() -> int:
     report["ti_step_vs_cpu"] = timed("check_ti_vs_cpu", check_ti_vs_cpu, failures)
     report["flux_train_step_vs_cpu"] = timed("check_flux_train_vs_cpu", check_flux_train_vs_cpu, failures)
 
-    log("[3/11] serve SDXL 1024x1024")
+    log("[3/12] serve SDXL 1024x1024")
     serve_counts = timed("serve", serve, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # the serving stack is gone before the trainer is built
 
-    log("[4/11] train SDXL (full fine-tune, batch 8, 64x64 latents)")
+    log("[4/12] train SDXL (full fine-tune, batch 8, 64x64 latents)")
     counts = timed("train", train, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SDXL trainer before the SD1.5 one
 
-    log("[5/11] train SD1.5 (full fine-tune, batch 16, 64x64 latents)")
+    log("[5/12] train SD1.5 (full fine-tune, batch 16, 64x64 latents)")
     sd15_counts, sd15_by_dim = timed("train_sd15", train_sd15, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SD1.5 trainer before the SD3 one
 
-    log("[6/11] textual inversion SD3-medium + CLIP-L + CLIP-bigG + T5-XXL (batch 8, 64x64x16 latents)")
+    log("[6/12] textual inversion SD3-medium + CLIP-L + CLIP-bigG + T5-XXL (batch 8, 64x64x16 latents)")
     ti_counts = timed("ti", ti, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SD3 trainer before the Flux stack
 
-    log("[7/11] serve Flux (flux_dev + CLIP-L + T5-XXL at 512 tokens) 1024x1024")
+    log("[7/12] serve Flux (flux_dev + CLIP-L + T5-XXL at 512 tokens) 1024x1024")
     flux_counts, flux_d128 = timed("flux", flux, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the Flux serving stack before the flux_1b trainer
 
-    log("[8/11] train flux_1b (full fine-tune, batch 8, 64x64x16 latents, blocks recomputed in the backward)")
+    log("[8/12] train flux_1b (full fine-tune, batch 8, 64x64x16 latents, blocks recomputed in the backward)")
     flux1b_counts, flux1b_by_dim = timed("train_flux", train_flux, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the flux_1b trainer before the SDXL stack with its encoder
 
-    log("[9/11] sampling surface: SDXL 1024x1024 through every sampler, img2img and inpainting, VAE tiles, inversion")
+    log("[9/12] sampling surface: SDXL 1024x1024 through every sampler, img2img and inpainting, VAE tiles, inversion")
     sampling_counts = timed("sampling", sampling_surface, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SDXL stack before the DiT
 
-    log("[10/11] serve DiT-XL/2 (class-conditional, CFG 4.0) at 256x256 and 512x512")
+    log("[10/12] serve DiT-XL/2 (class-conditional, CFG 4.0) at 256x256 and 512x512")
     dit_counts, dit_d72 = timed("dit", dit, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the DiT serving stack before its trainer
 
-    log("[11/11] train dit_xl_2 (full fine-tune, batch 64, 32x32 latents, fp32 masters under bf16 compute)")
+    log("[11/12] train dit_xl_2 (full fine-tune, batch 64, 32x32 latents, fp32 masters under bf16 compute)")
     dit_train_counts, dit_train_by_dim = timed("train_dit", train_dit, report, failures)
+    gc.collect()
+    torch.cuda.empty_cache()  # and the DiT trainer before the SDXL stacks
+
+    log("[12/12] checkpoint: SDXL from one single-file fp16 checkpoint and CLIP-size vocab files,"
+        " weighted and long prompts")
+    ckpt_counts = timed("checkpoint", checkpoint, report, failures) or {}
 
     # (kernel, the case of its row's numbers): the kernels serving SD1.5 at
     # its level-0 self-attention (D = 40) and at level 2 (D = 160): the
@@ -3519,7 +3980,7 @@ def main() -> int:
             serving_launches=serve_counts[name], train_launches=counts[name], sd15_launches=sd15_counts[name],
             ti_launches=ti_counts[name], flux_launches=flux_counts[name], flux_1b_launches=flux1b_counts[name],
             img2img_launches=sampling_counts[name], dit_launches=dit_counts[name],
-            dit_train_launches=dit_train_counts[name],
+            dit_train_launches=dit_train_counts[name], checkpoint_launches=ckpt_counts.get(name, 0),
         ))
     # the update's kernels (no Pallas kernel stood there: optax through XLA),
     # checked and timed over the SDXL step's leaves (O1) and the SD1.5 step's
@@ -3541,7 +4002,7 @@ def main() -> int:
                 serving_launches=serve_counts[name], train_launches=counts[name], sd15_launches=sd15_counts[name],
                 ti_launches=ti_counts[name], flux_launches=flux_counts[name], flux_1b_launches=flux1b_counts[name],
                 img2img_launches=sampling_counts[name], dit_launches=dit_counts[name],
-                dit_train_launches=dit_train_counts[name],
+                dit_train_launches=dit_train_counts[name], checkpoint_launches=ckpt_counts.get(name, 0),
             ))
     report["kernels"] = kernels
     report["device_readings_not_measured"] = UNMEASURED

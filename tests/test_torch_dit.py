@@ -73,7 +73,8 @@ def _jmodel(width, **kw):
 @functools.lru_cache(maxsize=None)
 def _params(width, learn_sigma=False):
     x, t, labels = _inputs(1)
-    return random_params(_jmodel(width, learn_sigma=learn_sigma), x, t, labels, seed=3 + learn_sigma)
+    port = DiT.from_config("tiny", device="cpu", **(D72 if width == "d72" else {}), learn_sigma=learn_sigma)
+    return random_params(_jmodel(width, learn_sigma=learn_sigma), x, t, labels, seed=3 + learn_sigma, like=port)
 
 
 def _port(width, params, **kw):

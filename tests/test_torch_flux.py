@@ -82,8 +82,9 @@ def _flux_pair(**overrides):
     """A tiny JAX Flux, its random params and the port's Flux with them."""
     x, t, ctx, mask, pooled = _inputs()
     jmodel = jflux.Flux.from_config("tiny", **FLUX_OVERRIDES, **overrides)
-    params = random_params(jmodel, x, t, ctx, mask, {"text_embeds": pooled}, seed=4)
-    model = load_jax_params(Flux.from_config("tiny", device="cpu", **FLUX_OVERRIDES, **overrides), params)
+    model = Flux.from_config("tiny", device="cpu", **FLUX_OVERRIDES, **overrides)
+    params = random_params(jmodel, x, t, ctx, mask, {"text_embeds": pooled}, seed=4, like=model)
+    load_jax_params(model, params)
     return jmodel, params, model
 
 
@@ -205,8 +206,7 @@ def test_rf_denoiser_matches_jax():
     assert jax_denoiser_for_loss(JaxRFLoss(schedule=JaxSchedule.sdxl())) is JaxRFDenoiser
 
 
-@pytest.mark.parametrize("arg,value", [("prompt_weighting", True), ("long_prompt", True),
-                                       ("unet_skip_fn", lambda *a: a), ("latent_sharding", "data")])
+@pytest.mark.parametrize("arg,value", [("unet_skip_fn", lambda *a: a), ("latent_sharding", "data")])
 def test_diffusion_sampling_refuses_unported_arguments(arg, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsampling.diffusion_sampling(None, None, None, NoiseSchedule.sdxl(), "a", "", **{arg: value})
@@ -247,7 +247,8 @@ def test_flux_txt2img_matches_jax(flux_pair, monkeypatch):
     prompts, steps, w, seeds = ["a lighthouse at dusk", "a fox"], 2, 32, [5, 9]
     toks = [JaxTokenizer(), JaxTokenizer(model_max_length=T5_LEN)]
     jte = JaxConcat.from_config(TE_CFGS)
-    te_params = random_params(jte, [tok(prompts) for tok in toks], seed=5)
+    te_params = random_params(jte, [tok(prompts) for tok in toks], seed=5,
+                              like=ConcatTextEncoders.from_config(TE_CFGS, device="cpu"))
     jvae = JaxVAE.from_config(VAE_CFG)
     z_probe = np.zeros((1, w, w, 16), np.float32)
     # the decoder's leaves drawn as decode's init draws them; the encoder's (which the port's VAE holds too) beside
@@ -372,7 +373,8 @@ def _jax_flux_programs():
     batch = _step_batch()
     params = random_params(jflux.Flux.from_config("tiny", **STEP_MODEL), batch["sample"][:1],
                            np.zeros((1,), np.float32), batch["ctx"][:1], batch["ctx_mask"][:1],
-                           {"text_embeds": batch["pooled"][:1]}, seed=12)
+                           {"text_embeds": batch["pooled"][:1]}, seed=12,
+                           like=Flux.from_config("tiny", device="cpu", **STEP_MODEL))
     pool = ThreadPoolExecutor(3)
     programs = {}
     for kind in ("eps", "rf"):

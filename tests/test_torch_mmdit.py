@@ -38,7 +38,8 @@ def _inputs(seed=0):
 def test_mmdit_forward_and_input_grads_match_jax():
     x, t, ctx, mask, pooled = _inputs()
     jmodel = JaxMMDiT.from_config("tiny", **SD3_SWITCHES)
-    params = random_params(jmodel, x, t, ctx, mask, {"text_embeds": pooled})
+    params = random_params(jmodel, x, t, ctx, mask, {"text_embeds": pooled},
+                           like=MMDiT.from_config("tiny", device="cpu", **SD3_SWITCHES))
     g = np.random.default_rng(1).standard_normal(x.shape).astype(np.float32)
 
     def loss(ctx, pooled):

@@ -1,12 +1,13 @@
 """The port's models against the JAX package's, on the CPU, in fp32.
 
 Weights: the JAX module's param shapes (``jax.eval_shape`` of its
-``init``) filled with numpy draws from a seed — fan-in-scaled kernels,
-perturbed norm scales and biases, so no layer is the near-zero identity
-the JAX init gives some of them — loaded into the port through
-``convert.load_jax_params``. Tolerances are relative to the output's
-scale, 1e-5 of its max: fp32 sums in another order, through a few
-dozen layers.
+``init``, or the port module's tree where a test passes it as ``like``:
+the same leaves, and the JAX ``apply`` refuses any other) filled with
+numpy draws from a seed — fan-in-scaled kernels, perturbed norm scales
+and biases, so no layer is the near-zero identity the JAX init gives some
+of them — loaded into the port through ``convert.load_jax_params``.
+Tolerances are relative to the output's scale, 1e-5 of its max: fp32
+sums in another order, through a few dozen layers.
 """
 
 import functools
@@ -31,6 +32,7 @@ from uwudiff_tpu_torch.models import (
     ConcatTextEncoders,
     UNet2DConditionModel,
 )
+from uwudiff_tpu_torch.models.import_torch import flax_path
 from uwudiff_tpu_torch.models.layers import LayerNorm, Upsample2D, get_timestep_embedding
 
 
@@ -46,11 +48,43 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def random_params(module, *args, seed=0, method=None):
-    """Param tree of ``module.init(*args)`` filled from numpy."""
+def init_shapes(module, *args, **kw):
+    """``jax.eval_shape`` of ``module.init(key, *args)``: the param tree's
+    shapes. Traced with the ``rbg`` key (one primitive where threefry's
+    hashing is ~100 a draw; the shapes do not depend on the key)."""
+    def rekey(a):  # a threefry key among the arguments (the VAE's sampling key): an rbg one
+        return jax.random.PRNGKey(0) if getattr(a, "dtype", None) == jnp.uint32 and a.shape == (2,) else a
+
+    with jax.default_prng_impl("rbg"):
+        args = jax.tree_util.tree_map(rekey, args)
+        return jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *args, **kw))
+
+
+def port_shapes(module):
+    """The flax param tree's shapes of a port module: its parameters at
+    their flax paths (``import_torch.flax_path``), kernels in flax layout."""
+    tree = {}
+    for name, p in module.named_parameters():
+        *mods, leaf = flax_path(module, name).split("/")
+        shape = tuple(p.shape)
+        if leaf == "kernel":
+            shape = shape[::-1] if len(shape) == 2 else (shape[2], shape[3], shape[1], shape[0])
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = jax.ShapeDtypeStruct(shape, jnp.float32)
+    return tree
+
+
+def random_params(module, *args, seed=0, method=None, like=None):
+    """Param tree of ``module.init(*args)`` filled from numpy. With ``like``
+    (the port's counterpart of ``module``) the tree's shapes are the port
+    module's, and no JAX trace makes them; the draws are the same, leaf for
+    leaf, and the JAX module's ``apply`` raises on a leaf it lacks or that
+    has another shape, so the tree is still held to JAX's."""
     rng = np.random.default_rng(seed)
     kw = {"method": method} if method is not None else {}
-    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *args, **kw))["params"]
+    shapes = port_shapes(like) if like is not None else init_shapes(module, *args, **kw)["params"]
 
     def fill(path, leaf):
         name = path[-1].key
@@ -110,13 +144,14 @@ def test_unet_forward_matches_jax(preset):
     mask = np.ones((2, 7), np.int32)
     mask[1, 4:] = 0
     jmodel = JaxUNet.from_config(preset)
-    params = random_params(jmodel, x, t, ctx, mask, added)
-    ref = jax.jit(jmodel.apply)({"params": params}, x, t, ctx, mask, added)
-    model = load_jax_params(UNet2DConditionModel.from_config(preset, device="cpu"), params)
+    model = UNet2DConditionModel.from_config(preset, device="cpu")
+    params = random_params(jmodel, x, t, ctx, mask, added, like=model)
+    run = compile_fast(jmodel.apply, {"params": params}, x, t, ctx, mask, added)
+    load_jax_params(model, params)
     with torch.no_grad():
         out = model(_t(x), _t(t), _t(ctx), _t(mask),
                     None if added is None else {k: _t(v) for k, v in added.items()})
-    assert_close(out, ref)
+    assert_close(out, run({"params": params}, x, t, ctx, mask, added))
 
 
 def _clip_pair():
@@ -132,8 +167,8 @@ def test_clip_concat_encoders_match_jax():
     tok = JaxTokenizer()
     texts = ["a photo of a cat", "", "an oil painting of a lighthouse at dusk"]
     toks = [tok(texts, padding=True, truncation=True) for _ in range(2)]
-    params = random_params(jmodel, toks)
-    ref = jax.jit(jmodel.apply)({"params": params}, toks)
+    params = random_params(jmodel, toks, like=model)
+    ref = compile_fast(jmodel.apply, {"params": params}, toks)({"params": params}, toks)
     load_jax_params(model, params)
     with torch.no_grad():
         out = model([{k: _t(v) for k, v in t.items()} for t in toks])
@@ -150,7 +185,8 @@ def test_clip_gelu_tower_matches_jax():
     jmodel = JaxCLIP.from_config("tiny", hidden_act="gelu", projection_dim=8)
     ids = np.asarray(JaxTokenizer()(["a red fox", "snow"])["input_ids"])
     params = random_params(jmodel, ids)
-    ref = jax.jit(functools.partial(jmodel.apply, layer_idx=-2))({"params": params}, ids)
+    apply = functools.partial(jmodel.apply, layer_idx=-2)
+    ref = compile_fast(apply, {"params": params}, ids)({"params": params}, ids)
     from uwudiff_tpu_torch.models import CLIPTextModel
 
     model = load_jax_params(
@@ -169,14 +205,16 @@ def test_vae_decode_matches_jax():
     params = random_params(jvae, z, method=jvae.decode)
     # decode-only init has no encoder; the full tree (with encoder and
     # quant_conv) is what checkpoints hold, and the port's VAE holds it all
-    full = random_params(jvae, np.zeros((1, 16, 16, 3), np.float32), jax.random.PRNGKey(1))
+    vae = AutoencoderKL.from_config("tiny", device="cpu")
+    full = random_params(jvae, np.zeros((1, 16, 16, 3), np.float32), jax.random.PRNGKey(1), like=vae)
     full = {**full, "decoder": params["decoder"], "post_quant_conv": params["post_quant_conv"]}
-    ref = jax.jit(functools.partial(jvae.apply, method=jvae.decode))({"params": full}, z)
-    vae = load_jax_params(AutoencoderKL.from_config("tiny", device="cpu"), full)
+    decode = functools.partial(jvae.apply, method=jvae.decode)
+    run = compile_fast(decode, {"params": full}, z)
+    load_jax_params(vae, full)
     with torch.no_grad():
         out = vae.decode(_t(z))
     assert out.shape == (1, 16, 16, 3)
-    assert_close(out, ref)
+    assert_close(out, run({"params": full}, z))
 
 
 def test_convert_raises_on_mismatch():

@@ -324,13 +324,14 @@ def stack():
     """(JAX text pipeline, JAX UNet apply, its params, port text pipeline, port UNet)."""
     jte = JaxConcat.from_config(TE_CFGS)
     tok = JaxTokenizer()
-    te_params = random_params(jte, [tok(PROMPTS + NEGS)] * 2, seed=1)
+    te_params = random_params(jte, [tok(PROMPTS + NEGS)] * 2, seed=1,
+                              like=ConcatTextEncoders.from_config(TE_CFGS, device="cpu"))
     jte_pipe = JaxTEPipeline(jte, te_params, [JaxTokenizer(), JaxTokenizer()])
     junet = JaxUNet.from_config("tiny_sdxl", **UNET)
     ctx = np.zeros((4, 77, 64), np.float32)
     added = {"time_ids": np.zeros((4, 6), np.float32), "text_embeds": np.zeros((4, 32), np.float32)}
     unet_params = random_params(junet, np.zeros((4, *LAT[1:]), np.float32), np.zeros(4, np.float32), ctx, None,
-                                added, seed=2)
+                                added, seed=2, like=UNet2DConditionModel.from_config("tiny_sdxl", device="cpu", **UNET))
     te = load_jax_params(ConcatTextEncoders.from_config(TE_CFGS, device="cpu"), te_params)
     te_pipe = TextEncodingPipeline(te, [SimpleTokenizer(), SimpleTokenizer()], device="cpu")
     unet = load_jax_params(UNet2DConditionModel.from_config("tiny_sdxl", device="cpu", **UNET), unet_params)
@@ -344,7 +345,8 @@ def stack():
 @pytest.fixture(scope="module")
 def vae_pair():
     jvae = JaxVAE.from_config("tiny")
-    params = random_params(jvae, np.zeros((1, 16, 16, 3), np.float32), jax.random.PRNGKey(1), seed=7)
+    params = random_params(jvae, np.zeros((1, 16, 16, 3), np.float32), jax.random.PRNGKey(1), seed=7,
+                           like=AutoencoderKL.from_config("tiny", device="cpu"))
     return jvae, params, load_jax_params(AutoencoderKL.from_config("tiny", device="cpu"), params)
 
 

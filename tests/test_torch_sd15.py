@@ -46,10 +46,11 @@ def test_narrow_sd15_unet_matches_jax_and_its_tree_round_trips():
     t = np.array([10.5, 731.25], np.float32)
     ctx = rng.standard_normal((2, 3, 32)).astype(np.float32)
     jmodel = JaxUNet.from_config("sd15", **NARROW)
-    params = random_params(jmodel, x, t, ctx, None, None)
+    model = UNet2DConditionModel.from_config("sd15", device="cpu", **NARROW)
+    params = random_params(jmodel, x, t, ctx, None, None, like=model)
     assert params["down_0_attn_0"]["proj_in"]["kernel"].shape == (1, 1, 32, 32)  # the 1x1-conv projections
     ref = compile_fast(lambda p, *a: jmodel.apply({"params": p}, *a), params, x, t, ctx)(params, x, t, ctx)
-    model = load_jax_params(UNet2DConditionModel.from_config("sd15", device="cpu", **NARROW), params)
+    load_jax_params(model, params)
     assert isinstance(model.down_0_attn_0.proj_in, torch.nn.Conv2d) and model.addition_embed_type is None
     with torch.no_grad():
         out = model(_t(x), _t(t), _t(ctx))

@@ -81,7 +81,8 @@ def test_sd15_recipe_step_matches_jax():
     kw = dict(lr=1e-4, optimizer="adamw_fp16", opt_config=OPT, use_warm_up=False, grad_clip=1.0, seed=0)
     jtr = JaxTrainer(model_config={"unet": jmodel, "te": None, "vae": None}, param_dtype=None,
                      loss_config=JaxLoss(schedule=JaxSchedule.sd15()), **kw)
-    params = random_params(jmodel, batch["sample"][:1], np.zeros((1,), np.float32), batch["ctx"][:1], None, None)
+    params = random_params(jmodel, batch["sample"][:1], np.zeros((1,), np.float32), batch["ctx"][:1], None, None,
+                           like=UNet2DConditionModel.from_config("tiny", device="cpu"))
     jparams = jax.tree_util.tree_map(jnp.asarray, params)  # fp32: param_dtype=None
     # what DMTrainer.setup builds for a te/vae-free trainer, on one device
     jtr.mesh = make_mesh({"data": 1}, devices=jax.devices()[:1])

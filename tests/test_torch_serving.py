@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from test_torch_models import one_torch_thread  # noqa: F401  (autouse: one torch thread in this module)
-from test_torch_models import random_params
+from test_torch_models import compile_fast, random_params
 from uwudiff_tpu.diffusion.schedules import NoiseSchedule as JaxSchedule
 from uwudiff_tpu.models.text_encoders import ConcatTextEncoders as JaxConcat
 from uwudiff_tpu.models.text_encoders import TextEncodingPipeline as JaxTEPipeline
@@ -66,7 +66,8 @@ def test_cfg_euler_ancestral_sampler_matches_jax():
     steps, cfg = 3, 5.0
     jte = JaxConcat.from_config(TE_CFGS)
     tok = JaxTokenizer()
-    te_params = random_params(jte, [tok(prompts + negs)] * 2, seed=1)
+    te_params = random_params(jte, [tok(prompts + negs)] * 2, seed=1,
+                              like=ConcatTextEncoders.from_config(TE_CFGS, device="cpu"))
     jte_pipe = JaxTEPipeline(jte, te_params, [JaxTokenizer(), JaxTokenizer()])
     jenc = jax_encode_cfg_inputs(prompts, negs, w, h, jte_pipe)
 
@@ -75,6 +76,7 @@ def test_cfg_euler_ancestral_sampler_matches_jax():
     unet_params = random_params(
         junet, x_probe, np.zeros(4, np.float32), np.asarray(jenc["ctx"]), None,
         {k: np.asarray(v) for k, v in jenc["added_cond"].items()}, seed=2,
+        like=UNet2DConditionModel.from_config("tiny_sdxl", device="cpu", **UNET_OVERRIDES),
     )
 
     jsched = JaxSchedule.sdxl()
@@ -93,9 +95,8 @@ def test_cfg_euler_ancestral_sampler_matches_jax():
         return jnp.asarray(noise)[jnp.argmin(jnp.abs(ladder - s))]
 
     jcfg = jax_build_cfg_fn(JaxDenoiser(model_fn=jeps, schedule=jsched), jenc, cfg)
-    ref = jax.jit(functools.partial(jax_sample, jcfg, noise_sampler=jnoise))(
-        jnp.asarray(x0), jnp.asarray(sigmas)
-    )
+    sample = functools.partial(jax_sample, jcfg, noise_sampler=jnoise)
+    run = compile_fast(sample, jnp.asarray(x0), jnp.asarray(sigmas))
 
     te = load_jax_params(ConcatTextEncoders.from_config(TE_CFGS, device="cpu"), te_params)
     te_pipe = TextEncodingPipeline(te, [SimpleTokenizer(), SimpleTokenizer()], device="cpu")
@@ -112,7 +113,7 @@ def test_cfg_euler_ancestral_sampler_matches_jax():
 
         tcfg = build_cfg_fn(KDiffusionDenoiser(model_fn=unet, schedule=NoiseSchedule.sdxl()), enc, cfg)
         out = sample_euler_ancestral(tcfg, torch.from_numpy(x0), sigmas, tnoise)
-    ref = np.asarray(ref)
+    ref = np.asarray(run(jnp.asarray(x0), jnp.asarray(sigmas)))
     assert np.isfinite(out.numpy()).all()
     # fp32 through 3 steps x (CLIP + UNet): 1e-4 of the latents' scale
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-4 * np.abs(ref).max(), rtol=0)
@@ -156,7 +157,7 @@ class _FakePipeline:
         self.calls, self.delay, self.gate = [], delay, gate
 
     def sample_device(self, prompt, neg_prompt, num_steps, num_samples, cfg_scale, width, height,
-                      seed, return_latents):
+                      seed, return_latents, prompt_weighting=False, long_prompt=False):
         if self.gate is not None:
             self.gate.wait(10)
         self.calls.append({"n": num_samples, "seeds": list(seed), "wh": (width, height)})

@@ -58,7 +58,7 @@ def test_t5_forward_and_grads_match_jax():
     which reach it through every layer's attention bias."""
     ids, mask = _t5_inputs()
     jmodel = JaxT5.from_config("tiny")
-    params = random_params(jmodel, ids, mask)
+    params = random_params(jmodel, ids, mask, like=T5EncoderModel.from_config("tiny", device="cpu"))
     g = np.random.default_rng(1).standard_normal((2, ids.shape[1], 32)).astype(np.float32)
 
     def loss(p):

@@ -75,11 +75,12 @@ def _stack():
     rng = np.random.default_rng(0)
     batch = {"latent": rng.standard_normal((B, 8, 8, 4)).astype(np.float32),
              "tokenizer_outputs": [tok(CAPTIONS) for tok in jtr.tokenizers]}
-    te_params = random_params(jtr.te, batch["tokenizer_outputs"], seed=1)
+    te_params = random_params(jtr.te, batch["tokenizer_outputs"], seed=1)  # the enlarged tables
     ctx = np.zeros((B, 77 + T5_LEN, PAD_TO), np.float32)
     mask = np.ones((B, 77 + T5_LEN), np.int32)
     unet_params = random_params(jmm, batch["latent"], np.zeros(B, np.float32), ctx, mask,
-                                {"text_embeds": np.zeros((B, 64), np.float32)}, seed=2)
+                                {"text_embeds": np.zeros((B, 64), np.float32)}, seed=2,
+                                like=MMDiT.from_config("tiny", device="cpu", **MMDIT_CFG))
     rows = {f"text_models_{i}": (0.02 * rng.standard_normal((2, 32))).astype(np.float32) for i in range(3)}
     frozen = {"te": te_params, "unet": unet_params}
     # what TextualInversionTrainer.setup builds, on one device

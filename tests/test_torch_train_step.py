@@ -33,6 +33,7 @@ and the bf16 forward and backward against fp32 on the card by
 
 import copy
 import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -78,25 +79,23 @@ def _tiny_sdxl_params():
     batch = _batch()
     x, t = batch["sample"][:1], np.zeros((1,), np.float32)
     added = {"time_ids": batch["added_cond"]["time_ids"][:1], "text_embeds": batch["pooled"][:1]}
-    return random_params(JaxUNet.from_config("tiny_sdxl"), x, t, batch["ctx"][:1], None, added)
+    return random_params(JaxUNet.from_config("tiny_sdxl"), x, t, batch["ctx"][:1], None, added,
+                         like=UNet2DConditionModel.from_config("tiny_sdxl", device="cpu"))
 
 
 def _params():
     return jax.tree_util.tree_map(np.copy, _tiny_sdxl_params())  # a copy per test: nothing shares its arrays
 
 
-def _pair(param_dtype):
-    """(JAX trainer, port trainer, initial flax params) with equal weights."""
+def _jax_trainer(param_dtype):
+    """The JAX trainer over the module's params, and the batch."""
     batch = _batch()
     compute = jnp.bfloat16 if param_dtype == "bfloat16" else jnp.float32
     jmodel = JaxUNet.from_config("tiny_sdxl", dtype=compute)
-    kw = dict(lr=1e-3, optimizer="adamw_factored", use_warm_up=False, grad_clip=1.0,
-              param_dtype=param_dtype, seed=0, ema_weights_decay=EMA_DECAY)
     jtr = JaxTrainer(model_config={"unet": jmodel, "te": None, "vae": None},
                      opt_config=OPT,
-                     loss_config=JaxLoss(schedule=JaxSchedule.sd15()), **kw)
-    params = _params()
-    jparams = jax.tree_util.tree_map(lambda p: jnp.asarray(p, compute), params)
+                     loss_config=JaxLoss(schedule=JaxSchedule.sd15()), **_trainer_kw(param_dtype))
+    jparams = jax.tree_util.tree_map(lambda p: jnp.asarray(p, compute), _params())
     # what DMTrainer.setup builds for a te/vae-free trainer, on one device
     jtr.mesh = make_mesh({"data": 1}, devices=jax.devices()[:1])
     jtr._batch_sh = batch_sharding(jtr.mesh)
@@ -107,12 +106,47 @@ def _pair(param_dtype):
     jtr.state = jax.device_put(jtr.state, jax.devices()[0])  # committed, as the step returns it
     jtr._train_step = jax.jit(jtr._train_step_impl, donate_argnums=0)
     jtr._built = True
+    return jtr, batch
 
-    unet = load_jax_params(UNet2DConditionModel.from_config("tiny_sdxl", device="cpu"), params)
-    tr = DMTrainer({"unet": unet, "te": None, "vae": None},
-                   opt_config=OPT,
-                   loss_config=DiffusionLoss(schedule=NoiseSchedule.sd15()), device="cpu", **kw)
-    return jtr, tr, batch
+
+def _trainer_kw(param_dtype):
+    return dict(lr=1e-3, optimizer="adamw_factored", use_warm_up=False, grad_clip=1.0,
+                param_dtype=param_dtype, seed=0, ema_weights_decay=EMA_DECAY)
+
+
+def _port_trainer(param_dtype):
+    unet = load_jax_params(UNet2DConditionModel.from_config("tiny_sdxl", device="cpu"), _params())
+    return DMTrainer({"unet": unet, "te": None, "vae": None},
+                     opt_config=OPT,
+                     loss_config=DiffusionLoss(schedule=NoiseSchedule.sd15()), device="cpu",
+                     **_trainer_kw(param_dtype))
+
+
+def _pair(param_dtype):
+    """(JAX trainer, port trainer, batch) with equal weights."""
+    jtr, batch = _jax_trainer(param_dtype)
+    return jtr, _port_trainer(param_dtype), batch
+
+
+def _jax_fp32_steps():
+    """The JAX side of the fp32 test: three steps of the trainer, its step
+    compiled with the suite's cheap LLVM settings (as the SD1.5 step's test
+    does: fp32 sums in another order, inside the tolerances); each step's
+    metrics and aux, the final params and EMA weights, on the host."""
+    jtr, batch = _jax_trainer(None)
+    jtr._train_step = compile_fast(jtr._train_step_impl, jtr.state, jtr.frozen, jtr._put_batch(batch),
+                                   jax.random.PRNGKey(jtr.seed), donate_argnums=0)
+    steps = [jax.device_get(jtr.train_step(batch)) for _ in range(3)]
+    return steps, jax.device_get((jtr.state.params, jtr.state.ema_params)), int(jtr.state.step)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_fp32_steps():
+    """The fp32 test's JAX side, traced, compiled and run in a thread of its
+    own from the module's start (XLA's compile releases the interpreter
+    lock): the module's other tests run beside it, the fp32 test last."""
+    with ThreadPoolExecutor(1) as pool:
+        yield pool.submit(_jax_fp32_steps)
 
 
 def _flat(tree, prefix=""):
@@ -123,55 +157,36 @@ def _flat(tree, prefix=""):
             yield f"{prefix}{k}", np.asarray(v, np.float32)
 
 
-def test_train_steps_match_jax_fp32():
-    jtr, tr, batch = _pair(None)
-    # the JAX step compiled with the suite's cheap LLVM settings (as the SD1.5
-    # step's test does): fp32 sums in another order, inside the tolerances
-    jtr._train_step = compile_fast(jtr._train_step_impl, jtr.state, jtr.frozen, jtr._put_batch(batch),
-                                   jax.random.PRNGKey(jtr.seed), donate_argnums=0)
-    p0 = dict(_flat(to_jax_params(tr.unet)))
-    for _ in range(3):
-        jm, jaux = jtr.train_step(batch)
-        m, aux = tr.train_step(batch, noise=np.asarray(jaux.target), timesteps=np.asarray(jaux.timesteps))
-        for key in ("train/loss", "train/grad_norm", "train/ema_loss", "train/lr"):
-            np.testing.assert_allclose(float(m[key]), float(jm[key]), rtol=1e-5, err_msg=key)
-        np.testing.assert_allclose(aux.pred.detach().numpy(), np.asarray(jaux.pred),
-                                   atol=1e-4 * np.abs(np.asarray(jaux.pred)).max())
-    assert int(jtr.state.step) == tr.step == tr.opt_state.count == 3
-    for jtree, port in ((jtr.state.params, None), (jtr.state.ema_params, tr.ema_weights())):
-        jp = dict(_flat(jax.device_get(jtree)))
-        tp = dict(_flat(to_jax_params(tr.unet, port)))
-        assert set(jp) == set(tp)
-        rel = []
-        for name in jp:
-            jd, td = jp[name] - p0[name], tp[name] - p0[name]
-            assert np.abs(jd).max() > 0, name
-            tol = 2.0**-8 * np.abs(jd).max() + 2.0**-22 * np.abs(jp[name]).max()
-            np.testing.assert_allclose(td, jd, atol=tol, rtol=0, err_msg=name)
-            rel.append(np.abs(td - jd).max() / np.abs(jd).max())
-        assert np.median(rel) <= 1e-4, np.median(rel)
-
-
 def test_bf16_step_with_jax_stochastic_rounding_bits():
     jtr, tr, batch = _pair("bfloat16")
     tr.grad_clip = None  # the updates below are the optimizer's on the raw gradients
     leaves, treedef = jax.tree_util.tree_flatten_with_path(jtr.state.params)
     # the JAX step's keys: rng folded with the step, then 0x5757, one per leaf
     # in flattening order; bits for the first leaf of each kind (Dense and
-    # Conv kernels, biases, norm scales) and every 20th (each leaf shape
-    # costs a compile)
+    # Conv kernels, biases, norm scales) and every 20th, all drawn by one
+    # program (each leaf shape costs its own compile eagerly)
     rng = jax.random.fold_in(jax.random.PRNGKey(0), 0)
     keys = jax.random.split(jax.random.fold_in(rng, 0x5757), len(leaves))
     ema_keys = jax.random.split(jax.random.fold_in(rng, 0x5858), len(leaves))  # the weight EMA's
-    picked, seen = {}, set()
+    chosen, seen = [], set()
     for i, (path, p) in enumerate(leaves):
         kind = (path[-1].key, p.ndim, p.shape[:2] if p.ndim == 4 else ())
         if kind in seen and i % 20:
             continue
         seen.add(kind)
+        chosen.append((i, path, p.shape))
+
+    def draw_bits(ks, eks):
+        return [[jax.random.bits(k[j], shape, jnp.uint32) & 0xFFFF for k in (ks, eks)] for j, (_, _, shape)
+                in enumerate(chosen)]
+
+    idx = np.asarray([i for i, _, _ in chosen])
+    all_bits = compile_fast(draw_bits, keys[idx], ema_keys[idx])(keys[idx], ema_keys[idx])
+    picked = {}
+    for (i, path, _), bits in zip(chosen, all_bits):
         drawn = []
-        for key in (keys[i], ema_keys[i]):
-            tree = np.asarray(jax.random.bits(key, p.shape, jnp.uint32) & 0xFFFF).astype(np.int64)
+        for b in bits:
+            tree = np.asarray(b).astype(np.int64)
             for k in reversed(path):
                 tree = {k.key: tree}
             (name, port_bits), = _jax_state_dict(tree).items()
@@ -196,13 +211,21 @@ def test_bf16_step_with_jax_stochastic_rounding_bits():
     got = dict(_flat(to_jax_params(tr.unet)))
     got_ema = dict(_flat(to_jax_params(tr.unet, tr.ema_weights())))
     keep = np.float32(1.0) - np.float32(min(1.0 / 10.0, EMA_DECAY))  # the JAX step's 1 - d_w at step 0
-    for flax_name, key, _, ema_key, _ in picked.values():
-        want = jax_stochastic_round_add(jnp.asarray(p_flat[flax_name], jnp.bfloat16), u_flat[flax_name], key)
+    # JAX's rounding of every picked leaf's update, and of its EMA's (the EMA
+    # starts at the parameters: e + (1 - d_w) * (p_new - e), rounded with the
+    # 0x5858 keys), in one program
+    names = [v[0] for v in picked.values()]
+    args = ([jnp.asarray(p_flat[n], jnp.bfloat16) for n in names], [u_flat[n] for n in names],
+            [keep * (got[n] - p_flat[n]) for n in names], [v[1] for v in picked.values()],
+            [v[3] for v in picked.values()])
+
+    def round_all(ps, us, es, ks, eks):
+        return [(jax_stochastic_round_add(p, u, k), jax_stochastic_round_add(p, e, ek))
+                for p, u, e, k, ek in zip(ps, us, es, ks, eks)]
+
+    for flax_name, (want, want_ema) in zip(names, compile_fast(round_all, *args)(*args)):
         np.testing.assert_array_equal(got[flax_name], np.asarray(want, np.float32), err_msg=flax_name)
         assert (got[flax_name] != p_flat[flax_name]).any(), flax_name
-        # the EMA starts at the parameters: e + (1 - d_w) * (p_new - e), rounded with the 0x5858 keys
-        want_ema = jax_stochastic_round_add(jnp.asarray(p_flat[flax_name], jnp.bfloat16),
-                                            keep * (got[flax_name] - p_flat[flax_name]), ema_key)
         np.testing.assert_array_equal(got_ema[flax_name], np.asarray(want_ema, np.float32), err_msg=flax_name)
         assert (got_ema[flax_name] != p_flat[flax_name]).any(), flax_name
     assert all(p.dtype == torch.bfloat16 for p in tr.unet.parameters())
@@ -226,3 +249,28 @@ def test_trainer_raises_without_cuda(monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DMTrainer({"unet": unet, "vae": object()}, device="cpu")
     assert DMTrainer({"unet": unet}, device="cpu").device.type == "cpu"
+
+
+def test_train_steps_match_jax_fp32(jax_fp32_steps):
+    tr, batch = _port_trainer(None), _batch()
+    p0 = dict(_flat(to_jax_params(tr.unet)))
+    steps, (jparams, jema), jstep = jax_fp32_steps.result()
+    for jm, jaux in steps:
+        m, aux = tr.train_step(batch, noise=np.asarray(jaux.target), timesteps=np.asarray(jaux.timesteps))
+        for key in ("train/loss", "train/grad_norm", "train/ema_loss", "train/lr"):
+            np.testing.assert_allclose(float(m[key]), float(jm[key]), rtol=1e-5, err_msg=key)
+        np.testing.assert_allclose(aux.pred.detach().numpy(), np.asarray(jaux.pred),
+                                   atol=1e-4 * np.abs(np.asarray(jaux.pred)).max())
+    assert jstep == tr.step == tr.opt_state.count == 3
+    for jtree, port in ((jparams, None), (jema, tr.ema_weights())):
+        jp = dict(_flat(jtree))
+        tp = dict(_flat(to_jax_params(tr.unet, port)))
+        assert set(jp) == set(tp)
+        rel = []
+        for name in jp:
+            jd, td = jp[name] - p0[name], tp[name] - p0[name]
+            assert np.abs(jd).max() > 0, name
+            tol = 2.0**-8 * np.abs(jd).max() + 2.0**-22 * np.abs(jp[name]).max()
+            np.testing.assert_allclose(td, jd, atol=tol, rtol=0, err_msg=name)
+            rel.append(np.abs(td - jd).max() / np.abs(jd).max())
+        assert np.median(rel) <= 1e-4, np.median(rel)

@@ -5,7 +5,9 @@ dual-CLIP text encoding -> CFG Euler-ancestral sampling of the UNet -> VAE
 decode (``serving``). Training: the SDXL full fine-tune step,
 ``training.DMTrainer(...).train_step(batch)`` -> ``DiffusionLoss`` -> the
 UNet's forward and backward -> ``adamw_factored`` with bf16
-stochastic-rounding updates (``training``, ``diffusion``). The TPU's
+stochastic-rounding updates (``training``, ``diffusion``). Weights load
+from torch checkpoints, single-file A1111 ones included (``loader``,
+``models/import_torch.py``, ``models/ldm_checkpoint.py``). The TPU's
 Pallas kernels on those paths, forward and backward, are hand-written
 CUDA kernels under ``csrc/`` (``ops/``), wired into autograd;
 convolutions and matrix products are plain PyTorch, as the JAX package

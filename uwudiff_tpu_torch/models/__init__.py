@@ -10,12 +10,13 @@ from uwudiff_tpu_torch.models.text_encoders import (
     TextEncodingPipeline,
     TextModelExtraConfig,
 )
-from uwudiff_tpu_torch.models.tokenizers import SimpleTokenizer
+from uwudiff_tpu_torch.models.tokenizers import CLIPBPETokenizer, SimpleTokenizer, T5SPTokenizer
 from uwudiff_tpu_torch.models.unet import UNET_PRESETS, UNet2DConditionModel
 from uwudiff_tpu_torch.models.vae import VAE_PRESETS, AutoencoderKL
 
 __all__ = [
     "AutoencoderKL",
+    "CLIPBPETokenizer",
     "CLIPTextModel",
     "CLIP_PRESETS",
     "ConcatTextEncoders",
@@ -27,6 +28,7 @@ __all__ = [
     "MMDiT",
     "SimpleTokenizer",
     "T5EncoderModel",
+    "T5SPTokenizer",
     "T5_PRESETS",
     "TextEncodingPipeline",
     "TextModelExtraConfig",

@@ -6,8 +6,11 @@ after zero-padding features to the widest bucket (or ``pad_context_to``),
 pooled concat, the key mask of the buckets that ask for one, and
 optionally zeroed padding positions. SDXL is CLIP-L + CLIP-bigG in bucket
 0; SD3 adds T5 in bucket 1. ``TextEncodingPipeline`` holds the host-side
-tokenizers and runs the plain (non-nested) ``encode`` path. Long prompts,
-prompt weighting and nested captions come later.
+tokenizers and runs ``encode``: plain, with A1111 emphasis
+(``prompt_weighting``, ``models/prompt_weights.py``) and with prompts past
+CLIP's 77 positions (``long_prompt``, ``models/long_prompt.py``): a CLIP
+given ``[B, n * 77]`` tokens encodes them as ``[B * n, 77]`` in one call.
+Nested caption lists come later.
 """
 
 from __future__ import annotations
@@ -71,6 +74,10 @@ class ConcatTextEncoders(nn.Module):
         for name, model in zip(self.model_names, text_models):
             self.add_module(name, model)
 
+    @property
+    def text_models(self) -> list[nn.Module]:
+        return [getattr(self, name) for name in self.model_names]
+
     @classmethod
     def from_config(
         cls,
@@ -105,10 +112,16 @@ class ConcatTextEncoders(nn.Module):
             if attn_masks[bucket] is None and config.need_mask and not config.pooled_only:
                 attn_masks[bucket] = attn_mask
             if isinstance(model, CLIPTextModel):
-                if input_ids.shape[1] > model.max_position_embeddings:
-                    raise NotImplementedError("long prompts are not ported yet")
-                out = model(input_ids, attn_mask, layer_idx=config.layer_idx)
-                embedding, normed_embedding, pool = out.embedding, out.normed_embedding, out.pooler_output
+                b, s = input_ids.shape
+                win = model.max_position_embeddings
+                if s % win and s > win:
+                    raise ValueError(f"sequence {s} is not a multiple of the CLIP window {win}: tokenize long"
+                                     " prompts with encode(long_prompt=True)")
+                n = max(s // win, 1)  # windows ride the batch: [B, n * win] -> [B * n, win]
+                out = model(input_ids.reshape(b * n, -1), attn_mask.reshape(b * n, -1), layer_idx=config.layer_idx)
+                embedding = out.embedding.reshape(b, s, -1)
+                normed_embedding = out.normed_embedding.reshape(b, s, -1)
+                pool = out.pooler_output.reshape(b, n, -1)[:, 0]  # the first window's
             else:  # T5: the last hidden state, no pooled vector
                 out = model(input_ids, attn_mask)
                 embedding = normed_embedding = out.last_hidden_state
@@ -174,6 +187,24 @@ class TextEncodingPipeline:
         ]
         return self.module(tensors)
 
-    def encode(self, text, **kwargs):
-        """str | list[str] -> (embedding, normed_embedding, pooled, mask)."""
+    def encode(self, text, nested: bool = False, prompt_weighting: bool = False, long_prompt: bool = False,
+               max_chunks: int | None = None, **kwargs):
+        """str | list[str] -> (embedding, normed_embedding, pooled, mask).
+        ``prompt_weighting`` parses ``(emphasis:1.3)`` and scales the token
+        embeddings; ``long_prompt`` chunks past the CLIP window into
+        ``max_chunks`` windows (default: as many as the longest prompt
+        needs); the two compose."""
+        if nested:
+            if long_prompt or prompt_weighting:
+                flag = "long_prompt" if long_prompt else "prompt_weighting"
+                raise NotImplementedError(f"{flag} with nested caption lists is not supported")
+            raise NotImplementedError("nested caption lists are not ported yet")
+        if long_prompt:
+            from uwudiff_tpu_torch.models.long_prompt import encode_long
+
+            return encode_long(self, text, max_chunks=max_chunks, weighted=prompt_weighting)
+        if prompt_weighting:
+            from uwudiff_tpu_torch.models.prompt_weights import encode_weighted
+
+            return encode_weighted(self, text)
         return self.forward(self.tokenize(text, **kwargs))

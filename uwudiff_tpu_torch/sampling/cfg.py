@@ -66,19 +66,27 @@ def cond_text_wrapper(prompt, width: int, height: int, unet: Callable, te, time_
     return model_fn
 
 
-def encode_cfg_inputs(prompt, neg_prompt, width: int, height: int, te, time_ids=None) -> dict:
+def encode_cfg_inputs(prompt, neg_prompt, width: int, height: int, te, time_ids=None,
+                      prompt_weighting: bool = False, long_prompt: bool = False) -> dict:
     """Encode cond and uncond prompts and assemble the doubled-batch
-    conditioning: ``{"ctx", "mask", "added_cond"}``."""
+    conditioning: ``{"ctx", "mask", "added_cond"}``. ``prompt_weighting``
+    parses ``(emphasis:1.3)`` in both prompts; ``long_prompt`` chunks past
+    the CLIP window, cond and uncond to one window count
+    (``required_chunks``), so both halves of the batch share one context
+    length."""
+    kw = dict(padding=True, truncation=True, prompt_weighting=prompt_weighting, long_prompt=long_prompt)
+    if long_prompt:
+        from uwudiff_tpu_torch.models.long_prompt import required_chunks
+
+        kw["max_chunks"] = max(required_chunks(te, prompt), required_chunks(te, neg_prompt))
     n = len(prompt)
     if len(neg_prompt) == n:  # one TE forward for cond+uncond
-        both = te.encode(list(prompt) + list(neg_prompt), padding=True, truncation=True)
+        both = te.encode(list(prompt) + list(neg_prompt), **kw)
         emb, normed_emb, pool, mask = (None if t is None else t[:n] for t in both)
         neg_emb, normed_neg_emb, neg_pool, neg_mask = (None if t is None else t[n:] for t in both)
     else:
-        emb, normed_emb, pool, mask = te.encode(prompt, padding=True, truncation=True)
-        neg_emb, normed_neg_emb, neg_pool, neg_mask = te.encode(
-            neg_prompt, padding=True, truncation=True
-        )
+        emb, normed_emb, pool, mask = te.encode(prompt, **kw)
+        neg_emb, normed_neg_emb, neg_pool, neg_mask = te.encode(neg_prompt, **kw)
     if te.use_normed_ctx:
         emb, neg_emb = normed_emb, normed_neg_emb
     device = emb.device

@@ -22,7 +22,6 @@ from uwudiff_tpu_torch.diffusion.schedules import NoiseSchedule
 from uwudiff_tpu_torch.sampling.cfg import build_cfg_fn, encode_cfg_inputs
 from uwudiff_tpu_torch.sampling.euler import sample_euler_ancestral
 from uwudiff_tpu_torch.sampling.noise import lane_seed, seeded_generator
-from uwudiff_tpu_torch.sampling.sampling import _UNPORTED
 from uwudiff_tpu_torch.sampling.wrapper import KDiffusionDenoiser
 from uwudiff_tpu_torch.utils import truncate_or_pad_to_length, vae_image_postprocess
 
@@ -99,10 +98,6 @@ def image_to_image_sampling(
     latents (fp32, on the device) with ``return_latents`` or no
     ``vae_decode``, else a list of uint8 HWC numpy images."""
     del jit_compile  # eager
-    for name, value in (("prompt_weighting", prompt_weighting), ("long_prompt", long_prompt)):
-        unset, item = _UNPORTED[name]
-        if value != unset:
-            raise NotImplementedError(f"image_to_image_sampling: {name} is not ported yet (ROADMAP.md, {item})")
     if train_schedule is None:
         raise ValueError("train_schedule is required")
     internal_sampling_func = internal_sampling_func or sample_euler_ancestral
@@ -121,7 +116,8 @@ def image_to_image_sampling(
     prompt = truncate_or_pad_to_length(prompt, num_samples, "cycling")
     neg_prompt = truncate_or_pad_to_length(neg_prompt, num_samples, "cycling")
     h_lat, w_lat = init_latent.shape[1:3]
-    enc = encode_cfg_inputs(prompt, neg_prompt, w_lat * vae_downscale, h_lat * vae_downscale, te)
+    enc = encode_cfg_inputs(prompt, neg_prompt, w_lat * vae_downscale, h_lat * vae_downscale, te,
+                            prompt_weighting=prompt_weighting, long_prompt=long_prompt)
     sigmas = img2img_sigmas(train_schedule, num_steps, strength, get_sigma_func=get_sigma_func)
 
     def eps_fn(x, t, encoder_hidden_states=None, encoder_attention_mask=None, added_cond=None):

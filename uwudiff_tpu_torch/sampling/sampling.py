@@ -47,8 +47,6 @@ __all__ = ["class_conditional_sampling", "diffusion_sampling"]
 
 # argument -> (its value that asks for nothing, the ROADMAP item that ports it)
 _UNPORTED = {
-    "prompt_weighting": (False, "Queue 1 item 6"),
-    "long_prompt": (False, "Queue 1 item 6"),
     "unet_skip_fn": (None, "Queue 1 item 15 (skip-layer guidance)"),
     "latent_sharding": (None, "Queue 1 item 17"),
 }
@@ -99,8 +97,7 @@ def diffusion_sampling(
     the per-sample ``noise_sampler`` where it takes one
     (``supports_noise_sampler``), and a seed-derived ``generator`` always."""
     del jit_compile, slg_scale, slg_interval  # eager; SLG needs unet_skip_fn, which raises
-    given = dict(prompt_weighting=prompt_weighting, long_prompt=long_prompt, unet_skip_fn=unet_skip_fn,
-                 latent_sharding=latent_sharding)
+    given = dict(unet_skip_fn=unet_skip_fn, latent_sharding=latent_sharding)
     for name, (unset, item) in _UNPORTED.items():
         if given[name] != unset:
             raise NotImplementedError(f"diffusion_sampling: {name} is not ported yet (ROADMAP.md, {item})")
@@ -112,7 +109,8 @@ def diffusion_sampling(
         raise ValueError(f"{len(prompt)} prompts for {len(neg_prompt)} negative prompts")
     prompt = truncate_or_pad_to_length(prompt, num_samples, padding_mode)
     neg_prompt = truncate_or_pad_to_length(neg_prompt, num_samples, padding_mode)
-    enc = encode_cfg_inputs(prompt, neg_prompt, width, height, te)
+    enc = encode_cfg_inputs(prompt, neg_prompt, width, height, te, prompt_weighting=prompt_weighting,
+                            long_prompt=long_prompt)
 
     def model_fn(x, t, encoder_hidden_states=None, encoder_attention_mask=None, added_cond=None):
         args = (x, t, encoder_hidden_states, encoder_attention_mask, added_cond)

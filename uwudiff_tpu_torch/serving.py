@@ -10,8 +10,11 @@ uint8 decode, tiled with ``vae_tiling``) without waiting on the device, so
 while the dispatcher enqueues the next. Any other ``diffusion_sampling``
 argument (a ladder's ``get_sigma_func``, ``cfg_interval``, ``rescale``)
 goes to ``sample_device`` or a call of the pipeline as a keyword and on to
-``diffusion_sampling``. Adapter hot-swap, int8 weights and latent sharding
-come with the modules they need.
+``diffusion_sampling``; a request's ``prompt_weighting`` and
+``long_prompt`` too. ``sdxl_pipeline`` builds SDXL with random weights or
+from one single-file checkpoint and CLIP's vocabulary files. Adapter
+hot-swap, int8 weights and latent sharding come with the modules they
+need.
 
 ``flux_txt2img`` builds ``flux_dev`` (or another Flux preset) with T5-XXL,
 CLIP-L and the 16-channel decoder; :class:`FluxTxt2Img` serves it through
@@ -41,8 +44,8 @@ from uwudiff_tpu_torch.sampling.sampling import diffusion_sampling
 from uwudiff_tpu_torch.sampling.wrapper import KDiffusionDenoiser, RFDenoiser
 from uwudiff_tpu_torch.utils import resolve_device, truncate_or_pad_to_length, vae_image_postprocess
 
-__all__ = ["BatchingServer", "FluxTxt2Img", "Request", "ServerOverloaded", "Txt2ImgPipeline", "flux_txt2img",
-           "sdxl_pipeline"]
+__all__ = ["BatchingServer", "FluxTxt2Img", "Request", "SDXL_PAD_TOKENS", "ServerOverloaded", "Txt2ImgPipeline",
+           "flux_txt2img", "sdxl_pipeline"]
 
 
 def _cycled_prompts(prompt, neg_prompt, n: int):
@@ -138,17 +141,30 @@ class Txt2ImgPipeline:
                  return_latents=self.vae is None)
 
 
-def sdxl_pipeline(device="cuda", dtype=torch.bfloat16, seed: int = 0, **pipeline_kw) -> Txt2ImgPipeline:
-    """The SDXL serving stack at full width with random weights from
-    ``seed`` (made on ``device``): the ``sdxl`` UNet, ``clip_l`` +
-    ``clip_bigg`` (``layer_idx=-2``, pooled from bigG) with hash
-    tokenizers, the ``sdxl`` VAE (encoder and decoder), ``NoiseSchedule.sdxl()``;
+# CLIP-L pads with its EOS, SDXL's second tokenizer (the published tokenizer_2) with "!"
+SDXL_PAD_TOKENS = (None, "!")
+
+
+def sdxl_pipeline(device="cuda", dtype=torch.bfloat16, seed: int = 0, ckpt_path: str | None = None,
+                  tokenizer_files=None, load_timings: dict | None = None, **pipeline_kw) -> Txt2ImgPipeline:
+    """The SDXL serving stack at full width on ``device`` in ``dtype``: the
+    ``sdxl`` UNet, ``clip_l`` + ``clip_bigg`` (``layer_idx=-2``, pooled from
+    bigG), the ``sdxl`` VAE (encoder and decoder), ``NoiseSchedule.sdxl()``.
+    The weights are random from ``seed``, or with ``ckpt_path`` read from one
+    single-file A1111-layout checkpoint (``model.diffusion_model.*``,
+    ``first_stage_model.*``, ``conditioner.embedders.{0,1}.*``): the file is
+    read and split once (``loader.read_single_file``), the modules are built
+    on ``meta`` and allocated on ``device`` without drawing weights, and each
+    component is imported strictly (bigG's projection width is the file's).
+    The tokenizers hash words, or with ``tokenizer_files`` (one ``(vocab.json, merges.txt)`` pair for each
+    tower) are ``CLIPBPETokenizer``s padding as SDXL's do.
+    ``load_timings`` gains the load's ``read``, ``map`` and ``copy`` seconds;
     ``pipeline_kw`` go to :class:`Txt2ImgPipeline` (``sampler``,
-    ``denoiser_cls``, ``vae_tiling``). Real
-    weights and the BPE tokenizer wait until their files are in the
-    repository."""
+    ``denoiser_cls``, ``vae_tiling``)."""
+    from uwudiff_tpu_torch.loader import read_single_file
     from uwudiff_tpu_torch.models import (
         AutoencoderKL,
+        CLIPBPETokenizer,
         ConcatTextEncoders,
         SimpleTokenizer,
         TextEncodingPipeline,
@@ -156,15 +172,41 @@ def sdxl_pipeline(device="cuda", dtype=torch.bfloat16, seed: int = 0, **pipeline
     )
 
     dev = resolve_device(device)
+    bigg = {"preset": "clip_bigg"}
+    build = dev
+    if ckpt_path is not None:
+        parts = read_single_file(ckpt_path, load_timings)
+        tes = parts.get("text_encoders", [])
+        if len(tes) != 2 or "unet" not in parts or "vae" not in parts:
+            raise ValueError(f"{ckpt_path!r} is not an SDXL checkpoint: components {sorted(parts)},"
+                             f" {len(tes)} text encoder(s)")
+        if "text_projection.weight" in tes[1]:
+            bigg["projection_dim"] = int(tes[1]["text_projection.weight"].shape[0])
+        build = torch.device("meta")
     torch.manual_seed(seed)
-    unet = UNet2DConditionModel.from_config("sdxl", device=dev, dtype=dtype)
+    unet = UNet2DConditionModel.from_config("sdxl", device=build, dtype=dtype)
     te = ConcatTextEncoders.from_config(
         [({"preset": "clip_l"}, {"use_pooled": False, "layer_idx": -2}),
-         ({"preset": "clip_bigg"}, {"use_pooled": True, "layer_idx": -2})],
-        device=dev, dtype=dtype,
+         (bigg, {"use_pooled": True, "layer_idx": -2})],
+        device=build, dtype=dtype,
     )
-    vae = AutoencoderKL.from_config("sdxl", device=dev, dtype=dtype)
-    te_pipe = TextEncodingPipeline(te, [SimpleTokenizer(), SimpleTokenizer()], device=dev)
+    vae = AutoencoderKL.from_config("sdxl", device=build, dtype=dtype)
+    if ckpt_path is not None:
+        from uwudiff_tpu_torch.models import import_torch as it
+
+        for module in (unet, te, vae):
+            module.to_empty(device=dev)
+        clip_l, clip_bigg = te.text_models
+        for module, key_map, part in ((unet, it.unet_key_map, parts["unet"]), (vae, it.vae_key_map, parts["vae"]),
+                                      (clip_l, it.clip_text_key_map, tes[0]),
+                                      (clip_bigg, it.clip_text_key_map, tes[1])):
+            module.loaded_keys = it.import_params(module, part, key_map, strict=True, timings=load_timings)
+    if tokenizer_files is None:
+        tokenizers = [SimpleTokenizer(), SimpleTokenizer()]
+    else:
+        tokenizers = [CLIPBPETokenizer(vocab, merges, pad_token=pad)
+                      for (vocab, merges), pad in zip(tokenizer_files, SDXL_PAD_TOKENS, strict=True)]
+    te_pipe = TextEncodingPipeline(te, tokenizers, device=dev)
     return Txt2ImgPipeline(unet, te_pipe, vae, NoiseSchedule.sdxl(), device=dev, **pipeline_kw)
 
 
@@ -242,6 +284,11 @@ class Request:
     cfg_scale: float = 3.0
     seed: int = 0
     return_latents: bool = False
+    # A1111 (word:1.3) emphasis in prompt and neg_prompt (models/prompt_weights.py)
+    prompt_weighting: bool = False
+    # prompts past CLIP's 77 positions in windows (models/long_prompt.py);
+    # the context's length depends on it
+    long_prompt: bool = False
 
 
 class ServerOverloaded(RuntimeError):
@@ -253,8 +300,9 @@ class BatchingServer:
     """Continuous request batching over a ``Txt2ImgPipeline``.
 
     One dispatcher thread drains the queue, groups compatible requests
-    (same resolution bucket, step count, cfg scale and output kind; the
-    seed is not in the key, since each lane draws from its own seed)
+    (same resolution bucket, step count, cfg scale, output kind, prompt
+    weighting and long-prompt setting; the seed is not in the key, since
+    each lane draws from its own seed)
     into batches of up to ``max_batch``, runs one pipeline call per
     group, and a fetch thread resolves each request's Future with its
     own image. Requests snap to the nearest configured bucket. A group
@@ -352,7 +400,7 @@ class BatchingServer:
 
     def _group_key(self, r: Request):
         w, h = self.nearest_bucket(r.width, r.height)
-        return (w, h, r.num_steps, r.cfg_scale, r.return_latents)
+        return (w, h, r.num_steps, r.cfg_scale, r.return_latents, r.prompt_weighting, r.long_prompt)
 
     def _loop(self):
         pending: list = []
@@ -394,7 +442,7 @@ class BatchingServer:
                 fut.set_exception(RuntimeError("BatchingServer stopped"))
 
     def _run_group(self, key, group):
-        w, h, steps, cfg, return_latents = key
+        w, h, steps, cfg, return_latents, prompt_weighting, long_prompt = key
         reqs = [r for r, _ in group]
         futs = [f for _, f in group]
         n_real = len(reqs)
@@ -410,6 +458,8 @@ class BatchingServer:
             height=h,
             seed=[r.seed for r in reqs] + [reqs[-1].seed] * pad,
             return_latents=return_latents,
+            prompt_weighting=prompt_weighting,
+            long_prompt=long_prompt,
         )
         try:
             # asynchronous: hand the pending device tensor to the fetch

@@ -48,8 +48,11 @@ def build_module(cls, config: dict, device, dtype, construct_in_dtype: bool = Fa
     (torch's default dtype is ``dtype`` while the constructor runs, so no
     fp32 copy is ever made: ``flux_dev`` would take 48 GB in fp32 beside
     its 24 GB in bf16). The other models keep the fp32 draw, which their
-    seeded weights on the card and on the CPU were made from."""
-    dev = resolve_device(device)
+    seeded weights on the card and on the CPU were made from.
+
+    On ``meta`` nothing is drawn: the module has its shapes, dtypes and
+    strides without storage, for ``to_empty`` and an import from a file."""
+    dev = torch.device(device) if torch.device(device).type == "meta" else resolve_device(device)
     saved = torch.get_default_dtype()
     if construct_in_dtype:
         torch.set_default_dtype(dtype)
