@@ -11,7 +11,9 @@ Phases, each fatal on failure:
                the UNet's cross-attention over 2 and 4 prompt windows and
                bigG over a batch of 8 prompts' 4 windows,
                T5-XXL at 256 and at Flux's 512 tokens, the MMDiT's joint
-               attention) and at every attention
+               attention, and SD3-medium's at 1024^2: [8,4429,4429,24,64]
+               for CFG over 4 requests and [4,4429,...] for the skip-layer
+               pass, with the T5 key mask) and at every attention
                shape of the SD1.5 step (batch 16; head dims 40/80/160: the
                Hopper forward, timed beside the mma.sync one it replaced on
                the path, and at 160 the Hopper dQ and dK/dV beside the
@@ -198,6 +200,29 @@ Phases, each fatal on failure:
                the write, read, name-mapping and copy seconds, each group's
                encode / sample / decode seconds, the BPE host ms and the
                peak GiB.
+ 13. sd3     - SD3-medium served from its component files: first a small
+               SD3 stack (4 MMDiT blocks, 2-layer CLIP-L/bigG/T5-XXL, full
+               widths) through skip-layer guidance, card bf16 against CPU
+               fp32 (draws given, tolerance 5e-2); then the full-width
+               sd3_pipeline's random bf16 weights rounded through fp16,
+               each component exported (export_params and its map) into a
+               diffusers-layout fp16 .safetensors in the checkout (removed
+               after), CLIP-size vocab files and a SentencePiece model of
+               T5's 32,100 pieces from the seed,
+               sd3_pipeline(component_files=, tokenizer_files=). Checks
+               every key consumed and every leaf bitwise, T5's prompts at
+               256 tokens; a burst of 4 through BatchingServer(max_batch=4)
+               at 1024x1024 (8 steps, CFG 5, one group of 8 CFG rows, 68 +
+               24 x 8 K1 launches, uint8 images not constant); a lone
+               request with skip-layer guidance (blocks 7-9 skipped, scale
+               2.5, over the first 20 % of the steps: 68 + 45 x 8 K1
+               launches), the same plain and with slg_scale 0 (bitwise the
+               plain latents); then flux_dev's width at 2 + 2 blocks read
+               from files (its transformer's, and SD3's CLIP-L, T5-XXL and
+               VAE files): every leaf bitwise, one 4-step 1024x1024 request
+               (16 K1 launches at D = 128). Prints the write, read,
+               name-mapping and copy seconds, the group's encode / sample /
+               decode seconds, T5's SentencePiece host ms and the peak GiB.
 Prints the card's name and power limit, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA is
 unavailable or the package is missing. A full report goes to
@@ -442,7 +467,18 @@ def flash_cases():
         ("t5_xxl_512", 8, 512, 512, 64, 64, "t5", 1.0),  # the Flux stack's T5-XXL at 512 tokens
         ("mmdit_joint", 8, 1357, 1357, 24, 64, "joint", None),
         ("ragged_keymask", 2, 200, 200, 4, 64, "key", None),
-    ] + SD15_ATTENTION + FLUX_ATTENTION + DIT_ATTENTION
+    ] + SD3_ATTENTION + SD15_ATTENTION + FLUX_ATTENTION + DIT_ATTENTION
+
+
+# SD3-medium served at 1024^2 (phase 13): the MMDiT's joint attention over the
+# CLIP pair's 77, T5's 256 (masked after each prompt's length: a key bias) and
+# 4096 image tokens, CFG over a batch of 4 (8 rows) and the skip-layer pass
+# (one row each); its T5-XXL at 256 tokens and CLIP-L are t5_xxl and
+# clip_l_causal above
+SD3_ATTENTION = [
+    ("sd3_joint_cfg4", 8, 4429, 4429, 24, 64, "joint", None),
+    ("sd3_joint_skip4", 4, 4429, 4429, 24, 64, "joint", None),
+]
 
 
 # DiT-XL/2's attention (16 heads of 72): CFG over 8 labels at 256^2 (the
@@ -3794,6 +3830,367 @@ def checkpoint(report, failures):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phase 13: SD3-medium served from its component files
+SD3_STEPS = 8
+SD3_SKIP = (7, 8, 9)  # Stability's sd3_infer.py SD3.5-medium recipe: blocks 7-9 skipped, scale 2.5
+SD3_SLG = 2.5
+SD3_SLG_STEPS = 0.2  # the recipe's window: the first 20 % of the steps
+SD3_PROMPTS = ["a lighthouse on a rocky coast, golden hour", "a red fox in snow", "stormy sea at dusk, oil painting",
+               "a small red boat, wet rocks, heavy clouds"]
+SD3_SEEDS = [61, 62, 63, 64]
+T5_VOCAB = 32100  # T5's SentencePiece vocabulary: 32,000 pieces and 100 <extra_id_N>
+
+
+def write_spiece(path, seed):
+    """A SentencePiece unigram model of T5's 32,100 pieces: <pad>, </s> and
+    <unk> (ids 0-2), "▁" and the printable ASCII characters alone and after
+    "▁", every word of this script's prompts as "▁word", then pieces of 2-8
+    lower-case letters drawn from ``seed`` (half of them word-initial) to
+    id 31,999, scored by a draw, and <extra_id_0..99> at the top."""
+    from uwudiff_tpu_torch.models.spiece import serialize_sentencepiece_model
+
+    normal, unknown, control, user = 1, 2, 3, 4
+    rng = np.random.default_rng(seed)
+    pieces = [("<pad>", 0.0, control), ("</s>", 0.0, control), ("<unk>", 0.0, unknown), ("\u2581", -3.0, normal)]
+    chars = [chr(c) for c in range(33, 127)]
+    pieces += [(c, -8.0, normal) for c in chars] + [("\u2581" + c, -7.0, normal) for c in chars]
+    words = sorted({w for text in SD3_PROMPTS + LONG_PHRASES + WEIGHTED_PROMPTS + [PLAIN_PROMPT]
+                    for w in re.findall(r"[a-z]+", text.lower())})
+    pieces += [("\u2581" + w, -4.0, normal) for w in words]
+    known = {p for p, _, _ in pieces}
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    while len(pieces) < T5_VOCAB - 100:
+        piece = "".join(rng.choice(letters, int(rng.integers(2, 9))))
+        piece = ("\u2581" + piece) if rng.random() < 0.5 else piece
+        if piece not in known:
+            known.add(piece)
+            pieces.append((piece, float(-rng.uniform(9.0, 16.0)), normal))
+    pieces += [(f"<extra_id_{i}>", 0.0, user) for i in range(100)]
+    with open(path, "wb") as f:
+        f.write(serialize_sentencepiece_model(pieces))
+    return path
+
+
+def sd3_components(pipe):
+    """name -> (module, key map) of an SD3 pipeline, by its diffusers folder."""
+    import functools
+
+    from uwudiff_tpu_torch.models import import_torch as it
+
+    clip_l, clip_bigg, t5 = pipe.te.module.text_models
+    return {"transformer": (pipe.unet, functools.partial(it.mmdit_key_map, depth=pipe.unet.depth)),
+            "text_encoder": (clip_l, it.clip_text_key_map), "text_encoder_2": (clip_bigg, it.clip_text_key_map),
+            "text_encoder_3": (t5, it.t5_key_map), "vae": (pipe.vae, it.vae_key_map)}
+
+
+def write_components(tmp, components, files, sizes):
+    """Each component exported in fp16 (export_params and its map) and
+    written as a diffusers-layout .safetensors, one at a time; the seconds."""
+    from uwudiff_tpu_torch.models import import_torch as it
+
+    t0 = time.perf_counter()
+    for name, (module, key_map) in components.items():
+        path = files[name] = os.path.join(tmp, f"{name}.safetensors")
+        sd = it.export_params(module, key_map, torch.float16)
+        sizes[name] = write_safetensors(path, sd)
+        del sd
+        torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+def unequal_leaves(want: dict, got: dict) -> list:
+    """Names of the leaves that are not bitwise equal (or missing), over
+    ``want``'s modules by name."""
+    bad = []
+    for name, module in want.items():
+        other = got[name].state_dict()
+        bad += [f"{name}.{k}" for k, v in module.state_dict().items() if k not in other or not torch.equal(v, other[k])]
+    return bad
+
+
+def small_sd3_stack(device, dtype):
+    """SD3's whole layout at full width and reduced depth, from one seed:
+    the sd3_medium MMDiT with 4 blocks (the last context_pre_only), CLIP-L,
+    CLIP-bigG and T5-XXL with 2 layers each in SD3's buckets, the
+    zero-initialised leaves drawn; built in fp32 on the CPU, then moved."""
+    from uwudiff_tpu_torch.models import ConcatTextEncoders, MMDiT, SimpleTokenizer, TextEncodingPipeline
+    from uwudiff_tpu_torch.training.bench_setup import SD3_TEXT_ENCODERS, fill_zero_initialised
+
+    torch.manual_seed(SEED + 31)
+    te = ConcatTextEncoders.from_config([({**m, "num_layers": 2}, extra) for m, extra in SD3_TEXT_ENCODERS],
+                                        device="cpu", zero_for_padding=False, pad_context_to=4096)
+    mmdit = fill_zero_initialised(MMDiT.from_config("sd3_medium", device="cpu", depth=4))
+    te, mmdit = (m.to(device=device, dtype=dtype) for m in (te, mmdit))
+    toks = [SimpleTokenizer(), SimpleTokenizer(), SimpleTokenizer(model_max_length=256)]
+    return TextEncodingPipeline(te, toks, device=device), mmdit
+
+
+def check_sd3_vs_cpu(failures) -> dict:
+    """The small SD3 stack through skip-layer guidance (block 1 of 3 joint
+    blocks skipped, scale 2.5, CFG 5, the window over the first step):
+    2 prompts at 256x256, 3 Euler-ancestral steps on SD3's ladder with the
+    init latents and step noise given, the card in bf16 through the kernels
+    against the same weights in fp32 on the CPU through the plain versions
+    (which the CPU tests hold against the JAX package); the largest
+    difference over the largest latent."""
+    import functools
+
+    from uwudiff_tpu_torch.diffusion import NoiseSchedule
+    from uwudiff_tpu_torch.sampling import RFDenoiser, build_slg_cfg_fn, encode_cfg_inputs, sample_euler_ancestral
+    from uwudiff_tpu_torch.serving import sd3_sigmas
+
+    steps, res = 3, 256
+    sigmas = np.asarray(sd3_sigmas(steps), np.float32)
+    window = (0.5 * float(sigmas[0] + sigmas[1]), float(sigmas[0]) + 1.0)
+    gen = torch.Generator().manual_seed(SEED + 32)
+    shape = (2, res // 8, res // 8, 16)
+    x0 = torch.randn(shape, generator=gen) * float(np.sqrt(1 + sigmas[0] ** 2))
+    noise = torch.randn((steps, *shape), generator=gen)
+    out = {}
+    for device, dtype in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+        te, mmdit = small_sd3_stack(device, dtype)
+        sched = NoiseSchedule.sdxl().to(device)
+        with torch.inference_mode():
+            enc = encode_cfg_inputs(SD3_PROMPTS[:2], ["blurry", ""], res, res, te)
+            fn = build_slg_cfg_fn(RFDenoiser(model_fn=mmdit, schedule=sched),
+                                  RFDenoiser(model_fn=functools.partial(mmdit, skip_layers=(1,)), schedule=sched),
+                                  enc, CFG, SD3_SLG, slg_interval=window)
+            draws = noise.to(device)
+            out[device] = sample_euler_ancestral(
+                fn, x0.to(device), sigmas,
+                lambda shape_, s, s_next: draws[int(np.argmin(np.abs(sigmas[:-1] - s)))]).float().cpu()
+        del te, mmdit
+        gc.collect()
+    ref = out["cpu"]
+    err = ((out["cuda"] - ref).abs().max() / ref.abs().max()).item()
+    tol = 5e-2  # the script's card-vs-CPU bound: bf16 weights and activations through a few dozen layers
+    log(f"  small SD3 layout (4 MMDiT blocks, 2-layer towers, full widths), SLG, card bf16 vs CPU fp32:"
+        f" rel err {err:.2e} (tol {tol})")
+    if not (err <= tol and bool(torch.isfinite(out["cuda"]).all())):
+        failures.append(f"sd3 card vs CPU rel err {err} > {tol}")
+    torch.cuda.empty_cache()
+    return {"rel_err": err, "tol": tol}
+
+
+def t5_host_ms(tok, text) -> dict:
+    """SentencePiece on the host: a prompt's Viterbi and its 256-token call."""
+    t0 = time.perf_counter()
+    n = len(tok.tokenize(text))
+    viterbi = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    tok([text], padding=True)
+    return {"pieces": n, "tokenize_ms": viterbi, "call_ms": (time.perf_counter() - t0) * 1e3}
+
+
+def sd3(report, failures):
+    """SD3-medium served from its component files, with skip-layer guidance,
+    and Flux read from files (phase 13)."""
+    import functools
+    import shutil
+    import tempfile
+
+    from uwudiff_tpu_torch.models import FLUX_PRESETS
+    from uwudiff_tpu_torch.models import import_torch as it
+    from uwudiff_tpu_torch.ops import FORWARD_KERNELS, launch_counts, launches_by_head_dim, reset_launch_counts
+    from uwudiff_tpu_torch.serving import BatchingServer, Request, flux_txt2img, sd3_pipeline, sd3_sigmas
+    from uwudiff_tpu_torch.training.bench_setup import fill_zero_initialised
+
+    out = report["sd3"] = {}
+    out["small_vs_cpu"] = check_sd3_vs_cpu(failures)
+    tmp = tempfile.mkdtemp(prefix="chip_sd3_", dir=ROOT)  # inside the checkout, git-ignored
+    try:
+        # (b) the full-width stack's random bf16 weights rounded through fp16, written and read back
+        src, t_build = sync_s(sd3_pipeline, "cuda", torch.bfloat16, SEED)
+        comps = sd3_components(src)
+        with torch.no_grad():
+            for module, _ in comps.values():
+                for p in module.parameters():
+                    p.copy_(p.half())
+        n_params = {name: sum(p.numel() for p in m.parameters()) for name, (m, _) in comps.items()}
+        need = 2 * sum(n_params.values())
+        free = shutil.disk_usage(tmp).free
+        log(f"  sd3_medium stack {sum(n_params.values()) / 1e9:.3f} G params {n_params}, built in {t_build:.1f} s;"
+            f" {need / 2**30:.2f} GiB of fp16 files, {free / 2**30:.1f} GiB free in {tmp}")
+        if free < need + 4 * 2**30:
+            failures.append(f"sd3: {free} bytes free for {need} bytes of files")
+            return None
+        files, sizes = {}, {}
+        write_s = write_components(tmp, comps, files, sizes)
+        vocab = write_vocab(tmp, CLIP_VOCAB, SEED + 33)
+        spm = write_spiece(os.path.join(tmp, "spiece.model"), SEED + 34)
+        log(f"  wrote {sum(sizes.values()) / 2**30:.2f} GiB in {write_s:.1f} s ({json.dumps(sizes)});"
+            f" spiece.model {os.path.getsize(spm)} bytes")
+        timings = {}
+        pipe, load_s = sync_s(sd3_pipeline, "cuda", torch.bfloat16, SEED + 1, component_files=files,
+                              tokenizer_files=[vocab, vocab, spm], load_timings=timings)
+        loaded = sd3_components(pipe)
+        keys_bad = [name for name, (m, _) in loaded.items()
+                    if m.loaded_keys != set(it.load_torch_state_dict(files[name]))]
+        unequal = unequal_leaves({k: m for k, (m, _) in comps.items()}, {k: m for k, (m, _) in loaded.items()})
+        leaves = {name: len(m.state_dict()) for name, (m, _) in loaded.items()}
+        log(f"  built from the files in {load_s:.1f} s (read {timings['read']:.2f}, name mapping {timings['map']:.2f},"
+            f" copy to the card {timings['copy']:.2f}; the files' pages warm from the write) vs a random-weight"
+            f" build {t_build:.1f} s; leaves {leaves}, {len(unequal)} unequal, keys not all consumed: {keys_bad}")
+        if unequal or keys_bad:
+            failures.append(f"sd3 files: leaves unequal {unequal[:5]}, keys not consumed in {keys_bad}")
+        out.update(params=n_params, free_gib=free / 2**30, file_bytes=sizes, write_s=write_s, load_s=load_s,
+                   load_timings=timings, random_build_s=t_build, leaves=leaves, leaves_unequal=len(unequal))
+        del src, comps
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        tok_t5 = pipe.te.tokenizers[2]
+        long_t5 = ", ".join((LONG_PHRASES * 8))
+        t5_ms = {"cold_77": t5_host_ms(tok_t5, SD3_PROMPTS[0]), "long": t5_host_ms(tok_t5, long_t5)}
+        ids = tok_t5([SD3_PROMPTS[0], long_t5], padding=True)
+        log(f"  T5 SentencePiece on the host: {json.dumps(t5_ms)}; ids {ids['input_ids'].shape}, lengths"
+            f" {ids['attention_mask'].sum(1).tolist()}")
+        if ids["input_ids"].shape != (2, 256) or int(ids["attention_mask"][1].sum()) != 256:
+            failures.append(f"sd3 T5 tokens: shape {ids['input_ids'].shape}, long prompt's"
+                            f" {int(ids['attention_mask'][1].sum())} (256 expected)")
+
+        # (c) a burst of 4 through the server: one group, 8 CFG rows; then a lone SLG request
+        per_encode = sum(len(m.layer_names) for m in pipe.te.module.text_models)
+        joint = len(pipe.unet.block_names) + 1
+        groups, inner = [], pipe.sample_device
+        encode, decode = pipe.te.encode, pipe.decode
+
+        def timed(fn, key):
+            def wrapped(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = fn(*a, **k)
+                torch.cuda.synchronize()
+                groups[-1][key] += time.perf_counter() - t0
+                return r
+            return wrapped
+
+        def recording(**kw):
+            groups.append({"requests": len(kw["prompt"]), "batch": kw["num_samples"], "encode_s": 0.0,
+                           "decode_s": 0.0})
+            before, before_d = launch_counts(), launches_by_head_dim()["flash_fwd_sm90"]
+            t0 = time.perf_counter()
+            result = inner(**kw)
+            torch.cuda.synchronize()
+            g = groups[-1]
+            g["total_s"] = time.perf_counter() - t0
+            g["sample_s"] = g["total_s"] - g["encode_s"] - g["decode_s"]
+            after, after_d = launch_counts(), launches_by_head_dim()["flash_fwd_sm90"]
+            g["k1"] = after["flash_fwd_sm90"] - before["flash_fwd_sm90"]
+            g["k1_d64"] = after_d.get(64, 0) - before_d.get(64, 0)
+            return result
+
+        inner(SD3_PROMPTS, num_steps=1, num_samples=4, cfg_scale=CFG, width=RES, height=RES, seed=SD3_SEEDS)
+        torch.cuda.synchronize()  # one warm-up pass at the burst's batch
+        pipe.sample_device, pipe.te.encode, pipe.decode = recording, timed(encode, "encode_s"), timed(decode,
+                                                                                                      "decode_s")
+        server = BatchingServer(pipe, buckets=[(RES, RES)], max_batch=4, max_wait_s=0.5)
+        burst = [Request(prompt=p, num_steps=SD3_STEPS, cfg_scale=CFG, seed=sd, width=RES, height=RES)
+                 for p, sd in zip(SD3_PROMPTS, SD3_SEEDS)]
+        server.start()
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()  # the main path's run starts here
+            t0 = time.perf_counter()
+            images = [f.result(timeout=900) for f in [server.submit(r) for r in burst]]
+            burst_s = time.perf_counter() - t0
+            counts = launch_counts()  # and ends here
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        finally:
+            server.stop()
+            pipe.sample_device, pipe.te.encode, pipe.decode = inner, encode, decode
+        want_k1 = per_encode + joint * SD3_STEPS
+        if [(g["batch"], g["k1"], g["k1_d64"]) for g in groups] != [(4, want_k1, want_k1)] or per_encode != 68:
+            failures.append(f"sd3 burst: groups {groups}, want one of batch 4 with {want_k1} K1 launches at D = 64"
+                            f" (an encode {per_encode}, 68 expected)")
+        for name in FORWARD_KERNELS:
+            if counts[name] == 0:
+                failures.append(f"sd3 burst: kernel {name} was not launched")
+        check_forward_route(counts, "sd3", failures)
+        for i, img in enumerate(images):
+            if img.shape != (RES, RES, 3) or img.dtype.name != "uint8" or int(img.max()) == int(img.min()):
+                failures.append(f"sd3 image {i}: shape {img.shape} dtype {img.dtype} range {img.min()}..{img.max()}")
+
+        sigmas = np.asarray(sd3_sigmas(SD3_STEPS), np.float32)
+        n_in = int(np.ceil(SD3_SLG_STEPS * SD3_STEPS))  # steps 0 .. n_in - 1
+        window = (0.5 * float(sigmas[n_in - 1] + sigmas[n_in]), float(sigmas[0]) + 1.0)
+        slg = dict(unet_skip_fn=functools.partial(pipe.unet, skip_layers=SD3_SKIP), slg_scale=SD3_SLG,
+                   slg_interval=window)
+        kw = dict(num_steps=SD3_STEPS, num_samples=1, cfg_scale=CFG, width=RES, height=RES, seed=71)
+        lone = {}
+        for name, extra in (("slg_image", dict(slg)), ("slg", dict(slg, return_latents=True)),
+                            ("plain", dict(return_latents=True)),
+                            ("slg_scale_0", dict(slg, slg_scale=0.0, return_latents=True))):
+            reset_launch_counts()
+            (res_, _), secs = sync_s(pipe.sample_device, SD3_PROMPTS[1], **kw, **extra)
+            lone[name] = dict(seconds=secs, k1=launch_counts()["flash_fwd_sm90"], out=res_)
+        want = {"slg_image": per_encode + (joint + joint - len(SD3_SKIP)) * SD3_STEPS,
+                "plain": per_encode + joint * SD3_STEPS}
+        want["slg"], want["slg_scale_0"] = want["slg_image"], want["plain"]
+        img = lone["slg_image"]["out"]
+        bitwise = torch.equal(lone["slg_scale_0"]["out"], lone["plain"]["out"])
+        moved = (lone["slg"]["out"] - lone["plain"]["out"]).abs().max().item()
+        finite = bool(torch.isfinite(lone["slg"]["out"]).all())
+        log(f"  lone SLG request (skip {SD3_SKIP}, scale {SD3_SLG}, window {window} over {n_in} of {SD3_STEPS}"
+            f" steps): " + ", ".join(f"{k} {v['seconds']:.2f} s K1 {v['k1']} (want {want[k]})" for k, v in lone.items())
+            + f"; slg_scale 0 bitwise the plain request {bitwise}; SLG moved the latents by {moved:.3e}")
+        if any(v["k1"] != want[k] for k, v in lone.items()) or not bitwise or not moved > 0 or not finite or \
+                img.shape != (1, RES, RES, 3) or int(img.max()) == int(img.min()):
+            failures.append(f"sd3 lone requests: K1 {[(k, v['k1'], want[k]) for k, v in lone.items()]},"
+                            f" slg_scale 0 bitwise {bitwise}, moved {moved}, finite {finite}, image {tuple(img.shape)}")
+        out.update(groups=groups, burst_s=burst_s, peak_memory_gib=peak, launches=counts, t5_host=t5_ms,
+                   k1_per_encode=per_encode, k1_per_cfg_call=joint, k1_per_skip_pass=joint - len(SD3_SKIP),
+                   lone={k: {"seconds": v["seconds"], "k1": v["k1"]} for k, v in lone.items()},
+                   slg_window=window, slg_scale_0_bitwise=bitwise, slg_moved=moved)
+        for g in groups:
+            log(f"  group ({g['requests']} requests, batch {g['batch']}): encode {g['encode_s']:.3f} s,"
+                f" sample {g['sample_s']:.2f} s, decode {g['decode_s']:.2f} s; K1 {g['k1']} (at D = 64: {g['k1_d64']})")
+        log(f"  burst of {len(burst)} in {burst_s:.2f} s; peak {peak:.1f} GiB; launches {counts}")
+        del lone
+
+        # (d) Flux read from files: flux_dev's width at 2 + 2 blocks (to spare the disk), SD3's
+        # CLIP-L, T5-XXL and 16-channel VAE files
+        flux_cfg = {**FLUX_PRESETS["flux_dev"], "depth": 2, "depth_single": 2}
+        fsrc = flux_txt2img("cuda", torch.bfloat16, SEED + 2, flux_config=flux_cfg)
+        fill_zero_initialised(fsrc.model)
+        with torch.no_grad():
+            for p in fsrc.model.parameters():
+                p.copy_(p.half())
+        fsize = {}
+        fwrite_s = write_components(tmp, {"flux": (fsrc.model, it.flux_key_map)}, files, fsize)
+        ffiles = {"transformer": files["flux"], "text_encoder": files["text_encoder"],
+                  "text_encoder_2": files["text_encoder_3"], "vae": files["vae"]}
+        ftimings = {}
+        fpipe, fload_s = sync_s(flux_txt2img, "cuda", torch.bfloat16, SEED + 3, component_files=ffiles,
+                                tokenizer_files=[vocab, spm], load_timings=ftimings, flux_config=flux_cfg)
+        fclip, ft5 = fpipe.te.module.text_models
+        sd3_clip, _, sd3_t5 = pipe.te.module.text_models
+        funequal = unequal_leaves({"transformer": fsrc.model, "text_encoder": sd3_clip, "text_encoder_2": sd3_t5,
+                                   "vae": pipe.vae},
+                                  {"transformer": fpipe.model, "text_encoder": fclip, "text_encoder_2": ft5,
+                                   "vae": fpipe.vae})
+        del fsrc
+        gc.collect()
+        reset_launch_counts()
+        fimg, fserve_s = sync_s(fpipe, SD3_PROMPTS[0], num_steps=4, num_samples=1, seed=81, width=RES, height=RES)
+        fcounts, fby = launch_counts(), launches_by_head_dim()["flash_fwd_sm90"]
+        fd128 = fby.get(128, 0)
+        log(f"  flux_dev width at 2 + 2 blocks from files: transformer {fsize['flux'] / 2**30:.2f} GiB written in"
+            f" {fwrite_s:.1f} s, stack built in {fload_s:.1f} s ({json.dumps(ftimings)}); {len(funequal)} leaves"
+            f" unequal; a 4-step 1024^2 request {fserve_s:.2f} s, K1 at D = 128 {fd128} (16 expected), at D = 64"
+            f" {fby.get(64, 0)} (36 expected)")
+        if funequal or fd128 != 16 or fby.get(64, 0) != 36 or len(fimg) != 1 or fimg[0].shape != (RES, RES, 3) \
+                or int(fimg[0].max()) == int(fimg[0].min()):
+            failures.append(f"flux from files: unequal {funequal[:5]}, D = 128 launches {fd128}, D = 64"
+                            f" {fby.get(64, 0)}, images {[i.shape for i in fimg]}")
+        out["flux_files"] = dict(depth=(2, 2), transformer_bytes=fsize["flux"], write_s=fwrite_s, load_s=fload_s,
+                                 load_timings=ftimings, leaves_unequal=len(funequal), serve_s=fserve_s,
+                                 k1_d128=fd128, k1_d64=fby.get(64, 0), launches=fcounts)
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -3819,7 +4216,7 @@ def main() -> int:
     report = {"card": smi, "sm_clock_max_mhz": float(clock), "torch": torch.__version__, "cuda": torch.version.cuda}
     failures: list[str] = []
 
-    log("[1/12] build")
+    log("[1/13] build")
     built = build_all()
     report["build_s"] = built["seconds"]
     log(f"  built in {built['seconds']:.1f} s")
@@ -3843,7 +4240,7 @@ def main() -> int:
         seconds[key] = time.perf_counter() - t0
         return out
 
-    log("[2/12] kernels vs plain (bf16)")
+    log("[2/13] kernels vs plain (bf16)")
     results: list[dict] = []
     for check in (check_flash, check_gn, check_flash_bwd, check_flash_dbias, check_gn_bwd, check_optimizer):
         timed(check.__name__, check, results, failures)
@@ -3854,54 +4251,60 @@ def main() -> int:
     report["ti_step_vs_cpu"] = timed("check_ti_vs_cpu", check_ti_vs_cpu, failures)
     report["flux_train_step_vs_cpu"] = timed("check_flux_train_vs_cpu", check_flux_train_vs_cpu, failures)
 
-    log("[3/12] serve SDXL 1024x1024")
+    log("[3/13] serve SDXL 1024x1024")
     serve_counts = timed("serve", serve, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # the serving stack is gone before the trainer is built
 
-    log("[4/12] train SDXL (full fine-tune, batch 8, 64x64 latents)")
+    log("[4/13] train SDXL (full fine-tune, batch 8, 64x64 latents)")
     counts = timed("train", train, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SDXL trainer before the SD1.5 one
 
-    log("[5/12] train SD1.5 (full fine-tune, batch 16, 64x64 latents)")
+    log("[5/13] train SD1.5 (full fine-tune, batch 16, 64x64 latents)")
     sd15_counts, sd15_by_dim = timed("train_sd15", train_sd15, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SD1.5 trainer before the SD3 one
 
-    log("[6/12] textual inversion SD3-medium + CLIP-L + CLIP-bigG + T5-XXL (batch 8, 64x64x16 latents)")
+    log("[6/13] textual inversion SD3-medium + CLIP-L + CLIP-bigG + T5-XXL (batch 8, 64x64x16 latents)")
     ti_counts = timed("ti", ti, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SD3 trainer before the Flux stack
 
-    log("[7/12] serve Flux (flux_dev + CLIP-L + T5-XXL at 512 tokens) 1024x1024")
+    log("[7/13] serve Flux (flux_dev + CLIP-L + T5-XXL at 512 tokens) 1024x1024")
     flux_counts, flux_d128 = timed("flux", flux, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the Flux serving stack before the flux_1b trainer
 
-    log("[8/12] train flux_1b (full fine-tune, batch 8, 64x64x16 latents, blocks recomputed in the backward)")
+    log("[8/13] train flux_1b (full fine-tune, batch 8, 64x64x16 latents, blocks recomputed in the backward)")
     flux1b_counts, flux1b_by_dim = timed("train_flux", train_flux, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the flux_1b trainer before the SDXL stack with its encoder
 
-    log("[9/12] sampling surface: SDXL 1024x1024 through every sampler, img2img and inpainting, VAE tiles, inversion")
+    log("[9/13] sampling surface: SDXL 1024x1024 through every sampler, img2img and inpainting, VAE tiles, inversion")
     sampling_counts = timed("sampling", sampling_surface, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SDXL stack before the DiT
 
-    log("[10/12] serve DiT-XL/2 (class-conditional, CFG 4.0) at 256x256 and 512x512")
+    log("[10/13] serve DiT-XL/2 (class-conditional, CFG 4.0) at 256x256 and 512x512")
     dit_counts, dit_d72 = timed("dit", dit, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the DiT serving stack before its trainer
 
-    log("[11/12] train dit_xl_2 (full fine-tune, batch 64, 32x32 latents, fp32 masters under bf16 compute)")
+    log("[11/13] train dit_xl_2 (full fine-tune, batch 64, 32x32 latents, fp32 masters under bf16 compute)")
     dit_train_counts, dit_train_by_dim = timed("train_dit", train_dit, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the DiT trainer before the SDXL stacks
 
-    log("[12/12] checkpoint: SDXL from one single-file fp16 checkpoint and CLIP-size vocab files,"
+    log("[12/13] checkpoint: SDXL from one single-file fp16 checkpoint and CLIP-size vocab files,"
         " weighted and long prompts")
     ckpt_counts = timed("checkpoint", checkpoint, report, failures) or {}
+    gc.collect()
+    torch.cuda.empty_cache()  # and the SDXL stacks before SD3's
+
+    log("[13/13] sd3: SD3-medium from its component files at 1024x1024 (a burst of 4, a skip-layer-guided request),"
+        " Flux from files")
+    sd3_counts = timed("sd3", sd3, report, failures) or {}
 
     # (kernel, the case of its row's numbers): the kernels serving SD1.5 at
     # its level-0 self-attention (D = 40) and at level 2 (D = 160): the
@@ -3920,6 +4323,7 @@ def main() -> int:
                  ("flash_bwd_dkv_sm90", "flux_1b_train"), ("flash_bwd_dq_mma", "sd15_l2_self"),
                  ("flash_bwd_dkv_mma", "sd15_l2_self"), ("flash_bwd_dq_dbias", "t5_xxl"),
                  ("flash_bwd_dq_dbias", "d128"), ("flash_fwd_sm90", "dit_cfg8_256"),
+                 ("flash_fwd_sm90", "sd3_joint_cfg4"),
                  ("flash_fwd_sm90", "dit_xl_2_train"), ("flash_bwd_dq_sm90", "dit_xl_2_train"),
                  ("flash_bwd_dkv_sm90", "dit_xl_2_train"),
                  ("gn_silu_fused", "8x4096x320"), ("gn_stats", "8x16384x960"), ("gn_silu_apply", "8x16384x960"),
@@ -3949,8 +4353,9 @@ def main() -> int:
     # SD1.5's head dims the SD1.5 step's at the row's head dim, at the
     # flux_1b step's shape that step's at D = 128, the forward's at flux_dev's
     # the Flux runs' (a lone request and a batch of 4), at DiT-XL/2's D = 72
-    # the DiT serving runs' (the forward) or the dit_xl_2 step's, the others'
-    # the SDXL training step's
+    # the DiT serving runs' (the forward) or the dit_xl_2 step's, at SD3's
+    # joint attention the SD3 burst's (phase 13), the others' the SDXL
+    # training step's
     path_counts = {"flash_bwd_dq_dbias": ti_counts, "gn_stats": serve_counts, "gn_silu_apply": serve_counts}
     kernels = []
     for name, case in main_case:
@@ -3964,6 +4369,8 @@ def main() -> int:
             launches = dit_train_by_dim[name].get(72, 0)
         elif case == "dit_cfg8_256":
             launches = dit_d72
+        elif case == "sd3_joint_cfg4":
+            launches = sd3_counts.get(name, 0)
         elif name == "flash_fwd_sm90" and d == 128:
             launches = flux_d128
         else:
@@ -3981,6 +4388,7 @@ def main() -> int:
             ti_launches=ti_counts[name], flux_launches=flux_counts[name], flux_1b_launches=flux1b_counts[name],
             img2img_launches=sampling_counts[name], dit_launches=dit_counts[name],
             dit_train_launches=dit_train_counts[name], checkpoint_launches=ckpt_counts.get(name, 0),
+            sd3_launches=sd3_counts.get(name, 0),
         ))
     # the update's kernels (no Pallas kernel stood there: optax through XLA),
     # checked and timed over the SDXL step's leaves (O1) and the SD1.5 step's
@@ -4003,6 +4411,7 @@ def main() -> int:
                 ti_launches=ti_counts[name], flux_launches=flux_counts[name], flux_1b_launches=flux1b_counts[name],
                 img2img_launches=sampling_counts[name], dit_launches=dit_counts[name],
                 dit_train_launches=dit_train_counts[name], checkpoint_launches=ckpt_counts.get(name, 0),
+                sd3_launches=sd3_counts.get(name, 0),
             ))
     report["kernels"] = kernels
     report["device_readings_not_measured"] = UNMEASURED

@@ -206,7 +206,7 @@ def test_rf_denoiser_matches_jax():
     assert jax_denoiser_for_loss(JaxRFLoss(schedule=JaxSchedule.sdxl())) is JaxRFDenoiser
 
 
-@pytest.mark.parametrize("arg,value", [("unet_skip_fn", lambda *a: a), ("latent_sharding", "data")])
+@pytest.mark.parametrize("arg,value", [("latent_sharding", "data")])
 def test_diffusion_sampling_refuses_unported_arguments(arg, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsampling.diffusion_sampling(None, None, None, NoiseSchedule.sdxl(), "a", "", **{arg: value})

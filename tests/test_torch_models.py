@@ -10,8 +10,6 @@ Tolerances are relative to the output's scale, 1e-5 of its max: fp32
 sums in another order, through a few dozen layers.
 """
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -138,37 +136,81 @@ def _t(a):
     return None if a is None else torch.from_numpy(np.asarray(a))
 
 
-@pytest.mark.parametrize("preset", ["tiny_sdxl", "tiny"])
-def test_unet_forward_matches_jax(preset):
+UNET_PRESETS = ["tiny_sdxl", "tiny"]
+CLIP_CFGS = [
+    ({"model_type": "clip", "preset": "tiny"}, {"use_pooled": False, "layer_idx": -2}),
+    ({"model_type": "clip", "preset": "tiny"}, {"use_pooled": True, "layer_idx": -2}),
+]
+
+
+def _unet_case(preset):
     x, t, ctx, added = unet_inputs(preset)
     mask = np.ones((2, 7), np.int32)
     mask[1, 4:] = 0
-    jmodel = JaxUNet.from_config(preset)
-    model = UNet2DConditionModel.from_config(preset, device="cpu")
-    params = random_params(jmodel, x, t, ctx, mask, added, like=model)
-    run = compile_fast(jmodel.apply, {"params": params}, x, t, ctx, mask, added)
-    load_jax_params(model, params)
+    return x, t, ctx, mask, added
+
+
+def _clip_tokens():
+    tok = JaxTokenizer()
+    texts = ["a photo of a cat", "", "an oil painting of a lighthouse at dusk"]
+    return [tok(texts, padding=True, truncation=True) for _ in range(2)]
+
+
+def _gelu_ids():
+    return np.asarray(JaxTokenizer()(["a red fox", "snow"])["input_ids"])
+
+
+@pytest.fixture(scope="module")
+def model_refs():
+    """name -> (JAX params, JAX output) of the module's model tests, every
+    output computed in one program (``compile_fast``)."""
+    jax_models, params, args = {}, {}, {}
+    for preset in UNET_PRESETS:
+        jax_models[preset] = JaxUNet.from_config(preset)
+        args[preset] = _unet_case(preset)
+        params[preset] = random_params(jax_models[preset], *args[preset],
+                                       like=UNet2DConditionModel.from_config(preset, device="cpu"))
+    jax_models["clip"] = JaxConcat.from_config(CLIP_CFGS)
+    args["clip"] = (_clip_tokens(),)
+    params["clip"] = random_params(jax_models["clip"], *args["clip"],
+                                   like=ConcatTextEncoders.from_config(CLIP_CFGS, device="cpu"))
+    jax_models["gelu"] = JaxCLIP.from_config("tiny", hidden_act="gelu", projection_dim=8)
+    args["gelu"] = (_gelu_ids(),)
+    params["gelu"] = random_params(jax_models["gelu"], *args["gelu"])
+    z = np.random.default_rng(3).standard_normal((1, 8, 8, 4)).astype(np.float32)
+    jvae = jax_models["vae"] = JaxVAE.from_config("tiny")
+    args["vae"] = (z,)
+    # decode-only init has no encoder; the full tree (with encoder and
+    # quant_conv) is what checkpoints hold, and the port's VAE holds it all
+    decoder = random_params(jvae, z, method=jvae.decode)
+    full = random_params(jvae, np.zeros((1, 16, 16, 3), np.float32), jax.random.PRNGKey(1),
+                         like=AutoencoderKL.from_config("tiny", device="cpu"))
+    params["vae"] = {**full, "decoder": decoder["decoder"], "post_quant_conv": decoder["post_quant_conv"]}
+    kw = {"gelu": {"layer_idx": -2}, "vae": {"method": jvae.decode}}
+
+    def run(params, args):
+        return {name: m.apply({"params": params[name]}, *args[name], **kw.get(name, {}))
+                for name, m in jax_models.items()}
+
+    outs = compile_fast(run, params, args)(params, args)
+    return {name: (params[name], outs[name]) for name in jax_models}
+
+
+@pytest.mark.parametrize("preset", UNET_PRESETS)
+def test_unet_forward_matches_jax(model_refs, preset):
+    x, t, ctx, mask, added = _unet_case(preset)
+    params, ref = model_refs[preset]
+    model = load_jax_params(UNet2DConditionModel.from_config(preset, device="cpu"), params)
     with torch.no_grad():
         out = model(_t(x), _t(t), _t(ctx), _t(mask),
                     None if added is None else {k: _t(v) for k, v in added.items()})
-    assert_close(out, run({"params": params}, x, t, ctx, mask, added))
+    assert_close(out, ref)
 
 
-def _clip_pair():
-    cfgs = [
-        ({"model_type": "clip", "preset": "tiny"}, {"use_pooled": False, "layer_idx": -2}),
-        ({"model_type": "clip", "preset": "tiny"}, {"use_pooled": True, "layer_idx": -2}),
-    ]
-    return JaxConcat.from_config(cfgs), ConcatTextEncoders.from_config(cfgs, device="cpu")
-
-
-def test_clip_concat_encoders_match_jax():
-    jmodel, model = _clip_pair()
-    tok = JaxTokenizer()
-    texts = ["a photo of a cat", "", "an oil painting of a lighthouse at dusk"]
-    toks = [tok(texts, padding=True, truncation=True) for _ in range(2)]
-    params = random_params(jmodel, toks, like=model)
-    ref = compile_fast(jmodel.apply, {"params": params}, toks)({"params": params}, toks)
+def test_clip_concat_encoders_match_jax(model_refs):
+    model = ConcatTextEncoders.from_config(CLIP_CFGS, device="cpu")
+    toks = _clip_tokens()
+    params, ref = model_refs["clip"]
     load_jax_params(model, params)
     with torch.no_grad():
         out = model([{k: _t(v) for k, v in t.items()} for t in toks])
@@ -180,13 +222,10 @@ def test_clip_concat_encoders_match_jax():
     assert out[0].shape == (3, 77, 64) and out[2].shape == (3, 32)
 
 
-def test_clip_gelu_tower_matches_jax():
+def test_clip_gelu_tower_matches_jax(model_refs):
     """clip_bigg's act: flax nn.gelu is the tanh approximation."""
-    jmodel = JaxCLIP.from_config("tiny", hidden_act="gelu", projection_dim=8)
-    ids = np.asarray(JaxTokenizer()(["a red fox", "snow"])["input_ids"])
-    params = random_params(jmodel, ids)
-    apply = functools.partial(jmodel.apply, layer_idx=-2)
-    ref = compile_fast(apply, {"params": params}, ids)({"params": params}, ids)
+    ids = _gelu_ids()
+    params, ref = model_refs["gelu"]
     from uwudiff_tpu_torch.models import CLIPTextModel
 
     model = load_jax_params(
@@ -198,23 +237,14 @@ def test_clip_gelu_tower_matches_jax():
         assert_close(getattr(out, name), getattr(ref, name))
 
 
-def test_vae_decode_matches_jax():
-    rng = np.random.default_rng(3)
-    z = rng.standard_normal((1, 8, 8, 4)).astype(np.float32)
-    jvae = JaxVAE.from_config("tiny")
-    params = random_params(jvae, z, method=jvae.decode)
-    # decode-only init has no encoder; the full tree (with encoder and
-    # quant_conv) is what checkpoints hold, and the port's VAE holds it all
-    vae = AutoencoderKL.from_config("tiny", device="cpu")
-    full = random_params(jvae, np.zeros((1, 16, 16, 3), np.float32), jax.random.PRNGKey(1), like=vae)
-    full = {**full, "decoder": params["decoder"], "post_quant_conv": params["post_quant_conv"]}
-    decode = functools.partial(jvae.apply, method=jvae.decode)
-    run = compile_fast(decode, {"params": full}, z)
-    load_jax_params(vae, full)
+def test_vae_decode_matches_jax(model_refs):
+    full, ref = model_refs["vae"]
+    z = np.random.default_rng(3).standard_normal((1, 8, 8, 4)).astype(np.float32)
+    vae = load_jax_params(AutoencoderKL.from_config("tiny", device="cpu"), full)
     with torch.no_grad():
         out = vae.decode(_t(z))
     assert out.shape == (1, 16, 16, 3)
-    assert_close(out, run({"params": full}, z))
+    assert_close(out, ref)
 
 
 def test_convert_raises_on_mismatch():

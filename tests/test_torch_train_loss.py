@@ -7,6 +7,8 @@ model is one fixed affine map of the noisy latent and the timestep on
 both sides. fp32; tolerance 1e-6 relative to the largest element (the
 same fp32 operations, XLA may fuse them), 1e-5 where the schedules'
 alphas_cumprod enter (the port takes the product in fp64, rounded once).
+The JAX losses of every case are compiled as one program with the suite's
+cheap compiler settings (``test_torch_models.compile_fast``).
 """
 
 import jax
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from test_torch_models import one_torch_thread  # noqa: F401  (autouse: one torch thread in this module)
+from test_torch_models import compile_fast
 from uwudiff_tpu.diffusion import DiffusionLoss as JaxLoss
 from uwudiff_tpu.diffusion import NoiseSchedule as JaxSchedule
 from uwudiff_tpu.training.lr_schedules import warmup_cosine_schedule as jax_warmup_cosine
@@ -55,23 +58,40 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_diffusion_loss_matches_jax_given_its_draws(case):
-    kw = CASES[case]
+def _loss_inputs(case):
     rng = np.random.default_rng(0)
     x = rng.standard_normal((B, H, W, C)).astype(np.float32)
     mask = (rng.random((B, H, W)) > 0.3).astype(np.float32) if case == "eps" else None
     weight = np.array([1.0, 0.5, 2.0], np.float32) if case == "sample_pred" else None
+    return x, mask, weight
+
+
+@pytest.fixture(scope="module")
+def jax_losses():
+    """case -> the JAX loss and aux at key 7, and its noise and input
+    perturbation re-drawn from the key (with an eps target the noise is
+    aux.target; otherwise it is re-drawn): every case in one program."""
     key = jax.random.PRNGKey(7)
-    jloss = JaxLoss(schedule=JaxSchedule.sd15(), **kw)
-    jl, jaux = jloss(key, jnp.asarray(x), _model(jnp),
-                     sample_weight=None if weight is None else jnp.asarray(weight),
-                     loss_mask=None if mask is None else jnp.asarray(mask))
-    # JAX's noise: with an eps target it is aux.target; otherwise re-draw it
-    rng_t, rng_n = jax.random.split(key)
-    noise = np.asarray(jloss.sample_noise(rng_n, jnp.asarray(x)))
-    perturbation = np.asarray(jax.random.normal(jax.random.fold_in(rng_n, 2), x.shape, jnp.float32))
-    if jloss.target_type == "epsilon":
+
+    def one(case, x, mask, weight):
+        jloss = JaxLoss(schedule=JaxSchedule.sd15(), **CASES[case])
+        jl, jaux = jloss(key, x, _model(jnp), sample_weight=weight, loss_mask=mask)
+        rng_t, rng_n = jax.random.split(key)
+        return (jl, jaux, jloss.sample_noise(rng_n, x),
+                jax.random.normal(jax.random.fold_in(rng_n, 2), x.shape, jnp.float32))
+
+    inputs = {case: _loss_inputs(case) for case in CASES}
+    run = compile_fast(lambda ins: {case: one(case, *a) for case, a in ins.items()}, inputs)
+    return run(inputs)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_diffusion_loss_matches_jax_given_its_draws(jax_losses, case):
+    kw = CASES[case]
+    x, mask, weight = _loss_inputs(case)
+    jl, jaux, noise, perturbation = jax_losses[case]
+    noise, perturbation = np.asarray(noise), np.asarray(perturbation)
+    if JaxLoss(schedule=JaxSchedule.sd15(), **kw).target_type == "epsilon":
         np.testing.assert_array_equal(noise, np.asarray(jaux.target))
 
     loss = DiffusionLoss(schedule=NoiseSchedule.sd15(), **kw)

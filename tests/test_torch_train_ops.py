@@ -4,10 +4,11 @@ The port's autograd functions run their plain versions here (K1's and
 the backward pair's for flash attention, the GroupNorm forward pair's and
 K7/K8's for GroupNorm+SiLU); the JAX side is ``jax.grad`` through the
 Pallas kernels in interpret mode, as the JAX package's own tests run
-them, and through flax ``nn.GroupNorm`` for the plain GroupNorm, each
-gradient compiled as one program with the suite's cheap compiler settings
-(``test_torch_models.compile_fast``: a third of the time the same kernels
-take run op by op). Inputs are numpy draws from a seed, fp32. Tolerance: 1e-4 of the largest
+them, and through flax ``nn.GroupNorm`` for the plain GroupNorm, every
+gradient of the module compiled as one program with the suite's cheap
+compiler settings (``test_torch_models.compile_fast``: a third of the time
+the same kernels take run op by op, and one program for all of them a
+quarter less than one each). Inputs are numpy draws from a seed, fp32. Tolerance: 1e-4 of the largest
 gradient element (fp32 sums in another order; the JAX kernels work in
 the exp2 domain with LOG2E folded into q).
 """
@@ -45,11 +46,6 @@ def _close(out, ref, rel=REL):
     np.testing.assert_allclose(out, ref, atol=rel * np.abs(ref).max(), rtol=0)
 
 
-def _grads(jax_loss, *args):
-    """``jax.grad`` of ``jax_loss`` in its three arguments at ``args``
-    (numpy), compiled as one program (``compile_fast``)."""
-    grad = jax.grad(jax_loss, argnums=(0, 1, 2))
-    return compile_fast(grad, *args)(*args)
 
 
 def _bias(kind, b, h, sq, sk, rng):
@@ -62,31 +58,77 @@ def _bias(kind, b, h, sq, sk, rng):
     return rng.standard_normal((b, h, sq, sk)).astype(np.float32)  # a constant full bias
 
 
-@pytest.mark.parametrize(
-    "b,sq,sk,h,d,kind",
-    [
-        (1, 128, 128, 2, 64, "none"),
-        (2, 128, 77, 2, 64, "key"),  # cross-attention's 77 keys, ragged mask
-        (1, 128, 128, 2, 64, "full"),
-        (2, 128, 77, 2, 40, "key"),
-        (1, 128, 128, 2, 40, "full"),
-        (1, 200, 77, 2, 64, "none"),  # ragged Sq
-        (1, 128, 128, 2, 160, "none"),  # SD1.5's level-2 head dim
-        (2, 128, 77, 2, 160, "key"),
-    ],
-)
-def test_flash_grads_match_jax_kernel(b, sq, sk, h, d, kind):
+FLASH_CASES = [
+    (1, 128, 128, 2, 64, "none"),
+    (2, 128, 77, 2, 64, "key"),  # cross-attention's 77 keys, ragged mask
+    (1, 128, 128, 2, 64, "full"),
+    (2, 128, 77, 2, 40, "key"),
+    (1, 128, 128, 2, 40, "full"),
+    (1, 200, 77, 2, 64, "none"),  # ragged Sq
+    (1, 128, 128, 2, 160, "none"),  # SD1.5's level-2 head dim
+    (2, 128, 77, 2, 160, "key"),
+]
+LSE_KINDS = ["none", "key"]
+GN_CASES = [((2, 8, 8, 40), 4), ((1, 16, 16, 64), 32)]  # C = 40 in 4 groups: 10 channels a group
+
+
+def _flash_case(b, sq, sk, h, d, kind):
     rng = np.random.default_rng(0)
     q, k, v = (rng.standard_normal((b, s, h, d)).astype(np.float32) for s in (sq, sk, sk))
     dout = rng.standard_normal((b, sq, h, d)).astype(np.float32)
-    bias = _bias(kind, b, h, sq, sk, rng)
+    return q, k, v, dout, _bias(kind, b, h, sq, sk, rng)
 
-    def jax_loss(q, k, v):
-        out = jax_flash(q, k, v, bias=None if bias is None else jnp.asarray(bias),
-                        interpret=True, block_q=128, block_k=128)
-        return jnp.sum(out * dout)
 
-    jgrads = _grads(jax_loss, q, k, v)
+def _lse_case(kind):
+    rng = np.random.default_rng(4)
+    b, s, h, d = 1, 24, 2, 8
+    q, k, v = (rng.standard_normal((b, s, h, d)).astype(np.float32) for _ in range(3))
+    dout = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    dlse = rng.standard_normal((b, h, s)).astype(np.float32)
+    return q, k, v, dout, dlse, _bias(kind, b, h, s, s, rng)
+
+
+@pytest.fixture(scope="module")
+def jax_grads():
+    """``jax.grad`` in the three inputs of every loss of the module, one
+    program: the flash kernel's per FLASH_CASES, its lse loss's per
+    LSE_KINDS, K2's per GN_CASES and flax ``nn.GroupNorm``'s."""
+    import flax.linen as nn
+
+    def flash_loss(q, k, v, dout, bias):
+        return jnp.sum(jax_flash(q, k, v, bias=bias, interpret=True, block_q=128, block_k=128) * dout)
+
+    def lse_loss(q, k, v, dout, dlse, bias):
+        out, lse = jax_flash(q, k, v, bias=bias, interpret=True, block_q=128, block_k=128, return_lse=True)
+        return jnp.sum(out * dout) + jnp.sum(lse * dlse)
+
+    def gn_loss(x, gamma, beta, g, groups):
+        return jnp.sum(_gn_silu(x, gamma, beta, groups, 1e-5, True) * g)
+
+    def flax_loss(x, gamma, beta, g):
+        y = nn.GroupNorm(num_groups=8, epsilon=1e-6).apply({"params": {"scale": gamma, "bias": beta}}, x)
+        return jnp.sum(y * g)
+
+    def grad3(loss, *args, **kw):
+        return jax.grad(lambda a, b, c: loss(a, b, c, *args[3:], **kw), argnums=(0, 1, 2))(*args[:3])
+
+    inputs = ([_flash_case(*c) for c in FLASH_CASES], [_lse_case(kind) for kind in LSE_KINDS],
+              [_gn_data(shape) for shape, _ in GN_CASES], _gn_data((2, 8, 8, 32)))
+
+    def grads(flash_in, lse_in, gn_in, flax_in):
+        return ([grad3(flash_loss, *a) for a in flash_in], [grad3(lse_loss, *a) for a in lse_in],
+                [grad3(gn_loss, *a, groups=groups) for a, (_, groups) in zip(gn_in, GN_CASES)],
+                grad3(flax_loss, *flax_in))
+
+    flash, lse, gn, flax_gn = compile_fast(grads, *inputs)(*inputs)
+    return {"flash": dict(zip(FLASH_CASES, flash)), "lse": dict(zip(LSE_KINDS, lse)), "gn": dict(zip(GN_CASES, gn)),
+            "flax_gn": flax_gn}
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d,kind", FLASH_CASES)
+def test_flash_grads_match_jax_kernel(jax_grads, b, sq, sk, h, d, kind):
+    q, k, v, dout, bias = _flash_case(b, sq, sk, h, d, kind)
+    jgrads = jax_grads["flash"][(b, sq, sk, h, d, kind)]
     tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
     out = flash_attention(tq, tk, tv, None if bias is None else torch.from_numpy(bias))
     tgrads = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(dout))
@@ -95,25 +137,14 @@ def test_flash_grads_match_jax_kernel(b, sq, sk, h, d, kind):
         _close(tg, jg)
 
 
-@pytest.mark.parametrize("kind", ["none", "key"])
-def test_flash_lse_grads_match_jax_kernel(kind):
+@pytest.mark.parametrize("kind", LSE_KINDS)
+def test_flash_lse_grads_match_jax_kernel(jax_grads, kind):
     """A loss that reads both ``out`` and the lse of
     ``flash_attention(..., return_lse=True)``: the lse's cotangent folds
     into the backward's delta (``delta - dlse``), as JAX's ``_flash_core_lse``
     does. Tiny shapes; tolerance REL of the largest gradient element."""
-    rng = np.random.default_rng(4)
-    b, s, h, d = 1, 24, 2, 8
-    q, k, v = (rng.standard_normal((b, s, h, d)).astype(np.float32) for _ in range(3))
-    dout = rng.standard_normal((b, s, h, d)).astype(np.float32)
-    dlse = rng.standard_normal((b, h, s)).astype(np.float32)
-    bias = _bias(kind, b, h, s, s, rng)
-
-    def jax_loss(q, k, v):
-        out, lse = jax_flash(q, k, v, bias=None if bias is None else jnp.asarray(bias),
-                             interpret=True, block_q=128, block_k=128, return_lse=True)
-        return jnp.sum(out * dout) + jnp.sum(lse * dlse)
-
-    jgrads = _grads(jax_loss, q, k, v)
+    q, k, v, dout, dlse, bias = _lse_case(kind)
+    jgrads = jax_grads["lse"][kind]
     tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
     out, lse = flash_attention(tq, tk, tv, None if bias is None else torch.from_numpy(bias), return_lse=True)
     loss = (out * torch.from_numpy(dout)).sum() + (lse * torch.from_numpy(dlse)).sum()
@@ -160,15 +191,11 @@ def _gn_data(shape, seed=0):
     return x, gamma, beta, g
 
 
-@pytest.mark.parametrize("shape,groups", [((2, 8, 8, 40), 4), ((1, 16, 16, 64), 32)])
-def test_gn_silu_grads_match_jax_kernel(shape, groups):
+@pytest.mark.parametrize("shape,groups", GN_CASES)
+def test_gn_silu_grads_match_jax_kernel(jax_grads, shape, groups):
     """C = 40 in 4 groups: 10 channels a group, straddling 8-wide vectors."""
     x, gamma, beta, g = _gn_data(shape)
-
-    def jax_loss(x, gamma, beta):
-        return jnp.sum(_gn_silu(x, gamma, beta, groups, 1e-5, True) * g)
-
-    jgrads = _grads(jax_loss, x, gamma, beta)
+    jgrads = jax_grads["gn"][(shape, groups)]
     tx, tg, tb = (torch.from_numpy(a).requires_grad_() for a in (x, gamma, beta))
     y = group_norm_silu(tx, tg, tb, groups, 1e-5)
     tgrads = torch.autograd.grad(y, (tx, tg, tb), torch.from_numpy(g))
@@ -176,16 +203,9 @@ def test_gn_silu_grads_match_jax_kernel(shape, groups):
         _close(tgr, jgr)
 
 
-def test_plain_group_norm_grads_match_flax_groupnorm():
-    import flax.linen as nn
-
+def test_plain_group_norm_grads_match_flax_groupnorm(jax_grads):
     x, gamma, beta, g = _gn_data((2, 8, 8, 32))
-
-    def jax_loss(x, gamma, beta):
-        y = nn.GroupNorm(num_groups=8, epsilon=1e-6).apply({"params": {"scale": gamma, "bias": beta}}, x)
-        return jnp.sum(y * g)
-
-    jgrads = _grads(jax_loss, x, gamma, beta)
+    jgrads = jax_grads["flax_gn"]
     tx, tg, tb = (torch.from_numpy(a).requires_grad_() for a in (x, gamma, beta))
     y = group_norm_silu(tx, tg, tb, 8, 1e-6, silu=False)
     tgrads = torch.autograd.grad(y, (tx, tg, tb), torch.from_numpy(g))

@@ -3,8 +3,9 @@
 A :class:`ModelLoadConfig` names a local torch checkpoint
 (``.safetensors``/``.pt``/``.bin``/``.ckpt``), optionally a sub-dict
 (``state_dict_key``, ``state_dict_prefix``), the importer (``unet``,
-``vae``, ``clip``, ``dit``, ``mmdit``, ``flux``; found from the module's
-class when omitted), the text encoder a single-file checkpoint's
+``vae``, ``clip``, ``t5``, ``dit``, ``mmdit``, ``flux``; found from the
+module's class when omitted; the JAX loader routes no ``t5``, whose map
+both packages have), the text encoder a single-file checkpoint's
 ``te_index`` picks (SDXL: 0 CLIP-L, 1 OpenCLIP-bigG), ``strict`` and a
 ``param_dtype`` to cast to (``float16`` becomes ``bfloat16``, as in the
 JAX package). :func:`apply_load_config` fills a module from it in place: a
@@ -50,10 +51,18 @@ class ModelLoadConfig:
 
 
 def _auto_importer(module) -> str:
-    from uwudiff_tpu_torch.models import AutoencoderKL, CLIPTextModel, DiT, Flux, MMDiT, UNet2DConditionModel
+    from uwudiff_tpu_torch.models import (
+        AutoencoderKL,
+        CLIPTextModel,
+        DiT,
+        Flux,
+        MMDiT,
+        T5EncoderModel,
+        UNet2DConditionModel,
+    )
 
     for cls, name in ((UNet2DConditionModel, "unet"), (AutoencoderKL, "vae"), (CLIPTextModel, "clip"),
-                      (DiT, "dit"), (MMDiT, "mmdit"), (Flux, "flux")):
+                      (T5EncoderModel, "t5"), (DiT, "dit"), (MMDiT, "mmdit"), (Flux, "flux")):
         if isinstance(module, cls):
             return name
     return "npz"
@@ -63,7 +72,7 @@ def _key_map(importer: str, module):
     if importer == "mmdit":  # final_block (context_pre_only) is torch's block depth - 1
         return functools.partial(it.mmdit_key_map, depth=getattr(module, "depth", None))
     maps = {"unet": it.unet_key_map, "vae": it.vae_key_map, "clip": it.clip_text_key_map,
-            "dit": it.dit_key_map, "flux": it.flux_key_map}
+            "t5": it.t5_key_map, "dit": it.dit_key_map, "flux": it.flux_key_map}
     if importer not in maps:
         raise NotImplementedError(f"importer {importer!r} is not ported (ROADMAP.md, Queue 1)")
     return maps[importer]

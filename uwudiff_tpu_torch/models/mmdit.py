@@ -13,8 +13,14 @@ so ``convert.load_jax_params`` loads a JAX tree, scanned or not.
 
 As in the JAX module, the adaLN modulations and the final projection are
 zero-initialised, which cuts the gradient from the output to the context
-until they are trained or loaded. MoE, ``scan_blocks``, gradient
-checkpointing, skip-layer guidance and ``apply_block`` are not ported.
+until they are trained or loaded. ``skip_layers`` bypasses joint blocks
+for skip-layer guidance (SD3.5's recipe): the constructor's are the
+module's default, and ``forward(skip_layers=...)`` runs the same weights
+with others bypassed, so the degraded model of
+``sampling/cfg.py::build_slg_cfg_fn`` is ``functools.partial(model,
+skip_layers=(7, 8, 9))``, with no second copy of the parameters (the JAX
+package clones the module). MoE, ``scan_blocks``, gradient checkpointing
+and ``apply_block`` are not ported.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from uwudiff_tpu_torch.utils import build_module
 
 __all__ = ["MMDiT", "MMDiTBlock", "MMDIT_PRESETS"]
 
-_UNPORTED = ("num_experts", "gradient_checkpointing", "scan_blocks", "skip_layers")
+_UNPORTED = ("num_experts", "gradient_checkpointing", "scan_blocks")
 
 
 class _StreamAttention(nn.Module):
@@ -133,8 +139,11 @@ class MMDiT(nn.Module):
         context_pre_only: bool = False,
         pos_embed_max_size: int | None = None,
         pos_embed_base_size: int | None = None,
+        skip_layers: tuple[int, ...] = (),  # joint blocks bypassed by default; never the context_pre_only one
     ):
         super().__init__()
+        self.skip_layers = tuple(skip_layers)
+        self.depth = depth  # the importer's: final_block is the file's block depth - 1
         self.patch_size, self.hidden_size, self.in_channels = patch_size, hidden_size, in_channels
         self.pos_embed_max_size, self.pos_embed_base_size = pos_embed_max_size, pos_embed_base_size
         self.patch_embed = nn.Conv2d(in_channels, hidden_size, patch_size, stride=patch_size)
@@ -192,9 +201,13 @@ class MMDiT(nn.Module):
         ctx = self.context_embedder(encoder_hidden_states.to(dtype))
         return x, ctx, c
 
-    def backbone(self, x, ctx, c, joint_bias=None):
-        for name in self.block_names:
-            x, ctx = getattr(self, name)(x, ctx, c, joint_bias)
+    def backbone(self, x, ctx, c, joint_bias=None, skip_layers=None):
+        skip = self.skip_layers if skip_layers is None else tuple(skip_layers)
+        if not all(0 <= i < len(self.block_names) for i in skip):
+            raise ValueError(f"skip_layers {skip} outside the {len(self.block_names)} joint blocks")
+        for i, name in enumerate(self.block_names):
+            if i not in skip:
+                x, ctx = getattr(self, name)(x, ctx, c, joint_bias)
         if hasattr(self, "final_block"):
             x, ctx = self.final_block(x, ctx, c, joint_bias)
         return x, ctx
@@ -215,11 +228,13 @@ class MMDiT(nn.Module):
         joint = torch.cat([m, torch.ones((m.shape[0], n_image_tokens), dtype=m.dtype, device=m.device)], dim=1)
         return attention_bias_from_mask(joint)
 
-    def forward(self, sample, timesteps, encoder_hidden_states, encoder_attention_mask=None, added_cond=None):
+    def forward(self, sample, timesteps, encoder_hidden_states, encoder_attention_mask=None, added_cond=None,
+                skip_layers=None):
+        """``skip_layers`` (None: the module's) are the joint blocks bypassed."""
         pooled = added_cond.get("text_embeds") if added_cond else None
         x, ctx, c = self.embed(sample, timesteps, encoder_hidden_states, pooled)
         bias = self.joint_bias(encoder_attention_mask, x.shape[1])
-        x, _ = self.backbone(x, ctx, c, bias)
+        x, _ = self.backbone(x, ctx, c, bias, skip_layers)
         return self.head(x, c, sample.shape)
 
 

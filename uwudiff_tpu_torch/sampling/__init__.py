@@ -2,6 +2,7 @@ from uwudiff_tpu_torch.sampling.cfg import (
     apply_cfg_rescale,
     build_cfg_fn,
     build_class_cfg_fn,
+    build_slg_cfg_fn,
     cfg_wrapper,
     cond_text_wrapper,
     default_time_ids,
@@ -82,6 +83,7 @@ __all__ = [
     "beta_sigmas",
     "build_cfg_fn",
     "build_class_cfg_fn",
+    "build_slg_cfg_fn",
     "cfg_wrapper",
     "class_conditional_sampling",
     "cond_text_wrapper",

@@ -9,6 +9,8 @@ a model without ``time_ids`` ignores them);
 in one call and combines with the CFG scale, over every sigma or only
 those in ``cfg_interval``. :func:`cfg_wrapper` encodes and builds in one
 call; :func:`cond_text_wrapper` is a single conditional pass.
+:func:`build_slg_cfg_fn` adds skip-layer guidance (SD3.5): a third,
+conditional-only pass through the model with blocks bypassed.
 :func:`build_class_cfg_fn` is the DiT family's: labels instead of
 prompts, the learned null class as the unconditional branch.
 """
@@ -26,6 +28,7 @@ __all__ = [
     "apply_cfg_rescale",
     "build_cfg_fn",
     "build_class_cfg_fn",
+    "build_slg_cfg_fn",
     "cfg_wrapper",
     "cond_text_wrapper",
     "default_time_ids",
@@ -116,6 +119,16 @@ def apply_cfg_rescale(cfg_output, cond, rescale: float):
     return rescale * rescaled + (1.0 - rescale) * cfg_output
 
 
+def _cond_half(enc: dict) -> dict:
+    """The conditional half of a doubled-batch ``enc`` (cond first)."""
+    n = enc["ctx"].shape[0] // 2
+    return {
+        "ctx": enc["ctx"][:n],
+        "mask": enc["mask"][:n] if enc["mask"] is not None else None,
+        "added_cond": {k: v[:n] for k, v in enc["added_cond"].items()} if enc["added_cond"] is not None else None,
+    }
+
+
 def build_cfg_fn(unet: Callable, enc: dict, cfg: float, cfg_rescale: float = 0.0,
                  cfg_interval: tuple[float, float] | None = None) -> Callable:
     """The doubled-batch model fn; ``cfg == 1`` runs the conditional half
@@ -123,18 +136,11 @@ def build_cfg_fn(unet: Callable, enc: dict, cfg: float, cfg_rescale: float = 0.0
     in [lo, hi] (Kynkaanniemi et al. 2024), the plain conditional output
     elsewhere; the choice is made on the device, per sample."""
     if cfg == 1.0:
-        n = enc["ctx"].shape[0] // 2
+        half = _cond_half(enc)
 
         def cond_fn(x, sigma, sigma_cond=None):
-            out = unet(
-                x, sigma, sigma_cond=sigma_cond,
-                encoder_hidden_states=enc["ctx"][:n],
-                encoder_attention_mask=enc["mask"][:n] if enc["mask"] is not None else None,
-                added_cond=(
-                    {k: v[:n] for k, v in enc["added_cond"].items()}
-                    if enc["added_cond"] is not None else None
-                ),
-            )
+            out = unet(x, sigma, sigma_cond=sigma_cond, encoder_hidden_states=half["ctx"],
+                       encoder_attention_mask=half["mask"], added_cond=half["added_cond"])
             return out, out
 
         return cond_fn
@@ -157,6 +163,39 @@ def build_cfg_fn(unet: Callable, enc: dict, cfg: float, cfg_rescale: float = 0.0
         return apply_cfg_rescale(cfg_output, cond, cfg_rescale), uncond
 
     return cfg_fn
+
+
+def build_slg_cfg_fn(unet: Callable, unet_skip: Callable, enc: dict, cfg: float, slg_scale: float,
+                     cfg_rescale: float = 0.0, slg_interval: tuple[float, float] | None = None) -> Callable:
+    """Skip-layer guidance (the published SD3.5-medium sampling recipe):
+    ``uncond + cfg * (cond - uncond) + slg_scale * (cond - cond_skip)``,
+    ``cond_skip`` a third, conditional-only pass at batch n through
+    ``unet_skip`` (the same weights with blocks bypassed, e.g.
+    ``functools.partial(mmdit, skip_layers=(7, 8, 9))``), then
+    :func:`apply_cfg_rescale`. ``slg_interval=(lo, hi)`` keeps the extra
+    term to the samples whose sigma lies in [lo, hi], chosen on the device
+    per sample; the pass runs at every step, as in the JAX program. Returns
+    ``(guided, uncond)``, the pair the CFG++ samplers read."""
+    cond_enc = _cond_half(enc)
+
+    def slg_fn(x, sigma, sigma_cond=None):
+        sc2 = torch.cat([sigma_cond, sigma_cond]) if sigma_cond is not None else None
+        out = unet(
+            torch.cat([x, x]), torch.cat([sigma, sigma]), sigma_cond=sc2,
+            encoder_hidden_states=enc["ctx"], encoder_attention_mask=enc["mask"], added_cond=enc["added_cond"],
+        )
+        cond, uncond = out.chunk(2)
+        cond_skip = unet_skip(x, sigma, sigma_cond=sigma_cond, encoder_hidden_states=cond_enc["ctx"],
+                              encoder_attention_mask=cond_enc["mask"], added_cond=cond_enc["added_cond"])
+        slg = slg_scale
+        if slg_interval is not None:
+            lo, hi = slg_interval
+            in_window = (sigma >= lo) & (sigma <= hi)
+            slg = append_dims(torch.where(in_window, slg_scale, 0.0).to(x.dtype), x.dim())
+        cfg_output = uncond + (cond - uncond) * cfg + (cond - cond_skip) * slg
+        return apply_cfg_rescale(cfg_output, cond, cfg_rescale), uncond
+
+    return slg_fn
 
 
 def build_class_cfg_fn(unet: Callable, class_labels, null_label: int, cfg: float,

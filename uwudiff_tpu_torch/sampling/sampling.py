@@ -7,8 +7,10 @@ default Euler-ancestral) on the training schedule's ladder, a second
 schedule's (``sample_schedule``) or a caller's (``get_sigma_func``: the
 ladders of ``sampling/get_sigmas.py``, ``lcm.get_sigmas_lcm``), CFG (only
 inside ``cfg_interval`` if given) or a single conditional pass at
-``cfg_scale == 1``, per-sample seeds (``sampling/noise.py``), the latents
-optionally rescaled to unit std per sample, de-normalised by
+``cfg_scale == 1``, skip-layer guidance (``unet_skip_fn`` with
+``slg_scale``, optionally only inside ``slg_interval``), per-sample seeds
+(``sampling/noise.py``), the latents optionally rescaled to unit std per
+sample, de-normalised by
 ``vae_std``/``vae_mean`` and decoded by ``vae_decode``. Flux's call:
 ``denoiser_cls=RFDenoiser``, ``cfg_scale=1.0``, the dynamic-shift RF
 ladder, 16 latent channels.
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 
 from uwudiff_tpu_torch.diffusion.schedules import NoiseSchedule
-from uwudiff_tpu_torch.sampling.cfg import build_cfg_fn, build_class_cfg_fn, encode_cfg_inputs
+from uwudiff_tpu_torch.sampling.cfg import build_cfg_fn, build_class_cfg_fn, build_slg_cfg_fn, encode_cfg_inputs
 from uwudiff_tpu_torch.sampling.euler import sample_euler_ancestral
 from uwudiff_tpu_torch.sampling.noise import (
     batch_fallback_generator,
@@ -47,7 +49,6 @@ __all__ = ["class_conditional_sampling", "diffusion_sampling"]
 
 # argument -> (its value that asks for nothing, the ROADMAP item that ports it)
 _UNPORTED = {
-    "unet_skip_fn": (None, "Queue 1 item 15 (skip-layer guidance)"),
     "latent_sharding": (None, "Queue 1 item 17"),
 }
 
@@ -95,9 +96,13 @@ def diffusion_sampling(
     ``train_schedule`` may lie on the device already; with it there and a
     ``get_sigma_func``, nothing here waits for the device. The sampler gets
     the per-sample ``noise_sampler`` where it takes one
-    (``supports_noise_sampler``), and a seed-derived ``generator`` always."""
-    del jit_compile, slg_scale, slg_interval  # eager; SLG needs unet_skip_fn, which raises
-    given = dict(unet_skip_fn=unet_skip_fn, latent_sharding=latent_sharding)
+    (``supports_noise_sampler``), and a seed-derived ``generator`` always.
+    ``unet_skip_fn`` (called as ``unet_fn`` is: the same weights with blocks
+    bypassed, e.g. ``functools.partial(mmdit, skip_layers=(7, 8, 9))``) with
+    a non-zero ``slg_scale`` adds skip-layer guidance
+    (:func:`build_slg_cfg_fn`); with ``slg_scale == 0`` it is unused."""
+    del jit_compile  # eager
+    given = dict(latent_sharding=latent_sharding)
     for name, (unset, item) in _UNPORTED.items():
         if given[name] != unset:
             raise NotImplementedError(f"diffusion_sampling: {name} is not ported yet (ROADMAP.md, {item})")
@@ -112,12 +117,20 @@ def diffusion_sampling(
     enc = encode_cfg_inputs(prompt, neg_prompt, width, height, te, prompt_weighting=prompt_weighting,
                             long_prompt=long_prompt)
 
-    def model_fn(x, t, encoder_hidden_states=None, encoder_attention_mask=None, added_cond=None):
-        args = (x, t, encoder_hidden_states, encoder_attention_mask, added_cond)
-        return unet_fn(unet_params, *args) if unet_params is not None else unet_fn(*args)
+    schedule = train_schedule.to(device)
 
-    cfg_fn = build_cfg_fn(denoiser_cls(model_fn=model_fn, schedule=train_schedule.to(device)), enc, cfg_scale,
-                          cfg_rescale, cfg_interval=cfg_interval)
+    def bind(fn):
+        def model_fn(x, t, encoder_hidden_states=None, encoder_attention_mask=None, added_cond=None):
+            args = (x, t, encoder_hidden_states, encoder_attention_mask, added_cond)
+            return fn(unet_params, *args) if unet_params is not None else fn(*args)
+
+        return denoiser_cls(model_fn=model_fn, schedule=schedule)
+
+    if slg_scale and unet_skip_fn is not None:
+        cfg_fn = build_slg_cfg_fn(bind(unet_fn), bind(unet_skip_fn), enc, cfg_scale, slg_scale, cfg_rescale,
+                                  slg_interval=slg_interval)
+    else:
+        cfg_fn = build_cfg_fn(bind(unet_fn), enc, cfg_scale, cfg_rescale, cfg_interval=cfg_interval)
     return _sample_and_decode(cfg_fn, device, num_samples, num_steps, train_schedule, sample_schedule,
                               get_sigma_func, seed, (height // vae_downscale, width // vae_downscale, latent_channels),
                               internal_sampling_func, rescale, vae_std, vae_mean, vae_decode, return_latents)

@@ -11,15 +11,19 @@ while the dispatcher enqueues the next. Any other ``diffusion_sampling``
 argument (a ladder's ``get_sigma_func``, ``cfg_interval``, ``rescale``)
 goes to ``sample_device`` or a call of the pipeline as a keyword and on to
 ``diffusion_sampling``; a request's ``prompt_weighting`` and
-``long_prompt`` too. ``sdxl_pipeline`` builds SDXL with random weights or
-from one single-file checkpoint and CLIP's vocabulary files. Adapter
+``long_prompt`` too; skip-layer guidance (``unet_skip_fn``, ``slg_scale``,
+``slg_interval``) the same way. ``sdxl_pipeline`` builds SDXL with random
+weights or from one single-file checkpoint and CLIP's vocabulary files;
+``sd3_pipeline`` builds SD3-medium (the MMDiT, CLIP-L + CLIP-bigG + T5-XXL,
+the 16-channel VAE, the shifted RF ladder) with random weights or from its
+per-component diffusers-layout files and its tokenizer files. Adapter
 hot-swap, int8 weights and latent sharding come with the modules they
 need.
 
-``flux_txt2img`` builds ``flux_dev`` (or another Flux preset) with T5-XXL,
-CLIP-L and the 16-channel decoder; :class:`FluxTxt2Img` serves it through
-the generic entry point ``sampling.diffusion_sampling`` as the JAX package
-does (``tests/test_flux.py``): ``RFDenoiser``, cfg 1 with the distilled
+``flux_txt2img`` builds ``flux_dev`` with T5-XXL, CLIP-L and the
+16-channel decoder, random or from their files; :class:`FluxTxt2Img`
+serves it through the generic entry point ``sampling.diffusion_sampling``
+as the JAX package does (``tests/test_flux.py``): ``RFDenoiser``, cfg 1 with the distilled
 guidance embedded, the dynamic-shift RF ladder.
 """
 
@@ -38,14 +42,19 @@ import torch
 from torch import nn
 
 from uwudiff_tpu_torch.diffusion.schedules import NoiseSchedule
-from uwudiff_tpu_torch.sampling.get_sigmas import dynamic_shift_time, get_sigmas_for_rf, mu_for_image_seq_len
+from uwudiff_tpu_torch.sampling.get_sigmas import (
+    dynamic_shift_time,
+    get_sigmas_for_rf,
+    mu_for_image_seq_len,
+    shift_time,
+)
 from uwudiff_tpu_torch.sampling.euler import sample_euler_ancestral
 from uwudiff_tpu_torch.sampling.sampling import diffusion_sampling
 from uwudiff_tpu_torch.sampling.wrapper import KDiffusionDenoiser, RFDenoiser
 from uwudiff_tpu_torch.utils import resolve_device, truncate_or_pad_to_length, vae_image_postprocess
 
 __all__ = ["BatchingServer", "FluxTxt2Img", "Request", "SDXL_PAD_TOKENS", "ServerOverloaded", "Txt2ImgPipeline",
-           "flux_txt2img", "sdxl_pipeline"]
+           "flux_txt2img", "sd3_pipeline", "sdxl_pipeline"]
 
 
 def _cycled_prompts(prompt, neg_prompt, n: int):
@@ -67,6 +76,9 @@ class Txt2ImgPipeline:
         sampler=sample_euler_ancestral,  # any sampler of sampling/ (sampling.SAMPLERS)
         denoiser_cls: type | None = None,  # None -> KDiffusionDenoiser; LCMDenoiser with sampler=sample_lcm, cfg 1
         vae_tiling: int | None = None,  # decode in tiles of this many latents (AutoencoderKL.decode_tiled)
+        vae_std: float | None = None,  # None -> 1 / vae.scaling_factor (1 without a VAE)
+        vae_mean: float = 0.0,  # the latents' shift (SD3's and Flux's shift_factor)
+        get_sigma_func=None,  # the default ladder, num_steps -> sigmas; None -> the schedule's
     ):
         self.device = resolve_device(device)
         self.unet = unet
@@ -77,17 +89,24 @@ class Txt2ImgPipeline:
         self.vae_tiling = vae_tiling
         self._host_schedule = schedule if schedule is not None else NoiseSchedule.sdxl()
         self.schedule = self._host_schedule.to(self.device)
-        # latents are normalised as in training: x / vae_std, vae_std = 1/scaling_factor
-        self.vae_std = 1.0 / vae.scaling_factor if vae is not None else 1.0
+        # latents are normalised as in training: (x - vae_mean) / vae_std
+        if vae_std is None:
+            vae_std = 1.0 / vae.scaling_factor if vae is not None else 1.0
+        self.vae_std, self.vae_mean = vae_std, vae_mean
+        self.get_sigma_func = get_sigma_func
         self.vae_downscale = vae.downscale if vae is not None else 8
         self.latent_channels = vae.latent_channels if vae is not None else 4
         self._sigma_cache: dict[int, np.ndarray] = {}
 
     def sigmas(self, num_steps: int) -> np.ndarray:
-        """Host-cached fp32 sigma ladder for ``num_steps``."""
+        """Host-cached fp32 sigma ladder for ``num_steps``: ``get_sigma_func``'s,
+        else the schedule's."""
         sig = self._sigma_cache.get(num_steps)
         if sig is None:
-            sig = self._host_schedule.sample_sigmas_descending(num_steps).numpy()
+            if self.get_sigma_func is not None:
+                sig = np.asarray(self.get_sigma_func(num_steps), np.float32)
+            else:
+                sig = self._host_schedule.sample_sigmas_descending(num_steps).numpy()
             self._sigma_cache[num_steps] = sig
         return sig
 
@@ -124,7 +143,8 @@ class Txt2ImgPipeline:
         latents = diffusion_sampling(
             self.unet, self.te, None, self.schedule, *_cycled_prompts(prompt, neg_prompt, num_samples),
             num_steps=num_steps, num_samples=num_samples, cfg_scale=cfg_scale, cfg_rescale=cfg_rescale,
-            seed=seed, width=width, height=height, vae_std=self.vae_std, latent_channels=self.latent_channels,
+            seed=seed, width=width, height=height, vae_std=self.vae_std, vae_mean=self.vae_mean,
+            latent_channels=self.latent_channels,
             vae_downscale=self.vae_downscale, internal_sampling_func=self.sampler, denoiser_cls=self.denoiser_cls,
             return_latents=True, **kwargs,
         )
@@ -210,6 +230,116 @@ def sdxl_pipeline(device="cuda", dtype=torch.bfloat16, seed: int = 0, ckpt_path:
     return Txt2ImgPipeline(unet, te_pipe, vae, NoiseSchedule.sdxl(), device=dev, **pipeline_kw)
 
 
+class MaxLengthPadding:
+    """A tokenizer whose every call pads to its ``model_max_length``, as SD3's
+    and Flux's T5 prompts are padded (diffusers' ``max_sequence_length``):
+    one context length for every batch. The padded keys are masked, so the
+    output does not depend on it."""
+
+    def __init__(self, tokenizer):
+        self.tokenizer = tokenizer
+
+    def __getattr__(self, name):
+        return getattr(self.tokenizer, name)
+
+    def __call__(self, text, padding=True, **kwargs):
+        del padding
+        return self.tokenizer(text, padding="max_length", **kwargs)
+
+
+def _text_tokenizers(tokenizer_files, clip_pads, t5_tokens: int):
+    """``CLIPBPETokenizer``s over ``(vocab.json, merges.txt)`` pairs, padding
+    with ``clip_pads``, then a ``T5SPTokenizer`` over a ``spiece.model`` (or
+    ``tokenizer.json``) padding to ``t5_tokens``; hash tokenizers of the same
+    lengths without ``tokenizer_files``."""
+    from uwudiff_tpu_torch.models import CLIPBPETokenizer, SimpleTokenizer, T5SPTokenizer
+
+    if tokenizer_files is None:
+        return [SimpleTokenizer() for _ in clip_pads] + [SimpleTokenizer(model_max_length=t5_tokens)]
+    *clip_files, t5_file = tokenizer_files
+    return ([CLIPBPETokenizer(vocab, merges, pad_token=pad)
+             for (vocab, merges), pad in zip(clip_files, clip_pads, strict=True)]
+            + [MaxLengthPadding(T5SPTokenizer(t5_file, model_max_length=t5_tokens))])
+
+
+def _load_components(modules: dict, component_files: dict, device, timings: dict | None):
+    """Each ``name -> (module built on meta, importer)`` allocated on
+    ``device`` and filled strictly from ``component_files[name]``, a
+    diffusers-layout file read once through ``loader.apply_load_config``
+    (each leaf a view of the mapped file, copied once)."""
+    from uwudiff_tpu_torch.loader import ModelLoadConfig, apply_load_config
+
+    missing = sorted(set(modules) - set(component_files))
+    if missing:
+        raise ValueError(f"component_files lacks {missing} (has {sorted(component_files)})")
+    for name, (module, importer) in modules.items():
+        module.to_empty(device=device)
+        apply_load_config(module, ModelLoadConfig(component_files[name], importer=importer), timings)
+
+
+# stabilityai/stable-diffusion-3-medium-diffusers' vae/config.json: the SDXL
+# decoder's widths at 16 latent channels, scaling_factor 1.5305 (vae_std =
+# 1 / it), shift_factor 0.0609
+SD3_VAE = dict(block_out_channels=(128, 256, 512, 512), layers_per_block=2, latent_channels=16,
+               scaling_factor=1.5305)
+SD3_VAE_SHIFT = 0.0609
+SD3_T5_TOKENS = 256  # configs/demo_training_latent_sd3.yaml's T5 bucket (diffusers' max_sequence_length)
+SD3_SHIFT = 3.0  # configs/sampling/demo_sampling_mmdit.yaml's shift_time
+SD3_MAX_SIGMA = 14.6146  # the RF ladder's top: the SDXL schedule's largest sigma
+
+
+def sd3_sigmas(num_steps: int) -> np.ndarray:
+    """SD3's ladder: ``get_sigmas_for_rf`` warped by ``shift_time(shift=3.0)``."""
+    return get_sigmas_for_rf(num_steps, SD3_MAX_SIGMA, time_disc_func=functools.partial(shift_time, shift=SD3_SHIFT))
+
+
+def sd3_pipeline(device="cuda", dtype=torch.bfloat16, seed: int = 0, component_files: dict | None = None,
+                 tokenizer_files=None, load_timings: dict | None = None, **pipeline_kw) -> Txt2ImgPipeline:
+    """SD3-medium served at full width on ``device`` in ``dtype``
+    (``configs/sampling/demo_sampling_mmdit.yaml``'s stack at the
+    ``sd3_medium`` preset, with ``demo_training_latent_sd3.yaml``'s T5
+    bucket): the ``sd3_medium`` MMDiT; CLIP-L and CLIP-bigG pooled
+    (``layer_idx=-2``) in bucket 0 and T5-XXL at 256 tokens with its key mask
+    in bucket 1 (``training.bench_setup.SD3_TEXT_ENCODERS``,
+    ``zero_for_padding=False``, ``pad_context_to=4096``); the 16-channel
+    VAE with its shift; ``NoiseSchedule.sdxl()``, ``RFDenoiser`` and
+    :func:`sd3_sigmas`. Skip-layer guidance goes on a call:
+    ``pipe(prompt, unet_skip_fn=functools.partial(pipe.unet, skip_layers=(7,
+    8, 9)), slg_scale=2.5, slg_interval=(lo, hi))``.
+
+    The weights are random from ``seed`` (the MMDiT's zero-initialised
+    leaves drawn by ``fill_zero_initialised``), or with ``component_files``
+    read from diffusers-layout files: ``{"transformer": ..., "text_encoder":
+    CLIP-L, "text_encoder_2": CLIP-bigG, "text_encoder_3": T5-XXL, "vae":
+    ...}``, each read once into modules built on ``meta``. The tokenizers
+    hash words, or with ``tokenizer_files`` (``[(vocab.json, merges.txt),
+    (vocab.json, merges.txt), spiece.model]``) are ``CLIPBPETokenizer``s
+    padding as SDXL's and a ``T5SPTokenizer``. ``load_timings`` gains the
+    load's ``read``, ``map`` and ``copy`` seconds; ``pipeline_kw`` go to
+    :class:`Txt2ImgPipeline`."""
+    from uwudiff_tpu_torch.models import AutoencoderKL, ConcatTextEncoders, MMDiT, TextEncodingPipeline
+    from uwudiff_tpu_torch.training.bench_setup import SD3_TEXT_ENCODERS, fill_zero_initialised
+
+    dev = resolve_device(device)
+    build = dev if component_files is None else torch.device("meta")
+    torch.manual_seed(seed)
+    mmdit = MMDiT.from_config("sd3_medium", device=build, dtype=dtype)
+    te = ConcatTextEncoders.from_config(SD3_TEXT_ENCODERS, device=build, dtype=dtype, zero_for_padding=False,
+                                        pad_context_to=4096)
+    vae = AutoencoderKL.from_config(SD3_VAE, device=build, dtype=dtype)
+    if component_files is None:
+        fill_zero_initialised(mmdit)
+    else:
+        clip_l, clip_bigg, t5 = te.text_models
+        _load_components({"transformer": (mmdit, "mmdit"), "text_encoder": (clip_l, "clip"),
+                          "text_encoder_2": (clip_bigg, "clip"), "text_encoder_3": (t5, "t5"), "vae": (vae, "vae")},
+                         component_files, dev, load_timings)
+    te_pipe = TextEncodingPipeline(te, _text_tokenizers(tokenizer_files, SDXL_PAD_TOKENS, SD3_T5_TOKENS), device=dev)
+    pipeline_kw.setdefault("denoiser_cls", RFDenoiser)
+    return Txt2ImgPipeline(mmdit, te_pipe, vae, NoiseSchedule.sdxl(), device=dev, vae_mean=SD3_VAE_SHIFT,
+                           get_sigma_func=sd3_sigmas, **pipeline_kw)
+
+
 # black-forest-labs/FLUX.1-dev's vae/config.json: the SDXL decoder's widths at
 # 16 latent channels, scaling_factor 0.3611 (vae_std = 1 / it), shift_factor 0.1159
 FLUX_VAE = dict(block_out_channels=(128, 256, 512, 512), layers_per_block=2, latent_channels=16,
@@ -256,21 +386,35 @@ class FluxTxt2Img:
         )
 
 
-def flux_txt2img(device="cuda", dtype=torch.bfloat16, seed: int = 0) -> FluxTxt2Img:
-    """The Flux serving stack with random weights from ``seed``, each
-    module built on ``device`` in ``dtype``: ``flux_dev`` (11.9 B
-    parameters, made in bf16 with no fp32 copy), CLIP-L pooled-only and
-    T5-XXL at 512 tokens with hash tokenizers, the 16-channel decoder. The
-    transformer's zero-initialised leaves stay zero (a fresh model outputs
-    zeros); ``training.bench_setup.fill_zero_initialised`` draws them."""
-    from uwudiff_tpu_torch.models import AutoencoderKL, ConcatTextEncoders, Flux, SimpleTokenizer, TextEncodingPipeline
+def flux_txt2img(device="cuda", dtype=torch.bfloat16, seed: int = 0, component_files: dict | None = None,
+                 tokenizer_files=None, load_timings: dict | None = None,
+                 flux_config: str | dict = "flux_dev") -> FluxTxt2Img:
+    """The Flux serving stack on ``device`` in ``dtype``: ``flux_config``
+    (default ``flux_dev``, 11.9 B parameters, made in bf16 with no fp32
+    copy; a preset name or a config dict), CLIP-L pooled-only,
+    T5-XXL at 512 tokens, the 16-channel decoder. The weights are random
+    from ``seed`` (the transformer's zero-initialised leaves stay zero: a
+    fresh model outputs zeros; ``training.bench_setup.fill_zero_initialised``
+    draws them), or with ``component_files`` read from diffusers-layout
+    files (``{"transformer": ..., "text_encoder": CLIP-L, "text_encoder_2":
+    T5-XXL, "vae": ...}``) into modules built on ``meta`` (each module's
+    every leaf from its file; keys the module lacks are left). The
+    tokenizers hash words, or with ``tokenizer_files`` (``[(vocab.json,
+    merges.txt), spiece.model]``) are a ``CLIPBPETokenizer`` and a
+    ``T5SPTokenizer``. ``load_timings`` gains the load's seconds."""
+    from uwudiff_tpu_torch.models import AutoencoderKL, ConcatTextEncoders, Flux, TextEncodingPipeline
 
     dev = resolve_device(device)
+    build = dev if component_files is None else torch.device("meta")
     torch.manual_seed(seed)
-    model = Flux.from_config("flux_dev", device=dev, dtype=dtype)
-    te = ConcatTextEncoders.from_config(FLUX_TEXT_ENCODERS, device=dev, dtype=dtype)
-    vae = AutoencoderKL.from_config(FLUX_VAE, device=dev, dtype=dtype)
-    tokenizers = [SimpleTokenizer(), SimpleTokenizer(model_max_length=FLUX_T5_TOKENS)]
+    model = Flux.from_config(flux_config, device=build, dtype=dtype)
+    te = ConcatTextEncoders.from_config(FLUX_TEXT_ENCODERS, device=build, dtype=dtype)
+    vae = AutoencoderKL.from_config(FLUX_VAE, device=build, dtype=dtype)
+    if component_files is not None:
+        clip_l, t5 = te.text_models
+        _load_components({"transformer": (model, "flux"), "text_encoder": (clip_l, "clip"),
+                          "text_encoder_2": (t5, "t5"), "vae": (vae, "vae")}, component_files, dev, load_timings)
+    tokenizers = _text_tokenizers(tokenizer_files, (None,), FLUX_T5_TOKENS)
     return FluxTxt2Img(model, TextEncodingPipeline(te, tokenizers, device=dev), vae)
 
 
