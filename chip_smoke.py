@@ -223,6 +223,33 @@ Phases, each fatal on failure:
                (16 K1 launches at D = 128). Prints the write, read,
                name-mapping and copy seconds, the group's encode / sample /
                decode seconds, T5's SentencePiece host ms and the peak GiB.
+ 14. adapters - SDXL served with hot-swapped adapters and int8 weights:
+               first the small SDXL-layout UNet with adapter "a" merged and
+               int8 weights, card bf16 against CPU fp32 (tolerance 5e-2);
+               then the full-width sdxl_pipeline with adapter "a" (the
+               LyCORIS preset configs/lycoris/sdxl-adapters.toml: LoKr on
+               attention and feed-forward, LoRA elsewhere) and "b" (a rank-32
+               LoRA on every kohya-addressable Linear, written as a kohya
+               .safetensors in the checkout, removed after, and read back
+               bitwise), each zero factor redrawn so the delta is real.
+               Swaps to "a", "b", ["a", "b"], None and "a": each touched
+               weight bitwise the adapters' merge of the base on the card,
+               every other the base, None every weight, no tensor moved (its
+               data_ptr); "a" again writes nothing, an adapter object
+               re-merges; each swap timed (CUDA events, median of 3). A burst
+               of two base requests, two with "a", one with "b", one with
+               ("a", "b") and one with an unknown adapter through
+               BatchingServer(max_batch=4) at 1024x1024 (4 Euler-a steps, CFG
+               5): one group per adapter key, 44 + 140 x 4 K1 launches each,
+               only the unknown one's future failing. A lone request plain,
+               with "b" and in int8 (median of 3, peak GiB), and one UNet
+               call of 2 CFG rows, bf16 against int8 (ms, device kernels).
+               Then sdxl_pipeline(quantize_weights=True): the int8 bytes,
+               the card memory held after construction against the bf16
+               pipeline's, a request's latents against bf16 (mean |diff| over
+               mean |bf16| < 0.15), swaps to "b" and ["a", "b"] bitwise
+               quantize_tree of the merge, None restoring every tensor,
+               no tensor moved, each swap timed.
 Prints the card's name and power limit, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA is
 unavailable or the package is missing. A full report goes to
@@ -3420,27 +3447,6 @@ PLAIN_PROMPT = "a red fox in snow"
 CLIP_VOCAB = 49408  # CLIP's vocabulary: 512 byte symbols, 48,894 merges, two specials
 
 
-def write_safetensors(path, tensors):
-    """A .safetensors file: the 8-byte little-endian header length, the JSON
-    header (padded to 8 bytes), each tensor's raw bytes in order."""
-    import struct
-
-    names = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16"}
-    header, offset = {}, 0
-    for key, t in tensors.items():
-        n = t.numel() * t.element_size()
-        header[key] = {"dtype": names[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + n]}
-        offset += n
-    blob = json.dumps(header, separators=(",", ":")).encode()
-    blob += b" " * (-len(blob) % 8)
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(blob)))
-        f.write(blob)
-        for t in tensors.values():
-            f.write(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
-    return offset + 8 + len(blob)
-
-
 def write_vocab(dirname, n_ids, seed):
     """A CLIP vocab.json / merges.txt pair of ``n_ids`` ids: the 256 byte
     symbols in CLIP's order ("!" at 0) and their ``</w>`` forms (ids 0-511),
@@ -3517,6 +3523,7 @@ def check_checkpoint_vs_cpu(tmp, failures) -> float:
     from uwudiff_tpu_torch.diffusion import NoiseSchedule
     from uwudiff_tpu_torch.loader import ModelLoadConfig, apply_load_config
     from uwudiff_tpu_torch.models import CLIPBPETokenizer, TextEncodingPipeline
+    from uwudiff_tpu_torch.models.import_torch import write_safetensors
     from uwudiff_tpu_torch.sampling import KDiffusionDenoiser, build_cfg_fn, encode_cfg_inputs, sample_euler_ancestral
 
     te, unet, vae = small_sdxl_stack("cpu", torch.float32)
@@ -3640,7 +3647,7 @@ def checkpoint(report, failures):
     import tempfile
 
     from uwudiff_tpu_torch.models import CLIPBPETokenizer
-    from uwudiff_tpu_torch.models.import_torch import load_torch_state_dict
+    from uwudiff_tpu_torch.models.import_torch import load_torch_state_dict, write_safetensors
     from uwudiff_tpu_torch.models.ldm_checkpoint import ldm_to_diffusers, split_ldm_checkpoint
     from uwudiff_tpu_torch.models.long_prompt import required_chunks, tokenize_long
     from uwudiff_tpu_torch.ops import FORWARD_KERNELS, launch_counts, launches_by_head_dim, reset_launch_counts
@@ -3892,7 +3899,7 @@ def write_components(tmp, components, files, sizes):
     for name, (module, key_map) in components.items():
         path = files[name] = os.path.join(tmp, f"{name}.safetensors")
         sd = it.export_params(module, key_map, torch.float16)
-        sizes[name] = write_safetensors(path, sd)
+        sizes[name] = it.write_safetensors(path, sd)
         del sd
         torch.cuda.empty_cache()
     return time.perf_counter() - t0
@@ -4191,6 +4198,360 @@ def sd3(report, failures):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phase 14: SDXL served with hot-swapped adapters and int8 weights
+ADAPTER_TOML = "configs/lycoris/sdxl-adapters.toml"  # adapter "a": LoKr on attention and feed-forward, LoRA elsewhere
+KOHYA_RANK = 32  # adapter "b": a rank-32 LoRA (alpha 32) on every kohya-addressable UNet Linear
+DELTA_RATIO = 0.1  # each redrawn delta's RMS over a default-initialised Linear weight's, 1 / sqrt(3 * fan_in)
+ADAPTER_SEEDS = [71, 72, 73, 74, 75, 76, 77]
+INT8_REL_TOL = 0.15  # tests/test_quantize.py: mean |int8 - bf16| over mean |bf16| of a request's latents
+
+
+def give_delta(adapter, seed):
+    """The adapter's zero factor (LoRA's ``lora_up``, LoKr's ``lokr_w2``)
+    redrawn from ``seed`` so that each delta's RMS is DELTA_RATIO of a
+    default-initialised Linear weight's: a LoRA delta's RMS is alpha * s /
+    sqrt(rank * fan_in), a LoKr one's alpha * s / sqrt(i1)."""
+    gen = torch.Generator().manual_seed(seed)
+    for name, leaves in adapter.params.items():
+        spec = adapter.specs[name]
+        fan_in = math.prod(spec["shape"][:-1])
+        if spec["algo"] == "lora":
+            std = DELTA_RATIO * math.sqrt(spec["dim"] / 3) / spec["alpha"]
+            key = "lora_up"
+        else:
+            std = DELTA_RATIO * math.sqrt(leaves["lokr_w1"].shape[0] / (3 * fan_in)) / spec["alpha"]
+            key = "lokr_w2"
+        leaves[key] = (torch.randn(leaves[key].shape, generator=gen) * std).to(leaves[key].device)
+    return adapter
+
+
+def adapter_a(unet, seed):
+    from uwudiff_tpu_torch.training import LycorisAdapter, build_adapter_config
+
+    cfg = build_adapter_config(os.path.join(ROOT, ADAPTER_TOML))
+    return give_delta(LycorisAdapter.create(unet, cfg, torch.Generator().manual_seed(seed)), seed + 1)
+
+
+def check_adapters_vs_cpu(failures) -> dict:
+    """(a) The small SDXL-layout UNet of check_models_vs_cpu with adapter "a"
+    merged and its weights int8 (Txt2ImgPipeline(quantize_weights=True),
+    set_adapter): the card's bf16 forward through the kernels against the
+    same in fp32 on the CPU; the largest difference over the largest output."""
+    from uwudiff_tpu_torch.serving import Txt2ImgPipeline
+
+    gen = torch.Generator().manual_seed(SEED + 41)
+    x = torch.randn((2, 32, 32, 4), generator=gen)
+    t = torch.tensor([10.5, 731.25])
+    ctx = torch.randn((2, 77, 256), generator=gen)
+    added = {"time_ids": torch.tensor([[256.0, 256, 0, 0, 256, 256]] * 2), "text_embeds": torch.randn((2, 128))}
+    out = {}
+    for device, dtype in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+        _, unet, _ = small_sdxl_stack(device, dtype)
+        pipe = Txt2ImgPipeline(unet, None, None, None, device=device, quantize_weights=True)
+        pipe.set_adapter(adapter_a(unet, SEED + 42))
+        with torch.inference_mode():
+            out[device] = unet(x.to(device), t.to(device), ctx.to(device, dtype), None,
+                               {k: v.to(device, dtype) for k, v in added.items()}).float().cpu()
+    ref = out["cpu"]
+    err = ((out["cuda"] - ref).abs().max() / ref.abs().max()).item()
+    tol = 5e-2  # the script's card-vs-CPU bound: bf16 weights and activations through a few dozen layers
+    log(f"  small SDXL-layout UNet with adapter a, int8, card bf16 vs CPU fp32: rel err {err:.2e} (tol {tol})")
+    if not err <= tol:
+        failures.append(f"adapters: small UNet with adapter a, int8, card vs CPU rel err {err} > {tol}")
+    return {"rel_err": err, "tol": tol}
+
+
+def unet_tensors(unet) -> dict:
+    return {**dict(unet.named_parameters()), **dict(unet.named_buffers())}
+
+
+def held_as(unet, want: dict) -> list:
+    """The names of ``want`` (parameter names -> tensors, or quantize_tree's
+    int8 nodes) whose tensor in ``unet`` is not bitwise the wanted one."""
+    held = unet_tensors(unet)
+    bad = []
+    for name, v in want.items():
+        if isinstance(v, dict):
+            if not (torch.equal(held[name + "_q8"], v["__q8__"]) and torch.equal(held[name + "_scale"], v["scale"])):
+                bad.append(name)
+        elif not torch.equal(held[name], v):
+            bad.append(name)
+    return bad
+
+
+def swap_ms(pipe, sequence, reps=3) -> dict:
+    """Each swap of ``sequence`` (set_adapter's arguments, in turn), ``reps``
+    times over: CUDA events from before the call to after its last write;
+    the median, and the host's wall ms."""
+    times: dict = {}
+    for _ in range(reps):
+        for served in sequence:
+            key = "none" if served is None else "+".join([served] if isinstance(served, str) else served)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            pipe.set_adapter(served)
+            end.record()
+            host = (time.perf_counter() - t0) * 1e3
+            end.synchronize()
+            times.setdefault(key, []).append((start.elapsed_time(end), host))
+    return {k: {"ms": sorted(e for e, _ in v)[len(v) // 2], "host_ms": sorted(h for _, h in v)[len(v) // 2]}
+            for k, v in times.items()}
+
+
+def lone_s(pipe, reps=3) -> tuple:
+    """A lone 1024^2 request (uint8 image on the host), ``reps`` times: the
+    median seconds, the peak GiB and the K1 launches of one."""
+    from uwudiff_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    runs = []
+    for _ in range(reps):
+        reset_launch_counts()
+        img, s, peak, _ = peak_run(pipe, PLAIN_PROMPT, num_steps=STEPS, cfg_scale=CFG, width=RES, height=RES, seed=91)
+        runs.append((s, peak, launch_counts()["flash_fwd_sm90"], img[0]))
+    runs.sort(key=lambda r: r[0])
+    return runs[len(runs) // 2][0], max(r[1] for r in runs), runs[0][2], runs[0][3]
+
+
+def adapters(report, failures):
+    """SDXL served with hot-swapped LoRA/LoKr adapters, a kohya LoRA file and
+    int8 weights (phase 14); the counts of the mixed burst are returned."""
+    import shutil
+    import tempfile
+
+    from uwudiff_tpu_torch.ops import FORWARD_KERNELS, launch_counts, reset_launch_counts
+    from uwudiff_tpu_torch.ops.quantize import quantize_tree, quantized_bytes
+    from uwudiff_tpu_torch.serving import BatchingServer, Request, sdxl_pipeline
+    from uwudiff_tpu_torch.training import LycorisAdapter, build_adapter_config
+    from uwudiff_tpu_torch.training.adapters import port_name
+    from uwudiff_tpu_torch.training.kohya_lora import _module_table, load_kohya_lora, save_kohya_lora
+
+    out = report["adapters"] = {}
+    out["small_vs_cpu"] = check_adapters_vs_cpu(failures)
+    tmp = tempfile.mkdtemp(prefix="chip_lora_", dir=ROOT)  # inside the checkout, git-ignored
+    try:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        pipe, build_s = sync_s(sdxl_pipeline, "cuda", torch.bfloat16, SEED)
+        held_bf16 = torch.cuda.memory_allocated() - before
+        unet = pipe.unet
+        base = {k: v.detach().clone() for k, v in unet.named_parameters()}
+        n_leaves = len(base)
+        ptrs = {k: v.data_ptr() for k, v in unet_tensors(unet).items()}
+
+        # adapter "a" from the LyCORIS preset; "b" through a kohya file and back
+        a = adapter_a(unet, SEED + 43).to("cuda")
+        linears = [path for path in _module_table(unet).values() if unet.get_parameter(port_name(path)).ndim == 2]
+        pattern = "^(" + "|".join(re.escape(p) for p in linears) + ")$"
+        made = give_delta(LycorisAdapter.create(unet, build_adapter_config(
+            {"targets": [{"pattern": pattern, "dim": KOHYA_RANK, "alpha": float(KOHYA_RANK)}]}),
+            torch.Generator().manual_seed(SEED + 44)), SEED + 45)
+        path = os.path.join(tmp, "b.safetensors")
+        _, save_s = sync_s(save_kohya_lora, made, unet, path)
+        b, load_s = sync_s(load_kohya_lora, path, unet)
+        unequal = [name for name, leaves in made.params.items() for k, v in leaves.items()
+                   if not torch.equal(b.params[name][k], v)]
+        if sorted(b.specs) != sorted(made.specs) or unequal or len(b.specs) != len(linears):
+            failures.append(f"adapters: kohya file read back: {len(b.specs)} of {len(made.specs)} modules, unequal"
+                            f" {unequal[:5]}")
+        counts_ab = {"a": {"leaves": len(a.specs), "params": a.n_params(),
+                           "lokr": sum(s["algo"] == "lokr" for s in a.specs.values())},
+                     "b": {"leaves": len(b.specs), "params": b.n_params(), "file_bytes": os.path.getsize(path),
+                           "save_s": save_s, "load_s": load_s, "unequal": len(unequal)}}
+        log(f"  sdxl_pipeline in {build_s:.1f} s, {held_bf16 / 2**30:.2f} GiB on the card; adapters {counts_ab}")
+        pipe.register_adapter("a", a).register_adapter("b", b)
+
+        # (b) swaps: each the merge of the base, bitwise; None restores; the no-op writes nothing
+        swaps = {}
+        for i, (served, used) in enumerate((("a", [a]), ("b", [b]), (["a", "b"], [a, b]), (None, []), ("a", [a]))):
+            _, s = sync_s(pipe.set_adapter, served)
+            touched = set().union(*(ad.port_names for ad in used))
+            want = {n: base[n] for n in touched}
+            for ad in used:
+                want = ad.merge(want)
+            bad = held_as(unet, want)
+            rest = held_as(unet, {n: v for n, v in base.items() if n not in touched})
+            moved = [k for k, v in unet_tensors(unet).items() if v.data_ptr() != ptrs[k]]
+            swaps[f"{i}: {served}"] = {"s": s, "touched": len(touched), "unequal": len(bad), "others_unequal": len(rest),
+                                  "moved": len(moved)}
+            if bad or rest or moved:
+                failures.append(f"adapters: swap to {served}: {len(bad)} touched weights not the merge, {len(rest)}"
+                                f" others not the base, {len(moved)} tensors moved")
+            del want
+        versions = {k: v._version for k, v in unet_tensors(unet).items()}
+        pipe.set_adapter("a")  # the names already served
+        noop_writes = sum(v._version != versions[k] for k, v in unet_tensors(unet).items())
+        pipe.set_adapter(a)  # an adapter object always re-merges
+        anon_bad = held_as(unet, a.merge({n: base[n] for n in a.port_names}))
+        if noop_writes or anon_bad:
+            failures.append(f"adapters: the no-op swap wrote {noop_writes} tensors; the object swap left"
+                            f" {len(anon_bad)} weights off its merge")
+        swaps["noop_writes"], swaps["object_unequal"] = noop_writes, len(anon_bad)
+        swaps["ms"] = swap_ms(pipe, ["a", "b", ["a", "b"], None])
+        log(f"  swaps (touched weights, bitwise the merge, none moved): {json.dumps(swaps)}")
+        out["swaps"] = swaps
+
+        # (d) the mixed burst, one group per adapter key
+        groups, inner = [], pipe.sample_device
+
+        def recording(**kw):
+            before_c = launch_counts()
+            g = {"adapter": list(pipe._active_adapter or ()), "requests": len(set(kw["seed"])),
+                 "batch": kw["num_samples"]}
+            result, g["s"] = sync_s(inner, **kw)
+            after_c = launch_counts()
+            g.update({k: after_c[k] - before_c[k] for k in FORWARD_KERNELS})
+            groups.append(g)
+            return result
+
+        pipe.set_adapter(None)
+        pipe.sample_device = recording
+        keys = [None, None, "a", "a", "b", ("a", "b"), "no_such_adapter"]
+        server = BatchingServer(pipe, buckets=[(RES, RES)], max_batch=4, max_wait_s=0.5)
+        server.start()
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()  # the main path's run starts here
+            t0 = time.perf_counter()
+            futs = [server.submit(Request(prompt=PLAIN_PROMPT, num_steps=STEPS, cfg_scale=CFG, seed=s, width=RES,
+                                          height=RES, adapter=k)) for k, s in zip(keys, ADAPTER_SEEDS)]
+            errors = [f.exception(timeout=900) for f in futs]
+            burst_s = time.perf_counter() - t0
+            counts = launch_counts()  # and ends here
+            burst_peak = torch.cuda.max_memory_allocated() / 2**30
+            images = [f.result() for f, e in zip(futs, errors) if e is None]
+        finally:
+            server.stop()
+            pipe.sample_device = inner
+        served = sorted(str(g["adapter"]) for g in groups)
+        want_k1 = 44 + 140 * STEPS
+        if served != sorted(str(k) for k in ([], ["a"], ["b"], ["a", "b"])) or any(
+                g["flash_fwd_sm90"] != want_k1 for g in groups):
+            failures.append(f"adapters burst: groups {groups}, want one per adapter key with {want_k1} K1 launches")
+        if not isinstance(errors[-1], KeyError) or any(e is not None for e in errors[:-1]):
+            failures.append(f"adapters burst: errors {errors}; only the unknown adapter's request should fail")
+        for name in FORWARD_KERNELS:
+            if counts[name] == 0:
+                failures.append(f"adapters burst: kernel {name} was not launched")
+        check_forward_route(counts, "adapters", failures)
+        for i, img in enumerate(images):
+            if img.shape != (RES, RES, 3) or img.dtype.name != "uint8" or int(img.max()) == int(img.min()):
+                failures.append(f"adapters image {i}: shape {img.shape} dtype {img.dtype}")
+        for g in groups:
+            log(f"  group {g['adapter']} ({g['requests']} requests, batch {g['batch']}): {g['s']:.2f} s; K1"
+                f" {g['flash_fwd_sm90']}, K2 {g['gn_silu_fused']}, K3 {g['gn_stats']} (+ apply {g['gn_silu_apply']})")
+        log(f"  burst of {len(keys)} in {burst_s:.2f} s, peak {burst_peak:.1f} GiB; launches {counts}")
+        out.update(groups=groups, burst_s=burst_s, burst_peak_gib=burst_peak, launches=counts,
+                   errors=[None if e is None else repr(e) for e in errors])
+
+        # (e) a lone request plain and with "b" (bf16)
+        pipe.set_adapter(None)
+        plain_s, plain_peak, plain_k1, plain_img = lone_s(pipe)
+        pipe.set_adapter("b")
+        b_s, b_peak, b_k1, b_img = lone_s(pipe)
+        pipe.set_adapter(None)
+        b_moved = float(abs(b_img.astype(int) - plain_img.astype(int)).mean())
+        with torch.inference_mode():
+            lat_bf16 = pipe.sample_device(PLAIN_PROMPT, num_steps=STEPS, cfg_scale=CFG, width=RES, height=RES,
+                                          seed=92, return_latents=True)[0].float()
+        # one UNet call of a lone request's 2 CFG rows, on random inputs
+        pooled = unet.add_embedding.linear_1.in_features - 6 * unet.addition_time_embed_dim
+        x = torch.randn((1, RES // 8, RES // 8, 4), device="cuda")
+        ctx = torch.randn((2, 77, unet.cross_attention_dim), device="cuda", dtype=torch.bfloat16)
+        added = {"time_ids": torch.tensor([[RES, RES, 0, 0, RES, RES]] * 2, device="cuda", dtype=torch.bfloat16),
+                 "text_embeds": torch.randn((2, pooled), device="cuda", dtype=torch.bfloat16)}
+        t = torch.tensor([500.0, 500.0], device="cuda")
+
+        def unet_call(m):
+            return lambda: m(x.expand(2, -1, -1, -1), t, ctx, None, added)
+
+        with torch.inference_mode():
+            call_bf16 = time_ms(unet_call(unet), reps=5, warmup=1)
+            ops_bf16 = len(device_ops(unet_call(unet)))
+        del base, a, b, made
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) int8: the resident bytes, the card memory, a request against bf16, a swap requantized
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pipe8, build8_s = sync_s(sdxl_pipeline, "cuda", torch.bfloat16, SEED, quantize_weights=True)
+        held_int8 = torch.cuda.memory_allocated() - before
+        build8_peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+        unet8 = pipe8.unet
+        q_bytes, all_bytes = quantized_bytes(unet8)
+        bf16_bytes = sum(p.numel() * p.element_size() for p in unet.parameters())
+        n_q = len(pipe8._quantized)
+        ptrs8 = {k: v.data_ptr() for k, v in unet_tensors(unet8).items()}
+        start8 = {k: v.clone() for k, v in unet_tensors(unet8).items()}
+        with torch.inference_mode():
+            lat_int8 = pipe8.sample_device(PLAIN_PROMPT, num_steps=STEPS, cfg_scale=CFG, width=RES, height=RES,
+                                           seed=92, return_latents=True)[0].float()
+        rel = ((lat_int8 - lat_bf16).abs().mean() / lat_bf16.abs().mean()).item()
+        finite = bool(torch.isfinite(lat_int8).all())
+        log(f"  int8 pipeline in {build8_s:.1f} s: {n_q} of {n_leaves} UNet leaves int8, {q_bytes / 2**30:.3f}"
+            f" GiB of int8 values, {all_bytes / 2**30:.3f} GiB with the scales and the other leaves, against"
+            f" {bf16_bytes / 2**30:.3f} GiB in bf16; card memory after construction"
+            f" {held_int8 / 2**30:.2f} GiB (bf16 pipeline {held_bf16 / 2**30:.2f}), construction peak"
+            f" {build8_peak:.2f} GiB above; latents vs bf16 mean |diff| / mean |bf16| {rel:.4f} (tol {INT8_REL_TOL})")
+        if not (q_bytes > 0 and finite and rel < INT8_REL_TOL):
+            failures.append(f"adapters int8: int8 bytes {q_bytes}, finite {finite}, latents rel {rel} >="
+                            f" {INT8_REL_TOL}")
+        # the card holds the int8 form alone: the saving is the UNet's bf16 bytes less its int8 leaves'
+        if not held_bf16 - held_int8 >= 0.99 * (bf16_bytes - all_bytes):
+            failures.append(f"adapters int8: the pipeline holds {held_int8} bytes against bf16's {held_bf16}; want"
+                            f" {bf16_bytes - all_bytes} fewer")
+        b8 = load_kohya_lora(path, unet8)
+        a8 = adapter_a(unet8, SEED + 43)
+        pipe8.register_adapter("a", a8).register_adapter("b", b8)
+        base8 = {n: pipe8._base[n].to("cuda") for n in pipe8._quantized}
+        base8.update({n: p.detach().clone() for n, p in unet8.named_parameters()})
+        swaps8 = {}
+        for served, used in (("b", [b8]), (["a", "b"], [a8, b8])):
+            _, s = sync_s(pipe8.set_adapter, served)
+            touched = set().union(*(ad.port_names for ad in used))
+            want = {n: base8[n] for n in touched}
+            for ad in used:
+                want = ad.merge(want)
+            bad = held_as(unet8, quantize_tree(unet8, want))
+            del want
+            moved = [k for k, v in unet_tensors(unet8).items() if v.data_ptr() != ptrs8[k]]
+            swaps8[str(served)] = {"s": s, "touched": len(touched), "unequal": len(bad), "moved": len(moved)}
+            if bad or moved:
+                failures.append(f"adapters int8: swap to {served}: {len(bad)} weights not quantize_tree(merge(base)),"
+                                f" {len(moved)} tensors moved")
+        pipe8.set_adapter(None)
+        restored = sum(not torch.equal(v, start8[k]) for k, v in unet_tensors(unet8).items())
+        if restored:
+            failures.append(f"adapters int8: None left {restored} tensors off their state at construction")
+        swaps8["none_unequal"] = restored
+        swaps8["ms"] = swap_ms(pipe8, ["b", ["a", "b"], None])
+        log(f"  int8 swaps (requantized, bitwise quantize_tree(merge(base))): {json.dumps(swaps8)}")
+        int8_s, int8_peak, int8_k1, _ = lone_s(pipe8)
+        with torch.inference_mode():
+            call_int8 = time_ms(unet_call(unet8), reps=5, warmup=1)
+            ops_int8 = len(device_ops(unet_call(unet8)))
+        if not (plain_k1 == b_k1 == int8_k1 == want_k1):
+            failures.append(f"adapters lone requests: K1 {plain_k1}, {b_k1}, {int8_k1}; want {want_k1}")
+        lone = {"plain_s": plain_s, "b_s": b_s, "int8_s": int8_s, "plain_peak_gib": plain_peak,
+                "b_peak_gib": b_peak, "int8_peak_gib": int8_peak, "b_vs_plain_mean_abs_pixel_diff": b_moved,
+                "unet_call_ms": {"bf16": call_bf16, "int8": call_int8},
+                "device_ops_per_unet_call": {"bf16": ops_bf16, "int8": ops_int8}}
+        log(f"  lone request (median of 3): plain {plain_s:.3f} s, with b {b_s:.3f} s (mean pixel change"
+            f" {b_moved:.1f}), int8 {int8_s:.3f} s; peak {plain_peak:.1f} / {b_peak:.1f} / {int8_peak:.1f} GiB; a UNet"
+            f" call of 2 CFG rows {call_bf16:.1f} ms bf16, {call_int8:.1f} ms int8; device kernels a call {ops_bf16}"
+            f" bf16, {ops_int8} int8 ({ops_int8 - ops_bf16} added, {n_q} int8 leaves)")
+        out.update(held_bf16_gib=held_bf16 / 2**30, held_int8_gib=held_int8 / 2**30, int8_build_s=build8_s,
+                   int8_build_peak_gib=build8_peak, int8_leaves=n_q, unet_leaves=n_leaves,
+                   quantized_bytes=[q_bytes, all_bytes], bf16_unet_bytes=bf16_bytes, int8_latents_rel=rel,
+                   int8_swaps=swaps8, lone=lone, adapters=counts_ab)
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -4216,7 +4577,7 @@ def main() -> int:
     report = {"card": smi, "sm_clock_max_mhz": float(clock), "torch": torch.__version__, "cuda": torch.version.cuda}
     failures: list[str] = []
 
-    log("[1/13] build")
+    log("[1/14] build")
     built = build_all()
     report["build_s"] = built["seconds"]
     log(f"  built in {built['seconds']:.1f} s")
@@ -4240,7 +4601,7 @@ def main() -> int:
         seconds[key] = time.perf_counter() - t0
         return out
 
-    log("[2/13] kernels vs plain (bf16)")
+    log("[2/14] kernels vs plain (bf16)")
     results: list[dict] = []
     for check in (check_flash, check_gn, check_flash_bwd, check_flash_dbias, check_gn_bwd, check_optimizer):
         timed(check.__name__, check, results, failures)
@@ -4251,60 +4612,66 @@ def main() -> int:
     report["ti_step_vs_cpu"] = timed("check_ti_vs_cpu", check_ti_vs_cpu, failures)
     report["flux_train_step_vs_cpu"] = timed("check_flux_train_vs_cpu", check_flux_train_vs_cpu, failures)
 
-    log("[3/13] serve SDXL 1024x1024")
+    log("[3/14] serve SDXL 1024x1024")
     serve_counts = timed("serve", serve, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # the serving stack is gone before the trainer is built
 
-    log("[4/13] train SDXL (full fine-tune, batch 8, 64x64 latents)")
+    log("[4/14] train SDXL (full fine-tune, batch 8, 64x64 latents)")
     counts = timed("train", train, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SDXL trainer before the SD1.5 one
 
-    log("[5/13] train SD1.5 (full fine-tune, batch 16, 64x64 latents)")
+    log("[5/14] train SD1.5 (full fine-tune, batch 16, 64x64 latents)")
     sd15_counts, sd15_by_dim = timed("train_sd15", train_sd15, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SD1.5 trainer before the SD3 one
 
-    log("[6/13] textual inversion SD3-medium + CLIP-L + CLIP-bigG + T5-XXL (batch 8, 64x64x16 latents)")
+    log("[6/14] textual inversion SD3-medium + CLIP-L + CLIP-bigG + T5-XXL (batch 8, 64x64x16 latents)")
     ti_counts = timed("ti", ti, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SD3 trainer before the Flux stack
 
-    log("[7/13] serve Flux (flux_dev + CLIP-L + T5-XXL at 512 tokens) 1024x1024")
+    log("[7/14] serve Flux (flux_dev + CLIP-L + T5-XXL at 512 tokens) 1024x1024")
     flux_counts, flux_d128 = timed("flux", flux, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the Flux serving stack before the flux_1b trainer
 
-    log("[8/13] train flux_1b (full fine-tune, batch 8, 64x64x16 latents, blocks recomputed in the backward)")
+    log("[8/14] train flux_1b (full fine-tune, batch 8, 64x64x16 latents, blocks recomputed in the backward)")
     flux1b_counts, flux1b_by_dim = timed("train_flux", train_flux, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the flux_1b trainer before the SDXL stack with its encoder
 
-    log("[9/13] sampling surface: SDXL 1024x1024 through every sampler, img2img and inpainting, VAE tiles, inversion")
+    log("[9/14] sampling surface: SDXL 1024x1024 through every sampler, img2img and inpainting, VAE tiles, inversion")
     sampling_counts = timed("sampling", sampling_surface, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SDXL stack before the DiT
 
-    log("[10/13] serve DiT-XL/2 (class-conditional, CFG 4.0) at 256x256 and 512x512")
+    log("[10/14] serve DiT-XL/2 (class-conditional, CFG 4.0) at 256x256 and 512x512")
     dit_counts, dit_d72 = timed("dit", dit, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the DiT serving stack before its trainer
 
-    log("[11/13] train dit_xl_2 (full fine-tune, batch 64, 32x32 latents, fp32 masters under bf16 compute)")
+    log("[11/14] train dit_xl_2 (full fine-tune, batch 64, 32x32 latents, fp32 masters under bf16 compute)")
     dit_train_counts, dit_train_by_dim = timed("train_dit", train_dit, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the DiT trainer before the SDXL stacks
 
-    log("[12/13] checkpoint: SDXL from one single-file fp16 checkpoint and CLIP-size vocab files,"
+    log("[12/14] checkpoint: SDXL from one single-file fp16 checkpoint and CLIP-size vocab files,"
         " weighted and long prompts")
     ckpt_counts = timed("checkpoint", checkpoint, report, failures) or {}
     gc.collect()
     torch.cuda.empty_cache()  # and the SDXL stacks before SD3's
 
-    log("[13/13] sd3: SD3-medium from its component files at 1024x1024 (a burst of 4, a skip-layer-guided request),"
+    log("[13/14] sd3: SD3-medium from its component files at 1024x1024 (a burst of 4, a skip-layer-guided request),"
         " Flux from files")
     sd3_counts = timed("sd3", sd3, report, failures) or {}
+    gc.collect()
+    torch.cuda.empty_cache()  # and the SD3 stacks before the SDXL ones
+
+    log("[14/14] adapters and int8: SDXL 1024x1024 with hot-swapped LoRA/LoKr adapters, a kohya LoRA file,"
+        " int8 weights")
+    adapter_counts = timed("adapters", adapters, report, failures) or {}
 
     # (kernel, the case of its row's numbers): the kernels serving SD1.5 at
     # its level-0 self-attention (D = 40) and at level 2 (D = 160): the
@@ -4388,7 +4755,7 @@ def main() -> int:
             ti_launches=ti_counts[name], flux_launches=flux_counts[name], flux_1b_launches=flux1b_counts[name],
             img2img_launches=sampling_counts[name], dit_launches=dit_counts[name],
             dit_train_launches=dit_train_counts[name], checkpoint_launches=ckpt_counts.get(name, 0),
-            sd3_launches=sd3_counts.get(name, 0),
+            sd3_launches=sd3_counts.get(name, 0), adapter_launches=adapter_counts.get(name, 0),
         ))
     # the update's kernels (no Pallas kernel stood there: optax through XLA),
     # checked and timed over the SDXL step's leaves (O1) and the SD1.5 step's
@@ -4411,7 +4778,7 @@ def main() -> int:
                 ti_launches=ti_counts[name], flux_launches=flux_counts[name], flux_1b_launches=flux1b_counts[name],
                 img2img_launches=sampling_counts[name], dit_launches=dit_counts[name],
                 dit_train_launches=dit_train_counts[name], checkpoint_launches=ckpt_counts.get(name, 0),
-                sd3_launches=sd3_counts.get(name, 0),
+                sd3_launches=sd3_counts.get(name, 0), adapter_launches=adapter_counts.get(name, 0),
             ))
     report["kernels"] = kernels
     report["device_readings_not_measured"] = UNMEASURED

@@ -1349,3 +1349,93 @@ def test_tiny_sd15_step_on_the_card_matches_the_cpu(dev):
     assert counts["adamw_norm"] == counts["adamw_fp16_apply"] == 1 and counts["adamw_stats"] == 0
     assert all(m.dtype == torch.float32 and not torch.equal(m, b) for m, b in zip(tr.masters, before))
     assert all(torch.equal(p.detach(), m.to(torch.bfloat16)) for (_, p), m in zip(tr.params, tr.masters))
+
+
+# ------------------------------------------------------------ int8 weights and adapter swaps
+
+def _small_unet(dev, dtype=torch.bfloat16):
+    from uwudiff_tpu_torch.models import UNet2DConditionModel
+
+    torch.manual_seed(0)
+    return UNet2DConditionModel.from_config("tiny_sdxl", device=dev, dtype=dtype, block_out_channels=(64, 128),
+                                            cross_attention_dim=256, projection_class_embeddings_input_dim=128 + 48)
+
+
+def test_int8_quantize_and_dequantize_on_the_card_match_the_cpu_bitwise(dev):
+    """``quantize_tree`` of the same bf16 weights on the card and on the CPU:
+    int8 values and scales bitwise; the dequantized bf16 weights, and each
+    weight a module quantized in place reads on the card, bitwise the CPU's."""
+    import copy
+
+    from uwudiff_tpu_torch.ops.quantize import dequantize_tree, quantize_module_, quantize_tree
+
+    cpu = _small_unet("cpu")
+    gpu = copy.deepcopy(cpu).to(dev)
+    qc, qg = quantize_tree(cpu), quantize_tree(gpu)
+    names = [name for name, v in qc.items() if isinstance(v, dict)]
+    assert names and names == [name for name, v in qg.items() if isinstance(v, dict)]
+    for name in names:
+        assert torch.equal(qg[name]["__q8__"].cpu(), qc[name]["__q8__"]), name
+        assert torch.equal(qg[name]["scale"].cpu(), qc[name]["scale"]), name
+    want = dequantize_tree(qc)
+    got = dequantize_tree(qg)
+    assert all(torch.equal(got[name].cpu(), want[name]) for name in names)
+    quantize_module_(gpu)
+    for name in names:
+        owner, _, attr = name.rpartition(".")
+        assert torch.equal(getattr(gpu.get_submodule(owner), attr).cpu(), want[name]), name
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+def test_adapter_swaps_on_the_card_keep_pointers_and_restore_bitwise(dev, quantize):
+    """``set_adapter`` on the card: after a swap the denoiser holds ``merge``
+    of the base on the card (under int8 its ``quantize_tree``), bitwise;
+    every parameter and buffer keeps its ``data_ptr``; ``None`` restores
+    every tensor bitwise; under int8 no quantized weight's bf16 tensor
+    outlives the construction."""
+    import gc
+    import weakref
+
+    from uwudiff_tpu_torch.diffusion import NoiseSchedule
+    from uwudiff_tpu_torch.ops.quantize import quantize_tree
+    from uwudiff_tpu_torch.serving import Txt2ImgPipeline
+    from uwudiff_tpu_torch.training import LycorisAdapter, build_adapter_config
+
+    unet = _small_unet(dev)
+    base = {k: v.detach().clone() for k, v in unet.named_parameters()}
+    adapters = []
+    for seed, cfg in ((1, "configs/lycoris/sdxl-adapters.toml"),
+                      (2, {"targets": [{"pattern": r".*kernel$", "dim": 8}], "enable_conv": True})):
+        adapter = LycorisAdapter.create(unet, build_adapter_config(cfg), torch.Generator().manual_seed(seed))
+        for leaves in adapter.params.values():  # the zero factor redrawn: a real delta
+            for k, v in leaves.items():
+                leaves[k] = torch.randn(v.shape, generator=torch.Generator().manual_seed(seed)) * 0.05
+        adapters.append(adapter)
+    weights = [weakref.ref(p) for p in unet.parameters()]
+    pipe = Txt2ImgPipeline(unet, None, None, NoiseSchedule.sdxl(), device=dev, quantize_weights=quantize)
+    gc.collect()
+    # under int8 the card holds no bf16 copy: every quantized weight's tensor is gone
+    assert sum(w() is None for w in weights) == len(pipe._quantized) and (len(pipe._quantized) > 0) == quantize
+
+    def tensors():
+        return {**dict(unet.named_parameters()), **dict(unet.named_buffers())}
+
+    ptrs = {k: v.data_ptr() for k, v in tensors().items()}
+    start = {k: v.clone() for k, v in tensors().items()}
+    pipe.register_adapter("a", adapters[0]).register_adapter("b", adapters[1])
+    for served, used in (("a", adapters[:1]), (["a", "b"], adapters), ("b", adapters[1:])):
+        pipe.set_adapter(served)
+        merged = base
+        for adapter in used:
+            merged = adapter.merge(merged)
+        want = quantize_tree(unet, merged) if quantize else merged
+        held = tensors()
+        for name, v in want.items():
+            if isinstance(v, dict):
+                assert torch.equal(held[name + "_q8"], v["__q8__"]) and torch.equal(held[name + "_scale"], v["scale"])
+            else:
+                assert torch.equal(held[name], v), name
+        assert {k: v.data_ptr() for k, v in held.items()} == ptrs
+    pipe.set_adapter(None)
+    assert all(torch.equal(v, start[k]) for k, v in tensors().items())
+    assert {k: v.data_ptr() for k, v in tensors().items()} == ptrs

@@ -61,8 +61,12 @@ def _record(run):
     def fake_attention(q, k, v, bias=None, **_):
         return torch.empty_like(q)
 
+    def fake_layer_norm(x, *args, **kwargs):  # a Python decomposition on meta: ~2 s of an SDXL forward
+        return torch.empty_like(x)
+
     with pytest.MonkeyPatch.context() as mp, torch.device("meta"), torch.no_grad():
         mp.setattr(layers, "group_norm_silu", fake_gn)
+        mp.setattr(torch.nn.functional, "layer_norm", fake_layer_norm)
         mp.setattr(transformer_mod, "dot_product_attention", fake_attention)
         mp.setattr(vae_mod, "dot_product_attention", fake_attention)
         run()

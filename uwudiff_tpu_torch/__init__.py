@@ -2,7 +2,9 @@
 
 Two slices are ported. Serving: SDXL text-to-image, ``BatchingServer`` ->
 dual-CLIP text encoding -> CFG Euler-ancestral sampling of the UNet -> VAE
-decode (``serving``). Training: the SDXL full fine-tune step,
+decode (``serving``), with hot-swapped LoRA/LoKr adapters and kohya LoRA
+files (``training/adapters.py``, ``training/kohya_lora.py``) and int8
+weights (``ops/quantize.py``). Training: the SDXL full fine-tune step,
 ``training.DMTrainer(...).train_step(batch)`` -> ``DiffusionLoss`` -> the
 UNet's forward and backward -> ``adamw_factored`` with bf16
 stochastic-rounding updates (``training``, ``diffusion``). Weights load

@@ -51,6 +51,7 @@ __all__ = [
     "t5_key_map",
     "unet_key_map",
     "vae_key_map",
+    "write_safetensors",
 ]
 
 # safetensors' dtype names
@@ -79,6 +80,26 @@ def read_safetensors(path: str) -> tuple[dict[str, torch.Tensor], dict]:
         out[key] = (torch.frombuffer(mapped, dtype=dtype, count=count // dtype.itemsize, offset=start + begin)
                     .view(shape) if count else torch.empty(shape, dtype=dtype))
     return out, metadata
+
+
+def write_safetensors(path: str, tensors: dict[str, torch.Tensor]) -> int:
+    """A ``.safetensors`` file (no ``safetensors`` package): the 8-byte
+    little-endian header length, the JSON header (padded to 8 bytes), each
+    tensor's raw little-endian bytes in order. Returns the file's size."""
+    names = {dtype: name for name, dtype in SAFETENSORS_DTYPES.items()}
+    header, offset = {}, 0
+    for key, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[key] = {"dtype": names[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return offset + 8 + len(blob)
 
 
 def load_torch_state_dict(path: str) -> dict[str, torch.Tensor]:

@@ -1,4 +1,5 @@
-"""Kernels of the port and the dispatch around them."""
+"""Kernels of the port and the dispatch around them; int8 weight quantization
+(``quantize.py``, plain PyTorch: no kernel of its own)."""
 
 from uwudiff_tpu_torch.ops.attention import (
     attention_bias_from_mask,
@@ -37,6 +38,12 @@ from uwudiff_tpu_torch.ops.groupnorm_silu import (
     plan_gn,
     plan_gn_bwd,
 )
+from uwudiff_tpu_torch.ops.quantize import (
+    dequantize_tree,
+    quantize_module_,
+    quantize_tree,
+    quantized_bytes,
+)
 
 __all__ = [
     "FORWARD_KERNELS",
@@ -45,6 +52,7 @@ __all__ = [
     "OPTIMIZER_KERNELS",
     "attention_bias_from_mask",
     "attention_reference",
+    "dequantize_tree",
     "dot_product_attention",
     "flash_attention",
     "gn_silu_apply",
@@ -56,6 +64,9 @@ __all__ = [
     "launches_by_head_dim",
     "plan_gn",
     "plan_gn_bwd",
+    "quantize_module_",
+    "quantize_tree",
+    "quantized_bytes",
     "reset_launch_counts",
 ]
 

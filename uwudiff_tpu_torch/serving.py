@@ -16,9 +16,19 @@ goes to ``sample_device`` or a call of the pipeline as a keyword and on to
 weights or from one single-file checkpoint and CLIP's vocabulary files;
 ``sd3_pipeline`` builds SD3-medium (the MMDiT, CLIP-L + CLIP-bigG + T5-XXL,
 the 16-channel VAE, the shifted RF ladder) with random weights or from its
-per-component diffusers-layout files and its tokenizer files. Adapter
-hot-swap, int8 weights and latent sharding come with the modules they
-need.
+per-component diffusers-layout files and its tokenizer files; both take
+``quantize_weights=`` and serve LoRA/LoKr adapters.
+
+``Txt2ImgPipeline(quantize_weights=True)`` holds the denoiser's weights as
+int8 plus fp32 scales on the device, each dequantized where it is used
+(``ops/quantize.py``); the text encoders and the VAE stay as they are.
+``register_adapter`` / ``set_adapter`` swap LoRA/LoKr adapters
+(``training/adapters.py``, kohya files through ``training/kohya_lora.py``)
+by writing the merged (under int8: requantized) values into the tensors
+the denoiser already holds, so no tensor is reallocated and every
+``data_ptr`` stays; ``Request.adapter`` routes a request to one, the
+server grouping by it. Latent sharding is not ported (ROADMAP.md, Queue 1
+item 17).
 
 ``flux_txt2img`` builds ``flux_dev`` with T5-XXL, CLIP-L and the
 16-channel decoder, random or from their files; :class:`FluxTxt2Img`
@@ -42,6 +52,14 @@ import torch
 from torch import nn
 
 from uwudiff_tpu_torch.diffusion.schedules import NoiseSchedule
+from uwudiff_tpu_torch.ops.quantize import (
+    Q8_SUFFIX,
+    SCALE_SUFFIX,
+    is_quantizable,
+    quantize_leaf,
+    quantize_module_,
+    scale_dims,
+)
 from uwudiff_tpu_torch.sampling.get_sigmas import (
     dynamic_shift_time,
     get_sigmas_for_rf,
@@ -79,9 +97,22 @@ class Txt2ImgPipeline:
         vae_std: float | None = None,  # None -> 1 / vae.scaling_factor (1 without a VAE)
         vae_mean: float = 0.0,  # the latents' shift (SD3's and Flux's shift_factor)
         get_sigma_func=None,  # the default ladder, num_steps -> sigmas; None -> the schedule's
+        quantize_weights: bool = False,  # the denoiser's weights held as int8 + fp32 scales (ops/quantize.py)
     ):
         self.device = resolve_device(device)
         self.unet = unet
+        # the base value of every weight an adapter has touched: on the
+        # weight's device in bf16 (read at the weight's first swap); under
+        # int8, of every quantized weight, read before it is quantized and
+        # kept on the host (pinned), so the card holds only the int8 form
+        self._base: dict[str, torch.Tensor] = {}
+        self._quantized: set[str] = set()
+        if quantize_weights:
+            self._base = {name: _host_copy(p) for name, p in unet.named_parameters() if is_quantizable(p)}
+            self._quantized = set(quantize_module_(unet))
+        self._adapters: dict = {}
+        self._active_adapter: tuple | None = None  # the names set_adapter last merged; None: the base
+        self._adapted: set[str] = set()  # the weights that hold a merge now
         self.te = te_pipeline
         self.vae = vae
         self.sampler = sampler
@@ -160,6 +191,81 @@ class Txt2ImgPipeline:
             self(prompt="warmup", num_steps=num_steps, num_samples=b, width=w, height=h,
                  return_latents=self.vae is None)
 
+    # -- adapter hot-swap --
+
+    def register_adapter(self, name: str, adapter) -> "Txt2ImgPipeline":
+        """Register a ``training.adapters.LycorisAdapter`` (``create``d, ``load``ed
+        from an ``.npz`` or from a kohya file by ``kohya_lora.load_kohya_lora``)
+        for swapping by name; its factors move to the pipeline's device."""
+        self._adapters[name] = adapter.to(self.device)
+        return self
+
+    def set_adapter(self, adapter=None) -> "Txt2ImgPipeline":
+        """Serve ``adapter``: ``None`` (the base), a registered name, a
+        ``LycorisAdapter``, or a sequence of those merged in order. Swapping
+        to the names already served is free; an adapter object always
+        re-merges. Each weight an adapter touched before or touches now is
+        rewritten from its base value, merged in order (under int8
+        requantized), with ``copy_`` into the tensor the denoiser holds."""
+        items = [] if adapter is None else list(adapter) if isinstance(adapter, (list, tuple)) else [adapter]
+        names = tuple(a if isinstance(a, str) else f"<adapter@{id(a):x}>" for a in items)
+        if items and all(isinstance(a, str) for a in items) and names == self._active_adapter:
+            return self
+        if not items and self._active_adapter is None:
+            return self
+        adapters = [self._adapters[a] if isinstance(a, str) else a for a in items]  # unknown names raise here
+        touched = set().union(*(a.port_names for a in adapters))
+        unknown = touched - self._quantized - dict(self.unet.named_parameters()).keys()
+        if unknown:
+            raise KeyError(f"adapter weights the denoiser lacks: {sorted(unknown)[:5]}")
+        # a swap that fails part way leaves its weights to the next one to rewrite
+        self._adapted |= touched
+        self._active_adapter = _SWAPPING
+        # Every write is queued on the current stream, the one sampling runs
+        # on: the previous group's kernels that read these weights are ahead
+        # of it there (the server's fetch thread copies that group's output
+        # without a sync), so the write needs no sync, and a side stream
+        # would race them.
+        with torch.no_grad():
+            for name in sorted(self._adapted):
+                value = self._base_value(name)
+                for a in adapters:
+                    value = a.merge({name: value})[name]
+                self._write(name, value)
+        self._adapted = touched
+        self._active_adapter = names or None
+        return self
+
+    def _base_value(self, name: str) -> torch.Tensor:
+        base = self._base.get(name)
+        if base is None:  # not touched before: the weight holds its base value
+            base = self._base[name] = self.unet.get_parameter(name).detach().clone()
+        return base.to(self.device, non_blocking=True)
+
+    def _write(self, name: str, value: torch.Tensor) -> None:
+        if name in self._quantized:
+            owner_name, _, attr = name.rpartition(".")
+            owner = self.unet.get_submodule(owner_name)
+            q, scale = quantize_leaf(value, scale_dims(self.unet, name, value.ndim))
+            getattr(owner, attr + Q8_SUFFIX).copy_(q)
+            getattr(owner, attr + SCALE_SUFFIX).copy_(scale)
+        else:
+            self.unet.get_parameter(name).copy_(value)
+
+
+_SWAPPING = object()  # set_adapter's marker while it writes: equal to no adapter names and not None
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` on the host, pinned where ``t`` is on the card (so the
+    copies back are asynchronous). Detached: a ``copy_`` from a parameter
+    under grad mode would record a graph that keeps the parameter, and its
+    card memory, alive."""
+    t = t.detach()
+    if t.is_cuda:
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+    return t.clone()
+
 
 # CLIP-L pads with its EOS, SDXL's second tokenizer (the published tokenizer_2) with "!"
 SDXL_PAD_TOKENS = (None, "!")
@@ -180,7 +286,7 @@ def sdxl_pipeline(device="cuda", dtype=torch.bfloat16, seed: int = 0, ckpt_path:
     tower) are ``CLIPBPETokenizer``s padding as SDXL's do.
     ``load_timings`` gains the load's ``read``, ``map`` and ``copy`` seconds;
     ``pipeline_kw`` go to :class:`Txt2ImgPipeline` (``sampler``,
-    ``denoiser_cls``, ``vae_tiling``)."""
+    ``denoiser_cls``, ``vae_tiling``, ``quantize_weights``)."""
     from uwudiff_tpu_torch.loader import read_single_file
     from uwudiff_tpu_torch.models import (
         AutoencoderKL,
@@ -316,7 +422,7 @@ def sd3_pipeline(device="cuda", dtype=torch.bfloat16, seed: int = 0, component_f
     (vocab.json, merges.txt), spiece.model]``) are ``CLIPBPETokenizer``s
     padding as SDXL's and a ``T5SPTokenizer``. ``load_timings`` gains the
     load's ``read``, ``map`` and ``copy`` seconds; ``pipeline_kw`` go to
-    :class:`Txt2ImgPipeline`."""
+    :class:`Txt2ImgPipeline` (``quantize_weights=True``: the MMDiT as int8)."""
     from uwudiff_tpu_torch.models import AutoencoderKL, ConcatTextEncoders, MMDiT, TextEncodingPipeline
     from uwudiff_tpu_torch.training.bench_setup import SD3_TEXT_ENCODERS, fill_zero_initialised
 
@@ -433,6 +539,8 @@ class Request:
     # prompts past CLIP's 77 positions in windows (models/long_prompt.py);
     # the context's length depends on it
     long_prompt: bool = False
+    # a registered adapter's name, or names merged in order; None: the base
+    adapter: str | tuple[str, ...] | None = None
 
 
 class ServerOverloaded(RuntimeError):
@@ -445,8 +553,8 @@ class BatchingServer:
 
     One dispatcher thread drains the queue, groups compatible requests
     (same resolution bucket, step count, cfg scale, output kind, prompt
-    weighting and long-prompt setting; the seed is not in the key, since
-    each lane draws from its own seed)
+    weighting, long-prompt setting and adapters; the seed is not in the key,
+    since each lane draws from its own seed)
     into batches of up to ``max_batch``, runs one pipeline call per
     group, and a fetch thread resolves each request's Future with its
     own image. Requests snap to the nearest configured bucket. A group
@@ -454,7 +562,9 @@ class BatchingServer:
     that holds it (default ``(1, max_batch)``), padded with copies of
     its last request. At most ``max_queue`` requests (default
     ``8*max_batch``; ``None`` = unbounded) may be unresolved at once;
-    beyond that ``submit`` raises :class:`ServerOverloaded`.
+    beyond that ``submit`` raises :class:`ServerOverloaded`. A group with
+    adapters, or after one, swaps them in (``Txt2ImgPipeline.set_adapter``)
+    before it samples; an unknown adapter name fails that group alone.
     """
 
     def __init__(
@@ -544,7 +654,8 @@ class BatchingServer:
 
     def _group_key(self, r: Request):
         w, h = self.nearest_bucket(r.width, r.height)
-        return (w, h, r.num_steps, r.cfg_scale, r.return_latents, r.prompt_weighting, r.long_prompt)
+        adapter = (r.adapter,) if isinstance(r.adapter, str) else tuple(r.adapter) if r.adapter is not None else None
+        return (w, h, r.num_steps, r.cfg_scale, r.return_latents, r.prompt_weighting, r.long_prompt, adapter)
 
     def _loop(self):
         pending: list = []
@@ -586,7 +697,7 @@ class BatchingServer:
                 fut.set_exception(RuntimeError("BatchingServer stopped"))
 
     def _run_group(self, key, group):
-        w, h, steps, cfg, return_latents, prompt_weighting, long_prompt = key
+        w, h, steps, cfg, return_latents, prompt_weighting, long_prompt, adapter = key
         reqs = [r for r, _ in group]
         futs = [f for _, f in group]
         n_real = len(reqs)
@@ -606,6 +717,8 @@ class BatchingServer:
             long_prompt=long_prompt,
         )
         try:
+            if adapter is not None or getattr(self.pipeline, "_active_adapter", None) is not None:
+                self.pipeline.set_adapter(list(adapter) if adapter is not None else None)
             # asynchronous: hand the pending device tensor to the fetch
             # thread and go on to the next group
             out, is_images = self.pipeline.sample_device(**kwargs)

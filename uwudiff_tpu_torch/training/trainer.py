@@ -33,7 +33,8 @@ given as ``drop_mask``); the metrics are ``train/loss``,
 and its tokenizers are held for subclasses (``TextualInversionTrainer``
 encodes inside its loss); the subclass hooks are the JAX trainer's
 ``_select_trainable_params`` and ``_loss_for_batch``. Meshes, the frozen
-TE/VAE encodes of ``DMTrainer`` itself, caption dropout, adapters, MoE,
+TE/VAE encodes of ``DMTrainer`` itself, caption dropout, adapter training
+(the adapters and their merge are ``training/adapters.py``), MoE,
 pipeline parallelism, gradient accumulation, ``fit``, export and
 validation are not ported yet (ROADMAP.md, Queue 1).
 """
