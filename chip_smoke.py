@@ -250,6 +250,37 @@ Phases, each fatal on failure:
                mean |bf16| < 0.15), swaps to "b" and ["a", "b"] bitwise
                quantize_tree of the merge, None restoring every tensor,
                no tensor moved, each swap timed.
+ 15. fit     - the training CLI's path at SDXL's full width: first (a) the
+               repo's tiny latent config widened to head dim 64, one step
+               (UNet blocks recomputed, the CLIP encoded inside the step,
+               caption dropout) bf16 on the card against fp32 on the CPU
+               (tolerance 5e-2); then (b) configs/demo_training_latent.yaml
+               + demo_training_latent_sdxl.yaml + an overlay (10 steps,
+               validation on 12 dummy latents and a checkpoint every 5, one
+               kept) through uwudiff_tpu_torch.train.build: the sdxl UNet
+               in bf16 with every ResnetBlock2D and Transformer2DModel
+               recomputed, CLIP-L + CLIP-bigG frozen in bf16, batch 6 of
+               64x64 latents, RectifiedFlowLoss, adamw_factored, bf16
+               stochastic rounding; DMTrainer.fit unbroken to step 10 (with
+               PlotValLossPerTimestep and SampleImages: 2 prompts at 512x512,
+               16 steps, latents from Txt2ImgPipeline.from_trainer), then a
+               leg to step 5 and a fresh trainer that resumes from its
+               checkpoint to step 10 across the 8-batch epoch
+               (cudnn.deterministic). Checks the resumed state (parameters,
+               optimizer tensors) and the logged losses of steps 6-10
+               bitwise the unbroken leg's, that no state tensor moved on
+               restore, finite losses, every parameter updated (a leaf
+               that kept its values must hold a nonzero momentum, and
+               stochastic rounding must have been due to move fewer than
+               ~3 of them; such leaves are listed), each step's and validation
+               batch's launches against the plan from the modules (the
+               recompute counted; every flash call on the Hopper kernels),
+               the latents [2, 64, 64, 4] finite and not constant; prints
+               the step's forward+backward and optimizer ms, the save and
+               restore seconds, the checkpoint's bytes against the state's,
+               the peak GiB and the busy share over a traced step. The
+               checkpoints go to a git-ignored chip_fit_* directory of the
+               checkout, removed after.
 Prints the card's name and power limit, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA is
 unavailable or the package is missing. A full report goes to
@@ -490,6 +521,14 @@ def flash_cases():
         ("sdxl_l2_cross_154", 8, 1024, 154, 20, 64, "none", None),
         ("sdxl_l2_cross_308", 8, 1024, 308, 20, 64, "none", None),
         ("clip_bigg_causal_x4", 32, 77, 77, 20, 64, "full", None),
+        # the training CLI's SDXL config (phase 15): batch 6 at 64x64 latents
+        # (levels 1 and 2), the CLIPs encoded inside the step
+        ("fit_l1_self", 6, 1024, 1024, 10, 64, "none", None),
+        ("fit_l2_self", 6, 256, 256, 20, 64, "none", None),
+        ("fit_l1_cross", 6, 1024, 77, 10, 64, "none", None),
+        ("fit_l2_cross", 6, 256, 77, 20, 64, "none", None),
+        ("fit_clip_l", 6, 77, 77, 12, 64, "full", None),
+        ("fit_clip_bigg", 6, 77, 77, 20, 64, "full", None),
         ("t5_xxl", 8, 256, 256, 64, 64, "t5", 1.0),
         ("t5_xxl_512", 8, 512, 512, 64, 64, "t5", 1.0),  # the Flux stack's T5-XXL at 512 tokens
         ("mmdit_joint", 8, 1357, 1357, 24, 64, "joint", None),
@@ -4552,6 +4591,374 @@ def adapters(report, failures):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------------------- fit (phase 15)
+FIT_CONFIGS = ("configs/demo_training_latent.yaml", "configs/demo_training_latent_sdxl.yaml")
+FIT_STEPS = 10  # the unbroken leg's; leg 1 stops at FIT_SAVE, leg 2 resumes there
+FIT_SAVE = 5
+FIT_VAL_BATCHES = 2  # the overlay's validation set: 12 samples, batches of 6
+FIT_PROMPTS = ["a lighthouse at dusk, oil painting", "a red fox in snow"]
+# the repo's tiny latent config at head dim 64 (the tiny presets' 16 is not
+# among the kernels' head dims): the (a) check's trainer
+FIT_SMALL = {
+    "data": {"dataset_config": {"sample_size": [16, 16, 4], "n_samples": 8},
+             "dataloader_config": {"batch_size": 4}},
+    "trainer": {
+        "caption_dropout": 0.5, "use_warm_up": False, "lr": 1e-4,
+        "model_config": {
+            "unet": {"block_out_channels": [128, 128], "cross_attention_dim": 128, "gradient_checkpointing": True},
+            "te": {"text_model_and_configs": [[{"model_type": "clip", "preset": "tiny", "hidden_size": 128,
+                                                 "num_heads": 2}, {"use_pooled": False, "layer_idx": -2}]]},
+        },
+    },
+}
+FIT_SMALL_BF16 = {"trainer": {"param_dtype": "bfloat16", "model_config": {
+    "unet": {"dtype": "bfloat16"}, "te": {"_load_config_": {"param_dtype": "bfloat16"}}}}}
+
+
+def check_fit_vs_cpu(failures):
+    """(a) One step of the tiny latent config's trainer (widened to head dim
+    64; the UNet's blocks recomputed, the CLIP encoded inside the step,
+    caption dropout with a given mask), built through the config system:
+    bf16 on the card through the kernels against the same weights in fp32
+    on the CPU through the plain versions. The loss and every gradient."""
+    from uwudiff_tpu_torch.config import load_config_files, merge_configs
+    from uwudiff_tpu_torch.train import build
+
+    base = load_config_files([os.path.join(ROOT, FIT_CONFIGS[0])])
+    cpu, dm, _ = build(merge_configs(base, FIT_SMALL), "cpu")
+    gpu, _, _ = build(merge_configs(base, FIT_SMALL, FIT_SMALL_BF16), "cuda")
+    gpu.unet.load_state_dict(cpu.unet.state_dict())
+    gpu.te.load_state_dict(cpu.te.state_dict())
+    dm.set_tokenizers(cpu.tokenizers)
+    batch = next(iter(dm.train_dataloader()))
+    gen = torch.Generator().manual_seed(SEED + 40)
+    b = batch["sample"].shape[0]
+    draws = dict(noise=torch.randn(batch["sample"].shape, generator=gen), time_draws=torch.rand(b, generator=gen),
+                 drop_mask=torch.arange(b) % 2 == 0)
+    losses, grads = {}, {}
+    for dev, tr in (("cpu", cpu), ("cuda", gpu)):
+        loss, _ = tr.forward_backward(batch, **draws)
+        losses[dev] = loss.float().cpu()
+        grads[dev] = torch.cat([p.grad.float().cpu().flatten() for _, p in tr.params])
+    loss_err = ((losses["cuda"] - losses["cpu"]).abs() / losses["cpu"].abs()).item()
+    grad_err = ((grads["cuda"] - grads["cpu"]).norm() / grads["cpu"].norm()).item()
+    tol = 5e-2  # phase 2's card-vs-CPU training bound
+    log(f"  fit step (remat, CLIP inside the step, caption dropout), card bf16 vs CPU fp32 plain: loss rel err"
+        f" {loss_err:.2e}, grad |d|/|ref| {grad_err:.2e} (tol {tol})")
+    if not (loss_err <= tol and grad_err <= tol):
+        failures.append(f"fit step card vs CPU: loss {loss_err} grad {grad_err} > {tol}")
+    return {"loss_rel_err": loss_err, "grad_rel_err": grad_err, "tol": tol}
+
+
+class FitRecorder:
+    """A fit callback: each training step's launches and its CUDA-event phase
+    times, each validation run's launches; the counters are read and reset at
+    each, and every reading adds to ``total``."""
+
+    def __init__(self):
+        from collections import Counter
+
+        self.steps, self.vals, self.total = [], [], Counter()
+
+    def take(self) -> dict:
+        from uwudiff_tpu_torch.ops import launch_counts, reset_launch_counts
+
+        counts = launch_counts()
+        reset_launch_counts()
+        self.total.update(counts)
+        return counts
+
+    def on_train_batch_end(self, trainer, step, metrics, aux, logger):
+        self.steps.append(dict(step=step, counts=self.take(), **trainer.step_phase_ms()))
+
+    def on_validation_start(self, trainer):
+        self.take()
+
+    def on_validation_end(self, trainer, step, logger):
+        self.vals.append(self.take())
+
+
+def plan_fit_launches(trainer, gn_calls) -> tuple[dict, dict]:
+    """Each kernel's launches per training step and per validation batch of
+    the fit, from the modules: every CLIP layer one flash forward (the
+    frozen encode, no backward); every UNet attention one flash forward, and
+    in training one more in the recompute (every attention is inside a
+    checkpointed Transformer2DModel) and one dQ/dK-dV pair; each GroupNorm
+    call (``gn_calls``: module name -> (n, hw, c, groups)) on the routes
+    plan_gn and plan_gn_bwd give it, its forward twice in training where its
+    module is inside a recomputed ResnetBlock2D or Transformer2DModel; the
+    update's kernels as plan_optimizer says."""
+    from uwudiff_tpu_torch.models.clip import _CLIPLayer
+    from uwudiff_tpu_torch.models.transformer import BasicTransformerBlock
+    from uwudiff_tpu_torch.ops import plan_gn, plan_gn_bwd
+
+    unet = trainer.unet
+    clip = sum(isinstance(m, _CLIPLayer) for m in trainer.te.modules())
+    attn = sum(2 if m.has_cross else 1 for m in unet.modules() if isinstance(m, BasicTransformerBlock))
+    remat = {name for kind, name in unet.plan if kind in ("resnet", "attn")} if unet.gradient_checkpointing else set()
+    names = ("gn_silu_fused", "gn_stats", "gn_silu_apply", "gn_silu_bwd_fused", "gn_bwd_partials", "gn_bwd_dx")
+    step = dict.fromkeys(names, 0)
+    val = dict.fromkeys(names, 0)
+    for name, shape in gn_calls.items():
+        twice = 2 if name.split(".")[0] in remat else 1
+        fused = plan_gn(*shape, torch.bfloat16).route == "fused"
+        for key in (("gn_silu_fused",) if fused else ("gn_stats", "gn_silu_apply")):
+            step[key] += twice
+            val[key] += 1
+        for key in (("gn_silu_bwd_fused",) if plan_gn_bwd(*shape, torch.bfloat16).route == "fused"
+                    else ("gn_bwd_partials", "gn_bwd_dx")):
+            step[key] += 1
+    step.update(flash_fwd=clip + 2 * attn if remat else clip + attn, flash_bwd_dq=attn, flash_bwd_dkv=attn)
+    step.update(plan_optimizer(trainer))
+    val.update(flash_fwd=clip + attn, flash_bwd_dq=0, flash_bwd_dkv=0)
+    val.update(dict.fromkeys(plan_optimizer(trainer), 0))
+    return step, val
+
+
+def fit_overlay(path, max_steps, log_dir, ckpt_dir, resume):
+    """The run's overlay on the two SDXL configs (YAML the port's reader
+    takes): the steps, logging, checkpoints every FIT_SAVE steps (one kept),
+    validation every FIT_SAVE steps on a DummyDataset of 12."""
+    q = json.dumps  # a JSON string is a double-quoted YAML scalar
+    text = (f"run_config:\n  fast_dev_run: false\n  max_steps: {max_steps}\n  log_every: 1\n"
+            f"  log_dir: {q(log_dir)}\n  ckpt_dir: {q(ckpt_dir) if ckpt_dir else 'null'}\n"
+            f"  ckpt_every: {FIT_SAVE}\n  ckpt_keep: 1\n  val_every: {FIT_SAVE}\n"
+            f"  resume_from: {'true' if resume else 'null'}\n"
+            "data:\n  val_dataset_config:\n    _target_: uwudiff_tpu.data.DummyDataset\n"
+            "    sample_size: [64, 64, 4]\n    n_samples: 12\n    seed: 1\n")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def live_state(trainer) -> dict:
+    """The state's tensors the trainer holds (not the 0-dim step, count and
+    EMA loss that state_dict makes)."""
+    return {k: t for k, t in trainer.state_dict().items()
+            if k.startswith(("params/", "masters/", "opt_state/", "ema_params/")) and k != "opt_state/count"}
+
+
+def fit_leg(tmp, name, max_steps, ckpt_dir, resume, callbacks, io, keep_start=False):
+    """One run of the training CLI's path (train.build, then fit) on the two
+    SDXL configs and an overlay; -> (trainer, data module, recorder, the
+    live state's data_ptrs before fit, with ``keep_start`` its parameters on
+    the host before fit, the leg's numbers)."""
+    from uwudiff_tpu_torch.ops import reset_launch_counts
+
+    from uwudiff_tpu_torch.config import load_config_files
+    from uwudiff_tpu_torch.train import build
+
+    overlay = fit_overlay(os.path.join(tmp, f"{name}.yaml"), max_steps, os.path.join(tmp, name), ckpt_dir, resume)
+    t0 = time.perf_counter()
+    trainer, dm, fit_kw = build(load_config_files([os.path.join(ROOT, p) for p in FIT_CONFIGS] + [overlay]), "cuda")
+    trainer.setup()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ptrs = {k: t.data_ptr() for k, t in live_state(trainer).items()}
+    start = {n: p.detach().to("cpu", copy=True) for n, p in trainer.params} if keep_start else None
+    rec = FitRecorder()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()  # the leg's run starts here
+    io["leg"] = name
+    t0 = time.perf_counter()
+    trainer.fit(dm, callbacks=[rec] + callbacks, **fit_kw)
+    torch.cuda.synchronize()
+    rec.take()
+    with open(os.path.join(tmp, name, "metrics.jsonl")) as f:
+        logged = {r["step"]: r["train/loss"] for r in map(json.loads, f) if "train/loss" in r}
+    return trainer, dm, rec, ptrs, start, dict(build_s=build_s, fit_s=time.perf_counter() - t0,
+                                        peak_gib=torch.cuda.max_memory_allocated() / 2**30, losses=logged)
+
+
+def _is_norm_weight(name: str) -> bool:
+    """A GroupNorm or LayerNorm scale (initialised to ones) of the UNet."""
+    parts = name.split(".")
+    return parts[-1] == "weight" and len(parts) > 1 and "norm" in parts[-2]
+
+
+def fit(report, failures):
+    """The training CLI's path at SDXL's full width (phase 15): (a) a small
+    trainer card vs CPU; (b) the two SDXL training configs through the
+    config system, an unbroken leg of FIT_STEPS steps against a leg that
+    stops at FIT_SAVE and a fresh one that resumes from its checkpoint.
+    Returns the three legs' launch counts."""
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    from uwudiff_tpu_torch.models.layers import GroupNorm
+    from uwudiff_tpu_torch.training import CheckpointManager, DMTrainer, PlotValLossPerTimestep, SampleImages
+
+    out = report["fit"] = {"vs_cpu": check_fit_vs_cpu(failures)}
+    torch.backends.cudnn.deterministic = True
+    log("  torch.backends.cudnn.deterministic = True (the resumed leg is held to the unbroken one bitwise)")
+    tmp = tempfile.mkdtemp(prefix="chip_fit_", dir=ROOT)  # inside the checkout, git-ignored
+    free_gb = shutil.disk_usage(tmp).free / 1e9
+    io = {"save_s": [], "restore_s": [], "leg": None}
+    saves, restores, loads = CheckpointManager.save, CheckpointManager.restore, DMTrainer.load_state_dict
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            if result is not False:  # a save of a step already saved writes nothing
+                io[key].append((io["leg"], time.perf_counter() - t0))
+            return result
+        return wrapper
+
+    CheckpointManager.save = timed(saves, "save_s")
+    CheckpointManager.restore = timed(restores, "restore_s")
+    DMTrainer.load_state_dict = timed(loads, "restore_s")
+    total = Counter()
+    try:
+        # the unbroken leg, with the sampling callback at its end
+        sampler = SampleImages(prompts=FIT_PROMPTS, num_steps=16, width=512, height=512, every_steps=0)
+        plot = PlotValLossPerTimestep()
+        trainer, dm, rec, _, start, ref = fit_leg(tmp, "unbroken", FIT_STEPS, None, False, [plot, sampler], io,
+                                                  keep_start=True)
+        total.update(rec.total)
+        gn_calls = {}  # module name -> (n, hw, c, groups) of its call in a forward
+
+        def record(name):
+            def hook(mod, args):
+                x, c = args[0], mod.weight.shape[0]
+                gn_calls.setdefault(name, (x.shape[0], x.numel() // (x.shape[0] * c), c, mod.groups))
+            return hook
+
+        hooks = [m.register_forward_pre_hook(record(n)) for n, m in trainer.unet.named_modules()
+                 if isinstance(m, GroupNorm)]
+        with torch.no_grad():
+            dm_batch = next(iter(dm.train_dataloader()))
+            trainer.validation_step(dm_batch)
+        for h in hooks:
+            h.remove()
+        step_plan, val_plan = plan_fit_launches(trainer, gn_calls)
+        want = {k: v.detach().to("cpu", copy=True) for k, v in trainer.state_dict().items()}
+        # parameters that never moved in the unbroken leg, and how many values
+        # stochastic rounding should have moved in each (from the state, at
+        # the warm-up's rates: the steps' summed rate over the last one's)
+        index = {n: i for i, (n, _) in enumerate(trainer.params)}
+        rate_steps = sum(trainer.lr_schedule(k) for k in range(FIT_STEPS)) / trainer.lr_schedule(FIT_STEPS)
+        unchanged = {n: expected_sr_moves(trainer, index[n], rate_steps) for n, p in start.items()
+                     if torch.equal(want[f"params/{n}"], p)}
+        # a leaf that kept its values must still have been updated: its
+        # momentum holds the steps' gradients, so a leaf that never got one
+        # cannot pass as one that rounding left alone
+        never_updated = [n for n in unchanged if not trainer.opt_state.leaves[index[n]]["mu"].any()]
+        n_leaves = len(start)
+        del start
+        latents = sampler.last_output
+        busy = step_busy_share(trainer, dm_batch)
+        del trainer, dm, sampler
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # leg 1 to the checkpoint, then a fresh trainer that resumes from it
+        ckpt = os.path.join(tmp, "ckpt")
+        trainer, dm, rec1, _, _, leg1 = fit_leg(tmp, "leg1", FIT_SAVE, ckpt, False, [], io)
+        total.update(rec1.total)
+        state_file = os.path.join(ckpt, str(FIT_SAVE), "state.safetensors")
+        ckpt_bytes = os.path.getsize(state_file)
+        state_bytes = sum(t.numel() * t.element_size() for t in trainer.state_dict().values())
+        del trainer, dm
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer, dm, rec2, ptrs, _, leg2 = fit_leg(tmp, "leg2", FIT_STEPS, ckpt, True, [], io)
+        total.update(rec2.total)
+        got = trainer.state_dict()
+        moved = [k for k, p in ptrs.items() if got[k].data_ptr() != p]
+        unequal = [k for k, t in want.items() if k not in got or not torch.equal(got[k].cpu(), t)]
+        resumed_steps = [s["step"] for s in rec2.steps]
+        keys_equal = sorted(got) == sorted(want)
+        del trainer, dm, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        CheckpointManager.save, CheckpointManager.restore, DMTrainer.load_state_dict = saves, restores, loads
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the checks: resumed state and logged losses bitwise; no pointer moved;
+    # finite losses; every parameter moved; each step's launches by the plan
+    if unequal or not keys_equal:
+        failures.append(f"fit: the resumed leg's state differs from the unbroken leg's in {len(unequal)} tensors:"
+                        f" {unequal[:6]}")
+    if moved:
+        failures.append(f"fit: {len(moved)} state tensors moved on restore: {moved[:6]}")
+    if resumed_steps != list(range(FIT_SAVE + 1, FIT_STEPS + 1)):
+        failures.append(f"fit: the resumed leg ran steps {resumed_steps}")
+    late = {s: (leg2["losses"].get(s), ref["losses"].get(s)) for s in range(FIT_SAVE + 1, FIT_STEPS + 1)}
+    if any(a is None or a != b for a, b in late.values()):
+        failures.append(f"fit: logged losses of steps {FIT_SAVE + 1}-{FIT_STEPS}, resumed vs unbroken: {late}")
+    losses = [ref["losses"].get(s) for s in range(1, FIT_STEPS + 1)]
+    if not all(v is not None and math.isfinite(v) for v in losses):
+        failures.append(f"fit: losses {losses}")
+    # stochastic rounding moves a value by one bf16 step with probability
+    # |update| / step; at the warm-up's learning rates (1e-7 a step, up to
+    # 1e-6) a leaf of few values or large ones (a norm weight initialised to
+    # ones) may keep every value for ten steps: only a leaf where ~3 moves or
+    # more were due fails
+    moved_wrongly = [n for n, e in unchanged.items() if e >= 3.0]
+    if moved_wrongly:
+        failures.append(f"fit: {len(moved_wrongly)} parameter leaves unchanged after {FIT_STEPS} steps where"
+                        f" stochastic rounding should have moved ~3 values or more:"
+                        f" {[(n, round(unchanged[n], 1)) for n in moved_wrongly[:8]]}")
+    if never_updated:
+        failures.append(f"fit: {len(never_updated)} unchanged parameter leaves with a zero momentum (no update"
+                        f" reached them): {never_updated[:8]}")
+    unchanged_other = {n: round(e, 2) for n, e in unchanged.items() if not _is_norm_weight(n)}
+    launch_errors = []
+    for leg_name, recorder in (("unbroken", rec), ("leg1", rec1), ("leg2", rec2)):
+        for s in recorder.steps:
+            bad = {k: (s["counts"][k], v) for k, v in step_plan.items() if s["counts"][k] != v}
+            if bad:
+                launch_errors.append(f"{leg_name} step {s['step']}: {bad}")
+        for i, v in enumerate(recorder.vals):
+            bad = {k: (v[k], n * FIT_VAL_BATCHES) for k, n in val_plan.items() if v[k] != n * FIT_VAL_BATCHES}
+            if bad:
+                launch_errors.append(f"{leg_name} validation {i}: {bad}")
+        for s in recorder.steps:
+            for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                if s["counts"][f"{name}_sm90"] != s["counts"][name]:
+                    launch_errors.append(f"{leg_name} step {s['step']}: {name} off the Hopper kernel")
+    if launch_errors:
+        failures.append(f"fit launches against the plan: {launch_errors[:6]}")
+    lat = np.asarray(latents) if latents is not None else None
+    lat_ok = (lat is not None and lat.shape == (2, 64, 64, 4) and bool(np.isfinite(lat).all())
+              and float(lat.std()) > 0)
+    if not lat_ok:
+        failures.append(f"fit: from_trainer latents {None if lat is None else (lat.shape, float(lat.std()))}")
+
+    steps = rec.steps + rec2.steps
+    fb = sorted(s["forward_backward_ms"] for s in steps)
+    opt = sorted(s["optimizer_ms"] for s in steps)
+    reckoned_gb = state_bytes / 1e9
+    out.update(
+        steps=FIT_STEPS, save_at=FIT_SAVE, batch=6, latent=64, disk_free_gb_before=free_gb,
+        plan_per_step=step_plan, plan_per_val_batch=val_plan, step_launches=[s["counts"] for s in rec.steps],
+        median_forward_backward_ms=fb[len(fb) // 2], median_optimizer_ms=opt[len(opt) // 2],
+        forward_backward_ms=[s["forward_backward_ms"] for s in steps], optimizer_ms=[s["optimizer_ms"] for s in steps],
+        save_s=io["save_s"], restore_s=io["restore_s"], checkpoint_bytes=ckpt_bytes, state_bytes=state_bytes,
+        legs={"unbroken": ref, "leg1": leg1, "leg2": leg2}, unequal=unequal, moved=moved,
+        leaves=n_leaves, unchanged_leaves={n: round(e, 2) for n, e in unchanged.items()},
+        unchanged_not_norm_weights=unchanged_other, never_updated=never_updated,
+        latents_shape=None if lat is None else list(lat.shape), latents_std=None if lat is None else float(lat.std()), launch_errors=launch_errors, **busy)
+    log(f"  fit: {FIT_STEPS} steps unbroken and {FIT_SAVE} + {FIT_STEPS - FIT_SAVE} resumed; state bitwise:"
+        f" {not unequal} ({len(want)} tensors), losses {FIT_SAVE + 1}-{FIT_STEPS} bitwise: {late}; pointers moved:"
+        f" {len(moved)}; step forward+backward {fb[len(fb) // 2]:.1f} ms, optimizer {opt[len(opt) // 2]:.1f} ms"
+        f" (median of {len(steps)}); checkpoint {ckpt_bytes / 1e9:.3f} GB (state {reckoned_gb:.3f} GB), save"
+        f" {[round(t, 2) for _, t in io['save_s']]} s, restore {[round(t, 2) for _, t in io['restore_s']]} s;"
+        f" peak {ref['peak_gib']:.1f} / {leg1['peak_gib']:.1f} / {leg2['peak_gib']:.1f} GiB; busy"
+        f" {100 * busy['busy_share']:.0f} %; launches/step {step_plan}; latents {out['latents_shape']}"
+        f" std {out['latents_std']}; disk free {free_gb:.0f} GB")
+    log(f"  fit: {len(unchanged)} of {n_leaves} parameter leaves kept every value over {FIT_STEPS} steps,"
+        f" {len(unchanged) - len(unchanged_other)} of them norm weights; expected stochastic-rounding moves"
+        f" {min(unchanged.values(), default=0):.2f}-{max(unchanged.values(), default=0):.2f} (fails at 3);"
+        f" the others {unchanged_other}; with a zero momentum {len(never_updated)}")
+    return dict(total)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -4577,7 +4984,7 @@ def main() -> int:
     report = {"card": smi, "sm_clock_max_mhz": float(clock), "torch": torch.__version__, "cuda": torch.version.cuda}
     failures: list[str] = []
 
-    log("[1/14] build")
+    log("[1/15] build")
     built = build_all()
     report["build_s"] = built["seconds"]
     log(f"  built in {built['seconds']:.1f} s")
@@ -4601,7 +5008,7 @@ def main() -> int:
         seconds[key] = time.perf_counter() - t0
         return out
 
-    log("[2/14] kernels vs plain (bf16)")
+    log("[2/15] kernels vs plain (bf16)")
     results: list[dict] = []
     for check in (check_flash, check_gn, check_flash_bwd, check_flash_dbias, check_gn_bwd, check_optimizer):
         timed(check.__name__, check, results, failures)
@@ -4612,66 +5019,72 @@ def main() -> int:
     report["ti_step_vs_cpu"] = timed("check_ti_vs_cpu", check_ti_vs_cpu, failures)
     report["flux_train_step_vs_cpu"] = timed("check_flux_train_vs_cpu", check_flux_train_vs_cpu, failures)
 
-    log("[3/14] serve SDXL 1024x1024")
+    log("[3/15] serve SDXL 1024x1024")
     serve_counts = timed("serve", serve, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # the serving stack is gone before the trainer is built
 
-    log("[4/14] train SDXL (full fine-tune, batch 8, 64x64 latents)")
+    log("[4/15] train SDXL (full fine-tune, batch 8, 64x64 latents)")
     counts = timed("train", train, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SDXL trainer before the SD1.5 one
 
-    log("[5/14] train SD1.5 (full fine-tune, batch 16, 64x64 latents)")
+    log("[5/15] train SD1.5 (full fine-tune, batch 16, 64x64 latents)")
     sd15_counts, sd15_by_dim = timed("train_sd15", train_sd15, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SD1.5 trainer before the SD3 one
 
-    log("[6/14] textual inversion SD3-medium + CLIP-L + CLIP-bigG + T5-XXL (batch 8, 64x64x16 latents)")
+    log("[6/15] textual inversion SD3-medium + CLIP-L + CLIP-bigG + T5-XXL (batch 8, 64x64x16 latents)")
     ti_counts = timed("ti", ti, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SD3 trainer before the Flux stack
 
-    log("[7/14] serve Flux (flux_dev + CLIP-L + T5-XXL at 512 tokens) 1024x1024")
+    log("[7/15] serve Flux (flux_dev + CLIP-L + T5-XXL at 512 tokens) 1024x1024")
     flux_counts, flux_d128 = timed("flux", flux, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the Flux serving stack before the flux_1b trainer
 
-    log("[8/14] train flux_1b (full fine-tune, batch 8, 64x64x16 latents, blocks recomputed in the backward)")
+    log("[8/15] train flux_1b (full fine-tune, batch 8, 64x64x16 latents, blocks recomputed in the backward)")
     flux1b_counts, flux1b_by_dim = timed("train_flux", train_flux, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the flux_1b trainer before the SDXL stack with its encoder
 
-    log("[9/14] sampling surface: SDXL 1024x1024 through every sampler, img2img and inpainting, VAE tiles, inversion")
+    log("[9/15] sampling surface: SDXL 1024x1024 through every sampler, img2img and inpainting, VAE tiles, inversion")
     sampling_counts = timed("sampling", sampling_surface, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the SDXL stack before the DiT
 
-    log("[10/14] serve DiT-XL/2 (class-conditional, CFG 4.0) at 256x256 and 512x512")
+    log("[10/15] serve DiT-XL/2 (class-conditional, CFG 4.0) at 256x256 and 512x512")
     dit_counts, dit_d72 = timed("dit", dit, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the DiT serving stack before its trainer
 
-    log("[11/14] train dit_xl_2 (full fine-tune, batch 64, 32x32 latents, fp32 masters under bf16 compute)")
+    log("[11/15] train dit_xl_2 (full fine-tune, batch 64, 32x32 latents, fp32 masters under bf16 compute)")
     dit_train_counts, dit_train_by_dim = timed("train_dit", train_dit, report, failures)
     gc.collect()
     torch.cuda.empty_cache()  # and the DiT trainer before the SDXL stacks
 
-    log("[12/14] checkpoint: SDXL from one single-file fp16 checkpoint and CLIP-size vocab files,"
+    log("[12/15] checkpoint: SDXL from one single-file fp16 checkpoint and CLIP-size vocab files,"
         " weighted and long prompts")
     ckpt_counts = timed("checkpoint", checkpoint, report, failures) or {}
     gc.collect()
     torch.cuda.empty_cache()  # and the SDXL stacks before SD3's
 
-    log("[13/14] sd3: SD3-medium from its component files at 1024x1024 (a burst of 4, a skip-layer-guided request),"
+    log("[13/15] sd3: SD3-medium from its component files at 1024x1024 (a burst of 4, a skip-layer-guided request),"
         " Flux from files")
     sd3_counts = timed("sd3", sd3, report, failures) or {}
     gc.collect()
     torch.cuda.empty_cache()  # and the SD3 stacks before the SDXL ones
 
-    log("[14/14] adapters and int8: SDXL 1024x1024 with hot-swapped LoRA/LoKr adapters, a kohya LoRA file,"
+    log("[14/15] adapters and int8: SDXL 1024x1024 with hot-swapped LoRA/LoKr adapters, a kohya LoRA file,"
         " int8 weights")
     adapter_counts = timed("adapters", adapters, report, failures) or {}
+    gc.collect()
+    torch.cuda.empty_cache()  # and the SDXL pipelines before the trainers of the fit
+
+    log("[15/15] fit: the training CLI's path, SDXL's training configs through the config system (batch 6,"
+        " 64x64 latents, the CLIPs encoded inside the step, blocks recomputed), checkpoint and resume")
+    fit_counts = timed("fit", fit, report, failures) or {}
 
     # (kernel, the case of its row's numbers): the kernels serving SD1.5 at
     # its level-0 self-attention (D = 40) and at level 2 (D = 160): the
@@ -4756,6 +5169,7 @@ def main() -> int:
             img2img_launches=sampling_counts[name], dit_launches=dit_counts[name],
             dit_train_launches=dit_train_counts[name], checkpoint_launches=ckpt_counts.get(name, 0),
             sd3_launches=sd3_counts.get(name, 0), adapter_launches=adapter_counts.get(name, 0),
+            fit_launches=fit_counts.get(name, 0),
         ))
     # the update's kernels (no Pallas kernel stood there: optax through XLA),
     # checked and timed over the SDXL step's leaves (O1) and the SD1.5 step's
@@ -4779,6 +5193,7 @@ def main() -> int:
                 img2img_launches=sampling_counts[name], dit_launches=dit_counts[name],
                 dit_train_launches=dit_train_counts[name], checkpoint_launches=ckpt_counts.get(name, 0),
                 sd3_launches=sd3_counts.get(name, 0), adapter_launches=adapter_counts.get(name, 0),
+                fit_launches=fit_counts.get(name, 0),
             ))
     report["kernels"] = kernels
     report["device_readings_not_measured"] = UNMEASURED

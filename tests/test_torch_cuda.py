@@ -1439,3 +1439,113 @@ def test_adapter_swaps_on_the_card_keep_pointers_and_restore_bitwise(dev, quanti
     pipe.set_adapter(None)
     assert all(torch.equal(v, start[k]) for k, v in tensors().items())
     assert {k: v.data_ptr() for k, v in tensors().items()} == ptrs
+
+
+# ------------------------------------------- the training CLI's path: fit, resume, remat
+
+CONFIG_DIR = __import__("os").path.join(__import__("os").path.dirname(__file__), "..", "configs")
+
+
+def _small_fit_config():
+    """The repo's tiny latent config widened to head dim 64 (the tiny
+    presets' 16 is not among the kernels' head dims) in the SDXL overlay's
+    recipe: bf16 UNet and CLIP, ``adamw_factored`` with no global clip, the
+    UNet's blocks recomputed; caption dropout and a weight EMA on."""
+    import os
+
+    from uwudiff_tpu_torch.config import load_config_files, merge_configs
+
+    small = {
+        "seed": 5,
+        "data": {"dataset_config": {"sample_size": [16, 16, 4], "n_samples": 6},
+                 "dataloader_config": {"batch_size": 2}},
+        "trainer": {
+            "param_dtype": "bfloat16", "optimizer": "adamw_factored", "opt_config": {"weight_decay": 0.01},
+            "grad_clip": None, "caption_dropout": 0.5, "ema_weights_decay": 0.99, "use_warm_up": False,
+            "lr": 1e-4,
+            "model_config": {
+                "unet": {"block_out_channels": [128, 128], "cross_attention_dim": 128, "dtype": "bfloat16",
+                         "gradient_checkpointing": True},
+                "te": {"_load_config_": {"param_dtype": "bfloat16"},
+                       "text_model_and_configs": [[{"model_type": "clip", "preset": "tiny", "hidden_size": 128,
+                                                    "num_heads": 2}, {"use_pooled": False, "layer_idx": -2}]]},
+            },
+        },
+    }
+    return merge_configs(load_config_files([os.path.join(CONFIG_DIR, "demo_training_latent.yaml")]), small)
+
+
+def _live(state: dict) -> dict:
+    """The state's tensors that the trainer holds (not the 0-dim step,
+    count and EMA loss made for the dict)."""
+    return {k: t for k, t in state.items() if k.startswith(("params/", "masters/", "ema_params/"))
+            or (k.startswith("opt_state/") and k != "opt_state/count")}
+
+
+def test_fit_resumes_bitwise_on_the_card(dev, tmp_path):
+    """4 steps unbroken against 2 steps and a fresh trainer that resumes to 4
+    (3 batches an epoch): the whole state bitwise, and no tensor of the
+    resumed trainer moved (the fused update's leaf table points at them)."""
+    from uwudiff_tpu_torch.train import build
+
+    torch.backends.cudnn.deterministic = True
+
+    def leg(name, steps, resume):
+        trainer, dm, _ = build(_small_fit_config(), "cuda")
+        trainer.setup()
+        ptrs = {k: t.data_ptr() for k, t in _live(trainer.state_dict()).items()}
+        trainer.fit(dm, max_steps=steps, log_every=100, ckpt_dir=str(tmp_path / name), ckpt_every=2,
+                    resume_from=resume)
+        moved = [k for k, t in _live(trainer.state_dict()).items() if t.data_ptr() != ptrs[k]]
+        return trainer, moved
+
+    whole, _ = leg("whole", 4, False)
+    leg("split", 2, False)
+    resumed, moved = leg("split", 4, True)
+    assert not moved, moved[:4]
+    want, got = whole.state_dict(), resumed.state_dict()
+    assert want.keys() == got.keys() and resumed.step == 4
+    for key, t in want.items():
+        assert torch.equal(got[key], t), key
+    assert all(bool(torch.isfinite(t.float()).all()) for t in got.values())
+
+
+def test_remat_launches_the_checkpointed_forwards_twice(dev):
+    """With gradient_checkpointing every ResnetBlock2D and Transformer2DModel
+    runs its forward again in the backward: twice the flash forwards (all
+    inside transformers) and twice the GroupNorm forwards inside those
+    blocks, once conv_norm_out's; the backward kernels once each, and the
+    loss and gradients bitwise those without remat."""
+    from uwudiff_tpu_torch.models import UNet2DConditionModel
+    from uwudiff_tpu_torch.models.layers import GroupNorm
+    from uwudiff_tpu_torch.models.transformer import BasicTransformerBlock
+
+    torch.manual_seed(0)
+    kw = dict(device=dev, dtype=torch.bfloat16, block_out_channels=(128, 128), cross_attention_dim=128)
+    plain = UNet2DConditionModel.from_config("tiny", **kw).train()
+    remat = UNet2DConditionModel.from_config("tiny", gradient_checkpointing=True, **kw).train()
+    remat.load_state_dict(plain.state_dict())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((2, 16, 16, 4), generator=gen, device=dev)
+    ctx = torch.randn((2, 77, 128), generator=gen, device=dev)
+    t = torch.tensor([10.0, 600.0], device=dev)
+    attn = sum(2 if m.has_cross else 1 for m in plain.modules() if isinstance(m, BasicTransformerBlock))
+    norms = [n for n, m in plain.named_modules() if isinstance(m, GroupNorm)]
+    inside = sum(1 for n in norms if n != "conv_norm_out")
+    out = {}
+    for name, model in (("plain", plain), ("remat", remat)):
+        reset_launch_counts()
+        loss = model(x, t, ctx).square().mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        out[name] = (launch_counts(), loss.detach(), [p.grad for p in model.parameters()])
+    (pc, ploss, pgrads), (rc, rloss, rgrads) = out["plain"], out["remat"]
+    assert pc["flash_fwd"] == attn and rc["flash_fwd"] == 2 * attn
+    assert pc["flash_fwd_sm90"] == pc["flash_fwd"] and rc["flash_fwd_sm90"] == rc["flash_fwd"]
+    assert pc["flash_bwd_dq"] == rc["flash_bwd_dq"] == pc["flash_bwd_dkv"] == rc["flash_bwd_dkv"] == attn
+    fwd = {k: c["gn_silu_fused"] + c["gn_stats"] for k, c in (("plain", pc), ("remat", rc))}  # either route
+    bwd = {k: c["gn_silu_bwd_fused"] + c["gn_bwd_partials"] for k, c in (("plain", pc), ("remat", rc))}
+    assert fwd == {"plain": len(norms), "remat": len(norms) + inside}
+    assert bwd == {"plain": len(norms), "remat": len(norms)}
+    assert torch.equal(rloss, ploss)
+    assert all(torch.equal(r, p) for r, p in zip(rgrads, pgrads))

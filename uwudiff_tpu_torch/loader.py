@@ -14,12 +14,16 @@ module needs is renamed to diffusers naming (``models/ldm_checkpoint.py``),
 then ``models/import_torch.py`` maps the names. :func:`read_single_file`
 reads and splits such a file once for a caller that fills several modules
 from it. The JAX config's ``to_freeze``, ``precision``, ``device`` and
-``to_compile`` have no counterpart: the module's own ``requires_grad``,
-dtype and device say these here.
+``to_compile`` have no counterpart, and a node that sets one is refused:
+the module's own ``requires_grad``, dtype and device say these here.
 
-Orbax directories and ``.npz`` exports are the JAX trainer's formats and
-are not read here (ROADMAP.md, Queue 1 item 8); the ControlNet importer is
-not ported (its modules are not).
+A ``.npz`` is a flat parameter export of the JAX package's
+``save_params_npz`` (or the port's ``DMTrainer.export_params``): a
+flax-layout tree read through ``convert.load_jax_params``. Orbax
+directories, the JAX trainer's checkpoints, are not read (ROADMAP.md,
+Queue 1 item 3e); the ControlNet importer is not ported (its modules are
+not). :func:`load_any` instantiates a model node of a config and splits
+off its ``_load_config_``.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch
 from uwudiff_tpu_torch.models import import_torch as it
 from uwudiff_tpu_torch.models.ldm_checkpoint import is_ldm_checkpoint, ldm_to_diffusers
 
-__all__ = ["ModelLoadConfig", "apply_load_config", "read_single_file"]
+__all__ = ["ModelLoadConfig", "apply_load_config", "load_any", "read_single_file"]
 
 
 @dataclasses.dataclass
@@ -48,6 +52,19 @@ class ModelLoadConfig:
     te_index: int = 0
     # False keeps the module's values for parameters the checkpoint lacks
     strict: bool = True
+
+
+def load_any(node, device=None):
+    """(module, load config) of a model node: the node instantiated (on
+    ``device``, see ``config.instantiate_any``) without its
+    ``_load_config_``, which becomes a :class:`ModelLoadConfig`."""
+    from uwudiff_tpu_torch.config import instantiate_any
+
+    load_cfg = None
+    if isinstance(node, dict) and "_load_config_" in node:
+        node = dict(node)
+        load_cfg = ModelLoadConfig(**node.pop("_load_config_"))
+    return instantiate_any(node, device=device), load_cfg
 
 
 def _auto_importer(module) -> str:
@@ -126,9 +143,12 @@ def apply_load_config(module: torch.nn.Module, cfg: ModelLoadConfig | None,
     timings = {} if timings is None else timings
     if cfg.ckpt_path:
         path = cfg.ckpt_path
-        if os.path.isdir(path) or path.endswith(".npz"):
-            raise NotImplementedError(f"{path!r}: Orbax directories and .npz exports are not read by the port"
-                                      " (ROADMAP.md, Queue 1 item 8)")
+        if os.path.isdir(path):
+            raise NotImplementedError(f"{path!r}: Orbax directories are not read by the port"
+                                      " (ROADMAP.md, Queue 1 item 3e)")
+        if path.endswith(".npz") and (cfg.importer or "npz") == "npz":
+            _load_npz(module, path, cfg.strict, timings)
+            return _cast(module, cfg.param_dtype)
         t0 = time.perf_counter()
         sd = it.extract_state_dict(it.load_torch_state_dict(path), cfg.state_dict_key, cfg.state_dict_prefix)
         t1 = time.perf_counter()
@@ -139,8 +159,28 @@ def apply_load_config(module: torch.nn.Module, cfg: ModelLoadConfig | None,
         timings["map"] = timings.get("map", 0.0) + time.perf_counter() - t1
         module.loaded_keys = it.import_params(module, sd, _key_map(importer, module), strict=cfg.strict,
                                               timings=timings)
-    dtype = cfg.param_dtype
+    return _cast(module, cfg.param_dtype)
+
+
+def _cast(module, dtype):
     if dtype:
         dtype = dtype.replace("torch.", "")
         module.to(getattr(torch, "bfloat16" if dtype == "float16" else dtype))
     return module
+
+
+def _load_npz(module, path: str, strict: bool, timings: dict):
+    """Fill ``module`` from a JAX ``.npz`` export: each of the module's
+    leaves at its flax key; a leaf the file lacks raises, or with
+    ``strict=False`` keeps the module's value; keys beyond the module's are
+    ignored (the JAX ``load_params_npz``)."""
+    from uwudiff_tpu_torch.convert import load_jax_params, to_jax_params
+    from uwudiff_tpu_torch.training.checkpoint import load_params_npz
+
+    t0 = time.perf_counter()
+    tree = load_params_npz(path, to_jax_params(module), strict=strict)
+    t1 = time.perf_counter()
+    load_jax_params(module, tree)
+    timings["read"] = timings.get("read", 0.0) + t1 - t0
+    timings["copy"] = timings.get("copy", 0.0) + time.perf_counter() - t1
+    module.loaded_keys = sorted(module.state_dict())

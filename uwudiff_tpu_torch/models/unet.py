@@ -3,10 +3,14 @@
 Public layout is the JAX package's NHWC: ``sample`` ``[B, H, W, C]`` in,
 ``[B, H, W, C]`` fp32 out. Inside, feature maps are NCHW-logical in
 channels-last memory. SDXL micro-conditioning (``text_time``) is ported;
-ControlNet mode, FreeU, remat and scanned transformer stacks are not.
-The model computes in its parameters' dtype; it trains as it serves (the
-GroupNorm and attention kernels carry their own backward), without
-gradient checkpointing.
+ControlNet mode, FreeU, selective remat (``remat_policy``) and scanned
+transformer stacks are not (ROADMAP.md, Queue 1 items 11 and 15). The
+model computes in its parameters' dtype; it trains as it serves (the
+GroupNorm and attention kernels carry their own backward).
+``gradient_checkpointing`` recomputes every ResnetBlock2D and every
+Transformer2DModel in the backward (``torch.utils.checkpoint``), as the
+JAX module's ``nn.remat`` of those blocks does: their forwards run twice
+a training step, the rest of the UNet once.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from uwudiff_tpu_torch.models.layers import (
     Downsample2D,
@@ -61,8 +66,17 @@ class UNet2DConditionModel(nn.Module):
         flip_sin_to_cos: bool = True,
         freq_shift: float = 0.0,
         norm_num_groups: int = 32,
+        gradient_checkpointing: bool = False,
+        remat_policy: str | None = None,
+        scan_transformer_blocks: bool = False,
     ):
         super().__init__()
+        if remat_policy is not None:
+            raise NotImplementedError(f"remat_policy {remat_policy!r}: selective remat is not ported yet"
+                                      " (ROADMAP.md, Queue 1 item 11)")
+        if scan_transformer_blocks:
+            raise NotImplementedError("scan_transformer_blocks is not ported yet (ROADMAP.md, Queue 1 item 11)")
+        self.gradient_checkpointing = gradient_checkpointing
         boc = tuple(block_out_channels)
         n_blocks = len(boc)
         tf_layers = _per_block(transformer_layers_per_block, n_blocks)
@@ -140,6 +154,14 @@ class UNet2DConditionModel(nn.Module):
     def dtype(self):
         return self.conv_in.weight.dtype
 
+    def _run_block(self, block, *args):
+        """``block(*args)``; with ``gradient_checkpointing`` while autograd
+        records, recomputed in the backward from its inputs (the blocks draw
+        no random numbers, so no RNG state is kept)."""
+        if self.gradient_checkpointing and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
+        return block(*args)
+
     def forward(
         self,
         sample,  # [B, H, W, C]
@@ -174,9 +196,9 @@ class UNet2DConditionModel(nn.Module):
             elif kind == "cat":
                 h = torch.cat([h, skips.pop()], dim=1).contiguous(memory_format=torch.channels_last)
             elif kind == "resnet":
-                h = getattr(self, name)(h, emb)
+                h = self._run_block(getattr(self, name), h, emb)
             elif kind == "attn":
-                h = getattr(self, name)(h, ctx, encoder_attention_mask)
+                h = self._run_block(getattr(self, name), h, ctx, encoder_attention_mask)
             else:
                 h = getattr(self, name)(h)
         h = self.conv_out(self.conv_norm_out(h))

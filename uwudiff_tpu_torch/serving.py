@@ -28,7 +28,9 @@ by writing the merged (under int8: requantized) values into the tensors
 the denoiser already holds, so no tensor is reallocated and every
 ``data_ptr`` stays; ``Request.adapter`` routes a request to one, the
 server grouping by it. Latent sharding is not ported (ROADMAP.md, Queue 1
-item 17).
+item 17). ``Txt2ImgPipeline.from_trainer`` samples from a ``DMTrainer``'s
+own modules (no copy of the weights), in eval mode, leaving the UNet in
+train mode after.
 
 ``flux_txt2img`` builds ``flux_dev`` with T5-XXL, CLIP-L and the
 16-channel decoder, random or from their files; :class:`FluxTxt2Img`
@@ -129,6 +131,22 @@ class Txt2ImgPipeline:
         self.latent_channels = vae.latent_channels if vae is not None else 4
         self._sigma_cache: dict[int, np.ndarray] = {}
 
+    @classmethod
+    def from_trainer(cls, trainer, vae_tiling: int | None = None, **kwargs) -> "Txt2ImgPipeline":
+        """A pipeline over a ``DMTrainer``'s own UNet, text encoders (with
+        its tokenizers) and VAE on its device, sharing their tensors: it
+        samples the weights as they are now. The sampling wrapper follows
+        the training loss (``sampling.denoiser_for_loss``) unless
+        ``denoiser_cls`` is given; ``kwargs`` go to the constructor."""
+        from uwudiff_tpu_torch.models.text_encoders import TextEncodingPipeline
+        from uwudiff_tpu_torch.sampling.wrapper import denoiser_for_loss
+
+        trainer.setup()
+        kwargs.setdefault("denoiser_cls", denoiser_for_loss(trainer.loss))
+        te_pipe = TextEncodingPipeline(trainer.te, trainer.tokenizers, device=trainer.device)
+        return cls(trainer.unet, te_pipe, trainer.vae, schedule=trainer.loss.schedule, device=trainer.device,
+                   vae_tiling=vae_tiling, vae_std=trainer.vae_std, vae_mean=trainer.vae_mean, **kwargs)
+
     def sigmas(self, num_steps: int) -> np.ndarray:
         """Host-cached fp32 sigma ladder for ``num_steps``: ``get_sigma_func``'s,
         else the schedule's."""
@@ -171,14 +189,21 @@ class Txt2ImgPipeline:
         cached ladder, so nothing waits); the decode is rounded to uint8
         on the device."""
         kwargs.setdefault("get_sigma_func", self.sigmas)
-        latents = diffusion_sampling(
-            self.unet, self.te, None, self.schedule, *_cycled_prompts(prompt, neg_prompt, num_samples),
-            num_steps=num_steps, num_samples=num_samples, cfg_scale=cfg_scale, cfg_rescale=cfg_rescale,
-            seed=seed, width=width, height=height, vae_std=self.vae_std, vae_mean=self.vae_mean,
-            latent_channels=self.latent_channels,
-            vae_downscale=self.vae_downscale, internal_sampling_func=self.sampler, denoiser_cls=self.denoiser_cls,
-            return_latents=True, **kwargs,
-        )
+        training = getattr(self.unet, "training", False)  # a trainer's UNet (from_trainer) samples in eval mode
+        if training:
+            self.unet.eval()
+        try:
+            latents = diffusion_sampling(
+                self.unet, self.te, None, self.schedule, *_cycled_prompts(prompt, neg_prompt, num_samples),
+                num_steps=num_steps, num_samples=num_samples, cfg_scale=cfg_scale, cfg_rescale=cfg_rescale,
+                seed=seed, width=width, height=height, vae_std=self.vae_std, vae_mean=self.vae_mean,
+                latent_channels=self.latent_channels,
+                vae_downscale=self.vae_downscale, internal_sampling_func=self.sampler,
+                denoiser_cls=self.denoiser_cls, return_latents=True, **kwargs,
+            )
+        finally:
+            if training:
+                self.unet.train()
         if return_latents or self.vae is None:
             return latents, False
         images = self.decode(latents)
